@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds, not minutes). The library lands in
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds, not minutes). The library lands in
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and the flags, so an edit rebuilds. Nothing here runs at import time:
 ``load_library()`` builds on first use, and importing the package never
@@ -23,10 +24,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argument types of every C entry point (pointers and the stream as void*)
@@ -34,6 +33,8 @@ SIGNATURES = {
     "anyloc_flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "anyloc_attn_qkv_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
     "anyloc_vlad_aggregate": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "anyloc_fused_mlp_int8": [_P] * 16 + [_I] * 7 + [_F, _P],
+    "anyloc_attn_half_int8": [_P] * 17 + [_I] * 6 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -77,17 +78,35 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = f"tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{out.stem}.{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    reports, failed = [], []
+    for cmd, _, proc in jobs:
+        report = proc.communicate()[0]
+        reports.append(report)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{report}")
+    tmp = out.with_suffix(f".{tag}.so")
+    try:
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel link failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print("".join(reports), flush=True)
     os.replace(tmp, out)  # atomic: a concurrent builder never sees a torn file
     return out
 

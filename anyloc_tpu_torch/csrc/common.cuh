@@ -52,7 +52,9 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+// 32 bits (two bf16, four int8) from a 4-byte aligned address
+template <typename T>
+__device__ __forceinline__ uint32_t lds32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 

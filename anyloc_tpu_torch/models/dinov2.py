@@ -9,6 +9,7 @@ pos-embed on a 37x37 grid (518 px); ``_reg`` variants add 4 registers.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Mapping, Optional
 
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from anyloc_tpu_torch.models.vit import ViT, ViTConfig
+from anyloc_tpu_torch.ops.quant import quantize_vit_params
 
 _DIMS = {
     # name: (embed_dim, depth, heads, mlp_type)
@@ -87,8 +89,10 @@ def from_jax_params(params) -> Dict[str, torch.Tensor]:
     ``anyloc_tpu.models.dinov2.convert_dinov2``: HWIO conv kernel -> OIHW,
     Dense kernel [in, out] -> weight [out, in], LayerNorm ``scale`` ->
     ``weight``, ``blocks_{i}`` -> ``blocks.{i}``, ``patch_embed`` ->
-    ``patch_embed.proj``. The fused qkv column order (q|k|v, head-minor)
-    is the same in both."""
+    ``patch_embed.proj``. A quantized tree (``quantize_vit_params``) keeps
+    its types: int8 ``kernel_q`` [in, out] -> ``weight_q`` [out, in],
+    f32 ``kernel_scale`` -> ``weight_scale``. The fused qkv column order
+    (q|k|v, head-minor) is the same in both."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
 
@@ -97,17 +101,22 @@ def from_jax_params(params) -> Dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(v, path + [str(k)])
             return
-        arr = np.asarray(node, np.float32)
         parts = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in path]
         if parts[0] == "patch_embed":
             parts.insert(1, "proj")
         leaf = parts[-1]
+        arr = np.asarray(node, np.int8 if leaf == "kernel_q" else np.float32)
         if leaf == "kernel":
             parts[-1] = "weight"
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf == "kernel_q":
+            parts[-1] = "weight_q"
+            arr = arr.T
+        elif leaf == "kernel_scale":
+            parts[-1] = "weight_scale"
         elif leaf == "scale":
             parts[-1] = "weight"
-        out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
     walk(tree, [])
     return out
@@ -120,16 +129,19 @@ def init_params(cfg: ViTConfig, seed: int = 42, *, n_blocks: Optional[int] = Non
     made on ``device`` in ``cfg.dtype`` from a ``torch.Generator`` seeded
     with ``seed``: Linear/Conv weights normal(0, 1/sqrt(fan_in)), biases 0,
     LayerNorm 1/0, LayerScale ``cfg.layerscale_init``, CLS / pos-embed /
-    registers normal(0, 0.02) — the JAX package's initializers."""
+    registers normal(0, 0.02) — the JAX package's initializers. A quantized
+    ``cfg`` draws the same float32 weights as the unquantized trunk and
+    quantizes every Linear its mode names (``quantize_vit_params``)."""
     device = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device("meta"):
-        shape_model = ViT(cfg, n_blocks)
+        shape_model = ViT(dataclasses.replace(cfg, quant=None), n_blocks)
     sd: Dict[str, torch.Tensor] = {}
+    dtype = torch.float32 if cfg.quant else cfg.dtype  # build_vit casts
 
     def normal(shape, std):
         t = torch.empty(shape, dtype=torch.float32, device=device)
-        return t.normal_(0.0, std, generator=gen).to(cfg.dtype)
+        return t.normal_(0.0, std, generator=gen).to(dtype)
 
     for mname, mod in shape_model.named_modules():
         pre = f"{mname}." if mname else ""
@@ -137,24 +149,32 @@ def init_params(cfg: ViTConfig, seed: int = 42, *, n_blocks: Optional[int] = Non
             fan_in = mod.weight[0].numel()
             sd[pre + "weight"] = normal(mod.weight.shape, fan_in ** -0.5)
             if mod.bias is not None:
-                sd[pre + "bias"] = torch.zeros(mod.bias.shape, dtype=cfg.dtype, device=device)
+                sd[pre + "bias"] = torch.zeros(mod.bias.shape, dtype=dtype, device=device)
         elif isinstance(mod, nn.LayerNorm):
-            sd[pre + "weight"] = torch.ones(mod.weight.shape, dtype=cfg.dtype, device=device)
-            sd[pre + "bias"] = torch.zeros(mod.bias.shape, dtype=cfg.dtype, device=device)
+            sd[pre + "weight"] = torch.ones(mod.weight.shape, dtype=dtype, device=device)
+            sd[pre + "bias"] = torch.zeros(mod.bias.shape, dtype=dtype, device=device)
     for name, p in shape_model.named_parameters():
         if name.endswith(".gamma"):
-            sd[name] = torch.full(p.shape, cfg.layerscale_init, dtype=cfg.dtype, device=device)
+            sd[name] = torch.full(p.shape, cfg.layerscale_init, dtype=dtype, device=device)
         elif name in ("cls_token", "pos_embed", "register_tokens"):
             sd[name] = normal(p.shape, 0.02)
+    if cfg.quant:
+        sd = quantize_vit_params(sd, cfg.quant, min_size=1)
     return sd
 
 
 def build_vit(cfg: ViTConfig, state_dict: Mapping, n_blocks: Optional[int] = None,
               device=None) -> ViT:
-    """A ``ViT`` with ``n_blocks`` blocks on ``device`` in ``cfg.dtype``,
-    holding ``state_dict`` (DINOv2 naming, see ``native_state_dict``)."""
+    """A ``ViT`` with ``n_blocks`` blocks on ``device``, holding
+    ``state_dict`` (DINOv2 naming, see ``native_state_dict``; for a
+    quantized ``cfg`` in ``quantize_vit_params``' layout). Every tensor
+    takes the type its module declares: ``cfg.dtype``, except that a
+    quantized trunk keeps int8 codes and f32 scales, biases of int8 layers,
+    LayerNorm parameters and LayerScale gammas."""
     sd = native_state_dict(state_dict, n_blocks)
     with torch.device("meta"):
         model = ViT(cfg, n_blocks)
+    declared = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    sd = {k: v.to(declared[k].dtype) if k in declared else v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True, assign=True)
-    return model.to(device=device, dtype=cfg.dtype).requires_grad_(False).eval()
+    return model.to(device=device).requires_grad_(False).eval()

@@ -8,15 +8,23 @@ materialized, and the captured block runs norm1 + qkv only.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from anyloc_tpu_torch.data.transforms import device_normalize
-from anyloc_tpu_torch.models.dinov2 import build_vit, dinov2_config, init_params, load_checkpoint
+from anyloc_tpu_torch.models.dinov2 import (
+    build_vit,
+    dinov2_config,
+    init_params,
+    load_checkpoint,
+    native_state_dict,
+)
 from anyloc_tpu_torch.models.vit import ViTConfig
 from anyloc_tpu_torch.ops.common import l2_normalize
+from anyloc_tpu_torch.ops.quant import quantize_vit_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -29,6 +37,19 @@ def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype]
 
 
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another one. With no card and no device named it raises; it never
+    falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "names another device (device='cpu' runs the plain PyTorch path)")
+    return torch.device("cuda")
+
+
 class ViTFacetExtractor:
     """Batched facet extraction over a ``ViT`` config.
 
@@ -37,8 +58,9 @@ class ViTFacetExtractor:
     device with ImageNet statistics. Returns [B, n_patches (+1 with
     ``use_cls``), D] float32 facets on ``device``.
 
-    ``params``: a DINOv2-named state dict (torch tensors or numpy arrays),
-    or None for random weights from ``seed``.
+    ``params``: a DINOv2-named state dict (torch tensors or numpy arrays;
+    for a quantized ``cfg`` in ``quantize_vit_params``' layout), or None
+    for random weights from ``seed``. ``device`` None means the card.
     """
 
     supports_uint8 = True
@@ -52,7 +74,7 @@ class ViTFacetExtractor:
         use_cls: bool = False,
         norm_descs: bool = True,
         *,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[None, str, torch.device] = None,
         seed: int = 42,
     ) -> None:
         if facet not in ("query", "key", "value", "token"):
@@ -64,7 +86,7 @@ class ViTFacetExtractor:
         self.facet = facet
         self.use_cls = use_cls
         self.norm_descs = norm_descs
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         n_blocks = layer + 1
         if params is None:
             params = init_params(cfg, seed, n_blocks=n_blocks, device=self.device)
@@ -96,7 +118,11 @@ class ViTFacetExtractor:
 class DinoV2ExtractFeatures(ViTFacetExtractor):
     """The reference's constructor: ``DinoV2ExtractFeatures(dino_model,
     layer, facet, use_cls, norm_descs, device)``. ``checkpoint`` is a local
-    ``.pth`` state dict; None means random weights from ``seed``."""
+    ``.pth`` state dict; None means random weights from ``seed``.
+    ``quant``: None or an int8 trunk mode ("int8", "int8_mlp",
+    "int8_fused", "int8_full" — see ``ViTConfig.quant``); "int8_full" is
+    the serving mode. Checkpoint weights are quantized after loading.
+    ``device`` None means the card."""
 
     def __init__(
         self,
@@ -105,18 +131,19 @@ class DinoV2ExtractFeatures(ViTFacetExtractor):
         facet: str = "token",
         use_cls: bool = False,
         norm_descs: bool = True,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[None, str, torch.device] = None,
         checkpoint: Optional[str] = None,
         dtype: Union[str, torch.dtype] = torch.bfloat16,
         seed: int = 42,
         quant: Optional[str] = None,
     ) -> None:
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: the int8 trunk modes are the port's next "
-                "slice (ROADMAP.md, port queue item 1)")
-        cfg = dinov2_config(dino_model, dtype=resolve_dtype(dtype))
-        params = load_checkpoint(checkpoint) if checkpoint is not None else None
+        cfg = dataclasses.replace(dinov2_config(dino_model, dtype=resolve_dtype(dtype)),
+                                  quant=quant)
+        params = None
+        if checkpoint is not None:
+            params = native_state_dict(load_checkpoint(checkpoint), layer + 1)
+            if quant:
+                params = quantize_vit_params(params, quant)
         super().__init__(cfg, params, layer, facet, use_cls=use_cls,
                          norm_descs=norm_descs, device=device, seed=seed)
         self.vit_type = dino_model

@@ -18,9 +18,10 @@ def make_extractor(
     norm_descs: bool = True,
     seed: int = 42,
     quant: Optional[str] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[None, str, torch.device] = None,
 ):
-    """An object with ``__call__(imgs) -> [B, N, D]`` facets and ``cfg``."""
+    """An object with ``__call__(imgs) -> [B, N, D]`` facets and ``cfg``;
+    ``device`` None means the card."""
     if model_type.startswith("dinov2"):
         from anyloc_tpu_torch.models.extractor import DinoV2ExtractFeatures
 

@@ -14,6 +14,21 @@ Attention routing follows the JAX trunk: N <= ``MAX_FUSED_TOKENS`` goes
 to K5 (attention + projection + LayerScale + residual from the fused
 qkv), longer sequences to K2 on head-split views with a plain projection.
 
+``ViTConfig.quant`` selects an int8 W8A8 trunk (``anyloc_tpu/models/vit.py``
+``QDense`` and the routing of ``Block``, :288-299, :491-538, :565-701):
+  * "int8_full" (the serving mode): K4 for the attention half and K3 for
+    the MLP half of every block; at N > ``MAX_FUSED_TOKENS``, or for the
+    captured block's norm1 + qkv, LayerNorm + per-row ``qdense`` with K2;
+  * "int8": per-row ``qdense`` for all four block matmuls, K2 attention;
+  * "int8_mlp": the bf16 attention half (K5 / K2), ``qdense`` in the MLP;
+  * "int8_fused": the bf16 attention half, K3 for the MLP half.
+Which half runs fused also follows the TPU kernels' geometry rules
+(``int8_attn_geometry_ok``, ``int8_mlp_geometry_ok``): the fused halves
+requantize per (row, chunk), the unfused ones per row, so the rule is part
+of the function. A quantized trunk keeps LayerNorm parameters, LayerScale
+gammas, weight scales and the int8 layers' biases in f32 (as the JAX
+parameter tree does) and computes its LayerNorms in f32.
+
 Module names match the facebookresearch/dinov2 checkpoints, so their state
 dicts load unchanged (``models/dinov2.py::native_state_dict``).
 """
@@ -32,7 +47,13 @@ from anyloc_tpu_torch.ops.kernels import (
     MAX_FUSED_TOKENS,
     flash_attention,
     flash_attention_qkv_proj,
+    fused_attn_half_int8,
+    fused_mlp_int8,
+    int8_attn_geometry_ok,
+    int8_mlp_geometry_ok,
 )
+from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
+from anyloc_tpu_torch.ops.quant import MLP_MODULE_NAMES, QUANT_MODES, qdense
 
 FACET_OFFSETS = {"query": 0, "key": 1, "value": 2}
 
@@ -54,6 +75,18 @@ class ViTConfig:
     interpolate_offset: float = 0.1
     interpolate_antialias: bool = False
     dtype: torch.dtype = torch.float32   # parameter and activation dtype
+    quant: Optional[str] = None    # None | "int8" | "int8_mlp" | "int8_fused" | "int8_full"
+
+    def __post_init__(self) -> None:
+        if self.quant is not None and self.quant not in QUANT_MODES:
+            raise ValueError(f"quant must be None or one of {QUANT_MODES}, got {self.quant!r}")
+
+    def quantizes(self, name: str) -> bool:
+        """Whether the block Linear ``name`` (qkv, proj, fc1, fc2, w12, w3)
+        is int8 in this trunk."""
+        if self.quant in ("int8", "int8_full"):
+            return True
+        return self.quant is not None and name in MLP_MODULE_NAMES
 
     @property
     def head_dim(self) -> int:
@@ -106,80 +139,151 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), init, **factory))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma
+        return x * self.gamma.to(x.dtype)
+
+
+class QLinear(nn.Module):
+    """int8 W8A8 Linear of the frozen trunk (the JAX package's ``QDense``):
+    ``weight_q`` int8 [out, in] — nn.Linear's layout, which is the
+    K-contiguous B operand of the int8 tensor-core product —
+    ``weight_scale`` f32 [out] and ``bias`` f32 [out]. The forward is
+    ``qdense``: per-row activation quantize, int8 product, output in x's
+    dtype, then the bias in that dtype."""
+
+    def __init__(self, in_features: int, out_features: int, device=None) -> None:
+        super().__init__()
+        self.register_buffer("weight_q", torch.empty(
+            (out_features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.empty(
+            out_features, dtype=torch.float32, device=device))
+        self.register_buffer("bias", torch.empty(
+            out_features, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return qdense(x, self.weight_q.t(), self.weight_scale, self.bias)
+
+
+def _linear(cfg: ViTConfig, name: str, in_f: int, out_f: int, device) -> nn.Module:
+    if cfg.quantizes(name):
+        return QLinear(in_f, out_f, device=device)
+    return nn.Linear(in_f, out_f, device=device, dtype=cfg.dtype)
 
 
 class Attention(nn.Module):
     """Fused-qkv attention (the facet API slices the fused qkv output)."""
 
-    def __init__(self, cfg: ViTConfig, **factory) -> None:
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
         d = cfg.embed_dim
-        self.qkv = nn.Linear(d, 3 * d, **factory)
-        self.proj = nn.Linear(d, d, **factory)
+        self.qkv = _linear(cfg, "qkv", d, 3 * d, device)
+        self.proj = _linear(cfg, "proj", d, d, device)
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: ViTConfig, **factory) -> None:
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(cfg.embed_dim, cfg.mlp_hidden, **factory)
-        self.fc2 = nn.Linear(cfg.mlp_hidden, cfg.embed_dim, **factory)
+        self.fc1 = _linear(cfg, "fc1", cfg.embed_dim, cfg.mlp_hidden, device)
+        self.fc2 = _linear(cfg, "fc2", cfg.mlp_hidden, cfg.embed_dim, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))  # exact (erf) GELU
 
+    def int8_layers(self):
+        return self.fc1, self.fc2
+
 
 class SwiGLUFFNFused(nn.Module):
-    def __init__(self, cfg: ViTConfig, **factory) -> None:
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
-        self.w12 = nn.Linear(cfg.embed_dim, 2 * cfg.mlp_hidden, **factory)
-        self.w3 = nn.Linear(cfg.mlp_hidden, cfg.embed_dim, **factory)
+        self.w12 = _linear(cfg, "w12", cfg.embed_dim, 2 * cfg.mlp_hidden, device)
+        self.w3 = _linear(cfg, "w3", cfg.mlp_hidden, cfg.embed_dim, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
+    def int8_layers(self):
+        return self.w12, self.w3
+
 
 class Block(nn.Module):
     """Pre-norm block: x + ls1(attn(norm1 x)); x + ls2(mlp(norm2 x))."""
 
-    def __init__(self, cfg: ViTConfig, **factory) -> None:
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
         d = cfg.embed_dim
         self.cfg = cfg
-        self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps, **factory)
-        self.attn = Attention(cfg, **factory)
-        self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps, **factory)
+        # LayerNorm and LayerScale stay f32 in a quantized trunk
+        keep = dict(device=device, dtype=torch.float32 if cfg.quant else cfg.dtype)
+        self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps, **keep)
+        self.attn = Attention(cfg, device)
+        self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps, **keep)
         mlp = SwiGLUFFNFused if cfg.mlp_type == "swiglu_fused" else Mlp
-        self.mlp = mlp(cfg, **factory)
-        self.ls1 = LayerScale(d, cfg.layerscale_init, **factory)
-        self.ls2 = LayerScale(d, cfg.layerscale_init, **factory)
+        self.mlp = mlp(cfg, device)
+        self.ls1 = LayerScale(d, cfg.layerscale_init, **keep)
+        self.ls2 = LayerScale(d, cfg.layerscale_init, **keep)
+
+    def _norm(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.quant is None:
+            return norm(x)
+        # flax's LayerNorm(dtype=...): f32 math and parameters, output in the
+        # trunk dtype
+        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                            norm.eps).to(self.cfg.dtype)
 
     def forward(self, x: torch.Tensor, qkv_only: bool = False) -> torch.Tensor:
-        qkv = self.attn.qkv(self.norm1(x))            # [B, N, 3D] facet source
+        c = self.cfg
+        b, n, d = x.shape
+        if (c.quant == "int8_full" and not qkv_only and n <= MAX_FUSED_TOKENS
+                and int8_attn_geometry_ok(c.num_heads, c.head_dim)):
+            # K4: norm1 + int8 qkv + attention + int8 proj + ls1 + residual
+            qkv, proj = self.attn.qkv, self.attn.proj
+            x = fused_attn_half_int8(
+                x, qkv.weight_q.t(), qkv.weight_scale, qkv.bias, proj.weight_q.t(),
+                proj.weight_scale, proj.bias, num_heads=c.num_heads,
+                ln_params=(self.norm1.weight, self.norm1.bias), ln_eps=c.ln_eps,
+                layerscale=self.ls1.gamma)
+            return self._mlp_half(x)
+        qkv = self.attn.qkv(self._norm(self.norm1, x))   # [B, N, 3D] facet source
         if qkv_only:
             return qkv
-        b, n, d = x.shape
-        if n <= MAX_FUSED_TOKENS:
+        if n <= MAX_FUSED_TOKENS and c.quant not in ("int8", "int8_full"):
             # K5: attention + proj + LayerScale + residual from the raw qkv
             x = flash_attention_qkv_proj(
                 qkv, self.attn.proj.weight.t(), self.attn.proj.bias,
-                num_heads=self.cfg.num_heads, layerscale=self.ls1.gamma, residual=x)
+                num_heads=c.num_heads, layerscale=self.ls1.gamma, residual=x)
         else:
-            # K2 on head-split strided views of qkv, then a plain projection
-            h, hd = self.cfg.num_heads, self.cfg.head_dim
+            # K2 on head-split strided views of qkv, then the projection
+            h, hd = c.num_heads, c.head_dim
             q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2)
                        for i in range(3))
             o = flash_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
             x = x + self.ls1(self.attn.proj(o))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        return self._mlp_half(x)
+
+    def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        if c.quant not in ("int8_fused", "int8_full"):
+            return x + self.ls2(self.mlp(self._norm(self.norm2, x)))
+        ln = (self.norm2.weight, self.norm2.bias)
+        if int8_mlp_geometry_ok(c.mlp_type, c.mlp_hidden):
+            # K3: norm2 + int8 w12 + SwiGLU/GELU + int8 w3 + ls2 + residual
+            l1, l3 = self.mlp.int8_layers()
+            return fused_mlp_int8(
+                x, l1.weight_q.t(), l1.weight_scale, l1.bias, l3.weight_q.t(),
+                l3.weight_scale, l3.bias, mlp_type=c.mlp_type, ln_params=ln,
+                ln_eps=c.ln_eps, layerscale=self.ls2.gamma, residual=True)
+        # the per-row composition the JAX trunk falls back to (vit.py:670-682)
+        h = ln_rows(x.float(), *ln, c.ln_eps).to(c.dtype)
+        m = self.mlp(h).float() * self.ls2.gamma.float()
+        return (x.float() + m).to(c.dtype)
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, cfg: ViTConfig, **factory) -> None:
+    def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
         self.proj = nn.Conv2d(3, cfg.embed_dim, cfg.patch_size, cfg.patch_size,
-                              **factory)
+                              device=device, dtype=cfg.dtype)
 
 
 class ViT(nn.Module):
@@ -198,7 +302,7 @@ class ViT(nn.Module):
         factory = dict(device=device, dtype=cfg.dtype)
         d = cfg.embed_dim
         self.cfg = cfg
-        self.patch_embed = PatchEmbed(cfg, **factory)
+        self.patch_embed = PatchEmbed(cfg, device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, **factory))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.grid_size ** 2, d, **factory))
         if cfg.num_register_tokens:
@@ -207,7 +311,7 @@ class ViT(nn.Module):
         n_blocks = cfg.depth if n_blocks is None else n_blocks
         if not 0 < n_blocks <= cfg.depth:
             raise ValueError(f"n_blocks {n_blocks} not in 1..{cfg.depth}")
-        self.blocks = nn.ModuleList([Block(cfg, **factory) for _ in range(n_blocks)])
+        self.blocks = nn.ModuleList([Block(cfg, device) for _ in range(n_blocks)])
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> token sequence [B, 1+R+N, D] (CLS, registers,

@@ -1,16 +1,24 @@
 """The port's hand-written Hopper kernels: Python wrappers, their plain
 PyTorch versions (``<kernel>_ref``, used for CPU tensors and for checks),
 and a launch count on each wrapper (``wrapper.launches``) that goes up by
-one each time the wrapper launches its CUDA kernel."""
+one each time the wrapper launches its CUDA kernels."""
 
 from anyloc_tpu_torch.ops.kernels.attn_proj import (
     MAX_FUSED_TOKENS,
     flash_attention_qkv_proj,
     flash_attention_qkv_proj_ref,
+    fused_attn_half_int8,
+    fused_attn_half_int8_ref,
+    int8_attn_geometry_ok,
 )
 from anyloc_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
+)
+from anyloc_tpu_torch.ops.kernels.fused_mlp import (
+    fused_mlp_int8,
+    fused_mlp_int8_ref,
+    int8_mlp_geometry_ok,
 )
 from anyloc_tpu_torch.ops.kernels.vlad_kernel import (
     vlad_aggregate_fused,
@@ -21,6 +29,8 @@ from anyloc_tpu_torch.ops.kernels.vlad_kernel import (
 KERNELS = {
     "K1_vlad_aggregate_fused": vlad_aggregate_fused,
     "K2_flash_attention": flash_attention,
+    "K3_fused_mlp_int8": fused_mlp_int8,
+    "K4_fused_attn_half_int8": fused_attn_half_int8,
     "K5_flash_attention_qkv_proj": flash_attention_qkv_proj,
 }
 
@@ -37,6 +47,8 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS", "MAX_FUSED_TOKENS", "flash_attention", "flash_attention_ref",
     "flash_attention_qkv_proj", "flash_attention_qkv_proj_ref",
+    "fused_attn_half_int8", "fused_attn_half_int8_ref", "fused_mlp_int8",
+    "fused_mlp_int8_ref", "int8_attn_geometry_ok", "int8_mlp_geometry_ok",
     "launch_counts", "reset_launch_counts", "vlad_aggregate_fused",
     "vlad_aggregate_fused_ref",
 ]

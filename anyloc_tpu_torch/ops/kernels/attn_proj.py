@@ -1,15 +1,30 @@
-"""K5 — attention read straight from the fused qkv tensor, then the output
-projection with bias, LayerScale and residual.
+"""The attention halves of a trunk block at N <= ``MAX_FUSED_TOKENS``.
 
-Hand-written Hopper kernels (``csrc/attn_qkv_proj.cu``, reusing K2's
-device attention code through strided column views) replacing
-``anyloc_tpu/ops/pallas/attn_proj.py::flash_attention_qkv_proj`` (:327).
-The attention half of every trunk block at N <= ``MAX_FUSED_TOKENS``.
+K5 — attention read straight from the fused qkv tensor, then the output
+projection with bias, LayerScale and residual. Hand-written Hopper kernels
+(``csrc/attn_qkv_proj.cu``, reusing K2's device attention code through
+strided column views) replacing
+``anyloc_tpu/ops/pallas/attn_proj.py::flash_attention_qkv_proj`` (:327);
+the bf16 trunk's attention half. Math (K5's rounding, which differs from
+K2's): q * scale in f32, rounded to qkv's dtype, then f32-summed scores;
+softmax in f32; P in v's dtype; each head's output rounded to v's dtype;
+``o_cat @ w_proj`` summed in f32, + bias, * layerscale, + residual (read as
+f32), cast to qkv's dtype.
 
-Math (K5's rounding, which differs from K2's): q * scale in f32, rounded
-to qkv's dtype, then f32-summed scores; softmax in f32; P in v's dtype;
-each head's output rounded to v's dtype; ``o_cat @ w_proj`` summed in f32,
-+ bias, * layerscale, + residual (read as f32), cast to qkv's dtype.
+K4 — the int8 W8A8 attention half (``csrc/attn_half_int8.cu``) replacing
+``anyloc_tpu/ops/pallas/attn_proj.py::fused_attn_half_int8`` (:501); the
+``int8_full`` trunk's attention half. Math (the Pallas kernel's): LN1 in
+f32; per-row int8 quantize; ``qkv = (acc · x_scale) · w_scale + b`` in
+f32, q times the softmax scale; q, k, v rounded to bf16; f32 scores,
+softmax, P in bf16, each head's output in bf16; o requantized per (row,
+head chunk); the projection accumulated chunk by chunk as
+``(acc_j · o_scale_j) · w_scale``; ``+ b_proj``, ``· layerscale``, ``+ x``
+(f32), cast to x's dtype. The attention is always bf16, whatever x's dtype.
+
+The head chunk is the quantization group of K4's projection, so it is part
+of the function: ``head_chunk=None`` takes the TPU kernel's rule
+(``_pick_int8_head_chunk``), an explicit value is honoured as the largest
+divisor of H not above it (the rule the TPU kernel uses in interpret mode).
 """
 
 from __future__ import annotations
@@ -19,12 +34,64 @@ from typing import Optional
 import torch
 
 from anyloc_tpu_torch import _build
+from anyloc_tpu_torch.ops.common import round_up
 from anyloc_tpu_torch.ops.kernels import _launch
 from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
+from anyloc_tpu_torch.ops.quant import _int_mm, quantize_rows
 
-# The TPU kernel's token bound (anyloc_tpu/ops/pallas/attn_proj.py:41); the
-# trunk keeps the same routing: N <= this -> K5, longer -> K2 + plain proj.
+# The TPU kernels' token bound (anyloc_tpu/ops/pallas/attn_proj.py:41); the
+# trunk keeps the same routing: N <= this -> K5 (bf16) or K4 (int8_full),
+# longer -> K2 between plain (or qdense) projections.
 MAX_FUSED_TOKENS = 1216
+
+
+def _pick_head_chunk(n: int, h: int, requested: Optional[int]) -> int:
+    """Heads per chunk under the TPU kernels' ~6 MB f32 score budget,
+    rounded down to a divisor of ``h`` (``attn_proj.py:214-228``)."""
+    if requested is not None and requested < 1:
+        raise ValueError(f"head_chunk must be >= 1, got {requested}")
+    if requested is None:
+        np_tok = round_up(n, 8)
+        requested = max(1, min(h, (6 * 1024 * 1024) // (np_tok * np_tok * 4)))
+    hc = min(requested, h)
+    while h % hc:
+        hc -= 1
+    return hc
+
+
+def _pick_int8_head_chunk(n: int, h: int, hd: int, requested: Optional[int]) -> Optional[int]:
+    """The int8 TPU kernel's head chunk (``attn_proj.py:158-173``): the
+    budget's chunk, moved to the nearest divisor of ``h`` whose width
+    ``hc * hd`` is a multiple of 128; None when no divisor qualifies."""
+    budget = _pick_head_chunk(n, h, requested)
+    for hc in range(budget, 0, -1):
+        if h % hc == 0 and (hc * hd) % 128 == 0:
+            return hc
+    for hc in range(budget + 1, h + 1):
+        if h % hc == 0 and (hc * hd) % 128 == 0:
+            return hc
+    return None
+
+
+def int8_attn_geometry_ok(num_heads: int, head_dim: int) -> bool:
+    """True iff the JAX trunk runs the fused int8 attention half for this
+    head geometry (``attn_proj.py:176-189``); else LN + per-row ``qdense``
+    + attention."""
+    return any(num_heads % hc == 0 and (hc * head_dim) % 128 == 0
+               for hc in range(1, num_heads + 1))
+
+
+def resolve_head_chunk(n: int, h: int, hd: int, head_chunk: Optional[int]) -> int:
+    if head_chunk is not None:
+        return _pick_head_chunk(n, h, head_chunk)
+    hc = _pick_int8_head_chunk(n, h, hd, None)
+    if hc is None:
+        raise ValueError(
+            f"fused_attn_half_int8: no head chunk with hc*head_dim % 128 == 0 "
+            f"exists for num_heads={h}, head_dim={hd}; gate with "
+            "int8_attn_geometry_ok() or pass head_chunk")
+    return hc
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -140,3 +207,124 @@ def flash_attention_qkv_proj(
 
 
 flash_attention_qkv_proj.launches = 0
+
+
+def _check_attn_half(x, wqkv_q, wp_q, num_heads):
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
+    if tuple(wqkv_q.shape) != (d, 3 * d) or tuple(wp_q.shape) != (d, d):
+        raise ValueError(f"fused_attn_half_int8: wqkv_q must be [{d}, {3 * d}] and wp_q "
+                         f"[{d}, {d}], got {tuple(wqkv_q.shape)} {tuple(wp_q.shape)}")
+    return b, n, d, d // num_heads
+
+
+def fused_attn_half_int8_ref(
+    x: torch.Tensor, wqkv_q, wqkv_scale, b_qkv, wp_q, wp_scale, b_proj, *,
+    num_heads: int, ln_params: tuple, ln_eps: float = 1e-6,
+    layerscale: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+    head_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's math (materializes the
+    [B, H, N, N] scores)."""
+    b, n, d, hd = _check_attn_half(x, wqkv_q, wp_q, num_heads)
+    h = num_heads
+    scale = hd ** -0.5 if scale is None else float(scale)
+    hcw = resolve_head_chunk(n, h, hd, head_chunk) * hd
+    xf = x.reshape(-1, d).float()
+    xq, xs = quantize_rows(ln_rows(xf, *ln_params, ln_eps))
+    qkv = _int_mm(xq, wqkv_q).float() * xs * wqkv_scale.float()
+    if b_qkv is not None:
+        qkv = qkv + b_qkv.float()
+    q, k, v = ((t.to(torch.bfloat16).float().reshape(b, n, h, hd).transpose(1, 2))
+               for t in (qkv[:, :d] * scale, qkv[:, d:2 * d], qkv[:, 2 * d:]))
+    p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+    o = (p.to(torch.bfloat16).float() @ v).to(torch.bfloat16)
+    o_cat = o.transpose(1, 2).reshape(b * n, d).float()
+    acc = torch.zeros_like(xf)
+    for c in range(0, d, hcw):
+        oq, os_ = quantize_rows(o_cat[:, c:c + hcw])
+        acc = acc + _int_mm(oq, wp_q[c:c + hcw]).float() * os_ * wp_scale.float()
+    if b_proj is not None:
+        acc = acc + b_proj.float()
+    if layerscale is not None:
+        acc = acc * layerscale.float()
+    return (acc + xf).to(x.dtype).reshape(b, n, d)
+
+
+def fused_attn_half_int8(
+    x: torch.Tensor, wqkv_q, wqkv_scale, b_qkv, wp_q, wp_scale, b_proj, *,
+    num_heads: int, ln_params: tuple, ln_eps: float = 1e-6,
+    layerscale: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+    head_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """out = x + layerscale · (proj(attn(qkv(LN1(x)))) + b_proj) with int8
+    W8A8 products: the first residual branch of a pre-norm ViT block.
+
+    x [B, N, D] (bf16 or f32); weights in the JAX layout, wqkv_q int8
+    [D, 3D] (q | k | v column thirds, head-minor) and wp_q int8 [D, D],
+    with per-column f32 scales and optional biases; ``ln_params`` =
+    (scale, bias) of norm1. For ``nn.Linear``-layout codes [out, in] pass
+    ``weight_q.t()`` (the kernel reads that storage as it is, no copy).
+    CPU tensors take ``fused_attn_half_int8_ref``; CUDA tensors launch the
+    kernels or raise."""
+    b, n, d, hd = _check_attn_half(x, wqkv_q, wp_q, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    hc = resolve_head_chunk(n, num_heads, hd, head_chunk)
+    vecs = dict(wqkv_scale=wqkv_scale, b_qkv=b_qkv, wp_scale=wp_scale, b_proj=b_proj,
+                ln_scale=ln_params[0], ln_bias=ln_params[1], layerscale=layerscale)
+    tensors = [x, wqkv_q, wp_q] + [t for t in vecs.values() if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_attn_half_int8_ref(
+            x, wqkv_q, wqkv_scale, b_qkv, wp_q, wp_scale, b_proj, num_heads=num_heads,
+            ln_params=ln_params, ln_eps=ln_eps, layerscale=layerscale, scale=scale,
+            head_chunk=hc)
+    _launch.require_cuda("fused_attn_half_int8", *tensors)
+    code = _launch.dtype_code(x, "fused_attn_half_int8")
+    if wqkv_q.dtype != torch.int8 or wp_q.dtype != torch.int8:
+        raise TypeError("fused_attn_half_int8: wqkv_q and wp_q must be int8")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"fused_attn_half_int8: head dim {hd} not supported "
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+    if d % 32 or (hc * hd) % 32:
+        raise ValueError(f"fused_attn_half_int8: the kernel needs D and the head chunk "
+                         f"width % 32 == 0 (D={d}, chunk {hc} x {hd})")
+    widths = dict(wqkv_scale=3 * d, b_qkv=3 * d)
+    for name, vec in vecs.items():
+        want = widths.get(name, d)
+        if vec is not None and tuple(vec.shape) != (want,):
+            raise ValueError(f"fused_attn_half_int8: {name} must be [{want}], "
+                             f"got {tuple(vec.shape)}")
+    if -(-b * n // 128) > 65535:
+        raise ValueError(f"fused_attn_half_int8: B*N = {b * n} rows > {128 * 65535}; "
+                         "split the batch")
+    wqkv_nk = wqkv_q.t().contiguous()
+    wp_nk = wp_q.t().contiguous()
+    if wqkv_nk.data_ptr() % 16 or wp_nk.data_ptr() % 16:
+        raise ValueError("fused_attn_half_int8: the weights must be 16-byte aligned")
+    f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
+    x = x.contiguous()
+    m, dev = b * n, x.device
+    xq = torch.empty((m, d), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
+    o = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    oq = torch.empty((m, d), dtype=torch.int8, device=dev)
+    osc = torch.empty((m, num_heads // hc), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    p = _launch.ptr
+    rc = _build.load_library().anyloc_attn_half_int8(
+        x.data_ptr(), f32["ln_scale"].data_ptr(), f32["ln_bias"].data_ptr(),
+        wqkv_nk.data_ptr(), f32["wqkv_scale"].data_ptr(), p(f32["b_qkv"]),
+        wp_nk.data_ptr(), f32["wp_scale"].data_ptr(), p(f32["b_proj"]),
+        p(f32["layerscale"]), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
+        o.data_ptr(), oq.data_ptr(), osc.data_ptr(), out.data_ptr(), code,
+        b, n, num_heads, hd, hc, float(ln_eps), scale, _launch.stream(x))
+    _build.check(rc, "fused_attn_half_int8")
+    fused_attn_half_int8.launches += 1
+    return out
+
+
+fused_attn_half_int8.launches = 0

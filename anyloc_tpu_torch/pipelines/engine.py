@@ -33,12 +33,14 @@ class DescriptorEngine:
         cache_dir: Optional[str] = None,
         transfer_dtype: str = "float32",
         quant: Optional[str] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[None, str, torch.device] = None,
     ) -> None:
         """``transfer_dtype``: "float32" ships normalized f32 images to the
         device; "uint8" ships raw resized bytes (1/4 the host-to-device
-        traffic) and normalizes on the device. ``extractor`` replaces the
-        model built from ``model_type`` (its own device is then used)."""
+        traffic) and normalizes on the device. ``quant`` selects an int8
+        trunk ("int8_full" is the serving mode). ``device`` None means the
+        card. ``extractor`` replaces the model built from ``model_type``
+        (its own device is then used)."""
         if transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype must be 'float32' or 'uint8', got {transfer_dtype!r}")
         if cache_dir is not None:

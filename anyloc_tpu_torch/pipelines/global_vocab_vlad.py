@@ -31,10 +31,10 @@ def run_global_vocab_vlad(
     vocab_dataset=None,
     engine: Optional[DescriptorEngine] = None,
     verbose: bool = True,
-    device="cpu",
+    device=None,
 ) -> Dict:
-    """``device`` places the engine built from ``largs`` (ignored when an
-    ``engine`` is given)."""
+    """``device`` places the engine built from ``largs`` (None: the card;
+    ignored when an ``engine`` is given)."""
     if dataset is None:
         raise NotImplementedError(_NOT_PORTED.format("dataset"))
     if vocab_dataset is None:

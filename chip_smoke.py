@@ -5,19 +5,28 @@
 
 Phases, each of which must pass or the script exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles the CUDA kernels from anyloc_tpu_torch/csrc;
-  3. kernels: K1 (VLAD), K2 (flash attention) and K5 (qkv attention +
-     out-projection) against their plain PyTorch versions at the main
-     path's shapes, with the bound stated on each line, and timed;
-  4. end to end: DINOv2-G/14 (random weights from a seed, bf16, blocks
-     0..31) value facet of layer 31 -> VLAD-32 fitted on the fixture's
-     database -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at
-     308 px, then one image at 1022 px (5330 tokens); launch counts of
-     every kernel must rise during this run; plus a small-input check of
-     the card against the plain path;
-  5. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
-     and 1022 px (batch 1). ``--profile DIR`` also writes torch.profiler
-     tables of the three shapes to DIR.
+  2. build: compiles the CUDA kernels from anyloc_tpu_torch/csrc (one nvcc
+     per source, in parallel);
+  3. kernels: K1 (VLAD), K2 (flash attention), K5 (qkv attention +
+     out-projection), K4 (int8 attention half) and K3 (int8 MLP half)
+     against their plain PyTorch versions at the main paths' shapes, with
+     the error bound stated on each line, timed beside the plain version,
+     the least time the card could take (bound_ms) and, for K2, PyTorch's
+     scaled_dot_product_attention as a yardstick;
+  4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
+     value facet of layer 31 -> VLAD-32 fitted on the fixture's database
+     -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
+     one image at 1022 px (5330 tokens); K1, K2 and K5 must launch during
+     this run; plus a small-input check of the card against the plain path
+     and of G's facets through the kernels against the plain versions;
+  5. the int8_full path (the serving mode): the same run through
+     DescriptorEngine(quant="int8_full", transfer_dtype="uint8"), weights
+     quantized on the card; K1, K2, K3 and K4 must launch during it; then
+     G int8_full facets through the kernels against the plain versions,
+     and against the bf16 trunk on the same weights;
+  6. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
+     and 1022 px (batch 1), bf16 and int8_full. ``--profile DIR`` also
+     writes torch.profiler tables of the shapes to DIR.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -41,10 +50,25 @@ KERNEL_INFO = {
     "K2_flash_attention": dict(
         source="anyloc_tpu_torch/csrc/flash_attention.cu",
         replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
+    "K3_fused_mlp_int8": dict(
+        source="anyloc_tpu_torch/csrc/fused_mlp_int8.cu",
+        replaces="anyloc_tpu/ops/pallas/fused_mlp.py:250"),
+    "K4_fused_attn_half_int8": dict(
+        source="anyloc_tpu_torch/csrc/attn_half_int8.cu",
+        replaces="anyloc_tpu/ops/pallas/attn_proj.py:501"),
     "K5_flash_attention_qkv_proj": dict(
         source="anyloc_tpu_torch/csrc/attn_qkv_proj.cu",
         replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
 }
+# kernels each path must launch
+PATH_KERNELS = {
+    "bf16": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K5_flash_attention_qkv_proj"),
+    "int8_full": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
+                  "K4_fused_attn_half_int8"),
+}
+# One H100 SXM's published dense peaks at its 700 W limit (NVIDIA's data
+# sheet; f32 outside the tensor cores): operations/s by type, bytes/s.
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "hbm": 3.35e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -62,6 +86,30 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(ops: dict, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over their type's peak (summed over types) and the bytes over the
+    memory rate."""
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    t_bytes = nbytes / PEAK["hbm"]
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def rms_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return (((got - want) ** 2).mean() / (want ** 2).mean()).sqrt().item()
+
+
+def outside_share(got, want, atol: float, rtol: float) -> float:
+    """Share of elements beyond atol + rtol·|want|: the int8 kernels may
+    differ from their plain versions by a flipped code (one quantization
+    step; a flipped input code moves its whole row), a rare discrete
+    event, so their bound is a small share, not none."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() > atol + rtol * want.abs()).float().mean().item()
 
 
 def time_ms(fn, iters: int = 10, reps: int = 3, warmup: int = 2) -> float:
@@ -92,9 +140,13 @@ def run(profile_dir) -> dict:
     from anyloc_tpu_torch import (
         VLAD, DescriptorEngine, DinoV2ExtractFeatures, VPRDataset,
         ViTConfig, ViTFacetExtractor, get_top_k_recall, listdir_abs)
+    import torch.nn.functional as F
+
     from anyloc_tpu_torch.data.transforms import preprocess_image
     from anyloc_tpu_torch.models import vit as vit_module
     from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.attn_proj import _pick_int8_head_chunk
+    from anyloc_tpu_torch.ops.quant import quantize_weight_cols
 
     dev = torch.device("cuda")
     card = card_line()
@@ -108,22 +160,33 @@ def run(profile_dir) -> dict:
     torch.backends.cudnn.allow_tf32 = False   # the f32 patch-embed conv
 
     t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)
+    lib_path = _build.build()
     _build.load_library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s)",
-          flush=True)
+          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s, "
+          f"one process per source)", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    results = {name: dict(max_abs_err=0.0) for name in KERNEL_INFO}
+    results = {name: dict(max_abs_err=0.0, library_ms=None) for name in KERNEL_INFO}
+
+    def record(name, err, **kw):
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.update(kw)
+
+    def timing_line(name, label):
+        r = results[name]
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+        print(f"{name} time {tag} at {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms"
+              f"{lib}; bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
     # ---------------------------------------------------------------- K2
     k2_bound = dict(atol=2e-2, rtol=1e-2)
-    for label, (b, h, n, hd, dtype), bound in [
+    for label, (b, h, n, hd, dtype), tol in [
         ("1022px", (1, 24, 5330, 64, torch.bfloat16), k2_bound),
         ("ragged-f32", (2, 4, 77, 64, torch.float32), dict(atol=2e-5, rtol=0)),
     ]:
@@ -134,18 +197,20 @@ def run(profile_dir) -> dict:
         want = K.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **bound)
+        ok = torch.allclose(got.float(), want.float(), **tol)
         print(f"K2 flash_attention {label} [{b},{h},{n},{hd}] {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e} (bound atol {bound['atol']} rtol {bound['rtol']}) "
+              f"max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"K2 {label} disagrees with its plain version")
-        r = results["K2_flash_attention"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        record("K2_flash_attention", err)
         if label == "1022px":
-            r["ms"] = time_ms(lambda: K.flash_attention(q, k, v))
-            r["plain_ms"] = time_ms(lambda: K.flash_attention_ref(q, k, v), iters=3)
-            r["shape"] = f"[{b},{h},{n},{hd}] bf16"
-            print(f"K2 time {tag}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+            record("K2_flash_attention", 0.0,
+                   ms=time_ms(lambda: K.flash_attention(q, k, v)),
+                   plain_ms=time_ms(lambda: K.flash_attention_ref(q, k, v), iters=3),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   shape=f"[{b},{h},{n},{hd}] bf16",
+                   **bound({"bf16": 4 * b * h * n * n * hd}, 4 * b * h * n * hd * 2))
+            timing_line("K2_flash_attention", "[1,24,5330,64] bf16")
 
     # ---------------------------------------------------------------- K5
     def k5_inputs(b, n):
@@ -165,13 +230,16 @@ def run(profile_dir) -> dict:
         print(f"K5 flash_attention_qkv_proj B={b} N={n} bf16: max_abs_err {err:.3e} "
               f"(bound atol 2e-2 rtol 1e-2) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"K5 B={b} N={n} disagrees with its plain version")
-        r = results["K5_flash_attention_qkv_proj"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        record("K5_flash_attention_qkv_proj", err)
         if b == 32:
-            r["ms"] = time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw))
-            r["plain_ms"] = time_ms(lambda: K.flash_attention_qkv_proj_ref(qkv, w, **kw), iters=3)
-            r["shape"] = f"qkv [{b},{n},4608] bf16"
-            print(f"K5 time {tag}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+            m, d = b * n, 1536
+            record("K5_flash_attention_qkv_proj", 0.0,
+                   ms=time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw)),
+                   plain_ms=time_ms(lambda: K.flash_attention_qkv_proj_ref(qkv, w, **kw), iters=3),
+                   shape=f"qkv [{b},{n},4608] bf16",
+                   **bound({"bf16": 4 * b * 24 * n * n * 64 + 2 * m * d * d},
+                           m * 3 * d * 2 + d * d * 2 + 2 * m * d * 2 + 2 * d * 4))
+            timing_line("K5_flash_attention_qkv_proj", "qkv [32,485,4608] bf16")
 
     # ---------------------------------------------------------------- K1
     def facets(b, n, d=1536):
@@ -187,51 +255,199 @@ def run(profile_dir) -> dict:
         want = K.vlad_aggregate_fused_ref(x, centers, vlad_mode=mode)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+        cos = F.cosine_similarity(got, want, dim=-1).min().item()
         ok = cos >= min_cos_bound
         print(f"K1 vlad_aggregate_fused [{b},{n},1536] C=32 {mode}: max_abs_err {err:.3e}, "
               f"min per-image cosine {cos:.7f} (bound >= {min_cos_bound}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"K1 [{b},{n}] {mode} disagrees with its plain version")
-        r = results["K1_vlad_aggregate_fused"]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        record("K1_vlad_aggregate_fused", err)
         if b == 32:
-            r["ms"] = time_ms(lambda: K.vlad_aggregate_fused(x, centers))
-            r["plain_ms"] = time_ms(lambda: K.vlad_aggregate_fused_ref(x, centers))
-            r["shape"] = f"[{b},{n},1536] C=32 hard"
-            print(f"K1 time {tag}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms", flush=True)
+            c, d = 32, 1536
+            # hard assignment: the cosine products, then each token added to
+            # one cluster's residual sum
+            record("K1_vlad_aggregate_fused", 0.0,
+                   ms=time_ms(lambda: K.vlad_aggregate_fused(x, centers)),
+                   plain_ms=time_ms(lambda: K.vlad_aggregate_fused_ref(x, centers)),
+                   shape=f"[{b},{n},1536] C=32 hard",
+                   **bound({"f32": 2 * b * n * c * d + b * n * d},
+                           (b * n * d + c * d + b * c * d) * 4))
+            timing_line("K1_vlad_aggregate_fused", "[32,484,1536] C=32 hard")
 
-    # ---------------------------------------------------------------- small-input reference check
-    # the card's path (kernels) against the plain path (CPU) on a small
-    # float32 trunk: d=128, 2 heads of 64, 2 blocks; 224 px -> K5, 504 px -> K2
-    cfg = ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2, dtype=torch.float32)
-    small = ViTFacetExtractor(cfg, None, 1, "token", device="cpu", seed=3)
-    small_sd = small.model.state_dict()
-    # LayerScale 0.5 instead of 1e-5, so the attention halves matter
-    small_sd = {k: (torch.full_like(v, 0.5) if k.endswith("gamma") else v) for k, v in small_sd.items()}
-    cpu_ext = ViTFacetExtractor(cfg, small_sd, 1, "token", device="cpu")
-    gpu_ext = ViTFacetExtractor(cfg, small_sd, 1, "token", device=dev)
-    cpu_centers = None
-    for px in (224, 504):
-        imgs = np.random.default_rng(px).standard_normal((2, px, px, 3)).astype(np.float32)
-        want = cpu_ext(imgs)
-        got = gpu_ext(imgs).cpu()
-        err = (got - want).abs().max().item()
-        if cpu_centers is None:
-            cpu_centers = want.reshape(-1, 128)[::37][:8].clone()
-        v_want = VLAD(8)
-        v_want.c_centers = cpu_centers
-        vw = v_want.aggregate(want)
-        vg = v_want.aggregate(gpu_ext(imgs)).cpu()
-        vcos = torch.nn.functional.cosine_similarity(vg, vw, dim=-1).min().item()
-        print(f"small-input check {px} px: facet max_abs_err card vs CPU {err:.3e} (bound 1e-4), "
-              f"VLAD min cosine {vcos:.7f} (bound >= 0.9999)", flush=True)
-        check(err <= 1e-4 and vcos >= 0.9999, f"card and plain path disagree at {px} px")
+    # ---------------------------------------------------------------- K4
+    # int8 codes are held in nn.Linear's [out, in] storage and passed as
+    # .t() views, as the trunk does. An int8 code flips where the kernel's
+    # online softmax rounds P (unnormalized) to bf16 at another point than
+    # the plain version (normalized P): rms_rel over the output, and a small
+    # share of flip-sized outliers (outside_share)
+    def int8_weight(k, n):
+        q, s = quantize_weight_cols(randn(k, n, scale=k ** -0.5))
+        return q.t().contiguous().t(), s
 
-    # ---------------------------------------------------------------- end to end (the main path)
+    def k4_inputs(b, n, dtype, d=1536, h=24):
+        wqkv, sqkv = int8_weight(d, 3 * d)
+        wp, sp = int8_weight(d, d)
+        args = (randn(b, n, d, dtype=dtype), wqkv, sqkv, randn(3 * d, scale=0.1), wp, sp,
+                randn(d, scale=0.1))
+        kw = dict(num_heads=h, ln_params=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  layerscale=randn(d, scale=0.5))
+        return args, kw
+
+    int8_tol = dict(atol=2e-2, rtol=1e-2)
+    for label, b, n, dtype in [("224px", 8, 257, torch.bfloat16), ("308px", 32, 485, torch.bfloat16),
+                               ("ragged-f32", 2, 77, torch.float32)]:
+        args, kw = k4_inputs(b, n, dtype)
+        hc = _pick_int8_head_chunk(n, 24, 64, None)
+        got = K.fused_attn_half_int8(*args, **kw)
+        want = K.fused_attn_half_int8_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rr = rms_rel(got, want)
+        out = outside_share(got, want, **int8_tol)
+        ok = out <= 1e-3 and rr <= 1e-2
+        print(f"K4 fused_attn_half_int8 {label} B={b} N={n} D=1536 H=24 head chunk {hc} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e}, rms_rel {rr:.2e}, share beyond atol "
+              f"2e-2 rtol 1e-2 {out:.2e} (bound: rms_rel <= 1e-2, share <= 1e-3) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K4 {label} disagrees with its plain version")
+        record("K4_fused_attn_half_int8", err)
+        if b == 32:
+            m, d = b * n, 1536
+            record("K4_fused_attn_half_int8", 0.0,
+                   ms=time_ms(lambda: K.fused_attn_half_int8(*args, **kw)),
+                   plain_ms=time_ms(lambda: K.fused_attn_half_int8_ref(*args, **kw), iters=3),
+                   shape=f"x [{b},{n},1536] bf16, head chunk {hc}",
+                   **bound({"int8": 2 * m * d * 4 * d, "bf16": 4 * b * 24 * n * n * 64},
+                           2 * m * d * 2 + 4 * d * d + 11 * d * 4))
+            timing_line("K4_fused_attn_half_int8", "x [32,485,1536] bf16")
+
+    # ---------------------------------------------------------------- K3
+    def k3_inputs(m, d, hid, dtype, mlp_type):
+        two = 2 if mlp_type == "swiglu_fused" else 1
+        w12, s12 = int8_weight(d, two * hid)
+        w3, s3 = int8_weight(hid, d)
+        args = (randn(m, d, dtype=dtype), w12, s12, randn(two * hid, scale=0.1), w3, s3,
+                randn(d, scale=0.1))
+        kw = dict(mlp_type=mlp_type, ln_params=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  layerscale=randn(d, scale=0.5), residual=True)
+        return args, kw
+
+    for label, m, d, hid, dtype, mlp_type, tol, rr_max in [
+        ("308px", 32 * 485, 1536, 4096, torch.bfloat16, "swiglu_fused", int8_tol, 1e-2),
+        ("gelu-f32", 333, 256, 1024, torch.float32, "mlp", dict(atol=1e-3, rtol=1e-4), 1e-3),
+    ]:
+        args, kw = k3_inputs(m, d, hid, dtype, mlp_type)
+        got = K.fused_mlp_int8(*args, **kw)
+        want = K.fused_mlp_int8_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rr = rms_rel(got, want)
+        out = outside_share(got, want, **tol)
+        ok = out <= 1e-3 and rr <= rr_max
+        print(f"K3 fused_mlp_int8 {label} M={m} D={d} HID={hid} {mlp_type} {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e}, rms_rel {rr:.2e}, share beyond atol {tol['atol']} rtol "
+              f"{tol['rtol']} {out:.2e} (bound: rms_rel <= {rr_max}, share <= 1e-3) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K3 {label} disagrees with its plain version")
+        record("K3_fused_mlp_int8", err)
+        if label == "308px":
+            record("K3_fused_mlp_int8", 0.0,
+                   ms=time_ms(lambda: K.fused_mlp_int8(*args, **kw)),
+                   plain_ms=time_ms(lambda: K.fused_mlp_int8_ref(*args, **kw), iters=3),
+                   shape=f"x [{m},1536] bf16, SwiGLU 4096, hidden chunk 512",
+                   **bound({"int8": 2 * m * d * 3 * hid}, 2 * m * d * 2 + 3 * hid * d + (2 * hid + 4 * d) * 4))
+            timing_line("K3_fused_mlp_int8", "x [15520,1536] bf16")
+
+    # ---------------------------------------------------------------- small-input reference checks
+    # the card's path (kernels) against the plain path (CPU) on small
+    # float32 trunks: d=128, 2 heads of 64, 2 blocks; 224 px -> K5 (bf16
+    # path) or K4 + K3 (int8_full, SwiGLU 1024 in two 512 chunks); 504 px -> K2
+    for quant, mlp_type, ratio in [(None, "mlp", 4.0), ("int8_full", "swiglu_fused", 12.0)]:
+        cfg = ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2, mlp_type=mlp_type,
+                        mlp_ratio=ratio, dtype=torch.float32, quant=quant)
+        small = ViTFacetExtractor(cfg, None, 1, "token", device="cpu", seed=3)
+        # LayerScale 0.5 instead of 1e-5, so the attention halves matter
+        small_sd = {k: (torch.full_like(v, 0.5) if k.endswith("gamma") else v)
+                    for k, v in small.model.state_dict().items()}
+        cpu_ext = ViTFacetExtractor(cfg, small_sd, 1, "token", device="cpu")
+        gpu_ext = ViTFacetExtractor(cfg, small_sd, 1, "token", device=dev)
+        cpu_centers = None
+        for px in (224, 504):
+            imgs = np.random.default_rng(px).standard_normal((2, px, px, 3)).astype(np.float32)
+            want = cpu_ext(imgs)
+            got = gpu_ext(imgs).cpu()
+            err = (got - want).abs().max().item()
+            fcos = F.cosine_similarity(got, want, dim=-1).min().item()
+            if cpu_centers is None:
+                cpu_centers = want.reshape(-1, 128)[::37][:8].clone()
+            v_want = VLAD(8)
+            v_want.c_centers = cpu_centers
+            vw = v_want.aggregate(want)
+            vg = v_want.aggregate(gpu_ext(imgs)).cpu()
+            vcos = F.cosine_similarity(vg, vw, dim=-1).min().item()
+            if quant is None:
+                print(f"small-input check bf16 path (f32 trunk) {px} px: facet max_abs_err card vs "
+                      f"CPU {err:.3e} (bound 1e-4), VLAD min cosine {vcos:.7f} (bound >= 0.9999)",
+                      flush=True)
+                check(err <= 1e-4 and vcos >= 0.9999, f"card and plain path disagree at {px} px")
+            else:
+                # int8 codes flip where f32 sums of another order cross a
+                # rounding midpoint: cosine bounds, not elementwise ones
+                print(f"small-input check int8_full (f32 trunk) {px} px: facet max_abs_err card vs "
+                      f"CPU {err:.3e}, min facet cosine {fcos:.7f} (bound >= 0.999), VLAD min "
+                      f"cosine {vcos:.7f} (bound >= 0.999)", flush=True)
+                check(fcos >= 0.999 and vcos >= 0.999,
+                      f"int8_full card and plain path disagree at {px} px")
+
+    # ---------------------------------------------------------------- the bf16 path
     db = listdir_abs(str(FIXTURE), "db")
     qu = listdir_abs(str(FIXTURE), "queries")
     gt = list(np.load(FIXTURE / "gt.npy", allow_pickle=True))
+    ds = VPRDataset(db, qu, soft_positives_per_query=gt, img_size=(320, 320))
+    big = Image.open(db[0]).convert("RGB").resize((1536, 1536), Image.BILINEAR)
+    arr1022 = preprocess_image(big, max_edge=1024)
+    check(arr1022.shape == (1022, 1022, 3), f"1022-px input shape {arr1022.shape}")
+
+    def drive(path, engine):
+        """One pass of a path: vocabulary, VLADs of the fixture at 308 px,
+        retrieval, one image at 1022 px; counts reset just before, read
+        just after."""
+        ext = engine.extractor
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        vocab = engine.extract_dataset(ds, "db", verbose=False, keep_on_device=True)
+        check(tuple(vocab.shape) == (16, 484, 1536), f"vocab facets shape {tuple(vocab.shape)}")
+        vlad = VLAD(32)
+        vlad.fit(vocab.reshape(-1, vocab.shape[-1]))
+        dbv = engine.extract_vlads_dataset(ds, vlad, "db", verbose=False)
+        quv = engine.extract_vlads_dataset(ds, vlad, "queries", verbose=False)
+        dists, idx, recalls = get_top_k_recall(
+            [1, 5, 10], torch.from_numpy(dbv).to(dev), torch.from_numpy(quv).to(dev), gt)
+        e2e_s = time.perf_counter() - t0
+        check(dbv.shape == (16, 32 * 1536) and quv.shape == (8, 32 * 1536),
+              f"VLAD shapes {dbv.shape} {quv.shape}")
+        allv = np.concatenate([dbv, quv])
+        norms = np.linalg.norm(allv, axis=1)
+        check(bool(np.isfinite(allv).all()), f"{path}: non-finite VLAD values")
+        check(bool(np.all(np.abs(norms - 1) <= 1e-3)), f"{path}: VLAD norms {norms.min()}..{norms.max()}")
+        check(idx.shape == (8, 10) and bool(np.isfinite(dists).all()), f"{path}: retrieval output")
+        print(f"e2e {path} 308 px: 24 images (fixture), vocabulary k-means on "
+              f"{vocab.shape[0] * vocab.shape[1]} facets, {e2e_s:.1f} s; VLAD norms "
+              f"{norms.min():.6f}..{norms.max():.6f}; recall (random weights, not asserted) "
+              f"{recalls}", flush=True)
+        f1022 = ext(arr1022[None])
+        v1022 = vlad.aggregate(f1022)
+        torch.cuda.synchronize()
+        check(tuple(f1022.shape) == (1, 5329, 1536), f"1022-px facets {tuple(f1022.shape)}")
+        check(bool(torch.isfinite(v1022).all()) and abs(v1022.norm().item() - 1) <= 1e-3,
+              f"{path}: 1022-px VLAD not finite or not unit-norm")
+        counts = K.launch_counts()
+        print(f"e2e {path} 1022 px: facets {tuple(f1022.shape)}, VLAD {tuple(v1022.shape)}; "
+              f"launch counts over the {path} path {counts}", flush=True)
+        for name in PATH_KERNELS[path]:
+            check(counts[name] > 0, f"{name} never launched on the {path} path")
+        return vlad, counts
+
     t0 = time.perf_counter()
     ext = DinoV2ExtractFeatures("dinov2_vitg14", 31, "value", device=dev, seed=42)
     torch.cuda.synchronize()
@@ -239,79 +455,81 @@ def run(profile_dir) -> dict:
           f"{sum(p.numel() for p in ext.model.parameters()) / 1e9:.3f} B params, "
           f"random init {time.perf_counter() - t0:.1f} s", flush=True)
     check(len(ext.model.blocks) == 32, "blocks 0..31 must be materialized")
-
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    ds = VPRDataset(db, qu, soft_positives_per_query=gt, img_size=(320, 320))
-    engine = DescriptorEngine(extractor=ext, batch_size=16)
-    vocab = engine.extract_dataset(ds, "db", verbose=False, keep_on_device=True)
-    check(tuple(vocab.shape) == (16, 484, 1536), f"vocab facets shape {tuple(vocab.shape)}")
-    vlad = VLAD(32)
-    vlad.fit(vocab.reshape(-1, vocab.shape[-1]))
-    dbv = engine.extract_vlads_dataset(ds, vlad, "db", verbose=False)
-    quv = engine.extract_vlads_dataset(ds, vlad, "queries", verbose=False)
-    dists, idx, recalls = get_top_k_recall(
-        [1, 5, 10], torch.from_numpy(dbv).to(dev), torch.from_numpy(quv).to(dev), gt)
-    e2e_s = time.perf_counter() - t0
-    check(dbv.shape == (16, 32 * 1536) and quv.shape == (8, 32 * 1536),
-          f"VLAD shapes {dbv.shape} {quv.shape}")
-    allv = np.concatenate([dbv, quv])
-    norms = np.linalg.norm(allv, axis=1)
-    check(bool(np.isfinite(allv).all()), "non-finite VLAD values")
-    check(bool(np.all(np.abs(norms - 1) <= 1e-3)), f"VLAD norms {norms.min()}..{norms.max()}")
-    check(idx.shape == (8, 10) and bool(np.isfinite(dists).all()), "retrieval output")
-    print(f"e2e 308 px: 24 images (fixture), vocabulary k-means on {vocab.shape[0] * vocab.shape[1]} "
-          f"facets, {e2e_s:.1f} s; VLAD norms {norms.min():.6f}..{norms.max():.6f}; "
-          f"recall (random weights, not asserted) {recalls}", flush=True)
-
-    big = Image.open(db[0]).convert("RGB").resize((1536, 1536), Image.BILINEAR)
-    arr = preprocess_image(big, max_edge=1024)
-    check(arr.shape == (1022, 1022, 3), f"1022-px input shape {arr.shape}")
-    f1022 = ext(arr[None])
-    v1022 = vlad.aggregate(f1022)
-    torch.cuda.synchronize()
-    check(tuple(f1022.shape) == (1, 5329, 1536), f"1022-px facets {tuple(f1022.shape)}")
-    check(bool(torch.isfinite(v1022).all()) and abs(v1022.norm().item() - 1) <= 1e-3,
-          "1022-px VLAD not finite or not unit-norm")
-    counts = K.launch_counts()
-    print(f"e2e 1022 px: facets {tuple(f1022.shape)}, VLAD {tuple(v1022.shape)}; "
-          f"launch counts over the main path {counts}", flush=True)
-    for name, c in counts.items():
-        check(c > 0, f"{name} never launched on the main path")
-        results[name]["launches"] = c
+    vlad, counts = drive("bf16", DescriptorEngine(extractor=ext, batch_size=16))
+    for name in PATH_KERNELS["bf16"]:
+        results[name]["launches"] = counts[name]
 
     # the same small input through the kernels and through the plain
-    # versions, on the card, at full width (bf16 G, 2 images at 224 px)
-    imgs = torch.from_numpy(np.stack([preprocess_image(Image.open(p).convert("RGB"), (224, 224))
-                                      for p in db[:2]])).to(dev)
-    got_f = ext(imgs)
-    saved = (vit_module.flash_attention_qkv_proj, vit_module.flash_attention)
-    vit_module.flash_attention_qkv_proj = K.flash_attention_qkv_proj_ref
-    vit_module.flash_attention = K.flash_attention_ref
-    try:
-        want_f = ext(imgs)
-    finally:
-        vit_module.flash_attention_qkv_proj, vit_module.flash_attention = saved
-    fcos = torch.nn.functional.cosine_similarity(got_f, want_f, dim=-1).min().item()
-    vcos = torch.nn.functional.cosine_similarity(
+    # versions, on the card, at full width (G, 2 images at 224 px)
+    imgs224 = torch.from_numpy(np.stack([preprocess_image(Image.open(p).convert("RGB"), (224, 224))
+                                         for p in db[:2]])).to(dev)
+    plain = {"flash_attention_qkv_proj": K.flash_attention_qkv_proj_ref,
+             "flash_attention": K.flash_attention_ref,
+             "fused_attn_half_int8": K.fused_attn_half_int8_ref,
+             "fused_mlp_int8": K.fused_mlp_int8_ref}
+
+    def through_plain(extractor, imgs):
+        saved = {name: getattr(vit_module, name) for name in plain}
+        for name, fn in plain.items():
+            setattr(vit_module, name, fn)
+        try:
+            return extractor(imgs)
+        finally:
+            for name, fn in saved.items():
+                setattr(vit_module, name, fn)
+
+    got_f = ext(imgs224)
+    want_f = through_plain(ext, imgs224)
+    fcos = F.cosine_similarity(got_f, want_f, dim=-1).min().item()
+    vcos = F.cosine_similarity(
         vlad.aggregate(got_f), K.vlad_aggregate_fused_ref(want_f, vlad.c_centers.to(dev)), dim=-1).min().item()
     print(f"G bf16 224 px, kernels vs plain versions on the card: min facet cosine {fcos:.6f} "
           f"(bound >= 0.999), min VLAD cosine {vcos:.6f} (bound >= 0.99)", flush=True)
-    check(fcos >= 0.999 and vcos >= 0.99, "main path disagrees with its plain version")
+    check(fcos >= 0.999 and vcos >= 0.99, "bf16 path disagrees with its plain version")
+
+    # ---------------------------------------------------------------- the int8_full path
+    t0 = time.perf_counter()
+    engine8 = DescriptorEngine("dinov2_vitg14", 31, "value", batch_size=16, quant="int8_full",
+                               transfer_dtype="uint8")   # no device named: the card
+    ext8 = engine8.extractor
+    torch.cuda.synchronize()
+    check(ext8.device.type == "cuda", f"int8_full extractor on {ext8.device}")
+    n_int8 = sum(t.numel() for n_, t in ext8.model.state_dict().items() if n_.endswith("weight_q"))
+    print(f"model: dinov2_vitg14 int8_full, {len(ext8.model.blocks)} blocks, {n_int8 / 1e9:.3f} B "
+          f"int8 weights, random init + quantize on the card {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    vlad8, counts8 = drive("int8_full", engine8)
+    for name in ("K3_fused_mlp_int8", "K4_fused_attn_half_int8"):
+        results[name]["launches"] = counts8[name]
+
+    got8 = ext8(imgs224)
+    want8 = through_plain(ext8, imgs224)
+    fcos8 = F.cosine_similarity(got8, want8, dim=-1).min().item()
+    vcos8 = F.cosine_similarity(
+        vlad8.aggregate(got8), K.vlad_aggregate_fused_ref(want8, vlad8.c_centers.to(dev)),
+        dim=-1).min().item()
+    qcos = F.cosine_similarity(got8, got_f, dim=-1)
+    print(f"G int8_full 224 px, kernels vs plain versions on the card: min facet cosine "
+          f"{fcos8:.6f} (bound >= 0.99), min VLAD cosine {vcos8:.6f}; int8_full vs the bf16 trunk "
+          f"on the same weights: facet cosine min {qcos.min().item():.6f} mean "
+          f"{qcos.mean().item():.6f} (not asserted)", flush=True)
+    check(fcos8 >= 0.99, "int8_full path disagrees with its plain version")
 
     # ---------------------------------------------------------------- throughput
-    for px, bsz in [(224, 32), (308, 32), (1022, 1)]:
-        x = torch.randint(0, 256, (bsz, px, px, 3), dtype=torch.uint8, generator=None).to(dev)
+    for path, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):
+        for px, bsz in [(224, 32), (308, 32), (1022, 1)]:
+            x = torch.randint(0, 256, (bsz, px, px, 3), dtype=torch.uint8).to(dev)
 
-        def step():
-            return vlad.aggregate(ext(x))
+            def step():
+                return vl.aggregate(extractor(x))
 
-        ms = time_ms(step, iters=10, reps=3)
-        n_tok = (px // 14) ** 2 + 1
-        print(f"throughput {tag}: extract+VLAD {px} px ({n_tok} tokens) batch {bsz}: "
-              f"{ms:.2f} ms/batch, {bsz * 1000 / ms:.2f} images/s", flush=True)
-        if profile_dir is not None:
-            profile(step, Path(profile_dir) / f"profile_{px}px_b{bsz}.txt", f"{px} px batch {bsz} {tag}")
+            ms = time_ms(step, iters=10, reps=3)
+            n_tok = (px // 14) ** 2 + 1
+            print(f"throughput {tag}: {path} extract+VLAD {px} px ({n_tok} tokens) batch {bsz}: "
+                  f"{ms:.2f} ms/batch, {bsz * 1000 / ms:.2f} images/s", flush=True)
+            if profile_dir is not None:
+                profile(step, Path(profile_dir) / f"profile_{path}_{px}px_b{bsz}.txt",
+                        f"{path} {px} px batch {bsz} {tag}")
 
     print(f"card: {card}", flush=True)
     return {name: {"name": name, "route": "cuda", **KERNEL_INFO[name], **r}

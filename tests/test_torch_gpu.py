@@ -128,3 +128,109 @@ def test_kernels_refuse_what_they_do_not_take():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="contiguous"):
         vlad_aggregate_fused(_randn(2, 10, 16).transpose(0, 1), _randn(4, 16))
+
+
+# ---------------------------------------------------------------- K3, K4 (int8)
+# The kernels repeat their plain versions' arithmetic in the same order, so
+# they differ only where an f32 reduction in another order (LayerNorm sums,
+# exp) or K4's online softmax (P rounded to bf16 before the division by the
+# row sum, where the plain version rounds the normalized P) moves a value
+# across an int8 or bf16 rounding boundary. A flipped int8 code is a whole
+# quantization step, and a flipped input code moves its whole row: such
+# flips are rare and discrete. So the bounds are rms_rel over the output,
+# plus an elementwise atol/rtol that at most 0.1 % of the elements may
+# exceed.
+
+def _rms_rel(got, want):
+    got, want = got.double(), want.double()
+    return (((got - want) ** 2).mean() / (want ** 2).mean()).sqrt().item()
+
+
+def _close_but_rare_flips(got, want, atol, rtol, share=1e-3):
+    got, want = got.float(), want.float()
+    out = (got - want).abs() > atol + rtol * want.abs()
+    assert out.float().mean().item() <= share, (out.sum().item(), out.numel())
+
+
+def _int8_weights(k, n, seed):
+    from anyloc_tpu_torch.ops.quant import quantize_weight_cols
+
+    return quantize_weight_cols(_randn(k, n, seed=seed, scale=k ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mlp_type,hid,chunk,epilogue", [
+    ("swiglu_fused", 512, 128, True), ("swiglu_fused", 384, None, False),
+    ("mlp", 256, 128, True)])
+def test_fused_mlp_int8_kernel_matches_ref(dtype, mlp_type, hid, chunk, epilogue):
+    from anyloc_tpu_torch.ops.kernels import fused_mlp_int8, fused_mlp_int8_ref
+
+    m, d = 333, 128
+    two = 2 if mlp_type == "swiglu_fused" else 1
+    x = _randn(m, d, dtype=dtype, seed=10)
+    w12, s12 = _int8_weights(d, two * hid, 11)
+    w3, s3 = _int8_weights(hid, d, 12)
+    args = (x, w12, s12, _randn(two * hid, seed=13, scale=0.1), w3, s3, _randn(d, seed=14, scale=0.1))
+    kw = dict(mlp_type=mlp_type, hidden_chunk=chunk)
+    if epilogue:
+        kw.update(ln_params=(1 + _randn(d, seed=15, scale=0.1), _randn(d, seed=16, scale=0.1)),
+                  layerscale=_randn(d, seed=17, scale=0.5), residual=True)
+    before = fused_mlp_int8.launches
+    got = fused_mlp_int8(*args, **kw)
+    assert fused_mlp_int8.launches == before + 1
+    want = fused_mlp_int8_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    # bf16 output: one ulp is 2^-8 of the value, so a last-bit f32 difference
+    # before the final rounding shows as ~4e-3 on that element
+    assert _rms_rel(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-3)
+    tol = dict(atol=2e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=1e-3, rtol=1e-4)
+    _close_but_rare_flips(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,h,hd,hc,with_gamma", [
+    (2, 77, 4, 64, None, True), (3, 130, 4, 32, 2, True), (2, 13, 2, 64, 1, False)])
+def test_attn_half_int8_kernel_matches_ref(dtype, b, n, h, hd, hc, with_gamma):
+    from anyloc_tpu_torch.ops.kernels import fused_attn_half_int8, fused_attn_half_int8_ref
+
+    d = h * hd
+    x = _randn(b, n, d, dtype=dtype, seed=20)
+    wqkv, sqkv = _int8_weights(d, 3 * d, 21)
+    wp, sp = _int8_weights(d, d, 22)
+    args = (x, wqkv, sqkv, _randn(3 * d, seed=23, scale=0.1), wp, sp, _randn(d, seed=24, scale=0.1))
+    kw = dict(num_heads=h, head_chunk=hc,
+              ln_params=(1 + _randn(d, seed=25, scale=0.1), _randn(d, seed=26, scale=0.1)),
+              layerscale=_randn(d, seed=27, scale=0.5) if with_gamma else None)
+    before = fused_attn_half_int8.launches
+    got = fused_attn_half_int8(*args, **kw)
+    assert fused_attn_half_int8.launches == before + 1
+    want = fused_attn_half_int8_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rms_rel(got, want) <= 1e-2
+    _close_but_rare_flips(got, want, atol=2e-2, rtol=1e-2)
+
+
+def test_int8_trunk_on_the_card_matches_the_cpu():
+    """A small int8_full trunk (K4 + K3 at 224 px) on the card against the
+    same trunk's plain path on the CPU: facet cosine >= 0.999."""
+    import dataclasses
+
+    from anyloc_tpu_torch import ViTConfig, ViTFacetExtractor
+    from anyloc_tpu_torch.ops.kernels import fused_attn_half_int8, fused_mlp_int8
+
+    cfg = ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2, mlp_type="swiglu_fused",
+                    mlp_ratio=12.0, dtype=torch.float32, quant="int8_full")
+    cpu = ViTFacetExtractor(cfg, None, 1, "token", device="cpu", seed=3)
+    sd = {k: (torch.full_like(v, 0.5) if k.endswith("gamma") else v)
+          for k, v in cpu.model.state_dict().items()}
+    cpu = ViTFacetExtractor(cfg, sd, 1, "token", device="cpu")
+    gpu = ViTFacetExtractor(dataclasses.replace(cfg), sd, 1, "token", device="cuda")
+    imgs = np.random.default_rng(1).standard_normal((2, 224, 224, 3)).astype(np.float32)
+    k3, k4 = fused_mlp_int8.launches, fused_attn_half_int8.launches
+    got = gpu(imgs).cpu()
+    assert fused_mlp_int8.launches == k3 + 2 and fused_attn_half_int8.launches == k4 + 2
+    want = cpu(imgs)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    assert cos >= 0.999, cos

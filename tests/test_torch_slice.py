@@ -125,13 +125,15 @@ def test_facet_parity_with_jax_extractor(d, depth, heads, px, layer, facet, swig
     imgs = np.random.default_rng(4).standard_normal((2, px, px, 3)).astype(np.float32)
     jext = JaxExtractor(jcfg, convert_dinov2(sd, jcfg), layer, facet, use_cls=use_cls)
     want = np.asarray(jext(jnp.asarray(imgs)))
-    got = port.ViTFacetExtractor(pcfg, sd, layer, facet, use_cls=use_cls)(imgs).numpy()
+    got = port.ViTFacetExtractor(pcfg, sd, layer, facet, use_cls=use_cls,
+                                 device="cpu")(imgs).numpy()
     assert got.shape == want.shape == (2, (px // 14) ** 2 + use_cls, d)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_random_init_dinov2_extractor_shapes():
-    ext = port.DinoV2ExtractFeatures("dinov2_vits14", 0, "value", dtype="float32")
+    ext = port.DinoV2ExtractFeatures("dinov2_vits14", 0, "value", dtype="float32",
+                                      device="cpu")
     assert len(ext.model.blocks) == 1           # truncated trunk
     out = ext(np.zeros((1, 56, 56, 3), np.uint8))  # uint8: normalized in-model
     assert tuple(out.shape) == (1, 16, 384)
@@ -242,7 +244,8 @@ def test_slice_matches_jax_pipeline_on_fixture(tmp_path, transfer_dtype):
     _, jidx, jrec = jax_get_top_k_recall(top_k, jall[:len(db)], jall[len(db):], gt)
 
     pds = port.VPRDataset(db, qu, soft_positives_per_query=gt, img_size=resize)
-    peng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(pcfg, sd, layer, facet),
+    peng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(pcfg, sd, layer, facet,
+                                                                                 device="cpu"),
                                  transfer_dtype=transfer_dtype)
     pvlad = port.VLAD(nc, desc_dim=64, cache_dir=str(vdir))
     pvlad.fit(None)
@@ -264,7 +267,8 @@ def test_run_global_vocab_vlad_on_fixture():
     largs.top_k_vals = [1, 5]
     largs.extractor.desc_layer = 2
     ds = port.VPRDataset(db, qu, soft_positives_per_query=gt, img_size=(112, 112))
-    eng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(pcfg, sd, 2, "value"))
+    eng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(pcfg, sd, 2, "value",
+                                                                                        device="cpu"))
     res = port.run_global_vocab_vlad(largs, dataset=ds, vocab_dataset=ds, engine=eng, verbose=False)
     assert res["VLAD-Dim"] == str(8 * 64) and res["Num-QU"] == "8"
     assert res["Qual-Indices"].shape == (8, 5)
@@ -276,7 +280,7 @@ def test_run_global_vocab_vlad_on_fixture():
 def test_empty_selection_keeps_three_dims():
     db, _, _ = _fixture()
     _, pcfg = _configs(64, 4, 4, 56)
-    eng = port.DescriptorEngine(extractor=port.ViTFacetExtractor(pcfg, None, 1, "value"))
+    eng = port.DescriptorEngine(extractor=port.ViTFacetExtractor(pcfg, None, 1, "value", device="cpu"))
     ds = port.VPRDataset(db[:2], [], img_size=(112, 112))
     out = eng.extract_dataset(ds, "queries", verbose=False)
     assert out.shape == (0, 64, 64)
