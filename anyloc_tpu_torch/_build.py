@@ -33,8 +33,12 @@ SIGNATURES = {
     "anyloc_flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "anyloc_attn_qkv_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
     "anyloc_vlad_aggregate": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "anyloc_fused_mlp_int8": [_P] * 16 + [_I] * 7 + [_F, _P],
-    "anyloc_attn_half_int8": [_P] * 17 + [_I] * 6 + [_F, _F, _P],
+    "anyloc_fused_mlp_int8": [_P] * 16 + [_I] * 8 + [_F, _P],
+    "anyloc_attn_half_int8": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
+    "anyloc_fused_block_int8": [_P] * 30 + [_I] * 9 + [_F, _F, _P],
+    "anyloc_attn_half_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+    "anyloc_fused_mlp_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "anyloc_attention_proj": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -34,19 +34,20 @@
 // f32, bqkv [3D] f32 or null, wp [D, D] int8 ([out, in]), sp [D], bp [D] or
 // null, gamma [D] or null. Scratch: xq [M, D] int8, xs [M] f32, qkv [M, 3D]
 // bf16, o [M, D] bf16, oq [M, D] int8, os [M, H / hc] f32. out [B, N, D] in
-// x's dtype.
+// out_dtype: x's dtype for K4, f32 for K9's x2 (fused_block_int8.cu).
 extern "C" int anyloc_attn_half_int8(
     const void* x, const void* ln_w, const void* ln_b, const void* wqkv,
     const void* sqkv, const void* bqkv, const void* wp, const void* sp,
     const void* bp, const void* gamma, void* xq, void* xs, void* qkv, void* o,
-    void* oq, void* os, void* out, int dtype, int B, int N, int H, int hd,
-    int hc, float eps, float scale, void* stream) {
+    void* oq, void* os, void* out, int dtype, int out_dtype, int B, int N, int H,
+    int hd, int hc, float eps, float scale, void* stream) {
   using namespace anyloc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
   const int M = B * N;
   if (M == 0) return cudaSuccess;
-  if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != DT_BF16 && dtype != DT_F32) || (out_dtype != DT_BF16 && out_dtype != DT_F32))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = launch_ln_quant(x, dtype, static_cast<const float*>(ln_w),
                                   static_cast<const float*>(ln_b),
                                   static_cast<int8_t*>(xq), static_cast<float*>(xs),
@@ -108,7 +109,5 @@ extern "C" int anyloc_attn_half_int8(
   pp.N = D;
   pp.K = D;
   pp.group = group;
-  e = dtype == DT_BF16 ? launch_gemm_i8<EPI_RESID, bf16>(pp, st)
-                       : launch_gemm_i8<EPI_RESID, float>(pp, st);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_gemm_i8_resid(pp, out_dtype, dtype, st));
 }

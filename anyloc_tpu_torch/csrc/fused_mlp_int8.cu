@@ -31,17 +31,19 @@
 // s12 / b12 per w12 row f32 (b12 may be null), w3 [D, HID] int8, s3 [D],
 // b3 [D] or null, gamma [D] or null, residual: add x.
 // Scratch: xq [M, D] int8, xs [M] f32, g [M, HID] f32, gq [M, HID] int8,
-// gs [M, HID / hc] f32. out [M, D] in x's dtype.
+// gs [M, HID / hc] f32. out [M, D] in out_dtype: x's dtype for K3; for
+// K9 (fused_block_int8.cu) x is the f32 x2 and out the block's dtype.
 extern "C" int anyloc_fused_mlp_int8(
     const void* x, const void* ln_w, const void* ln_b, const void* w12,
     const void* s12, const void* b12, const void* w3, const void* s3,
     const void* b3, const void* gamma, void* xq, void* xs, void* g, void* gq,
-    void* gs, void* out, int dtype, int M, int D, int HID, int hc, int swiglu,
-    int residual, float eps, void* stream) {
+    void* gs, void* out, int dtype, int out_dtype, int M, int D, int HID, int hc,
+    int swiglu, int residual, float eps, void* stream) {
   using namespace anyloc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0) return cudaSuccess;
-  if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != DT_BF16 && dtype != DT_F32) || (out_dtype != DT_BF16 && out_dtype != DT_F32))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = launch_ln_quant(x, dtype, static_cast<const float*>(ln_w),
                                   static_cast<const float*>(ln_b),
                                   static_cast<int8_t*>(xq), static_cast<float*>(xs),
@@ -81,7 +83,5 @@ extern "C" int anyloc_fused_mlp_int8(
   p3.N = D;
   p3.K = HID;
   p3.group = hc;
-  e = dtype == DT_BF16 ? launch_gemm_i8<EPI_RESID, bf16>(p3, st)
-                       : launch_gemm_i8<EPI_RESID, float>(p3, st);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_gemm_i8_resid(p3, out_dtype, dtype, st));
 }

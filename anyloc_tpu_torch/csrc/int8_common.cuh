@@ -1,5 +1,7 @@
-// Device code shared by the int8 W8A8 kernels K3 (fused_mlp_int8.cu) and K4
-// (attn_half_int8.cu):
+// Device code shared by the int8 W8A8 kernels K3 (fused_mlp_int8.cu), K4
+// (attn_half_int8.cu) and K9 (fused_block_int8.cu, through K4's and K3's
+// entry points); the LayerNorm, the erf polynomial, the cp.async helpers
+// and the EPI_* epilogue codes also serve the bf16 GEMM (bf16_gemm.cuh):
 //   * ln_quant_rows_kernel: optional LayerNorm (f32, two-pass mean and
 //     variance, 1 / sqrtf — not the approximate rsqrtf) and a per-row int8
 //     quantize, scale = max(amax, 1e-6) / 127, codes rintf(x / scale)
@@ -61,6 +63,32 @@ __device__ __forceinline__ int8_t quant_code(float x, float scale) {
   return static_cast<int8_t>(__float2int_rn(q));
 }
 
+// Row `row` of x [M, D] as f32 into row_buf[D], LayerNormed when ln_w is
+// not null. Each thread only ever touches its own entries of row_buf.
+template <typename T>
+__device__ __forceinline__ void ln_row(const T* __restrict__ x, const float* __restrict__ ln_w,
+                                       const float* __restrict__ ln_b, float* row_buf,
+                                       float* red, long long row, int D, float eps) {
+  const T* xr = x + row * D;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < D; i += LNQ_THREADS) {
+    const float v = to_float(xr[i]);
+    row_buf[i] = v;
+    s += v;
+  }
+  if (ln_w == nullptr) return;
+  const float mean = block_reduce<false>(s, red) / D;
+  float s2 = 0.f;
+  for (int i = threadIdx.x; i < D; i += LNQ_THREADS) {
+    const float dv = row_buf[i] - mean;
+    s2 += dv * dv;
+  }
+  const float var = block_reduce<false>(s2, red) / D;
+  const float r = 1.f / sqrtf(var + eps);
+  for (int i = threadIdx.x; i < D; i += LNQ_THREADS)  // ((x - mean) * r) * w + b
+    row_buf[i] = __fadd_rn(__fmul_rn(__fmul_rn(row_buf[i] - mean, r), ln_w[i]), ln_b[i]);
+}
+
 // One block per row of x [M, D]: (LN) -> int8 codes xq [M, D] + scale xs [M].
 // ln_w == nullptr skips the LayerNorm. Dynamic shared memory: D floats.
 template <typename T>
@@ -71,25 +99,7 @@ __global__ void __launch_bounds__(LNQ_THREADS)
   extern __shared__ float row_buf[];
   __shared__ float red[LNQ_THREADS / 32];
   const long long row = blockIdx.x;
-  const T* xr = x + row * D;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < D; i += LNQ_THREADS) {
-    const float v = to_float(xr[i]);
-    row_buf[i] = v;  // each thread only ever touches its own entries
-    s += v;
-  }
-  if (ln_w != nullptr) {
-    const float mean = block_reduce<false>(s, red) / D;
-    float s2 = 0.f;
-    for (int i = threadIdx.x; i < D; i += LNQ_THREADS) {
-      const float dv = row_buf[i] - mean;
-      s2 += dv * dv;
-    }
-    const float var = block_reduce<false>(s2, red) / D;
-    const float r = 1.f / sqrtf(var + eps);
-    for (int i = threadIdx.x; i < D; i += LNQ_THREADS)  // ((x - mean) * r) * w + b
-      row_buf[i] = __fadd_rn(__fmul_rn(__fmul_rn(row_buf[i] - mean, r), ln_w[i]), ln_b[i]);
-  }
+  ln_row(x, ln_w, ln_b, row_buf, red, row, D, eps);
   float am = 0.f;
   for (int i = threadIdx.x; i < D; i += LNQ_THREADS) am = fmaxf(am, fabsf(row_buf[i]));
   const float sc = quant_scale(block_reduce<true>(am, red));
@@ -152,11 +162,13 @@ constexpr int QP = QBK + 16;  // smem row pitch in bytes
 constexpr int Q_STAGE_BYTES = (QBM + QBN) * QP;
 constexpr int Q_SMEM_BYTES = QSTAGES * Q_STAGE_BYTES;  // 61,440: dynamic
 
+// GEMM epilogues (int8: bf16 qkv, f32 hidden; bf16_gemm.cuh: the operand
+// dtype throughout)
 enum {
-  EPI_QKV = 0,     // + bias, columns < q_cols times q_scale -> bf16 [M, N]
-  EPI_SWIGLU = 1,  // silu(g1 + b1) * (g2 + b2) -> f32 [M, N = HID]
-  EPI_GELU = 2,    // gelu(g + b), erf polynomial -> f32 [M, N = HID]
-  EPI_RESID = 3,   // (+ bias) (* gamma) (+ res) -> OutT [M, N]
+  EPI_QKV = 0,     // + bias, columns < q_cols times q_scale -> OutT [M, N]
+  EPI_SWIGLU = 1,  // silu(g1 + b1) * (g2 + b2) -> OutT [M, N = HID]
+  EPI_GELU = 2,    // gelu(g + b), erf polynomial -> OutT [M, N = HID]
+  EPI_RESID = 3,   // (+ bias) (* gamma) (+ res in ResT) -> OutT [M, N]
 };
 
 struct I8GemmArgs {
@@ -166,7 +178,7 @@ struct I8GemmArgs {
   const float* col_scale;   // [rows]
   const float* bias;        // [rows] or null
   const float* gamma;       // [N] or null (EPI_RESID)
-  const void* res;          // [M, N] in OutT or null (EPI_RESID)
+  const void* res;          // [M, N] in ResT or null (EPI_RESID)
   void* out;                // [M, N]
   int M, N, K, group;
   int hid;                  // EPI_SWIGLU: first B row of W2
@@ -219,23 +231,24 @@ __device__ __forceinline__ float gelu_poly(float x) {
   return 0.5f * x * (1.f + erf_poly(x * 0.70710677f));
 }
 
-// The B row that tile row r (0..QBN-1) of column block bn reads, or -1.
+// The B row that tile row r (0..127) of column block bn reads, or -1, in a
+// GEMM of N output columns (EPI_SWIGLU: N = HID, W2 from B row hid on).
 // EPI_SWIGLU: each warp's 32 rows are 16 hidden columns of W1 then the
 // same 16 of W2, so one thread holds g1 (n-tiles 0, 1) and g2 (2, 3) of
 // the same hidden column; a block covers 64 hidden columns.
 template <int EPI>
-__device__ __forceinline__ int b_row(const I8GemmArgs& p, int bn, int r) {
+__device__ __forceinline__ int b_row(int N, int hid, int bn, int r) {
   if (EPI == EPI_SWIGLU) {
     const int j = r & 31;
     const int hcol = bn * 64 + (r >> 5) * 16 + (j & 15);
-    if (hcol >= p.N) return -1;
-    return j < 16 ? hcol : p.hid + hcol;
+    if (hcol >= N) return -1;
+    return j < 16 ? hcol : hid + hcol;
   }
-  const int c = bn * QBN + r;
-  return c < p.N ? c : -1;
+  const int c = bn * 128 + r;
+  return c < N ? c : -1;
 }
 
-template <int EPI, typename OutT>
+template <int EPI, typename OutT, typename ResT>
 __global__ void __launch_bounds__(QTHREADS)
     gemm_i8_kernel(I8GemmArgs p) {
   extern __shared__ __align__(16) int8_t q_smem[];
@@ -253,7 +266,7 @@ __global__ void __launch_bounds__(QTHREADS)
     ld_r[i] = c >> 2;
     ld_k[i] = (c & 3) * 16;
     a_row[i] = m0 + ld_r[i];
-    b_src[i] = b_row<EPI>(p, bn, ld_r[i]);
+    b_src[i] = b_row<EPI>(p.N, p.hid, bn, ld_r[i]);
   }
   auto load_stage = [&](int stage, int k0) {
     int8_t* As = q_smem + stage * Q_STAGE_BYTES;
@@ -276,7 +289,7 @@ __global__ void __launch_bounds__(QTHREADS)
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int br = b_row<EPI>(p, bn, wn + nt * 8 + 2 * t + h);
+      const int br = b_row<EPI>(p.N, p.hid, bn, wn + nt * 8 + 2 * t + h);
       cs[nt][h] = br >= 0 ? p.col_scale[br] : 0.f;
     }
 
@@ -360,7 +373,7 @@ __global__ void __launch_bounds__(QTHREADS)
       for (int nt = 0; nt < 4; ++nt) {
         if (EPI == EPI_SWIGLU && nt >= 2) continue;
         const int tr = wn + nt * 8 + 2 * t;  // tile row of the first column
-        const int br = b_row<EPI>(p, bn, tr);
+        const int br = b_row<EPI>(p.N, p.hid, bn, tr);
         if (br < 0) continue;  // N is even: the pair is valid together
         float v0 = facc[mt][nt][2 * half], v1 = facc[mt][nt][2 * half + 1];
         if (p.bias) {
@@ -394,7 +407,7 @@ __global__ void __launch_bounds__(QTHREADS)
           }
           const long long off = (long long)row * p.N + br;
           if (p.res) {
-            const OutT* r = static_cast<const OutT*>(p.res) + off;
+            const ResT* r = static_cast<const ResT*>(p.res) + off;
             v0 = __fadd_rn(v0, to_float(r[0]));
             v1 = __fadd_rn(v1, to_float(r[1]));
           }
@@ -407,17 +420,29 @@ __global__ void __launch_bounds__(QTHREADS)
   }
 }
 
-template <int EPI, typename OutT>
+template <int EPI, typename OutT, typename ResT = OutT>
 cudaError_t launch_gemm_i8(const I8GemmArgs& p, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(gemm_i8_kernel<EPI, OutT>,
+  cudaError_t e = cudaFuncSetAttribute(gemm_i8_kernel<EPI, OutT, ResT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Q_SMEM_BYTES);
   if (e != cudaSuccess) return e;
   const int cols_per_block = EPI == EPI_SWIGLU ? 64 : QBN;
   const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM));
-  gemm_i8_kernel<EPI, OutT><<<grid, QTHREADS, Q_SMEM_BYTES, st>>>(p);
+  gemm_i8_kernel<EPI, OutT, ResT><<<grid, QTHREADS, Q_SMEM_BYTES, st>>>(p);
   return cudaGetLastError();
+}
+
+// The EPI_RESID GEMM for output and residual dtype codes (DT_*): K3 and K4
+// write x's dtype over x; K9 writes its f32 x2 over a bf16 x, then a bf16
+// output over that f32 x2.
+inline cudaError_t launch_gemm_i8_resid(const I8GemmArgs& p, int out_dt, int res_dt,
+                                        cudaStream_t st) {
+  if (out_dt == DT_BF16)
+    return res_dt == DT_BF16 ? launch_gemm_i8<EPI_RESID, bf16, bf16>(p, st)
+                             : launch_gemm_i8<EPI_RESID, bf16, float>(p, st);
+  return res_dt == DT_BF16 ? launch_gemm_i8<EPI_RESID, float, bf16>(p, st)
+                           : launch_gemm_i8<EPI_RESID, float, float>(p, st);
 }
 
 }  // namespace

@@ -23,7 +23,7 @@ qkv), longer sequences to K2 on head-split views with a plain projection.
   * "int8_mlp": the bf16 attention half (K5 / K2), ``qdense`` in the MLP;
   * "int8_fused": the bf16 attention half, K3 for the MLP half.
 Which half runs fused also follows the TPU kernels' geometry rules
-(``int8_attn_geometry_ok``, ``int8_mlp_geometry_ok``): the fused halves
+(``attn_geometry_ok``, ``int8_mlp_geometry_ok``): the fused halves
 requantize per (row, chunk), the unfused ones per row, so the rule is part
 of the function. A quantized trunk keeps LayerNorm parameters, LayerScale
 gammas, weight scales and the int8 layers' biases in f32 (as the JAX
@@ -49,7 +49,7 @@ from anyloc_tpu_torch.ops.kernels import (
     flash_attention_qkv_proj,
     fused_attn_half_int8,
     fused_mlp_int8,
-    int8_attn_geometry_ok,
+    attn_geometry_ok,
     int8_mlp_geometry_ok,
 )
 from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
@@ -235,7 +235,7 @@ class Block(nn.Module):
         c = self.cfg
         b, n, d = x.shape
         if (c.quant == "int8_full" and not qkv_only and n <= MAX_FUSED_TOKENS
-                and int8_attn_geometry_ok(c.num_heads, c.head_dim)):
+                and attn_geometry_ok(c.num_heads, c.head_dim)):
             # K4: norm1 + int8 qkv + attention + int8 proj + ls1 + residual
             qkv, proj = self.attn.qkv, self.attn.proj
             x = fused_attn_half_int8(

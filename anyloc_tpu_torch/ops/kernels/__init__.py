@@ -5,17 +5,27 @@ one each time the wrapper launches its CUDA kernels."""
 
 from anyloc_tpu_torch.ops.kernels.attn_proj import (
     MAX_FUSED_TOKENS,
+    attention_proj,
+    attention_proj_ref,
+    attn_geometry_ok,
     flash_attention_qkv_proj,
     flash_attention_qkv_proj_ref,
+    fused_attn_half_bf16,
+    fused_attn_half_bf16_ref,
     fused_attn_half_int8,
     fused_attn_half_int8_ref,
-    int8_attn_geometry_ok,
+)
+from anyloc_tpu_torch.ops.kernels.fused_block import (
+    fused_block_int8,
+    fused_block_int8_ref,
 )
 from anyloc_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
 from anyloc_tpu_torch.ops.kernels.fused_mlp import (
+    fused_mlp_bf16,
+    fused_mlp_bf16_ref,
     fused_mlp_int8,
     fused_mlp_int8_ref,
     int8_mlp_geometry_ok,
@@ -32,6 +42,10 @@ KERNELS = {
     "K3_fused_mlp_int8": fused_mlp_int8,
     "K4_fused_attn_half_int8": fused_attn_half_int8,
     "K5_flash_attention_qkv_proj": flash_attention_qkv_proj,
+    "K6_attention_proj": attention_proj,
+    "K7_fused_attn_half_bf16": fused_attn_half_bf16,
+    "K8_fused_mlp_bf16": fused_mlp_bf16,
+    "K9_fused_block_int8": fused_block_int8,
 }
 
 
@@ -45,10 +59,13 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "KERNELS", "MAX_FUSED_TOKENS", "flash_attention", "flash_attention_ref",
+    "KERNELS", "MAX_FUSED_TOKENS", "attention_proj", "attention_proj_ref",
+    "attn_geometry_ok", "flash_attention", "flash_attention_ref",
     "flash_attention_qkv_proj", "flash_attention_qkv_proj_ref",
-    "fused_attn_half_int8", "fused_attn_half_int8_ref", "fused_mlp_int8",
-    "fused_mlp_int8_ref", "int8_attn_geometry_ok", "int8_mlp_geometry_ok",
+    "fused_attn_half_bf16", "fused_attn_half_bf16_ref", "fused_attn_half_int8",
+    "fused_attn_half_int8_ref", "fused_block_int8", "fused_block_int8_ref",
+    "fused_mlp_bf16", "fused_mlp_bf16_ref", "fused_mlp_int8",
+    "fused_mlp_int8_ref", "int8_mlp_geometry_ok",
     "launch_counts", "reset_launch_counts", "vlad_aggregate_fused",
     "vlad_aggregate_fused_ref",
 ]

@@ -39,3 +39,25 @@ def ptr(t):
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_gemm_rows(m: int, dtype: torch.dtype, name: str) -> None:
+    """The GEMMs put their row tiles on the grid's y axis, at most 65535 of
+    them: 128 rows for int8 (csrc/int8_common.cuh) and bf16
+    (csrc/bf16_gemm.cuh) operands, 64 for the f32 twin. ``dtype`` is the
+    GEMM's operand type."""
+    tile = 64 if dtype == torch.float32 else 128
+    if -(-m // tile) > 65535:
+        raise ValueError(f"{name}: {m} rows > {tile * 65535}; split the batch")
+
+
+def nk_weight(w: torch.Tensor, name: str) -> torch.Tensor:
+    """A JAX-layout weight [in, out] as the kernels' [out, in] rows: a
+    Linear weight's .t() view is exactly that, so the usual caller pays no
+    copy. The rows must be 16-byte aligned, with an input width that is a
+    multiple of 8 elements and of 16 bytes."""
+    w_nk = w.t().contiguous()
+    if w_nk.data_ptr() % 16 or w_nk.shape[1] % max(8, 16 // w_nk.element_size()):
+        raise ValueError(f"{name}: weights must be 16-byte aligned with an input "
+                         f"width % 8 == 0 and rows of whole 16 bytes, got {tuple(w.shape)}")
+    return w_nk

@@ -3,7 +3,7 @@
 K5 — attention read straight from the fused qkv tensor, then the output
 projection with bias, LayerScale and residual. Hand-written Hopper kernels
 (``csrc/attn_qkv_proj.cu``, reusing K2's device attention code through
-strided column views) replacing
+strided column views and the bf16 GEMM of ``csrc/bf16_gemm.cuh``) replacing
 ``anyloc_tpu/ops/pallas/attn_proj.py::flash_attention_qkv_proj`` (:327);
 the bf16 trunk's attention half. Math (K5's rounding, which differs from
 K2's): q * scale in f32, rounded to qkv's dtype, then f32-summed scores;
@@ -25,6 +25,25 @@ The head chunk is the quantization group of K4's projection, so it is part
 of the function: ``head_chunk=None`` takes the TPU kernel's rule
 (``_pick_int8_head_chunk``), an explicit value is honoured as the largest
 divisor of H not above it (the rule the TPU kernel uses in interpret mode).
+
+K7 — the bf16 attention half (``csrc/attn_half_bf16.cu``) replacing
+``anyloc_tpu/ops/pallas/attn_proj.py::fused_attn_half_bf16`` (:709): K4's
+dataflow without quantization. Math: LN1 in f32, written in x's dtype;
+``qkv = xn @ wqkv + b`` in f32, q times the softmax scale, each rounded
+once to x's dtype; f32 scores, softmax, P and each head's output in x's
+dtype; ``o_cat @ w_proj`` in f32, ``+ b_proj``, ``· layerscale``, ``+ x``,
+cast to x's dtype.
+
+K6 — attention + projection over head-split q/k/v
+(``csrc/attention_proj.cu``) replacing
+``anyloc_tpu/ops/pallas/attn_proj.py::attention_proj`` (:822): K5's
+rounding (q · scale rounded to q's dtype) with no bias, LayerScale or
+residual; output in q's dtype.
+
+K6 and K7 are not wired into the trunk, as in the JAX package; the
+block-variant tools (``anyloc_tpu_torch/tools/``) drive them. Their head
+chunk and ``skew`` only order f32 sums on the TPU: the wrappers accept and
+ignore them (K7 still refuses a head geometry the TPU kernel refuses).
 """
 
 from __future__ import annotations
@@ -37,7 +56,7 @@ from anyloc_tpu_torch import _build
 from anyloc_tpu_torch.ops.common import round_up
 from anyloc_tpu_torch.ops.kernels import _launch
 from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
-from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
+from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows, row_quant_scratch
 from anyloc_tpu_torch.ops.quant import _int_mm, quantize_rows
 
 # The TPU kernels' token bound (anyloc_tpu/ops/pallas/attn_proj.py:41); the
@@ -74,10 +93,12 @@ def _pick_int8_head_chunk(n: int, h: int, hd: int, requested: Optional[int]) -> 
     return None
 
 
-def int8_attn_geometry_ok(num_heads: int, head_dim: int) -> bool:
-    """True iff the JAX trunk runs the fused int8 attention half for this
-    head geometry (``attn_proj.py:176-189``); else LN + per-row ``qdense``
-    + attention."""
+def attn_geometry_ok(num_heads: int, head_dim: int) -> bool:
+    """True iff the TPU's fused attention kernels lower for this head
+    geometry (``attn_proj.py:176-189``): some head chunk dividing the heads
+    is a multiple of 128 lanes wide. The JAX trunk runs the fused int8
+    attention half only then; else LN + per-row ``qdense`` + attention. K7
+    and K9 refuse any other geometry, as their TPU wrappers do."""
     return any(num_heads % hc == 0 and (hc * head_dim) % 128 == 0
                for hc in range(1, num_heads + 1))
 
@@ -90,8 +111,18 @@ def resolve_head_chunk(n: int, h: int, hd: int, head_chunk: Optional[int]) -> in
         raise ValueError(
             f"fused_attn_half_int8: no head chunk with hc*head_dim % 128 == 0 "
             f"exists for num_heads={h}, head_dim={hd}; gate with "
-            "int8_attn_geometry_ok() or pass head_chunk")
+            "attn_geometry_ok() or pass head_chunk")
     return hc
+
+
+def attn_half_int8_scratch(m: int, d: int, n_chunks: int, dev) -> list:
+    """K4's (and K9's) attention scratch after the row-quantized input, in
+    the C argument order: qkv [M, 3D] bf16, o [M, D] bf16, its codes oq
+    [M, D] int8 and scales os [M, head chunks] f32."""
+    return [torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=torch.int8, device=dev),
+            torch.empty((m, n_chunks), dtype=torch.float32, device=dev)]
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -100,6 +131,13 @@ def _split_heads(qkv: torch.Tensor, num_heads: int):
     hd = d // num_heads
     return [qkv[..., i * d:(i + 1) * d].reshape(b, n, num_heads, hd).transpose(1, 2)
             for i in range(3)]
+
+
+def _attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ) v per head for q already scaled and rounded: f32 sums
+    and softmax, P rounded to v's dtype, the output rounded to v's dtype."""
+    p = torch.softmax(q.float() @ k.float().transpose(-1, -2), dim=-1)
+    return (p.to(v.dtype).float() @ v.float()).to(v.dtype)
 
 
 def flash_attention_qkv_proj_ref(
@@ -118,10 +156,7 @@ def flash_attention_qkv_proj_ref(
     hd = d // num_heads
     scale = hd ** -0.5 if scale is None else float(scale)
     q, k, v = _split_heads(qkv, num_heads)
-    q = (q.float() * scale).to(qkv.dtype)
-    s = q.float() @ k.float().transpose(-1, -2)
-    p = torch.softmax(s, dim=-1)
-    o = (p.to(v.dtype).float() @ v.float()).to(v.dtype)
+    o = _attention_ref((q.float() * scale).to(qkv.dtype), k, v)
     o_cat = o.transpose(1, 2).reshape(b, n, d)
     out = o_cat.float() @ w_proj.float()
     if b_proj is not None:
@@ -183,16 +218,10 @@ def flash_attention_qkv_proj(
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("flash_attention_qkv_proj: qkv must be contiguous "
                          "and 16-byte aligned")
-    if b * n > 64 * 65535:  # the GEMM puts 64-row tiles on the grid's y axis
-        raise ValueError(f"flash_attention_qkv_proj: B*N = {b * n} rows > "
-                         f"{64 * 65535}; split the batch")
+    _launch.check_gemm_rows(b * n, qkv.dtype, "flash_attention_qkv_proj")
     if residual is not None and not residual.is_contiguous():
         raise ValueError("flash_attention_qkv_proj: residual must be contiguous")
-    # the kernel reads W_O as [D_out, D] rows; a Linear weight's .t() view
-    # is exactly that, so the usual caller pays no copy
-    w_nk = w_proj.t().contiguous()
-    if w_nk.data_ptr() % 16:
-        raise ValueError("flash_attention_qkv_proj: w_proj must be 16-byte aligned")
+    w_nk = _launch.nk_weight(w_proj, "flash_attention_qkv_proj")
     bias = None if b_proj is None else b_proj.float().contiguous()
     gamma = None if layerscale is None else layerscale.float().contiguous()
     o = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
@@ -297,30 +326,21 @@ def fused_attn_half_int8(
         if vec is not None and tuple(vec.shape) != (want,):
             raise ValueError(f"fused_attn_half_int8: {name} must be [{want}], "
                              f"got {tuple(vec.shape)}")
-    if -(-b * n // 128) > 65535:
-        raise ValueError(f"fused_attn_half_int8: B*N = {b * n} rows > {128 * 65535}; "
-                         "split the batch")
-    wqkv_nk = wqkv_q.t().contiguous()
-    wp_nk = wp_q.t().contiguous()
-    if wqkv_nk.data_ptr() % 16 or wp_nk.data_ptr() % 16:
-        raise ValueError("fused_attn_half_int8: the weights must be 16-byte aligned")
+    _launch.check_gemm_rows(b * n, torch.int8, "fused_attn_half_int8")
+    wqkv_nk = _launch.nk_weight(wqkv_q, "fused_attn_half_int8")
+    wp_nk = _launch.nk_weight(wp_q, "fused_attn_half_int8")
     f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
     x = x.contiguous()
-    m, dev = b * n, x.device
-    xq = torch.empty((m, d), dtype=torch.int8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
-    o = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    oq = torch.empty((m, d), dtype=torch.int8, device=dev)
-    osc = torch.empty((m, num_heads // hc), dtype=torch.float32, device=dev)
+    m = b * n
+    scratch = (row_quant_scratch(m, d, x.device)
+               + attn_half_int8_scratch(m, d, num_heads // hc, x.device))
     out = torch.empty_like(x)
     p = _launch.ptr
     rc = _build.load_library().anyloc_attn_half_int8(
         x.data_ptr(), f32["ln_scale"].data_ptr(), f32["ln_bias"].data_ptr(),
         wqkv_nk.data_ptr(), f32["wqkv_scale"].data_ptr(), p(f32["b_qkv"]),
         wp_nk.data_ptr(), f32["wp_scale"].data_ptr(), p(f32["b_proj"]),
-        p(f32["layerscale"]), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        o.data_ptr(), oq.data_ptr(), osc.data_ptr(), out.data_ptr(), code,
+        p(f32["layerscale"]), *[t.data_ptr() for t in scratch], out.data_ptr(), code, code,
         b, n, num_heads, hd, hc, float(ln_eps), scale, _launch.stream(x))
     _build.check(rc, "fused_attn_half_int8")
     fused_attn_half_int8.launches += 1
@@ -328,3 +348,173 @@ def fused_attn_half_int8(
 
 
 fused_attn_half_int8.launches = 0
+
+
+# ---------------------------------------------------------------- K7
+
+
+def _check_attn_half_bf16(x, wqkv, wp, num_heads):
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
+    if tuple(wqkv.shape) != (d, 3 * d) or tuple(wp.shape) != (d, d):
+        raise ValueError(f"fused_attn_half_bf16: wqkv must be [{d}, {3 * d}] and wp "
+                         f"[{d}, {d}], got {tuple(wqkv.shape)} {tuple(wp.shape)}")
+    return b, n, d, d // num_heads
+
+
+def fused_attn_half_bf16_ref(
+    x: torch.Tensor, wqkv, b_qkv, wp, b_proj, *, num_heads: int, ln_params: tuple,
+    ln_eps: float = 1e-6, layerscale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None, head_chunk: Optional[int] = None, skew: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's math (materializes the
+    [B, H, N, N] scores)."""
+    b, n, d, hd = _check_attn_half_bf16(x, wqkv, wp, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    xf = x.reshape(-1, d).float()
+    xn = ln_rows(xf, *ln_params, ln_eps).to(x.dtype)
+    qkv = xn.float() @ wqkv.float()
+    if b_qkv is not None:
+        qkv = qkv + b_qkv.float()
+    q, k, v = (t.to(x.dtype).reshape(b, n, num_heads, hd).transpose(1, 2)
+               for t in (qkv[:, :d] * scale, qkv[:, d:2 * d], qkv[:, 2 * d:]))
+    o_cat = _attention_ref(q, k, v).transpose(1, 2).reshape(b * n, d)
+    acc = o_cat.float() @ wp.float()
+    if b_proj is not None:
+        acc = acc + b_proj.float()
+    if layerscale is not None:
+        acc = acc * layerscale.float()
+    return (acc + xf).to(x.dtype).reshape(b, n, d)
+
+
+def fused_attn_half_bf16(
+    x: torch.Tensor, wqkv, b_qkv, wp, b_proj, *, num_heads: int, ln_params: tuple,
+    ln_eps: float = 1e-6, layerscale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None, head_chunk: Optional[int] = None, skew: bool = True,
+) -> torch.Tensor:
+    """out = x + layerscale · (proj(attn(qkv(LN1(x)))) + b_proj) with float
+    weights: the first residual branch of a pre-norm ViT block.
+
+    x [B, N, D] (bf16 or f32); weights in x's dtype and the JAX layout,
+    wqkv [D, 3D] (q | k | v column thirds, head-minor), wp [D, D]; for
+    ``nn.Linear`` storage pass ``weight.t()`` (read as it is, no copy);
+    biases, LN parameters and layerscale [D] of any float dtype, used in
+    f32. ``head_chunk`` and ``skew`` are accepted and ignored (on the TPU
+    they only order f32 sums). CPU tensors take
+    ``fused_attn_half_bf16_ref``; CUDA tensors launch the kernels or raise."""
+    b, n, d, hd = _check_attn_half_bf16(x, wqkv, wp, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    vecs = dict(b_qkv=b_qkv, b_proj=b_proj, ln_scale=ln_params[0], ln_bias=ln_params[1],
+                layerscale=layerscale)
+    tensors = [x, wqkv, wp] + [t for t in vecs.values() if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_attn_half_bf16_ref(
+            x, wqkv, b_qkv, wp, b_proj, num_heads=num_heads, ln_params=ln_params,
+            ln_eps=ln_eps, layerscale=layerscale, scale=scale)
+    _launch.require_cuda("fused_attn_half_bf16", *tensors)
+    code = _launch.dtype_code(x, "fused_attn_half_bf16")
+    if wqkv.dtype != x.dtype or wp.dtype != x.dtype:
+        raise TypeError("fused_attn_half_bf16: wqkv and wp must have x's dtype")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"fused_attn_half_bf16: head dim {hd} not supported "
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+    if not attn_geometry_ok(num_heads, hd):
+        raise ValueError(f"fused_attn_half_bf16: no head chunk with hc*head_dim % 128 == 0 "
+                         f"exists for num_heads={num_heads}, head_dim={hd}")
+    for name, vec in vecs.items():
+        want = 3 * d if name == "b_qkv" else d
+        if vec is not None and tuple(vec.shape) != (want,):
+            raise ValueError(f"fused_attn_half_bf16: {name} must be [{want}], "
+                             f"got {tuple(vec.shape)}")
+    _launch.check_gemm_rows(b * n, x.dtype, "fused_attn_half_bf16")
+    wqkv_nk = _launch.nk_weight(wqkv, "fused_attn_half_bf16")
+    wp_nk = _launch.nk_weight(wp, "fused_attn_half_bf16")
+    f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
+    x = x.contiguous()
+    m, dev = b * n, x.device
+    xn = torch.empty((m, d), dtype=x.dtype, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=x.dtype, device=dev)
+    o = torch.empty((m, d), dtype=x.dtype, device=dev)
+    out = torch.empty_like(x)
+    p = _launch.ptr
+    rc = _build.load_library().anyloc_attn_half_bf16(
+        x.data_ptr(), f32["ln_scale"].data_ptr(), f32["ln_bias"].data_ptr(),
+        wqkv_nk.data_ptr(), p(f32["b_qkv"]), wp_nk.data_ptr(), p(f32["b_proj"]),
+        p(f32["layerscale"]), xn.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
+        code, b, n, num_heads, hd, float(ln_eps), scale, _launch.stream(x))
+    _build.check(rc, "fused_attn_half_bf16")
+    fused_attn_half_bf16.launches += 1
+    return out
+
+
+fused_attn_half_bf16.launches = 0
+
+
+# ---------------------------------------------------------------- K6
+
+
+def attention_proj_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w_proj: torch.Tensor, *, scale: Optional[float] = None,
+                       head_chunk: Optional[int] = None, skew: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's math."""
+    b, h, n, hd = q.shape
+    scale = hd ** -0.5 if scale is None else float(scale)
+    o = _attention_ref((q.float() * scale).to(q.dtype), k, v)
+    o_cat = o.transpose(1, 2).reshape(b, n, h * hd)
+    return (o_cat.float() @ w_proj.float()).to(q.dtype)
+
+
+def attention_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w_proj: torch.Tensor, *, scale: Optional[float] = None,
+                   head_chunk: Optional[int] = None, skew: bool = True) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v per head, heads concatenated, @ w_proj.
+
+    q/k/v [B, H, N, hd] (views of any strides with a contiguous head dim),
+    w_proj [H·hd, D_out] in q's dtype (the JAX layout; pass
+    ``linear.weight.t()`` for a ``nn.Linear``) -> [B, N, D_out] in q's
+    dtype. ``head_chunk`` and ``skew`` are accepted and ignored (on the TPU
+    they only order f32 sums). CPU tensors take ``attention_proj_ref``;
+    CUDA tensors launch the kernels or raise."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"attention_proj: q/k/v must share one [B, H, N, hd] shape, "
+                         f"got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    b, h, n, hd = q.shape
+    if w_proj.dim() != 2 or w_proj.shape[0] != h * hd:
+        raise ValueError(f"attention_proj: w_proj must be [{h * hd}, D_out], "
+                         f"got {tuple(w_proj.shape)}")
+    d_out = w_proj.shape[1]
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, w_proj)):
+        return attention_proj_ref(q, k, v, w_proj, scale=scale)
+    _launch.require_cuda("attention_proj", q, k, v, w_proj)
+    code = _launch.dtype_code(q, "attention_proj")
+    if k.dtype != q.dtype or v.dtype != q.dtype or w_proj.dtype != q.dtype:
+        raise TypeError("attention_proj: q, k, v and w_proj must share one dtype")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"attention_proj: head dim {hd} not supported "
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or not _launch.aligned(t, 8):
+            raise ValueError(
+                f"attention_proj: {name} needs a contiguous head dim, a 16-byte aligned "
+                f"base and strides that are multiples of 8 (strides {t.stride()})")
+    if d_out % 2:
+        raise ValueError(f"attention_proj: D_out={d_out} must be even")
+    _launch.check_gemm_rows(b * n, q.dtype, "attention_proj")
+    w_nk = _launch.nk_weight(w_proj, "attention_proj")
+    o = torch.empty((b, n, h * hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, n, d_out), dtype=q.dtype, device=q.device)
+    rc = _build.load_library().anyloc_attention_proj(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), w_nk.data_ptr(), o.data_ptr(),
+        out.data_ptr(), code, b, h, n, hd, d_out,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), scale, _launch.stream(q))
+    _build.check(rc, "attention_proj")
+    attention_proj.launches += 1
+    return out
+
+
+attention_proj.launches = 0

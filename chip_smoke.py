@@ -8,11 +8,14 @@ Phases, each of which must pass or the script exits non-zero:
   2. build: compiles the CUDA kernels from anyloc_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. kernels: K1 (VLAD), K2 (flash attention), K5 (qkv attention +
-     out-projection), K4 (int8 attention half) and K3 (int8 MLP half)
-     against their plain PyTorch versions at the main paths' shapes, with
-     the error bound stated on each line, timed beside the plain version,
-     the least time the card could take (bound_ms) and, for K2, PyTorch's
-     scaled_dot_product_attention as a yardstick;
+     out-projection), K4 (int8 attention half), K3 (int8 MLP half) and the
+     block variants K9 (whole int8 block), K7 (bf16 attention half), K8
+     (bf16 MLP half) and K6 (attention + projection) against their plain
+     PyTorch versions at the main paths' and the block-variant tools'
+     shapes, with the error bound stated on each line, timed beside the
+     plain version, the least time the card could take (bound_ms), for K2
+     PyTorch's scaled_dot_product_attention as a yardstick, and for K6-K9
+     the route the trunk wires instead (wired_ms);
   4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
      value facet of layer 31 -> VLAD-32 fitted on the fixture's database
      -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
@@ -24,7 +27,12 @@ Phases, each of which must pass or the script exits non-zero:
      quantized on the card; K1, K2, K3 and K4 must launch during it; then
      G int8_full facets through the kernels against the plain versions,
      and against the bf16 trunk on the same weights;
-  6. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
+  6. block variants at DINOv2-G width: K9 on block 0 of the int8_full
+     trunk against the trunk's K4 -> K3, K7 -> K8 on block 0 of the bf16
+     trunk against the trunk's block, then the three block-variant tools
+     (anyloc_tpu_torch/tools/) with short stacks; K6-K9 must launch in
+     the tools' run;
+  7. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
 The line before the last is a JSON object with one entry per kernel; the
@@ -34,8 +42,8 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -59,12 +67,27 @@ KERNEL_INFO = {
     "K5_flash_attention_qkv_proj": dict(
         source="anyloc_tpu_torch/csrc/attn_qkv_proj.cu",
         replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
+    "K6_attention_proj": dict(
+        source="anyloc_tpu_torch/csrc/attention_proj.cu",
+        replaces="anyloc_tpu/ops/pallas/attn_proj.py:822"),
+    "K7_fused_attn_half_bf16": dict(
+        source="anyloc_tpu_torch/csrc/attn_half_bf16.cu",
+        replaces="anyloc_tpu/ops/pallas/attn_proj.py:709"),
+    "K8_fused_mlp_bf16": dict(
+        source="anyloc_tpu_torch/csrc/fused_mlp_bf16.cu",
+        replaces="anyloc_tpu/ops/pallas/fused_mlp.py:414"),
+    "K9_fused_block_int8": dict(
+        source="anyloc_tpu_torch/csrc/fused_block_int8.cu",
+        replaces="anyloc_tpu/ops/pallas/fused_block.py:128"),
 }
 # kernels each path must launch
 PATH_KERNELS = {
     "bf16": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K5_flash_attention_qkv_proj"),
     "int8_full": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
                   "K4_fused_attn_half_int8"),
+    # the block-variant tools (the JAX trunk does not wire K6-K9 either)
+    "variants": ("K6_attention_proj", "K7_fused_attn_half_bf16", "K8_fused_mlp_bf16",
+                 "K9_fused_block_int8"),
 }
 # One H100 SXM's published dense peaks at its 700 W limit (NVIDIA's data
 # sheet; f32 outside the tensor cores): operations/s by type, bytes/s.
@@ -78,14 +101,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(ops: dict, nbytes: float) -> dict:
@@ -112,25 +127,6 @@ def outside_share(got, want, atol: float, rtol: float) -> float:
     return ((got - want).abs() > atol + rtol * want.abs()).float().mean().item()
 
 
-def time_ms(fn, iters: int = 10, reps: int = 3, warmup: int = 2) -> float:
-    """Best of ``reps`` means over ``iters`` launches, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    best = float("inf")
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
-    return best
-
-
 def run(profile_dir) -> dict:
     import numpy as np
     import torch
@@ -146,7 +142,10 @@ def run(profile_dir) -> dict:
     from anyloc_tpu_torch.models import vit as vit_module
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops.kernels.attn_proj import _pick_int8_head_chunk
+    from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
     from anyloc_tpu_torch.ops.quant import quantize_weight_cols
+    from anyloc_tpu_torch.tools import bench_attn_half_bf16, bench_attn_proj, bench_fused_block
+    from anyloc_tpu_torch.tools._timing import card_line, time_ms
 
     dev = torch.device("cuda")
     card = card_line()
@@ -181,6 +180,8 @@ def run(profile_dir) -> dict:
     def timing_line(name, label):
         r = results[name]
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+        if "wired_ms" in r:
+            lib += f", wired route {r['wired_ms']:.3f} ms"
         print(f"{name} time {tag} at {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms"
               f"{lib}; bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
@@ -358,6 +359,205 @@ def run(profile_dir) -> dict:
                    **bound({"int8": 2 * m * d * 3 * hid}, 2 * m * d * 2 + 3 * hid * d + (2 * hid + 4 * d) * 4))
             timing_line("K3_fused_mlp_int8", "x [15520,1536] bf16")
 
+    # ---------------------------------------------------------------- K9
+    # the whole int8 block: K4's and K3's arithmetic with x2 kept in f32,
+    # so K4's form of bound; the wired route is K4 then K3 (bf16 x2). The
+    # output's bound cannot tell an f32 x2 from a bf16 one (flipped codes
+    # move it more than x2's rounding does), so the kernel's x2 is held to
+    # the plain version's f32 x2 at K4's bound and must not be bf16 values,
+    # and for a bf16 x the output must sit clearly nearer the plain version
+    # than the plain K4 -> K3 (x2 rounded to bf16). The share of elements
+    # beyond atol/rtol falls as N grows (K4's attention error in x2 does):
+    # the ragged case takes N 201, not 77, where the share reads ~1e-3
+    def k9_inputs(b, n, dtype, d=1536, h=24, hid=4096):
+        wqkv, sqkv = int8_weight(d, 3 * d)
+        wp, sp = int8_weight(d, d)
+        w12, s12 = int8_weight(d, 2 * hid)
+        w3, s3 = int8_weight(hid, d)
+        attn_p = (wqkv, sqkv, randn(3 * d, scale=0.1), wp, sp, randn(d, scale=0.1))
+        mlp_p = (w12, s12, randn(2 * hid, scale=0.1), w3, s3, randn(d, scale=0.1))
+        kw = dict(num_heads=h, ln1=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  ln2=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  gamma1=randn(d, scale=0.5), gamma2=randn(d, scale=0.5))
+        return randn(b, n, d, dtype=dtype), attn_p, mlp_p, kw
+
+    for label, b, n, dtype in [("224px", 32, 257, torch.bfloat16), ("308px", 32, 485, torch.bfloat16),
+                               ("ragged-f32", 4, 201, torch.float32)]:
+        x, attn_p, mlp_p, kw = k9_inputs(b, n, dtype)
+        hc = _pick_int8_head_chunk(n, 24, 64, None)
+        got, x2 = K.fused_block_int8(x, attn_p, mlp_p, return_x2=True, **kw)
+        want, x2_want = K.fused_block_int8_ref(x, attn_p, mlp_p, return_x2=True, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rr = rms_rel(got, want)
+        out = outside_share(got, want, **int8_tol)
+        x2_rr = rms_rel(x2, x2_want)
+        x2_out = outside_share(x2, x2_want, **int8_tol)
+        x2_bf16 = (x2 == x2.to(torch.bfloat16).float()).float().mean().item()
+        ok = out <= 1e-3 and rr <= 1e-2 and x2_out <= 1e-3 and x2_rr <= 1e-2 and x2_bf16 <= 1e-2
+        vs_bf16_x2 = ""
+        if dtype == torch.bfloat16:
+            rr_b = rms_rel(got, K.fused_mlp_int8_ref(
+                x2_want.to(dtype), *mlp_p, ln_params=kw["ln2"], layerscale=kw["gamma2"],
+                residual=True))
+            ok = ok and rr <= 0.9 * rr_b
+            vs_bf16_x2 = (f"; out vs the plain K4 -> K3 (bf16 x2) rms_rel {rr_b:.2e}, "
+                          f"ratio {rr / rr_b:.3f} (bound <= 0.9)")
+        print(f"K9 fused_block_int8 {label} B={b} N={n} D=1536 H=24 head chunk {hc} SwiGLU 4096 "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e}, rms_rel {rr:.2e}, share beyond atol "
+              f"2e-2 rtol 1e-2 {out:.2e}; x2 rms_rel {x2_rr:.2e}, share {x2_out:.2e}, share of "
+              f"bf16 values {x2_bf16:.2e} (bound: rms_rel <= 1e-2 and share <= 1e-3 for out and "
+              f"x2, bf16 share <= 1e-2){vs_bf16_x2} {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K9 {label} disagrees with its plain version")
+        record("K9_fused_block_int8", err)
+        if n == 485:
+            m, d, hid = b * n, 1536, 4096
+
+            def wired():
+                h1 = K.fused_attn_half_int8(x, *attn_p, num_heads=24, ln_params=kw["ln1"],
+                                            layerscale=kw["gamma1"])
+                return K.fused_mlp_int8(h1, *mlp_p, ln_params=kw["ln2"], layerscale=kw["gamma2"],
+                                        residual=True)
+
+            record("K9_fused_block_int8", 0.0,
+                   ms=time_ms(lambda: K.fused_block_int8(x, attn_p, mlp_p, **kw)),
+                   plain_ms=time_ms(lambda: K.fused_block_int8_ref(x, attn_p, mlp_p, **kw), iters=3),
+                   wired_ms=time_ms(wired),
+                   shape=f"x [{b},{n},1536] bf16, SwiGLU 4096, head chunk {hc}, hidden chunk 512",
+                   **bound({"int8": 2 * m * d * (4 * d + 3 * hid), "bf16": 4 * b * 24 * n * n * 64},
+                           2 * m * d * 2 + (4 * d + 3 * hid) * d + (16 * d + 4 * hid) * 4))
+            timing_line("K9_fused_block_int8", "x [32,485,1536] bf16")
+
+    # ---------------------------------------------------------------- K7
+    # bf16 attention half: the kernel rounds at the plain version's points
+    # (its online softmax rounds the unnormalized P, as K5's does), so K5's
+    # bound; the wired route is LN + the cuBLAS qkv product + K5
+    def linear_weight(k, n, dtype):
+        return randn(n, k, dtype=dtype, scale=k ** -0.5).t()   # JAX layout, Linear storage
+
+    def k7_inputs(b, n, dtype, d=1536, h=24):
+        args = (randn(b, n, d, dtype=dtype), linear_weight(d, 3 * d, dtype), randn(3 * d, scale=0.1),
+                linear_weight(d, d, dtype), randn(d, scale=0.1))
+        kw = dict(num_heads=h, ln_params=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  layerscale=randn(d, scale=0.5))
+        return args, kw
+
+    f32_tol = dict(atol=1e-4, rtol=1e-5)   # f32 FMA sums over K = 1536-4096 in another order
+    for label, b, n, dtype, tol in [("224px", 32, 257, torch.bfloat16, k2_bound),
+                                    ("ragged-f32", 2, 77, torch.float32, f32_tol)]:
+        args, kw = k7_inputs(b, n, dtype)
+        got = K.fused_attn_half_bf16(*args, **kw)
+        want = K.fused_attn_half_bf16_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        print(f"K7 fused_attn_half_bf16 {label} B={b} N={n} D=1536 H=24 {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K7 {label} disagrees with its plain version")
+        record("K7_fused_attn_half_bf16", err)
+        if b == 32:
+            m, d = b * n, 1536
+            x, wqkv, bqkv, wp, bp = args
+            bqkv16 = bqkv.to(torch.bfloat16)
+
+            def wired():
+                xn = ln_rows(x.float(), *kw["ln_params"], 1e-6).to(torch.bfloat16)
+                return K.flash_attention_qkv_proj(xn @ wqkv + bqkv16, wp, bp, num_heads=24,
+                                                  layerscale=kw["layerscale"], residual=x)
+
+            record("K7_fused_attn_half_bf16", 0.0,
+                   ms=time_ms(lambda: K.fused_attn_half_bf16(*args, **kw)),
+                   plain_ms=time_ms(lambda: K.fused_attn_half_bf16_ref(*args, **kw), iters=3),
+                   wired_ms=time_ms(wired),
+                   shape=f"x [{b},{n},1536] bf16",
+                   **bound({"bf16": 2 * m * d * 4 * d + 4 * b * 24 * n * n * 64},
+                           2 * m * d * 2 + 4 * d * d * 2 + 7 * d * 4))
+            timing_line("K7_fused_attn_half_bf16", "x [32,257,1536] bf16")
+
+    # ---------------------------------------------------------------- K8
+    # bf16 MLP half: the same rounding points as the plain version; the
+    # wired route is the bf16 trunk's plain MLP half (LayerNorm, cuBLAS
+    # w12, SiLU, cuBLAS w3, LayerScale and residual, each in bf16)
+    def k8_inputs(m, d, hid, dtype, mlp_type):
+        two = 2 if mlp_type == "swiglu_fused" else 1
+        args = (randn(m, d, dtype=dtype), linear_weight(d, two * hid, dtype),
+                randn(two * hid, scale=0.1), linear_weight(hid, d, dtype), randn(d, scale=0.1))
+        kw = dict(mlp_type=mlp_type, ln_params=(1 + randn(d, scale=0.1), randn(d, scale=0.1)),
+                  layerscale=randn(d, scale=0.5), residual=True)
+        return args, kw
+
+    for label, m, d, hid, dtype, mlp_type, tol in [
+        ("224px", 32 * 257, 1536, 4096, torch.bfloat16, "swiglu_fused", k2_bound),
+        ("gelu-f32", 333, 256, 1024, torch.float32, "mlp", f32_tol),
+    ]:
+        args, kw = k8_inputs(m, d, hid, dtype, mlp_type)
+        got = K.fused_mlp_bf16(*args, **kw)
+        want = K.fused_mlp_bf16_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        print(f"K8 fused_mlp_bf16 {label} M={m} D={d} HID={hid} {mlp_type} {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K8 {label} disagrees with its plain version")
+        record("K8_fused_mlp_bf16", err)
+        if label == "224px":
+            x, w12, b12, w3, b3 = args
+            lin12, lin3 = w12.t(), w3.t()
+            b12h, b3h = b12.to(torch.bfloat16), b3.to(torch.bfloat16)
+            lnw, lnb = (t.to(torch.bfloat16) for t in kw["ln_params"])
+            g16 = kw["layerscale"].to(torch.bfloat16)
+
+            def wired():
+                h1, h2 = F.linear(F.layer_norm(x, (d,), lnw, lnb, 1e-6), lin12, b12h).chunk(2, dim=-1)
+                return x + F.linear(F.silu(h1) * h2, lin3, b3h) * g16
+
+            record("K8_fused_mlp_bf16", 0.0,
+                   ms=time_ms(lambda: K.fused_mlp_bf16(*args, **kw)),
+                   plain_ms=time_ms(lambda: K.fused_mlp_bf16_ref(*args, **kw), iters=3),
+                   wired_ms=time_ms(wired),
+                   shape=f"x [{m},1536] bf16, SwiGLU 4096",
+                   **bound({"bf16": 2 * m * d * 3 * hid},
+                           2 * m * d * 2 + 3 * hid * d * 2 + (2 * hid + 4 * d) * 4))
+            timing_line("K8_fused_mlp_bf16", f"x [{m},1536] bf16")
+
+    # ---------------------------------------------------------------- K6
+    # attention + projection over head-split q/k/v: K5's rounding and
+    # bound; the wired route is K2 then a cuBLAS projection
+    for label, b, h, n, dtype, tol in [("224px", 32, 24, 257, torch.bfloat16, k2_bound),
+                                       ("320px", 32, 24, 530, torch.bfloat16, k2_bound),
+                                       ("ragged-f32", 2, 4, 77, torch.float32, f32_tol)]:
+        d = h * 64
+        q, k, v = (randn(b, h, n, 64, dtype=dtype) for _ in range(3))
+        wp = linear_weight(d, 1536, dtype)
+        got = K.attention_proj(q, k, v, wp)
+        want = K.attention_proj_ref(q, k, v, wp)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        print(f"K6 attention_proj {label} [{b},{h},{n},64] -> 1536 {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"K6 {label} disagrees with its plain version")
+        record("K6_attention_proj", err)
+        if b == 32:
+            m = b * n
+            line = dict(ms=time_ms(lambda: K.attention_proj(q, k, v, wp)),
+                        plain_ms=time_ms(lambda: K.attention_proj_ref(q, k, v, wp), iters=3),
+                        wired_ms=time_ms(lambda: bench_attn_proj.unfused(q, k, v, wp)),
+                        shape=f"q/k/v [{b},{h},{n},64] bf16",
+                        **bound({"bf16": 4 * b * h * n * n * 64 + 2 * m * d * 1536},
+                                4 * m * d * 2 + d * 1536 * 2))
+            if n == 257:   # the JSON line keeps the 224-px shape; 320 px is printed
+                record("K6_attention_proj", 0.0, **line)
+                timing_line("K6_attention_proj", f"q/k/v [{b},{h},{n},64] bf16")
+            else:
+                lib = f"wired route {line['wired_ms']:.3f} ms"
+                print(f"K6_attention_proj time {tag} at q/k/v [{b},{h},{n},64] bf16: kernel "
+                      f"{line['ms']:.3f} ms, plain {line['plain_ms']:.3f} ms, {lib}; bound "
+                      f"{line['bound_ms']:.4f} ms ({line['bound_by']})", flush=True)
+
     # ---------------------------------------------------------------- small-input reference checks
     # the card's path (kernels) against the plain path (CPU) on small
     # float32 trunks: d=128, 2 heads of 64, 2 blocks; 224 px -> K5 (bf16
@@ -514,6 +714,100 @@ def run(profile_dir) -> dict:
           f"on the same weights: facet cosine min {qcos.min().item():.6f} mean "
           f"{qcos.mean().item():.6f} (not asserted)", flush=True)
     check(fcos8 >= 0.99, "int8_full path disagrees with its plain version")
+
+    # ---------------------------------------------------------------- block variants
+    # Block 0 of each G trunk with LayerScale 0.5 (from 1e-5, so that both
+    # residual branches matter), restored afterwards.
+    @contextlib.contextmanager
+    def layerscale(blk):
+        gammas = (blk.ls1.gamma, blk.ls2.gamma)
+        saved = [g.detach().clone() for g in gammas]
+        with torch.no_grad():
+            for g in gammas:
+                g.copy_(randn(g.shape[0], scale=0.5))
+        try:
+            yield blk
+        finally:
+            with torch.no_grad():
+                for g, s in zip(gammas, saved):
+                    g.copy_(s)
+
+    def k7_k8(blk, x):
+        """A bf16 trunk block as K7 then K8, on the block's own parameters."""
+        a, mlp = blk.attn, blk.mlp
+        x = K.fused_attn_half_bf16(
+            x, a.qkv.weight.t(), a.qkv.bias, a.proj.weight.t(), a.proj.bias, num_heads=24,
+            ln_params=(blk.norm1.weight, blk.norm1.bias), layerscale=blk.ls1.gamma)
+        return K.fused_mlp_bf16(
+            x, mlp.w12.weight.t(), mlp.w12.bias, mlp.w3.weight.t(), mlp.w3.bias,
+            ln_params=(blk.norm2.weight, blk.norm2.bias), layerscale=blk.ls2.gamma,
+            residual=True)
+
+    for n in (257, 485):   # head chunks 12 and 6
+        xg = randn(32, n, 1536, dtype=torch.bfloat16)
+        with layerscale(ext8.model.blocks[0]) as blk:
+            a, m_ = blk.attn, blk.mlp
+            got = K.fused_block_int8(
+                xg, (a.qkv.weight_q.t(), a.qkv.weight_scale, a.qkv.bias, a.proj.weight_q.t(),
+                     a.proj.weight_scale, a.proj.bias),
+                (m_.w12.weight_q.t(), m_.w12.weight_scale, m_.w12.bias, m_.w3.weight_q.t(),
+                 m_.w3.weight_scale, m_.w3.bias),
+                num_heads=24, ln1=(blk.norm1.weight, blk.norm1.bias),
+                ln2=(blk.norm2.weight, blk.norm2.bias), gamma1=blk.ls1.gamma,
+                gamma2=blk.ls2.gamma)
+            want = blk(xg)
+        torch.cuda.synchronize()
+        rr9 = rms_rel(got, want)
+        br9 = rms_rel(got.float() - xg.float(), want.float() - xg.float())
+        print(f"G int8_full block 0, K9 vs the trunk's K4 -> K3 on x [32,{n},1536] bf16, head "
+              f"chunk {_pick_int8_head_chunk(n, 24, 64, None)} (LayerScale 0.5): rms_rel "
+              f"{rr9:.2e} (bound <= 1e-2; x2 in f32 against bf16 is the only difference), "
+              f"residual branches rms_rel {br9:.2e} (not asserted)", flush=True)
+        check(rr9 <= 1e-2, f"K9 disagrees with the int8_full trunk's block at N={n}")
+
+    xg = randn(32, 257, 1536, dtype=torch.bfloat16)
+    with layerscale(ext.model.blocks[0]) as blk:
+        got = k7_k8(blk, xg)
+        want = blk(xg)
+    torch.cuda.synchronize()
+    rr78 = rms_rel(got, want)
+    br78 = rms_rel(got.float() - xg.float(), want.float() - xg.float())
+    print(f"G bf16 block 0, K7 -> K8 vs the trunk's block (LN + cuBLAS + K5, LN + cuBLAS MLP) on "
+          f"x [32,257,1536] bf16 (LayerScale 0.5): rms_rel {rr78:.2e} (bound <= 2e-2: the trunk "
+          f"rounds its biases, MLP activations and LayerScale products to bf16, the kernels "
+          f"keep f32), residual branches rms_rel {br78:.2e} (not asserted)", flush=True)
+    check(rr78 <= 2e-2, "K7 -> K8 disagrees with the bf16 trunk's block")
+
+    K.reset_launch_counts()
+    fb = bench_fused_block.run(layers=4)
+    for n, r in fb["shapes"].items():
+        print(f"tool bench_fused_block [{fb['card']}] N={n}, 4-block stack: two-kernel "
+              f"{r['two_kernel_ms']:.3f} ms/block | merged {r['merged_ms']:.3f} ms/block "
+              f"({r['speedup']:.3f}x)", flush=True)
+    ah = bench_attn_half_bf16.run(iters=10)
+    print(f"tool bench_attn_half_bf16 [{ah['card']}] B=32 N=257, 10 layers: split (LN + cuBLAS "
+          f"qkv -> K5) {ah['split_ms']:.3f} ms/layer | fused (K7) {ah['fused_ms']:.3f} ms/layer; "
+          f"outputs max {ah['split_max']:.4f} vs {ah['fused_max']:.4f}", flush=True)
+    ap_ = bench_attn_proj.run(iters=5)
+    for n, r in ap_["shapes"].items():
+        print(f"tool bench_attn_proj [{ap_['card']}] N={n}: unfused (K2 + cuBLAS) "
+              f"{r['unfused_ms']:.3f} ms | fused (K6) {r['fused_ms']:.3f} ms", flush=True)
+    # K8 has no tool of its own (the JAX package drives it from its TPU-lane
+    # test as K7 then K8): a 4-block stack of K7 -> K8 on bf16 block 0
+    xv = randn(32, 257, 1536, dtype=torch.bfloat16)
+    with layerscale(ext.model.blocks[0]) as blk:
+        for _ in range(4):
+            xv = k7_k8(blk, xv)
+    torch.cuda.synchronize()
+    counts_v = K.launch_counts()
+    check(bool(torch.isfinite(xv).all()), "K7 -> K8 stack: non-finite output")
+    check(all(r["two_kernel_ms"] > 0 and r["merged_ms"] > 0 for r in fb["shapes"].values()),
+          "bench_fused_block gave no time")
+    print(f"block variants: launch counts over the tools' run and the K7 -> K8 stack {counts_v}",
+          flush=True)
+    for name in PATH_KERNELS["variants"]:
+        check(counts_v[name] > 0, f"{name} never launched in the block-variant run")
+        results[name]["launches"] = counts_v[name]
 
     # ---------------------------------------------------------------- throughput
     for path, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):

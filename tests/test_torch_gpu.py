@@ -234,3 +234,149 @@ def test_int8_trunk_on_the_card_matches_the_cpu():
     want = cpu(imgs)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
     assert cos >= 0.999, cos
+
+
+# ---------------------------------------------------------------- K6-K9 (block variants)
+# K6, K7 and K8 round at the same points as their plain versions (bf16: one
+# ulp where f32 sums in another order cross a rounding boundary; K7 also
+# rounds the unnormalized P, as K5 does); K9 is K4 then K3 with x2 in f32,
+# so it takes their bounds.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [77, 130])
+def test_attention_proj_kernel_matches_ref(dtype, n):
+    from anyloc_tpu_torch.ops.kernels import attention_proj, attention_proj_ref
+
+    b, h, hd = 2, 4, 64
+    qkv = _randn(b, n, 3 * h * hd, dtype=dtype, seed=30)
+    q, k, v = (qkv[..., i * h * hd:(i + 1) * h * hd].view(b, n, h, hd).transpose(1, 2)
+               for i in range(3))                       # strided views
+    w = _randn(h * hd, 192, dtype=dtype, seed=31, scale=(h * hd) ** -0.5)
+    before = attention_proj.launches
+    got = attention_proj(q, k, v, w)
+    assert attention_proj.launches == before + 1
+    want = attention_proj_ref(q, k, v, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (b, n, 192)
+    torch.testing.assert_close(got.float(), want.float(), **(BF16 if dtype == torch.bfloat16 else F32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,with_bias", [(2, 77, True), (3, 130, False)])
+def test_attn_half_bf16_kernel_matches_ref(dtype, b, n, with_bias):
+    from anyloc_tpu_torch.ops.kernels import fused_attn_half_bf16, fused_attn_half_bf16_ref
+
+    h, hd = 4, 64
+    d = h * hd
+    x = _randn(b, n, d, dtype=dtype, seed=40)
+    wqkv = _randn(d, 3 * d, dtype=dtype, seed=41, scale=d ** -0.5)
+    wp = _randn(d, d, dtype=dtype, seed=42, scale=d ** -0.5).t().contiguous().t()  # Linear .t()
+    bq = _randn(3 * d, seed=43, scale=0.1) if with_bias else None
+    bp = _randn(d, seed=44, scale=0.1) if with_bias else None
+    kw = dict(num_heads=h, ln_params=(1 + _randn(d, seed=45, scale=0.1), _randn(d, seed=46, scale=0.1)),
+              layerscale=_randn(d, seed=47, scale=0.5))
+    before = fused_attn_half_bf16.launches
+    got = fused_attn_half_bf16(x, wqkv, bq, wp, bp, **kw)
+    assert fused_attn_half_bf16.launches == before + 1
+    want = fused_attn_half_bf16_ref(x, wqkv, bq, wp, bp, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **(BF16 if dtype == torch.bfloat16 else F32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mlp_type,hid,with_ln", [
+    ("swiglu_fused", 384, True), ("swiglu_fused", 256, False), ("mlp", 512, True)])
+def test_fused_mlp_bf16_kernel_matches_ref(dtype, mlp_type, hid, with_ln):
+    from anyloc_tpu_torch.ops.kernels import fused_mlp_bf16, fused_mlp_bf16_ref
+
+    m, d = 333, 128
+    two = 2 if mlp_type == "swiglu_fused" else 1
+    x = _randn(m, d, dtype=dtype, seed=50)
+    w12 = _randn(d, two * hid, dtype=dtype, seed=51, scale=d ** -0.5)
+    w3 = _randn(hid, d, dtype=dtype, seed=52, scale=hid ** -0.5)
+    args = (x, w12, _randn(two * hid, seed=53, scale=0.1), w3, _randn(d, seed=54, scale=0.1))
+    kw = dict(mlp_type=mlp_type, layerscale=_randn(d, seed=55, scale=0.5), residual=with_ln)
+    if with_ln:
+        kw["ln_params"] = (1 + _randn(d, seed=56, scale=0.1), _randn(d, seed=57, scale=0.1))
+    before = fused_mlp_bf16.launches
+    got = fused_mlp_bf16(*args, **kw)
+    assert fused_mlp_bf16.launches == before + 1
+    want = fused_mlp_bf16_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    # f32: FMA order over K = 384-1024 terms of O(1) products
+    tol = BF16 if dtype == torch.bfloat16 else dict(atol=5e-5, rtol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mlp_type,hid,hc,mc", [
+    ("swiglu_fused", 512, None, None), ("swiglu_fused", 384, 2, 128), ("mlp", 256, 4, 256)])
+def test_fused_block_int8_kernel_matches_ref(dtype, mlp_type, hid, hc, mc):
+    from anyloc_tpu_torch.ops.kernels import fused_block_int8, fused_block_int8_ref
+
+    b, n, h, hd = 2, 77, 4, 64
+    d = h * hd
+    two = 2 if mlp_type == "swiglu_fused" else 1
+    x = _randn(b, n, d, dtype=dtype, seed=60)
+    wqkv, sqkv = _int8_weights(d, 3 * d, 61)
+    wp, sp = _int8_weights(d, d, 62)
+    w12, s12 = _int8_weights(d, two * hid, 63)
+    w3, s3 = _int8_weights(hid, d, 64)
+    attn_p = (wqkv, sqkv, _randn(3 * d, seed=65, scale=0.1), wp, sp, _randn(d, seed=66, scale=0.1))
+    mlp_p = (w12, s12, _randn(two * hid, seed=67, scale=0.1), w3, s3, _randn(d, seed=68, scale=0.1))
+    kw = dict(num_heads=h, mlp_type=mlp_type, head_chunk=hc, hidden_chunk=mc,
+              ln1=(1 + _randn(d, seed=69, scale=0.1), _randn(d, seed=70, scale=0.1)),
+              ln2=(1 + _randn(d, seed=71, scale=0.1), _randn(d, seed=72, scale=0.1)),
+              gamma1=_randn(d, seed=73, scale=0.5), gamma2=_randn(d, seed=74, scale=0.5))
+    before = fused_block_int8.launches
+    got = fused_block_int8(x, attn_p, mlp_p, **kw)
+    assert fused_block_int8.launches == before + 1
+    want = fused_block_int8_ref(x, attn_p, mlp_p, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rms_rel(got, want) <= 1e-2
+    _close_but_rare_flips(got, want, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("n,hc", [(77, None), (257, 2)])
+def test_fused_block_int8_kernel_keeps_x2_in_f32(n, hc):
+    """The kernel's x2 for a bf16 x is the plain version's f32 x2 (K4's
+    bound), not bf16 values: the output alone cannot show that."""
+    from anyloc_tpu_torch.ops.kernels import fused_block_int8, fused_block_int8_ref
+
+    b, h, hd, hid = 2, 4, 64, 512
+    d = h * hd
+    wqkv, sqkv = _int8_weights(d, 3 * d, 81)
+    wp, sp = _int8_weights(d, d, 82)
+    w12, s12 = _int8_weights(d, 2 * hid, 83)
+    w3, s3 = _int8_weights(hid, d, 84)
+    attn_p = (wqkv, sqkv, _randn(3 * d, seed=85, scale=0.1), wp, sp, _randn(d, seed=86, scale=0.1))
+    mlp_p = (w12, s12, _randn(2 * hid, seed=87, scale=0.1), w3, s3, None)
+    kw = dict(num_heads=h, head_chunk=hc,
+              ln1=(1 + _randn(d, seed=88, scale=0.1), _randn(d, seed=89, scale=0.1)),
+              ln2=(1 + _randn(d, seed=90, scale=0.1), _randn(d, seed=91, scale=0.1)),
+              gamma1=_randn(d, seed=92, scale=0.5))
+    x = _randn(b, n, d, dtype=torch.bfloat16, seed=80)
+    _, x2 = fused_block_int8(x, attn_p, mlp_p, return_x2=True, **kw)
+    _, x2_want = fused_block_int8_ref(x, attn_p, mlp_p, return_x2=True, **kw)
+    torch.cuda.synchronize()
+    assert x2.dtype == torch.float32 and tuple(x2.shape) == (b, n, d)
+    assert (x2 == x2.to(torch.bfloat16).float()).float().mean().item() <= 1e-2
+    assert _rms_rel(x2, x2_want) <= 1e-2
+    _close_but_rare_flips(x2, x2_want, atol=2e-2, rtol=1e-2)
+
+
+def test_block_variant_wrappers_refuse_what_they_do_not_take():
+    from anyloc_tpu_torch.ops.kernels import attention_proj, fused_attn_half_bf16, fused_mlp_bf16
+
+    q = _randn(1, 2, 10, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        attention_proj(q, q, q, _randn(128, 128))                  # f32 weight, bf16 q
+    x = _randn(1, 10, 96)                                          # 2 heads of 48: no lane-valid chunk
+    with pytest.raises(ValueError, match="head"):
+        fused_attn_half_bf16(x, _randn(96, 288), None, _randn(96, 96), None, num_heads=2,
+                             ln_params=(_randn(96), _randn(96)))
+    with pytest.raises(ValueError, match="hidden chunk"):              # SwiGLU 344: no 128-multiple chunk
+        fused_mlp_bf16(_randn(4, 64), _randn(64, 688), None, _randn(344, 64), None)

@@ -43,9 +43,9 @@ import anyloc_tpu_torch as port
 from anyloc_tpu_torch.models.dinov2 import build_vit, from_jax_params, init_params
 from anyloc_tpu_torch.ops import quant as pq
 from anyloc_tpu_torch.ops.kernels import (
+    attn_geometry_ok,
     fused_attn_half_int8,
     fused_mlp_int8,
-    int8_attn_geometry_ok,
     int8_mlp_geometry_ok,
     launch_counts,
 )
@@ -235,7 +235,7 @@ def test_k4_head_chunk_rule_matches_jax():
     for n in (17, 257, 485, 730, 1025, 1216):
         for h, hd in ((24, 64), (16, 64), (6, 64), (4, 32), (2, 64), (4, 16)):
             assert _pick_int8_head_chunk(n, h, hd, None) == jax_rule(n, h, hd, None)
-            assert int8_attn_geometry_ok(h, hd) == jax_ok(h, hd)
+            assert attn_geometry_ok(h, hd) == jax_ok(h, hd)
     assert [_pick_int8_head_chunk(n, 24, 64, None) for n in (257, 485, 730)] == [12, 6, 2]
 
 
@@ -362,7 +362,7 @@ def test_trunk_other_quant_modes_match_jax(monkeypatch, mode):
 def test_trunk_int8_full_without_lane_geometry_takes_the_unfused_route(monkeypatch):
     """4 heads of 16: no head chunk is 128 wide, so both packages run LN +
     per-row qdense + attention in every block (the TPU kernel's rule)."""
-    assert not int8_attn_geometry_ok(4, 16)
+    assert not attn_geometry_ok(4, 16)
     got, want = _facets("int8_full", 56, interpret=True, ratio=12.0, heads=4, d=64,
                         layer=1, monkeypatch=monkeypatch)
     assert _cos_rows(got, want).min() >= 0.999
