@@ -39,6 +39,9 @@ SIGNATURES = {
     "anyloc_attn_half_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
     "anyloc_fused_mlp_bf16": [_P] * 11 + [_I] * 6 + [_F, _P],
     "anyloc_attention_proj": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_F, _P],
+    "anyloc_matmul": [_P] * 3 + [_I] * 5 + [_P],
+    "anyloc_matmul_dequant": [_P] * 5 + [_I] * 4 + [_P],
+    "anyloc_attn_half_variant": [_P] * 17 + [_I] * 8 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

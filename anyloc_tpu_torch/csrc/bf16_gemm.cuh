@@ -1,5 +1,7 @@
 // The float GEMMs of the bf16 block kernels K6 (attention_proj.cu), K7
-// (attn_half_bf16.cu) and K8 (fused_mlp_bf16.cu), and their LayerNorm:
+// (attn_half_bf16.cu) and K8 (fused_mlp_bf16.cu), of K5's projection
+// (attn_qkv_proj.cu) and of the float product T1 (matmul.cu), and their
+// LayerNorm:
 //   * gemm_bf16_kernel: out[M, N] = epilogue(A[M, K] @ B[rows, K]^T), bf16
 //     operands on mma.sync m16n8k16 with f32 sums — the bf16 twin of
 //     int8_common.cuh's int8 GEMM: 128x128 block tiles, 8 warps of 64x32, K
@@ -13,7 +15,10 @@
 //     in the activations' dtype.
 // Both operands are K-contiguous: A the activations, B the nn.Linear weight
 // layout [out, in]. The epilogue works in f32 with __fmul_rn / __fadd_rn, so
-// no FMA contraction moves a rounding, and rounds once to the output dtype.
+// no FMA contraction moves a rounding, and rounds once to the output dtype:
+// the operands' dtype, or OutT where a caller names it (T1 writes f32 sums
+// of bf16 operands, or bf16 from f32 operands; a residual is then read in
+// OutT).
 //
 // What bounds these GEMMs on the H100: at the bench shapes (M 8224-15520,
 // D 1536, HID 4096) each is 39-206 GFLOP against tens of MB, far above the
@@ -21,6 +26,8 @@
 // design reaches a fraction of the 989 TFLOP/s that wgmma with TMA-fed
 // tiles can; this file is the one place a later version redesigns.
 #pragma once
+
+#include <type_traits>
 
 #include "int8_common.cuh"
 
@@ -88,7 +95,7 @@ __device__ __forceinline__ void epi_store(const GemmArgs& p, int row, int col, f
   o[1] = from_float<T>(v1);
 }
 
-template <int EPI>
+template <int EPI, typename OutT>
 __global__ void __launch_bounds__(BTHREADS)
     gemm_bf16_kernel(GemmArgs p) {
   extern __shared__ __align__(16) bf16 b_smem[];
@@ -179,7 +186,7 @@ __global__ void __launch_bounds__(BTHREADS)
         if (col < 0) continue;  // N is even: the pair is valid together
         const float u0 = EPI == EPI_SWIGLU ? acc[mt][(nt + 2) & 3][2 * half] : 0.f;
         const float u1 = EPI == EPI_SWIGLU ? acc[mt][(nt + 2) & 3][2 * half + 1] : 0.f;
-        epi_store<EPI, bf16>(p, row, col, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1],
+        epi_store<EPI, OutT>(p, row, col, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1],
                              u0, u1);
       }
     }
@@ -202,7 +209,7 @@ __device__ __forceinline__ int fma_b_row(int N, int hid, int bn, int r) {
 }
 
 // f32 operands: 64x64 tile, 16x16 threads of 4 rows x 2 column pairs, FMA.
-template <int EPI>
+template <int EPI, typename OutT>
 __global__ void __launch_bounds__(256)
     gemm_f32_kernel(GemmArgs p) {
   __shared__ float As[16][65];
@@ -247,28 +254,30 @@ __global__ void __launch_bounds__(256)
       const int col = fma_b_row<EPI>(p.N, p.hid, bn, tc[2 * q]);
       if (col < 0) continue;
       if (EPI == EPI_SWIGLU)
-        epi_store<EPI, float>(p, row, col, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        epi_store<EPI, OutT>(p, row, col, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       else
-        epi_store<EPI, float>(p, row, col, acc[i][2 * q], acc[i][2 * q + 1], 0.f, 0.f);
+        epi_store<EPI, OutT>(p, row, col, acc[i][2 * q], acc[i][2 * q + 1], 0.f, 0.f);
     }
   }
 }
 
 // Launch the GEMM for the operand dtype code (DT_BF16 or DT_F32); the output
-// and the residual have the operands' dtype.
-template <int EPI>
+// and the residual have the operands' dtype, or OutT when it is given.
+template <int EPI, typename OutT = void>
 cudaError_t launch_gemm(const GemmArgs& p, int dtype, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
   if (dtype == DT_BF16) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
+    using O = std::conditional_t<std::is_void_v<OutT>, bf16, OutT>;
+    cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<EPI, O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          B_SMEM_BYTES);
     if (e != cudaSuccess) return e;
     const dim3 grid(cdiv(p.N, EPI == EPI_SWIGLU ? 64 : BBN), cdiv(p.M, BBM));
-    gemm_bf16_kernel<EPI><<<grid, BTHREADS, B_SMEM_BYTES, st>>>(p);
+    gemm_bf16_kernel<EPI, O><<<grid, BTHREADS, B_SMEM_BYTES, st>>>(p);
   } else if (dtype == DT_F32) {
+    using O = std::conditional_t<std::is_void_v<OutT>, float, OutT>;
     const dim3 grid(cdiv(p.N, EPI == EPI_SWIGLU ? 32 : 64), cdiv(p.M, 64));
-    gemm_f32_kernel<EPI><<<grid, 256, 0, st>>>(p);
+    gemm_f32_kernel<EPI, O><<<grid, 256, 0, st>>>(p);
   } else {
     return cudaErrorInvalidValue;
   }

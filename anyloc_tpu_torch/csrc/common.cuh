@@ -12,6 +12,8 @@ namespace anyloc {
 // dtype codes passed from the Python wrappers
 constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
+constexpr int DT_I8 = 2;   // the int8 products T1 and T2 (matmul.cu)
+constexpr int DT_I32 = 3;
 
 typedef __nv_bfloat16 bf16;
 

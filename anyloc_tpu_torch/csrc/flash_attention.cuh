@@ -1,13 +1,18 @@
-// Flash attention device code shared by K2 (flash_attention.cu) and K5
-// (attn_qkv_proj.cu): softmax(q k^T * scale) v for one (batch, head) per
-// block row, read through element strides so that K5 can hand it strided
-// column views of the fused [B, N, 3D] qkv tensor without a copy.
+// Flash attention device code shared by K2 (flash_attention.cu), K5
+// (attn_qkv_proj.cu) and the attention stage of K4, K6, K7, K9 and T3:
+// softmax(q k^T * scale) v for one (batch, head) per block row, read
+// through element strides so that K5 can hand it strided column views of
+// the fused [B, N, 3D] qkv tensor without a copy. The output has the
+// operands' dtype; with O_F32, bf16 operands write f32 (T3's batched_dots,
+// whose per-head outputs are never rounded to bf16).
 //
 // Online softmax (running max m, denominator l, f32 accumulator) over
 // 64-key tiles: the TPU kernels carried m/l/acc across sequential grid
 // steps in VMEM scratch; on Hopper blocks run in no order, so each block
 // walks all key tiles of its query rows itself.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -46,10 +51,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffff, x, 2);
 }
 
-// bf16 inputs: tensor-core (mma.sync m16n8k16) products with f32 sums.
-template <int HD>
+// two neighbouring output columns
+__device__ __forceinline__ void store2(bf16* o, float a, float b) {
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
+// bf16 inputs: tensor-core (mma.sync m16n8k16) products with f32 sums;
+// the output in bf16, or in f32 with O_F32.
+template <int HD, bool O_F32>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_attn_bf16_kernel(AttnArgs p, int n_qt) {
+  using OutT = std::conditional_t<O_F32, float, bf16>;
   constexpr int KP = HD + 8;     // K tile pitch (bf16), keeps rows 16B aligned
   constexpr int VP = FA_BK + 8;  // transposed V tile pitch
   __shared__ __align__(16) bf16 Ks[FA_BK * KP];
@@ -65,7 +80,7 @@ __global__ void __launch_bounds__(FA_THREADS)
   const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  bf16* O = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  OutT* O = static_cast<OutT*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   const int r0 = qt * FA_BQ + warp * 16 + g;
   const int r1 = r0 + 8;
@@ -189,12 +204,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int col = j * 8 + t * 2;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(O + r0 * p.o_sn + col) =
-          pack_bf16(acc[j][0] / l0, acc[j][1] / l0);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(O + r1 * p.o_sn + col) =
-          pack_bf16(acc[j][2] / l1, acc[j][3] / l1);
+    if (r0 < N) store2(O + r0 * p.o_sn + col, acc[j][0] / l0, acc[j][1] / l0);
+    if (r1 < N) store2(O + r1 * p.o_sn + col, acc[j][2] / l1, acc[j][3] / l1);
   }
 }
 
@@ -260,12 +271,12 @@ __global__ void __launch_bounds__(FS_ROWS)
   }
 }
 
-template <int HD>
+template <int HD, bool O_F32>
 cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
   const int bh = p.B * p.H;
   if (dtype == DT_BF16) {
     const int n_qt = cdiv(p.N, FA_BQ);
-    flash_attn_bf16_kernel<HD><<<bh * n_qt, FA_THREADS, 0, st>>>(p, n_qt);
+    flash_attn_bf16_kernel<HD, O_F32><<<bh * n_qt, FA_THREADS, 0, st>>>(p, n_qt);
   } else if (dtype == DT_F32) {
     const int n_qt = cdiv(p.N, FS_ROWS);
     flash_attn_scalar_kernel<float, HD><<<bh * n_qt, FS_ROWS, 0, st>>>(p, n_qt);
@@ -278,15 +289,16 @@ cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
 }  // namespace
 
 // Launch attention over head dims 16, 32, 64 or 128 (the wrappers refuse
-// others before they get here).
+// others before they get here); O_F32: bf16 operands write f32.
+template <bool O_F32 = false>
 static inline cudaError_t launch_attention(const AttnArgs& p, int dtype, int hd,
-                                    cudaStream_t st) {
+                                           cudaStream_t st) {
   if (p.B * p.H == 0 || p.N == 0) return cudaSuccess;
   switch (hd) {
-    case 16: return launch_attention_hd<16>(p, dtype, st);
-    case 32: return launch_attention_hd<32>(p, dtype, st);
-    case 64: return launch_attention_hd<64>(p, dtype, st);
-    case 128: return launch_attention_hd<128>(p, dtype, st);
+    case 16: return launch_attention_hd<16, O_F32>(p, dtype, st);
+    case 32: return launch_attention_hd<32, O_F32>(p, dtype, st);
+    case 64: return launch_attention_hd<64, O_F32>(p, dtype, st);
+    case 128: return launch_attention_hd<128, O_F32>(p, dtype, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,9 @@
 // Device code shared by the int8 W8A8 kernels K3 (fused_mlp_int8.cu), K4
-// (attn_half_int8.cu) and K9 (fused_block_int8.cu, through K4's and K3's
-// entry points); the LayerNorm, the erf polynomial, the cp.async helpers
-// and the EPI_* epilogue codes also serve the bf16 GEMM (bf16_gemm.cuh):
+// (attn_half_int8.cu), K9 (fused_block_int8.cu, through K4's and K3's
+// entry points), T3 (attn_half_variant.cu, on K4's stages) and the int8
+// products T1 and T2 (matmul.cu); the LayerNorm, the erf polynomial, the
+// cp.async helpers and the EPI_* epilogue codes also serve the bf16 GEMM
+// (bf16_gemm.cuh):
 //   * ln_quant_rows_kernel: optional LayerNorm (f32, two-pass mean and
 //     variance, 1 / sqrtf — not the approximate rsqrtf) and a per-row int8
 //     quantize, scale = max(amax, 1e-6) / 127, codes rintf(x / scale)
@@ -13,6 +15,9 @@
 //     partial turns into f32 (__int2float_rn) and is added as
 //     (partial * row_scale[row, group]) * col_scale[col] — the JAX order —
 //     to an f32 accumulator; the epilogue (EPI_*) finishes the tile.
+//     EPI_I32 skips the fold: it keeps the exact int32 sums over the whole
+//     of K (f32 holds integers exactly only up to 2^24, and a sum over K
+//     4096 of int8 products reaches 4096 * 127^2 ~ 6.6e7).
 //
 // What bounds the GEMMs on the H100: at the 308-px batch-32 shape
 // (M = 15520 rows, D = 1536) each one is 73-391 G int8 ops against tens of
@@ -169,6 +174,7 @@ enum {
   EPI_SWIGLU = 1,  // silu(g1 + b1) * (g2 + b2) -> OutT [M, N = HID]
   EPI_GELU = 2,    // gelu(g + b), erf polynomial -> OutT [M, N = HID]
   EPI_RESID = 3,   // (+ bias) (* gamma) (+ res in ResT) -> OutT [M, N]
+  EPI_I32 = 4,     // int8 only: the int32 sums, no scales -> OutT [M, N]
 };
 
 struct I8GemmArgs {
@@ -184,7 +190,25 @@ struct I8GemmArgs {
   int hid;                  // EPI_SWIGLU: first B row of W2
   int q_cols;               // EPI_QKV
   float q_scale;            // EPI_QKV
+  int a_n, a_pad;           // A_MAP: A rows (and row scales) in images of
+                            // a_pad rows, of which the first a_n are read
 };
+
+// A_MAP: where row r of the product reads its A row and row scales, row
+// r % a_n of image r / a_n (T3's padded pre-quantized rows).
+__device__ __forceinline__ long long a_src_row(const I8GemmArgs& p, int r) {
+  return (long long)(r / p.a_n) * p.a_pad + r % p.a_n;
+}
+
+// An exact int32 sum in the output type: f32 rounds once (exact below
+// 2^24), bf16 rounds that f32 value — the order of XLA's astype and
+// PyTorch's .to(), which both convert an integer through f32.
+template <typename T> __device__ __forceinline__ T from_int(int x);
+template <> __device__ __forceinline__ int from_int<int>(int x) { return x; }
+template <> __device__ __forceinline__ float from_int<float>(int x) { return __int2float_rn(x); }
+template <> __device__ __forceinline__ bf16 from_int<bf16>(int x) {
+  return __float2bfloat16_rn(__int2float_rn(x));
+}
 
 // D = A(16x32 s8, row) * B(32x8 s8, col) + D in s32. Fragments (g = lane/4,
 // t = lane%4; four int8 per register): a0 (row g, k 4t..4t+3), a1 (row g+8),
@@ -248,7 +272,10 @@ __device__ __forceinline__ int b_row(int N, int hid, int bn, int r) {
   return c < N ? c : -1;
 }
 
-template <int EPI, typename OutT, typename ResT>
+// A_MAP reads A through a_src_row; the other instances read row r itself
+// and compile without the mapping (it costs K3 and K4 ~1-3 % where it is
+// only a runtime branch, on an H100 at 700 W).
+template <int EPI, typename OutT, typename ResT, bool A_MAP>
 __global__ void __launch_bounds__(QTHREADS)
     gemm_i8_kernel(I8GemmArgs p) {
   extern __shared__ __align__(16) int8_t q_smem[];
@@ -258,14 +285,17 @@ __global__ void __launch_bounds__(QTHREADS)
   const int g = lane >> 2, t = lane & 3;
   const int ng = p.K / p.group;
 
-  // this thread's two load slots per operand and stage (16 bytes each)
+  // this thread's two load slots per operand and stage (16 bytes each);
+  // with A_MAP, A's row starts are mapped once here, not at every K step
   int a_row[2], b_src[2], ld_r[2], ld_k[2];
+  const int8_t* a_map[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int c = threadIdx.x + i * QTHREADS;
     ld_r[i] = c >> 2;
     ld_k[i] = (c & 3) * 16;
     a_row[i] = m0 + ld_r[i];
+    if (A_MAP) a_map[i] = a_row[i] < p.M ? p.A + a_src_row(p, a_row[i]) * p.K : p.A;
     b_src[i] = b_row<EPI>(p.N, p.hid, bn, ld_r[i]);
   }
   auto load_stage = [&](int stage, int k0) {
@@ -276,8 +306,11 @@ __global__ void __launch_bounds__(QTHREADS)
       const int k = k0 + ld_k[i];
       const bool ka = a_row[i] < p.M && k < p.K;
       const bool kb = b_src[i] >= 0 && k < p.K;
-      cp_async16(As + ld_r[i] * QP + ld_k[i],
-                 ka ? p.A + (long long)a_row[i] * p.K + k : p.A, ka);
+      if constexpr (A_MAP)
+        cp_async16(As + ld_r[i] * QP + ld_k[i], ka ? a_map[i] + k : p.A, ka);
+      else
+        cp_async16(As + ld_r[i] * QP + ld_k[i],
+                   ka ? p.A + (long long)a_row[i] * p.K + k : p.A, ka);
       cp_async16(Bs + ld_r[i] * QP + ld_k[i],
                  kb ? p.B + (long long)b_src[i] * p.K + k : p.B, kb);
     }
@@ -290,7 +323,7 @@ __global__ void __launch_bounds__(QTHREADS)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int br = b_row<EPI>(p.N, p.hid, bn, wn + nt * 8 + 2 * t + h);
-      cs[nt][h] = br >= 0 ? p.col_scale[br] : 0.f;
+      cs[nt][h] = EPI != EPI_I32 && br >= 0 ? p.col_scale[br] : 0.f;
     }
 
   int iacc[4][4][4];
@@ -339,13 +372,15 @@ __global__ void __launch_bounds__(QTHREADS)
         for (int mt = 0; mt < 4; ++mt)
           mma_s8_16832(iacc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
       }
-      if ((kg + 32) % p.group == 0) {  // the group ends: fold it into f32
+      if (EPI != EPI_I32 && (kg + 32) % p.group == 0) {  // the group ends: fold it into f32
         const int gi = (kg + 32) / p.group - 1;
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
           const int r0 = m0 + wm + mt * 16 + g;
-          const float rs0 = r0 < p.M ? p.row_scale[(long long)r0 * ng + gi] : 0.f;
-          const float rs1 = r0 + 8 < p.M ? p.row_scale[(long long)(r0 + 8) * ng + gi] : 0.f;
+          const long long s0 = A_MAP ? a_src_row(p, r0) : r0;
+          const long long s1 = A_MAP ? a_src_row(p, r0 + 8) : r0 + 8;
+          const float rs0 = r0 < p.M ? p.row_scale[s0 * ng + gi] : 0.f;
+          const float rs1 = r0 + 8 < p.M ? p.row_scale[s1 * ng + gi] : 0.f;
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -400,7 +435,7 @@ __global__ void __launch_bounds__(QTHREADS)
         } else if (EPI == EPI_GELU) {
           *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (long long)row * p.N + br) =
               make_float2(gelu_poly(v0), gelu_poly(v1));
-        } else {  // EPI_RESID
+        } else if constexpr (EPI == EPI_RESID) {
           if (p.gamma) {
             v0 = __fmul_rn(v0, p.gamma[br]);
             v1 = __fmul_rn(v1, p.gamma[br + 1]);
@@ -414,22 +449,26 @@ __global__ void __launch_bounds__(QTHREADS)
           OutT* o = static_cast<OutT*>(p.out) + off;
           o[0] = from_float<OutT>(v0);
           o[1] = from_float<OutT>(v1);
+        } else {  // EPI_I32: the int32 sums themselves, converted once
+          OutT* o = static_cast<OutT*>(p.out) + (long long)row * p.N + br;
+          o[0] = from_int<OutT>(iacc[mt][nt][2 * half]);
+          o[1] = from_int<OutT>(iacc[mt][nt][2 * half + 1]);
         }
       }
     }
   }
 }
 
-template <int EPI, typename OutT, typename ResT = OutT>
+template <int EPI, typename OutT, typename ResT = OutT, bool A_MAP = false>
 cudaError_t launch_gemm_i8(const I8GemmArgs& p, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(gemm_i8_kernel<EPI, OutT, ResT>,
+  cudaError_t e = cudaFuncSetAttribute(gemm_i8_kernel<EPI, OutT, ResT, A_MAP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        Q_SMEM_BYTES);
   if (e != cudaSuccess) return e;
   const int cols_per_block = EPI == EPI_SWIGLU ? 64 : QBN;
   const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM));
-  gemm_i8_kernel<EPI, OutT, ResT><<<grid, QTHREADS, Q_SMEM_BYTES, st>>>(p);
+  gemm_i8_kernel<EPI, OutT, ResT, A_MAP><<<grid, QTHREADS, Q_SMEM_BYTES, st>>>(p);
   return cudaGetLastError();
 }
 

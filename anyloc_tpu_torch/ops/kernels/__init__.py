@@ -8,6 +8,9 @@ from anyloc_tpu_torch.ops.kernels.attn_proj import (
     attention_proj,
     attention_proj_ref,
     attn_geometry_ok,
+    attn_half_variant,
+    attn_half_variant_proj_ref,
+    attn_half_variant_ref,
     flash_attention_qkv_proj,
     flash_attention_qkv_proj_ref,
     fused_attn_half_bf16,
@@ -30,6 +33,12 @@ from anyloc_tpu_torch.ops.kernels.fused_mlp import (
     fused_mlp_int8_ref,
     int8_mlp_geometry_ok,
 )
+from anyloc_tpu_torch.ops.kernels.matmul import (
+    matmul,
+    matmul_dequant,
+    matmul_dequant_ref,
+    matmul_ref,
+)
 from anyloc_tpu_torch.ops.kernels.vlad_kernel import (
     vlad_aggregate_fused,
     vlad_aggregate_fused_ref,
@@ -46,6 +55,9 @@ KERNELS = {
     "K7_fused_attn_half_bf16": fused_attn_half_bf16,
     "K8_fused_mlp_bf16": fused_mlp_bf16,
     "K9_fused_block_int8": fused_block_int8,
+    "T1_matmul": matmul,
+    "T2_matmul_dequant": matmul_dequant,
+    "T3_attn_half_variant": attn_half_variant,
 }
 
 
@@ -60,12 +72,15 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS", "MAX_FUSED_TOKENS", "attention_proj", "attention_proj_ref",
-    "attn_geometry_ok", "flash_attention", "flash_attention_ref",
+    "attn_geometry_ok", "attn_half_variant", "attn_half_variant_proj_ref", "attn_half_variant_ref",
+    "flash_attention",
+    "flash_attention_ref",
     "flash_attention_qkv_proj", "flash_attention_qkv_proj_ref",
     "fused_attn_half_bf16", "fused_attn_half_bf16_ref", "fused_attn_half_int8",
     "fused_attn_half_int8_ref", "fused_block_int8", "fused_block_int8_ref",
     "fused_mlp_bf16", "fused_mlp_bf16_ref", "fused_mlp_int8",
     "fused_mlp_int8_ref", "int8_mlp_geometry_ok",
-    "launch_counts", "reset_launch_counts", "vlad_aggregate_fused",
+    "launch_counts", "matmul", "matmul_dequant", "matmul_dequant_ref", "matmul_ref",
+    "reset_launch_counts", "vlad_aggregate_fused",
     "vlad_aggregate_fused_ref",
 ]

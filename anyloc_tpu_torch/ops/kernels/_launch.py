@@ -4,7 +4,11 @@ from __future__ import annotations
 
 import torch
 
+# dtype codes of csrc/common.cuh (DT_F32, DT_BF16, DT_I8, DT_I32). The float
+# kernels take only the first two (``dtype_code`` refuses the rest); T1 and
+# T2 take the integer codes too.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT_DTYPE_CODES = {torch.int8: 2, torch.int32: 3}
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

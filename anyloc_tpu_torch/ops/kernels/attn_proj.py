@@ -40,8 +40,15 @@ K6 — attention + projection over head-split q/k/v
 rounding (q · scale rounded to q's dtype) with no bias, LayerScale or
 residual; output in q's dtype.
 
-K6 and K7 are not wired into the trunk, as in the JAX package; the
-block-variant tools (``anyloc_tpu_torch/tools/``) drive them. Their head
+T3 — K4's stages with the two knobs of
+``tools/bench_xlayer.py::attn_half_variant`` (:150;
+``csrc/attn_half_variant.cu`` on K4's stages, ``csrc/attn_half_int8.cuh``):
+zero biases (so the base variant is K4 without biases, bit for bit);
+``pre_quant`` reads pre-quantized rows instead of LN1 + quantize;
+``batched_dots`` keeps each head's output in f32 for the requantize.
+
+K6, K7 and T3 are not wired into the trunk, as in the JAX package; the
+tools (``anyloc_tpu_torch/tools/``) drive them. The K6/K7 head
 chunk and ``skew`` only order f32 sums on the TPU: the wrappers accept and
 ignore them (K7 still refuses a head geometry the TPU kernel refuses).
 """
@@ -115,12 +122,14 @@ def resolve_head_chunk(n: int, h: int, hd: int, head_chunk: Optional[int]) -> in
     return hc
 
 
-def attn_half_int8_scratch(m: int, d: int, n_chunks: int, dev) -> list:
-    """K4's (and K9's) attention scratch after the row-quantized input, in
-    the C argument order: qkv [M, 3D] bf16, o [M, D] bf16, its codes oq
-    [M, D] int8 and scales os [M, head chunks] f32."""
+def attn_half_int8_scratch(m: int, d: int, n_chunks: int, dev,
+                           o_dtype: torch.dtype = torch.bfloat16) -> list:
+    """K4's (and K9's, T3's) attention scratch after the row-quantized
+    input, in the C argument order: qkv [M, 3D] bf16, o [M, D] (bf16; f32
+    for T3's batched_dots), its codes oq [M, D] int8 and scales os
+    [M, head chunks] f32."""
     return [torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev),
-            torch.empty((m, d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=o_dtype, device=dev),
             torch.empty((m, d), dtype=torch.int8, device=dev),
             torch.empty((m, n_chunks), dtype=torch.float32, device=dev)]
 
@@ -259,20 +268,43 @@ def fused_attn_half_int8_ref(
     """Plain PyTorch version of the kernel's math (materializes the
     [B, H, N, N] scores)."""
     b, n, d, hd = _check_attn_half(x, wqkv_q, wp_q, num_heads)
-    h = num_heads
     scale = hd ** -0.5 if scale is None else float(scale)
-    hcw = resolve_head_chunk(n, h, hd, head_chunk) * hd
-    xf = x.reshape(-1, d).float()
-    xq, xs = quantize_rows(ln_rows(xf, *ln_params, ln_eps))
+    hc = resolve_head_chunk(n, num_heads, hd, head_chunk)
+    xq, xs = quantize_rows(ln_rows(x.reshape(-1, d).float(), *ln_params, ln_eps))
+    return _attn_half_int8_from_codes(x, xq, xs, wqkv_q, wqkv_scale, b_qkv, wp_q, wp_scale,
+                                      b_proj, layerscale, num_heads, scale, hc)
+
+
+def _attn_half_int8_from_codes(x, xq, xs, wqkv_q, wqkv_scale, b_qkv, wp_q, wp_scale, b_proj,
+                               layerscale, h, scale, hc, o_bf16=True, return_o=False):
+    """K4's plain math after the row quantize (codes xq [M, D], scales xs
+    [M, 1]): shared by K4's and T3's plain versions. ``o_bf16=False`` keeps
+    each head's output in f32 (T3's batched_dots); ``return_o`` also returns
+    the heads' outputs as f32 [B, N, D] (bf16 values unless ``o_bf16`` is
+    false)."""
+    b, n, d = x.shape
+    hd = d // h
+    hcw = hc * hd
     qkv = _int_mm(xq, wqkv_q).float() * xs * wqkv_scale.float()
     if b_qkv is not None:
         qkv = qkv + b_qkv.float()
     q, k, v = ((t.to(torch.bfloat16).float().reshape(b, n, h, hd).transpose(1, 2))
                for t in (qkv[:, :d] * scale, qkv[:, d:2 * d], qkv[:, 2 * d:]))
     p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-    o = (p.to(torch.bfloat16).float() @ v).to(torch.bfloat16)
+    o = p.to(torch.bfloat16).float() @ v
+    if o_bf16:
+        o = o.to(torch.bfloat16)
     o_cat = o.transpose(1, 2).reshape(b * n, d).float()
-    acc = torch.zeros_like(xf)
+    out = _attn_half_int8_from_heads(x, o_cat, wp_q, wp_scale, b_proj, layerscale, hcw)
+    return (out, o_cat.reshape(b, n, d)) if return_o else out
+
+
+def _attn_half_int8_from_heads(x, o_cat, wp_q, wp_scale, b_proj, layerscale, hcw):
+    """K4's plain math from the heads' outputs o_cat [M, D] f32 on:
+    requantize per (row, head chunk of width hcw), int8 out-projection,
+    bias, LayerScale, residual."""
+    b, n, d = x.shape
+    acc = torch.zeros((b * n, d), dtype=torch.float32, device=x.device)
     for c in range(0, d, hcw):
         oq, os_ = quantize_rows(o_cat[:, c:c + hcw])
         acc = acc + _int_mm(oq, wp_q[c:c + hcw]).float() * os_ * wp_scale.float()
@@ -280,7 +312,7 @@ def fused_attn_half_int8_ref(
         acc = acc + b_proj.float()
     if layerscale is not None:
         acc = acc * layerscale.float()
-    return (acc + xf).to(x.dtype).reshape(b, n, d)
+    return (acc + x.reshape(-1, d).float()).to(x.dtype).reshape(b, n, d)
 
 
 def fused_attn_half_int8(
@@ -348,6 +380,144 @@ def fused_attn_half_int8(
 
 
 fused_attn_half_int8.launches = 0
+
+
+# ---------------------------------------------------------------- T3
+
+# tools/bench_xlayer.py:42,184: heads of 64 (24 of them at its D 1536; the
+# port takes D // 64), LayerNorm eps 1e-6, softmax scale 64 ** -0.5
+VARIANT_HEAD_DIM = 64
+VARIANT_EPS = 1e-6
+
+
+def _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant):
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if d % VARIANT_HEAD_DIM:
+        raise ValueError(f"attn_half_variant: D={d} is not a multiple of the head dim "
+                         f"{VARIANT_HEAD_DIM}")
+    h = d // VARIANT_HEAD_DIM
+    if tuple(wqkv_q.shape) != (d, 3 * d) or tuple(wp_q.shape) != (d, d):
+        raise ValueError(f"attn_half_variant: wqkv_q must be [{d}, {3 * d}] and wp_q [{d}, {d}], "
+                         f"got {tuple(wqkv_q.shape)} {tuple(wp_q.shape)}")
+    hc = _pick_int8_head_chunk(n, h, VARIANT_HEAD_DIM, None)
+    if hc is None:
+        raise ValueError(f"attn_half_variant: no head chunk with hc*64 % 128 == 0 exists "
+                         f"for {h} heads")
+    np_pad = round_up(n, 8)
+    if pre_quant and (xq_in is None or xs_in is None
+                      or tuple(xq_in.shape) != (b, np_pad, d)
+                      or tuple(xs_in.shape) != (b, np_pad, 1)):
+        raise ValueError(
+            f"attn_half_variant: pre_quant needs xq_in [{b}, {np_pad}, {d}] and xs_in "
+            f"[{b}, {np_pad}, 1] (rows padded to a multiple of 8), got "
+            f"{None if xq_in is None else tuple(xq_in.shape)} "
+            f"{None if xs_in is None else tuple(xs_in.shape)}")
+    return b, n, d, h, hc, np_pad
+
+
+def attn_half_variant_ref(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, gamma, *,
+                          pre_quant: bool, batched_dots: bool, return_o: bool = False):
+    """Plain PyTorch version of the kernel's math: K4's plain version with
+    no biases, reading the first N pre-quantized rows of each image with
+    ``pre_quant``, each head's output kept in f32 with ``batched_dots``."""
+    b, n, d, h, hc, _ = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant)
+    if pre_quant:
+        xq = xq_in[:, :n].reshape(-1, d)
+        xs = xs_in[:, :n].reshape(-1, 1).float()
+    else:
+        xq, xs = quantize_rows(ln_rows(x.reshape(-1, d).float(), ln[0].reshape(d),
+                                       ln[1].reshape(d), VARIANT_EPS))
+    return _attn_half_int8_from_codes(
+        x, xq, xs, wqkv_q, wqkv_scale.reshape(3 * d), None, wp_q, wp_scale.reshape(d), None,
+        None if gamma is None else gamma.reshape(d), h, VARIANT_HEAD_DIM ** -0.5, hc,
+        o_bf16=not batched_dots, return_o=return_o)
+
+
+def attn_half_variant_proj_ref(x, o, wp_q, wp_scale, gamma) -> torch.Tensor:
+    """T3's plain math from the heads' outputs o [B, N, D] (``return_o``)
+    on: requantize per (row, head chunk), out-projection, LayerScale,
+    residual. Given the kernel's own o, it isolates the stages after the
+    attention: the kernel's output must match it far more closely than it
+    matches the same math on o rounded to bf16 (batched_dots)."""
+    b, n, d = x.shape
+    hc = _pick_int8_head_chunk(n, d // VARIANT_HEAD_DIM, VARIANT_HEAD_DIM, None)
+    return _attn_half_int8_from_heads(x, o.reshape(b * n, d).float(), wp_q, wp_scale.reshape(d),
+                                      None, None if gamma is None else gamma.reshape(d),
+                                      hc * VARIANT_HEAD_DIM)
+
+
+def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, gamma, *,
+                      pre_quant: bool, batched_dots: bool, return_o: bool = False):
+    """T3, the counterpart of ``tools/bench_xlayer.py::attn_half_variant``:
+    K4 (``fused_attn_half_int8``) with zero biases and two experiment knobs.
+
+    x [B, N, D] (bf16 or f32, D a multiple of 64: D // 64 heads of 64);
+    wqkv_q [D, 3D] and wp_q [D, D] int8 in the JAX layout (pass
+    ``weight_q.t()`` of [out, in] storage: no copy), wqkv_scale (3D values)
+    and wp_scale (D values) f32; ``ln`` = (scale, bias) and ``gamma``, D
+    values each (the JAX tool's [1, D]). ``pre_quant`` skips LN1 and the
+    per-token quantize and reads xq_in [B, round_up(N, 8), D] int8 and
+    xs_in [B, round_up(N, 8), 1] f32 instead (the first N rows of each
+    image, read in place); otherwise both may be None. ``batched_dots``
+    keeps each head's attention output in f32 for the requantize. The head
+    chunk is the TPU kernel's (``_pick_int8_head_chunk(N, H, 64, None)``).
+    ``return_o`` also returns the heads' outputs, the requantize's input,
+    as f32 [B, N, D] (bf16 values unless ``batched_dots``): the one place
+    where the knob shows beyond the int8 noise of the output. CPU tensors
+    take ``attn_half_variant_ref``; CUDA tensors launch the kernels or
+    raise."""
+    b, n, d, h, hc, np_pad = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant)
+    hd = VARIANT_HEAD_DIM
+    vecs = dict(wqkv_scale=wqkv_scale, wp_scale=wp_scale, ln_scale=ln[0], ln_bias=ln[1],
+                gamma=gamma)
+    rows = (xq_in, xs_in) if pre_quant else ()
+    tensors = [x, wqkv_q, wp_q, *rows] + [t for t in vecs.values() if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return attn_half_variant_ref(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln,
+                                     gamma, pre_quant=pre_quant, batched_dots=batched_dots,
+                                     return_o=return_o)
+    _launch.require_cuda("attn_half_variant", *tensors)
+    code = _launch.dtype_code(x, "attn_half_variant")
+    if wqkv_q.dtype != torch.int8 or wp_q.dtype != torch.int8:
+        raise TypeError("attn_half_variant: wqkv_q and wp_q must be int8")
+    if pre_quant and xq_in.dtype != torch.int8:
+        raise TypeError("attn_half_variant: xq_in must be int8")
+    if d % 32:
+        raise ValueError(f"attn_half_variant: the kernel needs D % 32 == 0 (D={d})")
+    widths = dict(wqkv_scale=3 * d)
+    for name, vec in vecs.items():
+        if vec is not None and vec.numel() != widths.get(name, d):
+            raise ValueError(f"attn_half_variant: {name} must hold {widths.get(name, d)} "
+                             f"values, got {tuple(vec.shape)}")
+    _launch.check_gemm_rows(b * n, torch.int8, "attn_half_variant")
+    wqkv_nk = _launch.nk_weight(wqkv_q, "attn_half_variant")
+    wp_nk = _launch.nk_weight(wp_q, "attn_half_variant")
+    f32 = {k: None if v is None else v.reshape(-1).float().contiguous() for k, v in vecs.items()}
+    x = x.contiguous()
+    m, dev = b * n, x.device
+    if pre_quant:
+        rows = [xq_in.contiguous(), xs_in.float().contiguous()]
+        row_scratch = [None, None]
+    else:
+        rows = [None, None]
+        row_scratch = row_quant_scratch(m, d, dev)
+    scratch = row_scratch + attn_half_int8_scratch(
+        m, d, h // hc, dev, torch.float32 if batched_dots else torch.bfloat16)
+    out = torch.empty_like(x)
+    p = _launch.ptr
+    rc = _build.load_library().anyloc_attn_half_variant(
+        x.data_ptr(), f32["ln_scale"].data_ptr(), f32["ln_bias"].data_ptr(), wqkv_nk.data_ptr(),
+        f32["wqkv_scale"].data_ptr(), wp_nk.data_ptr(), f32["wp_scale"].data_ptr(),
+        p(f32["gamma"]), *[p(t) for t in rows + scratch], out.data_ptr(), code, b, n, np_pad,
+        h, hd, hc, int(batched_dots), VARIANT_EPS, VARIANT_HEAD_DIM ** -0.5, _launch.stream(x))
+    _build.check(rc, "attn_half_variant")
+    attn_half_variant.launches += 1
+    return (out, scratch[3].float().reshape(b, n, d)) if return_o else out
+
+
+attn_half_variant.launches = 0
 
 
 # ---------------------------------------------------------------- K7

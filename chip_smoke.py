@@ -8,14 +8,20 @@ Phases, each of which must pass or the script exits non-zero:
   2. build: compiles the CUDA kernels from anyloc_tpu_torch/csrc (one nvcc
      per source, in parallel);
   3. kernels: K1 (VLAD), K2 (flash attention), K5 (qkv attention +
-     out-projection), K4 (int8 attention half), K3 (int8 MLP half) and the
+     out-projection), K4 (int8 attention half), K3 (int8 MLP half), the
      block variants K9 (whole int8 block), K7 (bf16 attention half), K8
-     (bf16 MLP half) and K6 (attention + projection) against their plain
-     PyTorch versions at the main paths' and the block-variant tools'
+     (bf16 MLP half) and K6 (attention + projection), and the
+     micro-benchmarks' kernels T1 (tiled int8 / bf16 product; int8
+     bit-exact, also with sums past 2^24), T2 (int8 product with a
+     dequantize epilogue) and T3 (the int8 attention half with its
+     pre_quant / batched_dots knobs; its base bit-equal to K4, its heads'
+     outputs f32 with batched_dots)
+     against their plain PyTorch versions at the main paths' and the tools'
      shapes, with the error bound stated on each line, timed beside the
-     plain version, the least time the card could take (bound_ms), for K2
-     PyTorch's scaled_dot_product_attention as a yardstick, and for K6-K9
-     the route the trunk wires instead (wired_ms);
+     plain version, the least time the card could take (bound_ms), a
+     PyTorch library call as a yardstick where one computes the same
+     (library_ms: SDPA for K2, torch._int_mm / cuBLAS for T1), and for
+     K6-K9, T2 and T3 the route the port wires instead (wired_ms);
   4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
      value facet of layer 31 -> VLAD-32 fitted on the fixture's database
      -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
@@ -31,7 +37,8 @@ Phases, each of which must pass or the script exits non-zero:
      trunk against the trunk's K4 -> K3, K7 -> K8 on block 0 of the bf16
      trunk against the trunk's block, then the three block-variant tools
      (anyloc_tpu_torch/tools/) with short stacks; K6-K9 must launch in
-     the tools' run;
+     the tools' run; then the T1-T3 tools (bench_int8_matmul,
+     bench_xlayer) with few iterations, in which T1-T3 must launch;
   7. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
@@ -79,6 +86,15 @@ KERNEL_INFO = {
     "K9_fused_block_int8": dict(
         source="anyloc_tpu_torch/csrc/fused_block_int8.cu",
         replaces="anyloc_tpu/ops/pallas/fused_block.py:128"),
+    "T1_matmul": dict(
+        source="anyloc_tpu_torch/csrc/matmul.cu",
+        replaces="tools/bench_int8_matmul.py:48"),
+    "T2_matmul_dequant": dict(
+        source="anyloc_tpu_torch/csrc/matmul.cu",
+        replaces="tools/bench_int8_matmul.py:91"),
+    "T3_attn_half_variant": dict(
+        source="anyloc_tpu_torch/csrc/attn_half_variant.cu",
+        replaces="tools/bench_xlayer.py:150"),
 }
 # kernels each path must launch
 PATH_KERNELS = {
@@ -88,6 +104,8 @@ PATH_KERNELS = {
     # the block-variant tools (the JAX trunk does not wire K6-K9 either)
     "variants": ("K6_attention_proj", "K7_fused_attn_half_bf16", "K8_fused_mlp_bf16",
                  "K9_fused_block_int8"),
+    # the micro-benchmark tools (T1-T3 drive nothing else, as in the JAX package)
+    "tools": ("T1_matmul", "T2_matmul_dequant", "T3_attn_half_variant"),
 }
 # One H100 SXM's published dense peaks at its 700 W limit (NVIDIA's data
 # sheet; f32 outside the tensor cores): operations/s by type, bytes/s.
@@ -141,10 +159,12 @@ def run(profile_dir) -> dict:
     from anyloc_tpu_torch.data.transforms import preprocess_image
     from anyloc_tpu_torch.models import vit as vit_module
     from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.common import round_up
     from anyloc_tpu_torch.ops.kernels.attn_proj import _pick_int8_head_chunk
     from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
-    from anyloc_tpu_torch.ops.quant import quantize_weight_cols
-    from anyloc_tpu_torch.tools import bench_attn_half_bf16, bench_attn_proj, bench_fused_block
+    from anyloc_tpu_torch.ops.quant import int8_matmul, quantize_weight_cols
+    from anyloc_tpu_torch.tools import (
+        bench_attn_half_bf16, bench_attn_proj, bench_fused_block, bench_int8_matmul, bench_xlayer)
     from anyloc_tpu_torch.tools._timing import card_line, time_ms
 
     dev = torch.device("cuda")
@@ -558,6 +578,196 @@ def run(profile_dir) -> dict:
                       f"{line['ms']:.3f} ms, plain {line['plain_ms']:.3f} ms, {lib}; bound "
                       f"{line['bound_ms']:.4f} ms ({line['bound_by']})", flush=True)
 
+    # ---------------------------------------------------------------- T1, T2
+    # the int8 micro-benchmark's products at its w12 shape (M 8704: 8224
+    # rows padded to 512; K 1536, N 8192; the tool's bk 512) and a ragged
+    # one (M 200, so the TPU tile is M itself; K 160, N 1000 against the
+    # card's 128-wide tiles). T1 on int8 and T2 repeat their plain versions'
+    # arithmetic (exact int32 sums, then the same f32 conversion and
+    # products): T1 bit-exact, T2 within one bf16 ulp (at most 2^-7 of the
+    # value). T1 on floats sums
+    # exact products in f32 in another order than the plain version's full
+    # f32 product
+    def int8_operands(m, k, n):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8).t()
+        return a, b
+
+    lib_name, lib_mm = bench_int8_matmul.cublas_bf16()
+    float_tol = {torch.bfloat16: dict(atol=2e-3, rtol=1e-4), torch.float32: dict(atol=1e-4, rtol=1e-5)}
+    for label, m, k, n in [("w12", 8704, 1536, 8192), ("ragged", 200, 160, 1000)]:
+        shape = f"[{m}x{k}]x[{k}x{n}]"
+        a8, b8 = int8_operands(m, k, n)
+        got = K.matmul(a8, b8, bk=512)
+        want = K.matmul_ref(a8, b8, bk=512)
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        print(f"T1 matmul {label} {shape} int8 -> int32: {'bit-exact' if exact else 'DIFFERS'} "
+              f"(bound: bit-exact) {'ok' if exact else 'FAIL'}", flush=True)
+        check(exact, f"T1 int8 {label} is not bit-exact")
+        record("T1_matmul", 0.0)
+        for dtype in (torch.bfloat16, torch.float32) if label == "ragged" else (torch.bfloat16,):
+            af, bf = randn(m, k, dtype=dtype), randn(n, k, dtype=dtype).t()
+            gotf = K.matmul(af, bf, bk=512)
+            wantf = K.matmul_ref(af, bf, bk=512)
+            torch.cuda.synchronize()
+            err = (gotf - wantf).abs().max().item()
+            tol = float_tol[dtype]
+            ok = torch.allclose(gotf, wantf, **tol)
+            print(f"T1 matmul {label} {shape} {str(dtype)[6:]} -> float32: max_abs_err {err:.3e} "
+                  f"(bound atol {tol['atol']} rtol {tol['rtol']}: f32 sums over K {k} in another "
+                  f"order) {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"T1 {label} {dtype} disagrees with its plain version")
+            record("T1_matmul", err)
+        sa = randn(m, 1).abs() * 0.01 + 1e-3
+        sb = randn(1, n).abs() * 0.01 + 1e-3
+        got2 = K.matmul_dequant(a8, b8, sa, sb, bk=512)
+        want2 = K.matmul_dequant_ref(a8, b8, sa, sb, bk=512)
+        torch.cuda.synchronize()
+        diff = (got2.float() - want2.float()).abs()
+        err2 = diff.max().item()
+        ok = bool((diff <= 2.0 ** -7 * want2.float().abs()).all())
+        print(f"T2 matmul_dequant {label} {shape} int8 -> bfloat16: max_abs_err {err2:.3e}, "
+              f"{'bit-exact' if torch.equal(got2, want2) else 'not bit-exact'} (bound: one bf16 "
+              f"ulp, |err| <= 2^-7 |want|) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"T2 {label} disagrees with its plain version")
+        record("T2_matmul_dequant", err2)
+        if label == "w12":
+            ops = {"int8": 2 * m * k * n}
+            record("T1_matmul", 0.0,
+                   ms=time_ms(lambda: K.matmul(a8, b8, bk=512)),
+                   plain_ms=time_ms(lambda: K.matmul_ref(a8, b8, bk=512), iters=3),
+                   library_ms=time_ms(lambda: torch._int_mm(a8, b8)),
+                   shape=f"{shape} int8 -> int32, bk 512",
+                   **bound(ops, m * k + k * n + 4 * m * n))
+            timing_line("T1_matmul", f"{shape} int8 (library: torch._int_mm)")
+            bf_line = dict(ms=time_ms(lambda: K.matmul(af, bf, bk=512)),
+                           plain_ms=time_ms(lambda: K.matmul_ref(af, bf, bk=512), iters=3),
+                           library_ms=time_ms(lambda: lib_mm(af, bf)),
+                           **bound({"bf16": 2 * m * k * n}, 2 * (m * k + k * n) + 4 * m * n))
+            print(f"T1_matmul time {tag} at {shape} bf16 -> float32: kernel {bf_line['ms']:.3f} ms, "
+                  f"plain {bf_line['plain_ms']:.3f} ms, library {bf_line['library_ms']:.3f} ms "
+                  f"({lib_name}); bound {bf_line['bound_ms']:.4f} ms ({bf_line['bound_by']})",
+                  flush=True)
+            sbn = sb.reshape(n)
+            record("T2_matmul_dequant", 0.0,
+                   ms=time_ms(lambda: K.matmul_dequant(a8, b8, sa, sb, bk=512)),
+                   plain_ms=time_ms(lambda: K.matmul_dequant_ref(a8, b8, sa, sb, bk=512), iters=3),
+                   wired_ms=time_ms(lambda: int8_matmul(a8, b8, sa, sbn)),
+                   shape=f"{shape} int8 -> bf16, bk 512",
+                   **bound(ops, m * k + k * n + 4 * (m + n) + 2 * m * n))
+            timing_line("T2_matmul_dequant", f"{shape} int8 -> bf16 (wired: ops/quant.int8_matmul)")
+
+    # T1's sums past 2^24, the reason for its int32 epilogue: at the tool's
+    # w3 shape, codes of magnitude 100..127 with one sign per row of a and
+    # per column of b, so every sum passes 2^24 and most are no f32 value
+    # (4 apart there): a product folded through f32 would round them; the
+    # tool's tiles there (bn 768, the largest that divides 1536 up to 1024)
+    m, k, n = 8704, 4096, 1536
+    tiles = dict(bk=512, bn=768)
+    shape = f"[{m}x{k}]x[{k}x{n}]"
+
+    def signs(*size):
+        return torch.randint(0, 2, size, generator=gen, device=dev) * 2 - 1
+
+    def big_codes(rows, cols):
+        codes = torch.randint(100, 128, (rows, cols), generator=gen, device=dev)
+        return (codes * signs(rows, 1)).to(torch.int8)
+
+    a8, b8 = big_codes(m, k), big_codes(n, k).t()
+    exact = K.matmul_ref(a8, b8, **tiles).double()
+    past = exact.abs().min().item() > 2 ** 24
+    no_f32 = (exact.float().double() != exact).double().mean().item()
+    same = [torch.equal(K.matmul(a8, b8, out_dtype=od, **tiles),
+                        K.matmul_ref(a8, b8, out_dtype=od, **tiles))
+            for od in (None, torch.float32, torch.bfloat16)]
+    ok = all(same) and past and no_f32 > 0.5
+    print(f"T1 matmul w3 sums past 2^24 {shape} int8 -> int32 / float32 / bfloat16: "
+          f"{'/'.join('bit-exact' if e else 'DIFFERS' for e in same)}; min |sum| "
+          f"{exact.abs().min().item():.4g}, share of sums that are no f32 value {no_f32:.3f} "
+          f"(bound: bit-exact, min |sum| > 2^24, share > 0.5) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "T1 int8 is not bit-exact past 2^24")
+    record("T1_matmul", 0.0)
+    del a8, b8, exact
+
+    # ---------------------------------------------------------------- T3
+    # K4 with zero biases and the tool's two knobs, K4's bound; its base
+    # must be bit-equal to the K4 kernel on the same inputs with no biases
+    # (the two share K4's stages, csrc/attn_half_int8.cuh). batched_dots
+    # only keeps the heads' outputs o in f32, which moves the output by
+    # less than the bound: so o itself is held to the plain version's o and
+    # must not be bf16 values, and the output must sit far nearer the
+    # stages after the attention applied to the kernel's own o than to them
+    # applied to that o rounded to bf16
+    def t3_inputs(b, n, dtype, d=1536):
+        np_pad = round_up(n, 8)
+        wqkv, sqkv = int8_weight(d, 3 * d)
+        wp, sp = int8_weight(d, d)
+        xq_in = torch.randint(-127, 128, (b, np_pad, d), generator=gen, device=dev, dtype=torch.int8)
+        xs_in = randn(b, np_pad, 1).abs() * 0.01 + 1e-3
+        ln = (1 + randn(1, d, scale=0.1), randn(1, d, scale=0.1))
+        return (randn(b, n, d, dtype=dtype), xq_in, xs_in, wqkv, sqkv, wp, sp, ln,
+                randn(1, d, scale=0.5))
+
+    t3_modes = {"base": (False, False), "pre_quant": (True, False), "batched_dots": (False, True)}
+    for label, b, n, dtype in [("224px", 32, 257, torch.bfloat16), ("308px", 32, 485, torch.bfloat16),
+                               ("ragged-f32", 2, 77, torch.float32)]:
+        args = t3_inputs(b, n, dtype)
+        hc = _pick_int8_head_chunk(n, 24, 64, None)
+        for mode, (pre_quant, batched_dots) in t3_modes.items():
+            kw = dict(pre_quant=pre_quant, batched_dots=batched_dots)
+            got, o = K.attn_half_variant(*args, return_o=True, **kw)
+            want, o_want = K.attn_half_variant_ref(*args, return_o=True, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rr = rms_rel(got, want)
+            out = outside_share(got, want, **int8_tol)
+            o_rr = rms_rel(o, o_want)
+            o_out = outside_share(o, o_want, **int8_tol)
+            o_bf16 = (o == o.to(torch.bfloat16).float()).float().mean().item()
+            ok = (out <= 1e-3 and rr <= 1e-2 and o_out <= 1e-3 and o_rr <= 1e-2
+                  and (o_bf16 <= 1e-2 if batched_dots else o_bf16 == 1.0))
+            own = ""
+            if batched_dots:
+                x, wp, sp, gamma = args[0], args[5], args[6], args[8]
+                rr_own = rms_rel(got, K.attn_half_variant_proj_ref(x, o, wp, sp, gamma))
+                rr_rnd = rms_rel(got, K.attn_half_variant_proj_ref(
+                    x, o.to(torch.bfloat16).float(), wp, sp, gamma))
+                ok = ok and rr_own <= 0.5 * rr_rnd
+                own = (f"; out vs the stages after the attention on its own o rms_rel {rr_own:.2e}, "
+                       f"on that o in bf16 {rr_rnd:.2e}, ratio {rr_own / rr_rnd:.3f} (bound <= 0.5)")
+            print(f"T3 attn_half_variant {mode} {label} B={b} N={n} D=1536 H=24 head chunk {hc} "
+                  f"{str(dtype)[6:]}: max_abs_err {err:.3e}, rms_rel {rr:.2e}, share beyond atol "
+                  f"2e-2 rtol 1e-2 {out:.2e}; o rms_rel {o_rr:.2e}, share {o_out:.2e}, share of "
+                  f"bf16 values {o_bf16:.2e} (bound: rms_rel <= 1e-2 and share <= 1e-3 for out and "
+                  f"o; o's bf16 share {'<= 1e-2' if batched_dots else '= 1'}){own} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"T3 {mode} {label} disagrees with its plain version")
+            record("T3_attn_half_variant", err)
+        x, _, _, wqkv, sqkv, wp, sp, ln, gamma = args
+
+        def k4():
+            return K.fused_attn_half_int8(x, wqkv, sqkv, None, wp, sp, None, num_heads=24,
+                                          ln_params=(ln[0].ravel(), ln[1].ravel()),
+                                          layerscale=gamma.ravel())
+
+        same = torch.equal(K.attn_half_variant(*args, pre_quant=False, batched_dots=False), k4())
+        print(f"T3 base {label} vs K4 (no biases) on the same inputs: "
+              f"{'bit-equal' if same else 'DIFFERS'} (bound: bit-equal) {'ok' if same else 'FAIL'}",
+              flush=True)
+        check(same, f"T3 base {label} is not bit-equal to K4")
+        if n == 485:
+            m, d = b * n, 1536
+            record("T3_attn_half_variant", 0.0,
+                   ms=time_ms(lambda: K.attn_half_variant(*args, pre_quant=False, batched_dots=False)),
+                   plain_ms=time_ms(lambda: K.attn_half_variant_ref(
+                       *args, pre_quant=False, batched_dots=False), iters=3),
+                   wired_ms=time_ms(k4),
+                   shape=f"x [{b},{n},1536] bf16, base, head chunk {hc}",
+                   **bound({"int8": 2 * m * d * 4 * d, "bf16": 4 * b * 24 * n * n * 64},
+                           2 * m * d * 2 + 4 * d * d + 7 * d * 4))
+            timing_line("T3_attn_half_variant", "x [32,485,1536] bf16, base (wired: K4)")
+
     # ---------------------------------------------------------------- small-input reference checks
     # the card's path (kernels) against the plain path (CPU) on small
     # float32 trunks: d=128, 2 heads of 64, 2 blocks; 224 px -> K5 (bf16
@@ -808,6 +1018,30 @@ def run(profile_dir) -> dict:
     for name in PATH_KERNELS["variants"]:
         check(counts_v[name] > 0, f"{name} never launched in the block-variant run")
         results[name]["launches"] = counts_v[name]
+
+    # ---------------------------------------------------------------- the T1-T3 tools
+    K.reset_launch_counts()
+    mm = bench_int8_matmul.run(iters=3)
+    for name, r in mm["shapes"].items():
+        paths = ", ".join(f"{label} {r[key + '_ms']:.3f} ms ({r[key + '_tops']:.1f} "
+                          f"{'TOPS' if key.startswith('int8') else 'TFLOP/s'})"
+                          for key, label in bench_int8_matmul.PATHS)
+        print(f"tool bench_int8_matmul [{mm['card']}] {name} [{mm['m']}x{r['k']}]x[{r['k']}x"
+              f"{r['n']}] (bk 512, bn {r['bn']}): {paths}; bf16 cuBLAS is {mm['cublas_bf16']}",
+              flush=True)
+        check(all(r[key + "_ms"] > 0 for key, _ in bench_int8_matmul.PATHS),
+              "bench_int8_matmul gave no time")
+    xl = bench_xlayer.run(iters=5)
+    for n, r in xl["shapes"].items():
+        print(f"tool bench_xlayer [{xl['card']}] B=32 N={n}: production (K4) "
+              f"{r['production_ms']:.3f}, variant base {r['base_ms']:.3f}, A prologue stub "
+              f"{r['stub_ms']:.3f}, B batched dots {r['batched_ms']:.3f} ms/layer; lever (a) "
+              f"{r['lever_a_ms']:+.3f} ms, lever (c) {r['lever_c_ms']:+.3f} ms", flush=True)
+    counts_t = K.launch_counts()
+    print(f"tools: launch counts over the T1-T3 tools' run {counts_t}", flush=True)
+    for name in PATH_KERNELS["tools"]:
+        check(counts_t[name] > 0, f"{name} never launched in the tools' run")
+        results[name]["launches"] = counts_t[name]
 
     # ---------------------------------------------------------------- throughput
     for path, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):

@@ -380,3 +380,151 @@ def test_block_variant_wrappers_refuse_what_they_do_not_take():
                              ln_params=(_randn(96), _randn(96)))
     with pytest.raises(ValueError, match="hidden chunk"):              # SwiGLU 344: no 128-multiple chunk
         fused_mlp_bf16(_randn(4, 64), _randn(64, 688), None, _randn(344, 64), None)
+
+
+# ---------------------------------------------------------------- T1-T3 (the micro-benchmarks' kernels)
+# T1 on int8 operands and T2 repeat their plain versions' arithmetic (exact
+# int32 sums; then the same f32 conversion and products, one rounding), so
+# T1 is bit-exact and T2 within one ulp of its output dtype; T1 on float
+# operands sums exact products in f32 in another order. One ulp of a value
+# is at most 2^-7 of it in bf16 (2^-22 in f32). T3 is K4 without
+# biases: K4's bound, and its base variant bit-equal to the K4 kernel.
+
+def _int8_operands(m, k, n, seed, big_sums=False):
+    """Uniform codes, or with ``big_sums`` codes of magnitude 100..127 with
+    one sign per row of a and per column of b, so that every sum passes
+    2^24 at K 4096 (where f32 values lie 4 apart)."""
+    g = np.random.default_rng(seed)
+    if big_sums:
+        a = g.integers(100, 128, (m, k)) * g.choice([-1, 1], (m, 1))
+        b = g.integers(100, 128, (n, k)) * g.choice([-1, 1], (n, 1))
+    else:
+        a, b = g.integers(-127, 128, (m, k)), g.integers(-127, 128, (n, k))
+    a = torch.from_numpy(a.astype(np.int8)).cuda()
+    return a, torch.from_numpy(b.astype(np.int8)).cuda().t()          # Linear .t()
+
+
+@pytest.mark.parametrize("m,k,n,big_sums", [(200, 160, 1000, False), (512, 1536, 384, False),
+                                            (256, 4096, 512, True)])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_matmul_int8_kernel_is_exact(m, k, n, big_sums, out_dtype):
+    from anyloc_tpu_torch.ops.kernels import matmul, matmul_ref
+
+    a, b = _int8_operands(m, k, n, 100, big_sums)
+    before = matmul.launches
+    got = matmul(a, b, out_dtype=out_dtype)
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == (out_dtype or torch.int32)
+    assert torch.equal(got, want)
+    if big_sums:   # most sums are no f32 value: a fold through f32 would round them
+        exact = matmul_ref(a, b).double()
+        assert exact.abs().min().item() > 2 ** 24
+        assert (exact.float().double() != exact).double().mean().item() > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_matmul_float_kernel_matches_ref(dtype, out_dtype):
+    from anyloc_tpu_torch.ops.kernels import matmul, matmul_ref
+
+    m, k, n = 200, 160, 1000                     # ragged against the 128 and 64 tiles
+    a = _randn(m, k, dtype=dtype, seed=101)
+    b = _randn(n, k, dtype=dtype, seed=102).t()
+    got = matmul(a, b, out_dtype=out_dtype)
+    want = matmul_ref(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == (out_dtype or torch.float32)
+    if out_dtype is None:   # f32 sums of exact products over K 160 in another order
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    else:                   # one bf16 ulp where such a sum sits on a rounding boundary
+        assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("out_dtype,ulp", [(torch.bfloat16, 2.0 ** -7), (torch.float32, 2.0 ** -22)])
+def test_matmul_dequant_kernel_matches_ref(out_dtype, ulp):
+    from anyloc_tpu_torch.ops.kernels import matmul_dequant, matmul_dequant_ref
+
+    m, k, n = 200, 1536, 1000
+    a, b = _int8_operands(m, k, n, 103)
+    sa = _randn(m, 1, seed=104).abs() * 0.01 + 1e-3
+    sb = _randn(1, n, seed=105).abs() * 0.01 + 1e-3
+    before = matmul_dequant.launches
+    got = matmul_dequant(a, b, sa, sb, out_dtype=out_dtype)
+    assert matmul_dequant.launches == before + 1
+    want = matmul_dequant_ref(a, b, sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    assert ((got.float() - want.float()).abs() <= ulp * want.float().abs()).all()
+
+
+def test_matmul_refuses_what_it_does_not_take():
+    from anyloc_tpu_torch.ops.kernels import matmul
+
+    a, b = _int8_operands(64, 48, 64, 106)         # K % 32 != 0
+    with pytest.raises(ValueError, match="K % 32"):
+        matmul(a, b)
+    a, b = _int8_operands(64, 64, 63, 107)         # odd N
+    with pytest.raises(ValueError, match="even"):
+        matmul(a, b)
+    with pytest.raises(TypeError, match="share"):
+        matmul(_randn(64, 64, dtype=torch.bfloat16), _randn(64, 64))
+
+
+def _variant_args(b, n, d, dtype, seed):
+    g = np.random.default_rng(seed)
+    np_pad = -(-n // 8) * 8
+    wqkv, sqkv = _int8_weights(d, 3 * d, seed + 1)
+    wp, sp = _int8_weights(d, d, seed + 2)
+    xq_in = torch.from_numpy(g.integers(-127, 128, (b, np_pad, d), dtype=np.int8)).cuda()
+    xs_in = _randn(b, np_pad, 1, seed=seed + 3).abs() * 0.01 + 1e-3
+    ln = (1 + _randn(1, d, seed=seed + 4, scale=0.1), _randn(1, d, seed=seed + 5, scale=0.1))
+    return (_randn(b, n, d, dtype=dtype, seed=seed), xq_in, xs_in, wqkv, sqkv, wp, sp, ln,
+            _randn(1, d, seed=seed + 6, scale=0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pre_quant,batched_dots", [(False, False), (True, False), (False, True)])
+def test_attn_half_variant_kernel_matches_ref(dtype, pre_quant, batched_dots):
+    """Besides K4's bound on the output, the heads' outputs o: at K4's bound
+    of the plain version's o, f32 values (not bf16 ones) with batched_dots,
+    and the output far nearer the stages after the attention applied to the
+    kernel's own o than to them applied to that o rounded to bf16 (the
+    output's bound alone cannot tell the two apart)."""
+    from anyloc_tpu_torch.ops.kernels import (
+        attn_half_variant, attn_half_variant_proj_ref, attn_half_variant_ref)
+
+    args = _variant_args(2, 77, 256, dtype, 110)   # 4 heads of 64, ragged N (pads to 80)
+    kw = dict(pre_quant=pre_quant, batched_dots=batched_dots)
+    before = attn_half_variant.launches
+    got, o = attn_half_variant(*args, return_o=True, **kw)
+    assert attn_half_variant.launches == before + 1
+    want, o_want = attn_half_variant_ref(*args, return_o=True, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _rms_rel(got, want) <= 1e-2
+    _close_but_rare_flips(got, want, atol=2e-2, rtol=1e-2)
+    assert _rms_rel(o, o_want) <= 1e-2
+    _close_but_rare_flips(o, o_want, atol=2e-2, rtol=1e-2)
+    bf16_share = (o == o.to(torch.bfloat16).float()).float().mean().item()
+    assert bf16_share <= 1e-2 if batched_dots else bf16_share == 1.0
+    if batched_dots:
+        x, wp, sp, gamma = args[0], args[5], args[6], args[8]
+        own = _rms_rel(got, attn_half_variant_proj_ref(x, o, wp, sp, gamma))
+        rounded = _rms_rel(got, attn_half_variant_proj_ref(x, o.to(torch.bfloat16).float(), wp,
+                                                           sp, gamma))
+        assert own <= 0.5 * rounded, (own, rounded)
+
+
+@pytest.mark.parametrize("n", [77, 1000])         # head chunks 4 (one) and 2 (two)
+def test_attn_half_variant_base_is_k4_bit_for_bit(n):
+    from anyloc_tpu_torch.ops.kernels import attn_half_variant, fused_attn_half_int8
+
+    x, xq_in, xs_in, wqkv, sqkv, wp, sp, ln, gamma = _variant_args(1, n, 256, torch.bfloat16, 120)
+    got = attn_half_variant(x, None, None, wqkv, sqkv, wp, sp, ln, gamma, pre_quant=False,
+                            batched_dots=False)
+    want = fused_attn_half_int8(x, wqkv, sqkv, None, wp, sp, None, num_heads=4,
+                                ln_params=(ln[0].ravel(), ln[1].ravel()), layerscale=gamma.ravel())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
