@@ -54,6 +54,23 @@ struct GemmArgs {
   float q_scale;       // EPI_QKV
 };
 
+// The B row that tile row r (0..127) of column block bn reads, or -1, in a
+// GEMM of N output columns (EPI_SWIGLU: N = HID, W2 from B row hid on).
+// EPI_SWIGLU: each warp's 32 rows are 16 hidden columns of W1 then the
+// same 16 of W2, so one thread holds g1 (n-tiles 0, 1) and g2 (2, 3) of
+// the same hidden column; a block covers 64 hidden columns.
+template <int EPI>
+__device__ __forceinline__ int b_row(int N, int hid, int bn, int r) {
+  if (EPI == EPI_SWIGLU) {
+    const int j = r & 31;
+    const int hcol = bn * 64 + (r >> 5) * 16 + (j & 15);
+    if (hcol >= N) return -1;
+    return j < 16 ? hcol : hid + hcol;
+  }
+  const int c = bn * 128 + r;
+  return c < N ? c : -1;
+}
+
 // Output columns col, col + 1 of row `row` from their f32 sums (v0, v1) and,
 // for EPI_SWIGLU, the W2 sums of the same hidden columns (u0, u1).
 template <int EPI, typename T>

@@ -7,14 +7,15 @@
 // for sequences longer than 1216 tokens (the 1022-px demo: 5330 tokens).
 //
 // What bounds it on the H100: at N = 5330, hd = 64 the score products are
-// 4·N²·hd ≈ 7.3 GFLOP per (batch, head) against 2·3·N·hd bytes of q/k/v,
-// so it is bound by tensor-core issue and by the softmax's exp/max work
+// 4·N²·hd ≈ 7.3 GFLOP per (batch, head) against 2·4·N·hd bytes of q/k/v/o,
+// so it is bound by tensor-core issue and by the softmax's exp2 work
 // between the two products, not by HBM. The [N, N] scores never exist in
-// device memory: each block keeps a 64-row query tile in registers, streams
-// 64-key K/V tiles through shared memory and carries the online-softmax
-// state (running max, denominator, f32 accumulator) in registers. The bf16
-// path uses mma.sync m16n8k16 tensor-core products; the f32 path is plain
-// FMA. A later version would use wgmma with TMA-fed K/V tiles.
+// device memory. The design (flash_attention.cuh has the details): a
+// producer warp feeds 64-key K/V tiles by TMA into a two-stage mbarrier
+// ring; one consumer warpgroup of 64 query rows (two at hd 128) keeps Q in
+// registers and runs both products on wgmma, with the online softmax
+// (running max, denominator, f32 accumulator) in registers between them;
+// three blocks share an SM. The f32 path is plain FMA.
 //
 // Rounding follows the TPU kernel: scores = (q k^T with f32 sums) * scale
 // in f32; P is rounded to v's dtype before the PV product; out = acc / l.

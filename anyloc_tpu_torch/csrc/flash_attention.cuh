@@ -6,15 +6,50 @@
 // operands' dtype; with O_F32, bf16 operands write f32 (T3's batched_dots,
 // whose per-head outputs are never rounded to bf16).
 //
-// Online softmax (running max m, denominator l, f32 accumulator) over
-// 64-key tiles: the TPU kernels carried m/l/acc across sequential grid
-// steps in VMEM scratch; on Hopper blocks run in no order, so each block
-// walks all key tiles of its query rows itself.
+// Replaces the TPU kernels of anyloc_tpu/ops/pallas/flash_attention.py
+// (flash_attention :62, flash_attention_heads :139, flash_attention_blocked
+// :241) and the attention stages of attn_proj.py. The TPU kernels carried
+// the online-softmax state across sequential grid steps in VMEM; on Hopper
+// blocks run in no order, so each block walks all key tiles of its query
+// rows itself.
+//
+// What bounds it on the H100: 4·B·H·N²·hd operations (the two products),
+// 7.3 GFLOP per (batch, head) at N 5330, hd 64, against 2·4·N·hd bytes of
+// q/k/v/o: tensor-core issue, and beside it the softmax's exp2 on the
+// special-function units, which at hd 64 take about as many cycles per
+// key tile as the two products. The bf16 design (flash_attn_wgmma_kernel):
+//   * one producer warp issues TMA loads of 64-key K and V tiles into a
+//     two-stage ring of mbarrier-guarded shared memory, through 4-D tensor
+//     maps over the strided views (dims hd, N, H, B; keys >= N load as
+//     zeros and are masked to -inf); the tile rows are swizzled by
+//     min(2 hd, 128) bytes, hd 128 as two 64-column panels;
+//   * consumer warpgroups of 64 query rows each hold Q in registers as
+//     wgmma A fragments (pre-scaled and rounded to bf16 where prescale_q
+//     says so) and run S = Q K^T (wgmma, B = the K tile, K-major), the
+//     online softmax in registers with log2(e) folded into the scale and
+//     ex2.approx, then O += P V (wgmma, A = P rounded to bf16 in
+//     registers, B = the V tile read MN-major through wgmma's transpose
+//     bit: no transpose of V is ever stored);
+//   * query rows per block, fixed per head dim at compile time: 64 (one
+//     consumer; 160 threads, 124 registers at hd 64, 33 KB of shared
+//     memory, three blocks per SM) up to hd 64, 128 (two consumers; 288
+//     threads, one block per SM) at hd 128, where one consumer would
+//     spill (nvcc -Xptxas -v). No setmaxnreg: the producer is one warp.
+//     On one H100 80GB HBM3 at 700 W, DINOv2-G heads, 64 / 128 rows per
+//     block at hd 64 took 0.098 / 0.147 ms at B 32, N 257 (where 128-row
+//     tiles cover 384 rows for 257), 0.188 / 0.246 at B 32, N 485 and
+//     0.487 / 0.555 at B 1, N 5330 (SDPA: 0.099, 0.155, 0.441); with a
+//     producer warpgroup (two blocks of one consumer per SM) 64 rows took
+//     0.115 / 0.239 / 0.544; a variant that issued the next tile's scores
+//     before the current PV product, to overlap the softmax with it, took
+//     0.657 ms at N 5330; none of these was kept (PERF.md).
+// f32 operands (the ragged f32 checks only) take the scalar kernel below.
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace anyloc {
 
@@ -37,10 +72,6 @@ struct AttnArgs {
 
 namespace {
 
-constexpr int FA_BQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int FA_BK = 64;  // keys per shared-memory tile
-constexpr int FA_THREADS = 128;
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffff, x, 2));
@@ -51,6 +82,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffff, x, 2);
 }
 
+__device__ __forceinline__ float exp2_approx(float x) {  // exp2(-inf) = +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // two neighbouring output columns
 __device__ __forceinline__ void store2(bf16* o, float a, float b) {
   *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
@@ -59,33 +96,88 @@ __device__ __forceinline__ void store2(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
 }
 
-// bf16 inputs: tensor-core (mma.sync m16n8k16) products with f32 sums;
-// the output in bf16, or in f32 with O_F32.
+// The K / V tiles of head dim HD, and the block: NWG consumer warpgroups
+// (one, compiled for three blocks per SM, or two at hd 128, where one
+// would spill), then the producer warp.
+template <int HD>
+struct FaTile {
+  static constexpr int NWG = HD == 128 ? 2 : 1;
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int BLOCKS_PER_SM = NWG == 1 ? 3 : 1;
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // bytes per tile row = swizzle
+  static constexpr int BOX = SW / 2;                       // head-dim columns per TMA box
+  static constexpr int PANELS = HD / BOX;                  // 1, or 2 at hd 128
+  static constexpr int BK = 64;                            // keys per tile
+  static constexpr int TILE = BK * HD * 2;                 // bytes of one K or V tile
+  static constexpr int STAGES = 2;
+  static constexpr int SMEM = STAGES * 2 * TILE + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// bf16 operands: wgmma products with f32 sums, P rounded to bf16 before
+// PV; the output in bf16, or in f32 with O_F32. Warpgroups 0..NWG-1 are
+// the consumers, the last warp the producer.
 template <int HD, bool O_F32>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_attn_bf16_kernel(AttnArgs p, int n_qt) {
+__global__ void __launch_bounds__(FaTile<HD>::THREADS, FaTile<HD>::BLOCKS_PER_SM)
+    flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap, AttnArgs p, int n_qt) {
+  using T = FaTile<HD>;
+  constexpr int NWG = T::NWG;
   using OutT = std::conditional_t<O_F32, float, bf16>;
-  constexpr int KP = HD + 8;     // K tile pitch (bf16), keeps rows 16B aligned
-  constexpr int VP = FA_BK + 8;  // transposed V tile pitch
-  __shared__ __align__(16) bf16 Ks[FA_BK * KP];
-  __shared__ __align__(16) bf16 Vt[HD * VP];
+  extern __shared__ uint8_t fa_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fa_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * 2 * T::TILE);
+  uint64_t* empty = full + T::STAGES;
 
   const int qt = blockIdx.x % n_qt;
   const int bh = blockIdx.x / n_qt;
   const int b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int N = p.N;
+  const int nk = cdiv(N, T::BK);
+  const int wg = threadIdx.x / 128;  // NWG: the producer warp
 
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  OutT* O = static_cast<OutT*>(p.o) + b * p.o_sb + h * p.o_sh;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int r0 = qt * FA_BQ + warp * 16 + g;
+  if (wg == NWG) {  // ---------------------------------------- producer
+    if (threadIdx.x == 128 * NWG) {
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % T::STAGES;
+        if (j >= T::STAGES) mbar_wait(&empty[s], (j / T::STAGES - 1) & 1);
+        uint8_t* kt = smem + s * 2 * T::TILE;
+        uint8_t* vt = kt + T::TILE;
+        mbar_arrive_expect_tx(&full[s], 2 * T::TILE);
+#pragma unroll
+        for (int pn = 0; pn < T::PANELS; ++pn) {
+          tma_load_4d(kt + pn * T::BK * T::SW, &kmap, &full[s], pn * T::BOX, j * T::BK, h, b);
+          tma_load_4d(vt + pn * T::BK * T::SW, &vmap, &full[s], pn * T::BOX, j * T::BK, h, b);
+        }
+      }
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (qt * NWG + wg) * 64 + warp * 16 + g;
   const int r1 = r0 + 8;
 
-  // this warp's 16 query rows as A fragments, kept in registers
+  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  OutT* O = static_cast<OutT*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // this warp's 16 query rows as A fragments (k16 steps along hd)
   uint32_t qa[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -104,108 +196,106 @@ __global__ void __launch_bounds__(FA_THREADS)
       qa[kk][e] = u;
     }
   }
+  // exp(x) = exp2(x * log2 e): scores go to the log2 domain in one multiply
+  const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;
 
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+  float o[HD / 2], s[T::BK / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < T::BK / 2; ++i) s[i] = 0.f;
 
-  constexpr int VEC = HD / 8;  // 16-byte vectors per key row
-  for (int k0 = 0; k0 < N; k0 += FA_BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < FA_BK * VEC; i += FA_THREADS) {
-      const int r = i / VEC, c = (i % VEC) * 8;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < N) {  // ragged tail: zeros, so masked keys add exact zeros
-        kv = *reinterpret_cast<const uint4*>(K + key * p.k_sn + c);
-        vv = *reinterpret_cast<const uint4*>(V + key * p.v_sn + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KP + c]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % T::STAGES;
+    mbar_wait(&full[st], (j / T::STAGES) & 1);
+    const uint8_t* kt = smem + st * 2 * T::TILE;
+    const uint8_t* vt = kt + T::TILE;
+
+    // S = Q K^T: 64 rows x BK keys for this warpgroup
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * VP + r] = ve[j];
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = kk * 32;  // bytes along hd
+      const uint8_t* kp = kt + (off / T::SW) * (T::BK * T::SW) + off % T::SW;
+      wgmma_bf16_rs<0>(s, qa[kk], smem_desc<T::SW>(kp, 16, 8 * T::SW), kk);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-    // S = Q K^T: 16 rows x 64 keys for this warp
-    float s[FA_BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* kr = &Ks[(j * 8 + g) * KP + kk * 16 + t * 2];
-        mma_bf16_16816(s[j], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
-                       lds32(kr), lds32(kr + 8));
-      }
-    }
+    const bool tail = (j + 1) * T::BK > N;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j) {
+    for (int jj = 0; jj < T::BK / 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t * 2 + (e & 1);
-        float x = p.prescale_q ? s[j][e] : s[j][e] * p.scale;
-        if (col >= N) x = -INFINITY;
-        s[j][e] = x;
+        float x = s[4 * jj + e] * c;
+        if (tail && j * T::BK + jj * 8 + t * 2 + (e & 1) >= N) x = -INFINITY;
+        s[4 * jj + e] = x;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      mx0 = fmaxf(mx0, fmaxf(s[4 * jj], s[4 * jj + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
     }
     // key 0 is valid in the first tile, so the running max is finite
-    const float mn0 = fmaxf(m[0], quad_max(mx0));
-    const float mn1 = fmaxf(m[1], quad_max(mx1));
-    const float al0 = expf(m[0] - mn0);
-    const float al1 = expf(m[1] - mn1);
-    m[0] = mn0;
-    m[1] = mn1;
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float al0 = exp2_approx(m0 - mn0);
+    const float al1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
+    for (int jj = 0; jj < T::BK / 8; ++jj) {
+      s[4 * jj] = exp2_approx(s[4 * jj] - mn0);
+      s[4 * jj + 1] = exp2_approx(s[4 * jj + 1] - mn0);
+      s[4 * jj + 2] = exp2_approx(s[4 * jj + 2] - mn1);
+      s[4 * jj + 3] = exp2_approx(s[4 * jj + 3] - mn1);
+      ls0 += s[4 * jj] + s[4 * jj + 1];
+      ls1 += s[4 * jj + 2] + s[4 * jj + 3];
     }
-    l[0] = l[0] * al0 + ls0;  // per-thread partial; quad-summed at the end
-    l[1] = l[1] * al1 + ls1;
+    l0 = l0 * al0 + ls0;  // per-thread partial; quad-summed at the end
+    l1 = l1 * al1 + ls1;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      acc[j][0] *= al0;
-      acc[j][1] *= al0;
-      acc[j][2] *= al1;
-      acc[j][3] *= al1;
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      o[4 * jj] *= al0;
+      o[4 * jj + 1] *= al0;
+      o[4 * jj + 2] *= al1;
+      o[4 * jj + 3] *= al1;
     }
     // O += P V with P rounded to bf16 (v's dtype), as the TPU kernel does;
-    // the S accumulator layout of two key n-tiles is the A fragment of P
+    // the S accumulator of key n-tiles 2kt, 2kt + 1 is the A fragment of
+    // P's k16 step kt
+    uint32_t pa[T::BK / 16][4];
 #pragma unroll
-    for (int kt = 0; kt < FA_BK / 16; ++kt) {
-      const uint32_t a0 = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const bf16* vr = &Vt[(j * 8 + g) * VP + kt * 16 + t * 2];
-        mma_bf16_16816(acc[j], a0, a1, a2, a3, lds32(vr), lds32(vr + 8));
-      }
+    for (int kt2 = 0; kt2 < T::BK / 16; ++kt2) {
+      pa[kt2][0] = pack_bf16(s[8 * kt2], s[8 * kt2 + 1]);
+      pa[kt2][1] = pack_bf16(s[8 * kt2 + 2], s[8 * kt2 + 3]);
+      pa[kt2][2] = pack_bf16(s[8 * kt2 + 4], s[8 * kt2 + 5]);
+      pa[kt2][3] = pack_bf16(s[8 * kt2 + 6], s[8 * kt2 + 7]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kt2 = 0; kt2 < T::BK / 16; ++kt2)
+      wgmma_bf16_rs<1>(o, pa[kt2],
+                       smem_desc<T::SW>(vt + kt2 * 16 * T::SW, T::BK * T::SW, 8 * T::SW), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kt2 = 0; kt2 < T::BK / 16; ++kt2) fence_regs(pa[kt2]);  // P lives until the wait
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
   }
 
-  const float l0 = quad_sum(l[0]);
-  const float l1 = quad_sum(l[1]);
+  const float d0 = quad_sum(l0);
+  const float d1 = quad_sum(l1);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int col = j * 8 + t * 2;
-    if (r0 < N) store2(O + r0 * p.o_sn + col, acc[j][0] / l0, acc[j][1] / l0);
-    if (r1 < N) store2(O + r1 * p.o_sn + col, acc[j][2] / l1, acc[j][3] / l1);
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    const int col = jj * 8 + t * 2;
+    if (r0 < N) store2(O + r0 * p.o_sn + col, o[4 * jj] / d0, o[4 * jj + 1] / d0);
+    if (r1 < N) store2(O + r1 * p.o_sn + col, o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
   }
 }
 
@@ -271,19 +361,46 @@ __global__ void __launch_bounds__(FS_ROWS)
   }
 }
 
+// The 4-D map (hd, N, H, B) of one bf16 operand; a dimension of extent 1
+// may carry any stride (the wrappers do not check it), so it gets one that
+// TMA takes (a multiple of 16 bytes).
+template <int HD>
+cudaError_t attention_map(CUtensorMap* map, const void* base, const AttnArgs& p, long long sb,
+                          long long sh, long long sn) {
+  using T = FaTile<HD>;
+  const cuuint64_t bn = p.N == 1 ? HD * 2 : sn * 2;
+  const cuuint64_t bhs = p.H == 1 ? bn * p.N : sh * 2;
+  const cuuint64_t bbs = p.B == 1 ? bhs * p.H : sb * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)p.N, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t strides[3] = {bn, bhs, bbs};
+  const cuuint32_t box[4] = {(cuuint32_t)T::BOX, (cuuint32_t)T::BK, 1, 1};
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box, T::SW);
+}
+
+template <int HD, bool O_F32>
+cudaError_t launch_attention_wgmma(const AttnArgs& p, cudaStream_t st) {
+  using T = FaTile<HD>;
+  CUtensorMap kmap, vmap;
+  cudaError_t e = attention_map<HD>(&kmap, p.k, p, p.k_sb, p.k_sh, p.k_sn);
+  if (e == cudaSuccess) e = attention_map<HD>(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_attn_wgmma_kernel<HD, O_F32>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return e;
+  const int n_qt = cdiv(p.N, 64 * T::NWG);
+  kernel<<<p.B * p.H * n_qt, T::THREADS, T::SMEM, st>>>(kmap, vmap, p, n_qt);
+  return cudaGetLastError();
+}
+
 template <int HD, bool O_F32>
 cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
-  const int bh = p.B * p.H;
-  if (dtype == DT_BF16) {
-    const int n_qt = cdiv(p.N, FA_BQ);
-    flash_attn_bf16_kernel<HD, O_F32><<<bh * n_qt, FA_THREADS, 0, st>>>(p, n_qt);
-  } else if (dtype == DT_F32) {
+  if (dtype == DT_F32) {
     const int n_qt = cdiv(p.N, FS_ROWS);
-    flash_attn_scalar_kernel<float, HD><<<bh * n_qt, FS_ROWS, 0, st>>>(p, n_qt);
-  } else {
-    return cudaErrorInvalidValue;
+    flash_attn_scalar_kernel<float, HD><<<p.B * p.H * n_qt, FS_ROWS, 0, st>>>(p, n_qt);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (dtype != DT_BF16) return cudaErrorInvalidValue;
+  return launch_attention_wgmma<HD, O_F32>(p, st);
 }
 
 }  // namespace

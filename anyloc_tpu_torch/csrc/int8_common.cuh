@@ -9,26 +9,53 @@
 //     quantize, scale = max(amax, 1e-6) / 127, codes rintf(x / scale)
 //     (half to even, as jnp.round) clamped to +-127;
 //   * requant_groups_kernel: the same quantize per (row, column group);
-//   * gemm_i8_kernel: int8 x int8 -> int32 on mma.sync m16n8k32, both
-//     operands K-contiguous (A [M, K] activations, B [rows, K] = the
-//     nn.Linear weight layout). At each group's edge of the K loop the int32
-//     partial turns into f32 (__int2float_rn) and is added as
-//     (partial * row_scale[row, group]) * col_scale[col] — the JAX order —
-//     to an f32 accumulator; the epilogue (EPI_*) finishes the tile.
-//     EPI_I32 skips the fold: it keeps the exact int32 sums over the whole
-//     of K (f32 holds integers exactly only up to 2^24, and a sum over K
-//     4096 of int8 products reaches 4096 * 127^2 ~ 6.6e7).
+//   * gemm_i8_kernel: int8 x int8 -> int32, both operands K-contiguous (A
+//     [M, K] activations, B [rows, K] = the nn.Linear weight layout). At
+//     each group's edge of the K loop the int32 partial turns into f32
+//     (__int2float_rn) and is added as (partial * row_scale[row, group]) *
+//     col_scale[col] — the JAX order — to an f32 accumulator; the epilogue
+//     (EPI_*) finishes the tile. EPI_I32 skips the fold: it keeps the exact
+//     int32 sums over the whole of K (f32 holds integers exactly only up to
+//     2^24, and a sum over K 4096 of int8 products reaches 4096 * 127^2 ~
+//     6.6e7).
 //
 // What bounds the GEMMs on the H100: at the 308-px batch-32 shape
 // (M = 15520 rows, D = 1536) each one is 73-391 G int8 ops against tens of
 // MB of operands, far above the card's 590 ops/byte balance point, so they
-// are bound by tensor-core issue. This design is the simple one: 128x128
-// block tiles, 8 warps of 64x32, K steps of 64 bytes through a three-stage
-// cp.async ring in shared memory (80-byte row pitch: the 32-bit fragment
-// loads hit 32 distinct banks). wgmma with TMA-fed tiles is later work.
+// are bound by tensor-core issue: 2·M·N·K operations at 1,979 TOPS. The
+// design is Hopper's: wgmma.mma_async m64nNk32 .s32.s8.s8 with both
+// operands K-major in shared memory (the only layout int8 wgmma takes, and
+// the port's), fed by TMA into a ring of 128-byte-swizzled stages (128 K
+// bytes each) guarded by mbarriers; two consumer warpgroups of 64 rows
+// each issue the wgmmas, keep one tile's products in flight while the
+// next tile lands, and free a stage when its products are done; the first
+// warp of a producer warpgroup issues the loads. setmaxnreg moves the
+// producer's registers to the consumers (40 / 232; nvcc -Xptxas -v reports
+// the 168 of the launch, no spills), which is why the producer is a whole
+// warpgroup. Two instances (I8Tile, below):
+//   * one K group (w12, qkv, T1, T2): int32 sums only, folded once in the
+//     epilogue; 128 x 256 block tiles, four 48 KB stages; EPI_SWIGLU loads
+//     its B tile as two TMA boxes, 128 W1 rows and the same 128 rows of W2,
+//     so g1 and g2 of one hidden column sit in one thread (columns j and
+//     j + 128 of the m64n256 accumulator);
+//   * groups (w3 with the hidden chunk 512, the projection with head
+//     chunks of 384 or 768, groups down to 32 in the tests): f32 sums
+//     beside the int32 ones, folded after wgmma.wait_group 0 at the 32-byte
+//     wgmma step where a group ends; 128 x 128 tiles, six 32 KB stages.
+// Ragged M, N and K are left to TMA's zero fill; the epilogue masks rows
+// and columns past the edge. A_MAP (T3's pre_quant) gathers its A rows
+// with cp.async into the same swizzled layout. On one H100 80GB HBM3 at
+// 700 W (chip_smoke.py; PERF.md) T1 int8 runs at ~1000 TOPS at w12
+// [8704x1536]x[1536x8192] and T2 at ~670; the grouped instance reaches
+// about half the one-group rate (PERF.md §5). Without setmaxnreg (154-168
+// registers), with a producer warpgroup or with a producer warp (288
+// threads), T2 took 0.366 ms for 0.327, K3 1.44 for 1.27 and K4 1.08
+// for 1.00 (chip_smoke.py, same call), so setmaxnreg and the warpgroup
+// stay.
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace anyloc {
 namespace {
@@ -160,12 +187,9 @@ cudaError_t launch_requant(const T* in, int8_t* q, float* sc, long long rows,
 
 // ---------------------------------------------------------------- int8 GEMM
 
-constexpr int QBM = 128, QBN = 128, QBK = 64;
-constexpr int QSTAGES = 3;
-constexpr int QTHREADS = 256;
-constexpr int QP = QBK + 16;  // smem row pitch in bytes
-constexpr int Q_STAGE_BYTES = (QBM + QBN) * QP;
-constexpr int Q_SMEM_BYTES = QSTAGES * Q_STAGE_BYTES;  // 61,440: dynamic
+constexpr int QBM = 128;       // rows per block: two consumer warpgroups of 64
+constexpr int QBK = 128;       // K bytes per stage: one 128-byte swizzled row
+constexpr int QTHREADS = 384;  // two consumer warpgroups, then the producer warpgroup
 
 // GEMM epilogues (int8: bf16 qkv, f32 hidden; bf16_gemm.cuh: the operand
 // dtype throughout)
@@ -210,20 +234,6 @@ template <> __device__ __forceinline__ bf16 from_int<bf16>(int x) {
   return __float2bfloat16_rn(__int2float_rn(x));
 }
 
-// D = A(16x32 s8, row) * B(32x8 s8, col) + D in s32. Fragments (g = lane/4,
-// t = lane%4; four int8 per register): a0 (row g, k 4t..4t+3), a1 (row g+8),
-// a2 (row g, k 16+4t..), a3 (row g+8, k 16+4t..); b0 (k 4t.., col g),
-// b1 (k 16+4t.., col g); c0,c1 (row g, cols 2t, 2t+1), c2,c3 (row g+8).
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4], uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
@@ -255,233 +265,354 @@ __device__ __forceinline__ float gelu_poly(float x) {
   return 0.5f * x * (1.f + erf_poly(x * 0.70710677f));
 }
 
-// The B row that tile row r (0..127) of column block bn reads, or -1, in a
-// GEMM of N output columns (EPI_SWIGLU: N = HID, W2 from B row hid on).
-// EPI_SWIGLU: each warp's 32 rows are 16 hidden columns of W1 then the
-// same 16 of W2, so one thread holds g1 (n-tiles 0, 1) and g2 (2, 3) of
-// the same hidden column; a block covers 64 hidden columns.
-template <int EPI>
-__device__ __forceinline__ int b_row(int N, int hid, int bn, int r) {
-  if (EPI == EPI_SWIGLU) {
-    const int j = r & 31;
-    const int hcol = bn * 64 + (r >> 5) * 16 + (j & 15);
-    if (hcol >= N) return -1;
-    return j < 16 ? hcol : hid + hcol;
-  }
-  const int c = bn * 128 + r;
-  return c < N ? c : -1;
+// Tiles of the two GEMM instances. ONE: the product has one K group
+// (group == K: K3's w12, K4's qkv, T2; and EPI_I32, which never folds):
+// only int32 accumulators live in the K loop, folded once in the
+// epilogue, so a consumer warpgroup holds a 64 x 256 tile (128 registers
+// of sums). Otherwise (K3's w3, K4's projection: one group per hidden or
+// head chunk) f32 accumulators sit beside the int32 ones and the tile is
+// 64 x 128 per consumer.
+template <bool ONE>
+struct I8Tile {
+  static constexpr int BN = ONE ? 256 : 128;     // columns per block (B rows)
+  static constexpr int STAGES = ONE ? 4 : 6;
+  static constexpr int A_BYTES = QBM * QBK;       // 16 KB
+  static constexpr int B_BYTES = BN * QBK;        // 32 or 16 KB
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+};
+
+// (partial * row_scale) * col_scale, the JAX order
+__device__ __forceinline__ float dequant(int partial, float rs, float cs) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(partial), rs), cs);
 }
 
-// A_MAP reads A through a_src_row; the other instances read row r itself
-// and compile without the mapping (it costs K3 and K4 ~1-3 % where it is
-// only a runtime branch, on an H100 at 700 W).
-template <int EPI, typename OutT, typename ResT, bool A_MAP>
-__global__ void __launch_bounds__(QTHREADS)
-    gemm_i8_kernel(I8GemmArgs p) {
-  extern __shared__ __align__(16) int8_t q_smem[];
-  const int bn = blockIdx.x, m0 = blockIdx.y * QBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int ng = p.K / p.group;
+// Two neighbouring outputs in one store (col is even and N is even, so
+// the pair is aligned to its size).
+__device__ __forceinline__ void store_pair(int* o, int a, int b) {
+  *reinterpret_cast<int2*>(o) = make_int2(a, b);
+}
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* o, bf16 a, bf16 b) {
+  __nv_bfloat162 v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<__nv_bfloat162*>(o) = v;
+}
 
-  // this thread's two load slots per operand and stage (16 bytes each);
-  // with A_MAP, A's row starts are mapped once here, not at every K step
-  int a_row[2], b_src[2], ld_r[2], ld_k[2];
-  const int8_t* a_map[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * QTHREADS;
-    ld_r[i] = c >> 2;
-    ld_k[i] = (c & 3) * 16;
-    a_row[i] = m0 + ld_r[i];
-    if (A_MAP) a_map[i] = a_row[i] < p.M ? p.A + a_src_row(p, a_row[i]) * p.K : p.A;
-    b_src[i] = b_row<EPI>(p.N, p.hid, bn, ld_r[i]);
+// Per-column constants of the epilogue of columns col, col + 1, read once
+// for both rows a thread holds: column scales (one group), bias, SwiGLU's
+// W2 scales and bias, LayerScale.
+struct EpiCols {
+  float cs0, cs1, b0, b1, cu0, cu1, bu0, bu1, g0, g1;
+};
+
+template <int EPI, bool ONE>
+__device__ __forceinline__ EpiCols epi_cols(const I8GemmArgs& p, int col) {
+  EpiCols c = {};
+  if (ONE) {
+    c.cs0 = p.col_scale[col];
+    c.cs1 = p.col_scale[col + 1];
   }
-  auto load_stage = [&](int stage, int k0) {
-    int8_t* As = q_smem + stage * Q_STAGE_BYTES;
-    int8_t* Bs = As + QBM * QP;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = k0 + ld_k[i];
-      const bool ka = a_row[i] < p.M && k < p.K;
-      const bool kb = b_src[i] >= 0 && k < p.K;
-      if constexpr (A_MAP)
-        cp_async16(As + ld_r[i] * QP + ld_k[i], ka ? a_map[i] + k : p.A, ka);
-      else
-        cp_async16(As + ld_r[i] * QP + ld_k[i],
-                   ka ? p.A + (long long)a_row[i] * p.K + k : p.A, ka);
-      cp_async16(Bs + ld_r[i] * QP + ld_k[i],
-                 kb ? p.B + (long long)b_src[i] * p.K + k : p.B, kb);
+  if (p.bias) {
+    c.b0 = p.bias[col];
+    c.b1 = p.bias[col + 1];
+  }
+  if (EPI == EPI_SWIGLU) {
+    const int w2 = p.hid + col;
+    c.cu0 = p.col_scale[w2];
+    c.cu1 = p.col_scale[w2 + 1];
+    if (p.bias) {
+      c.bu0 = p.bias[w2];
+      c.bu1 = p.bias[w2 + 1];
     }
-  };
+  }
+  if (EPI == EPI_RESID && p.gamma) {
+    c.g0 = p.gamma[col];
+    c.g1 = p.gamma[col + 1];
+  }
+  return c;
+}
 
-  // column scales of this thread's 8 output columns
-  float cs[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int br = b_row<EPI>(p.N, p.hid, bn, wn + nt * 8 + 2 * t + h);
-      cs[nt][h] = EPI != EPI_I32 && br >= 0 ? p.col_scale[br] : 0.f;
+// The epilogue of output columns col, col + 1 of one row (off = row * N +
+// col) from accumulator entries e, e + 1: the one-group fold with the row
+// scale rs (or the folded f32 sums), + bias, then the EPI_* step, rounded
+// once.
+template <int EPI, typename OutT, typename ResT, bool ONE, int NACC>
+__device__ __forceinline__ void epilogue2(const I8GemmArgs& p, const int (&acc)[NACC],
+                                          const float (&facc)[NACC], int e, float rs,
+                                          long long off, int col, const EpiCols& c) {
+  float v0, v1;
+  if constexpr (ONE) {
+    v0 = __fadd_rn(0.f, dequant(acc[e], rs, c.cs0));
+    v1 = __fadd_rn(0.f, dequant(acc[e + 1], rs, c.cs1));
+  } else {
+    v0 = facc[e];
+    v1 = facc[e + 1];
+  }
+  if (p.bias) {
+    v0 = __fadd_rn(v0, c.b0);
+    v1 = __fadd_rn(v1, c.b1);
+  }
+  if constexpr (EPI == EPI_QKV) {
+    if (col < p.q_cols) {
+      v0 = __fmul_rn(v0, p.q_scale);
+      v1 = __fmul_rn(v1, p.q_scale);
     }
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) = pack_bf16(v0, v1);
+  } else if constexpr (EPI == EPI_SWIGLU) {  // W2's sums of the same columns, BN / 2 on
+    float u0 = __fadd_rn(0.f, dequant(acc[e + NACC / 2], rs, c.cu0));
+    float u1 = __fadd_rn(0.f, dequant(acc[e + NACC / 2 + 1], rs, c.cu1));
+    if (p.bias) {
+      u0 = __fadd_rn(u0, c.bu0);
+      u1 = __fadd_rn(u1, c.bu1);
+    }
+    const float g0 = __fmul_rn(v0 / (1.f + expf(-v0)), u0);
+    const float g1 = __fmul_rn(v1 / (1.f + expf(-v1)), u1);
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(g0, g1);
+  } else if constexpr (EPI == EPI_GELU) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
+        make_float2(gelu_poly(v0), gelu_poly(v1));
+  } else {  // EPI_RESID
+    if (p.gamma) {
+      v0 = __fmul_rn(v0, c.g0);
+      v1 = __fmul_rn(v1, c.g1);
+    }
+    if (p.res) {
+      const ResT* r = static_cast<const ResT*>(p.res) + off;
+      v0 = __fadd_rn(v0, to_float(r[0]));
+      v1 = __fadd_rn(v1, to_float(r[1]));
+    }
+    store_pair(static_cast<OutT*>(p.out) + off, from_float<OutT>(v0), from_float<OutT>(v1));
+  }
+}
 
-  int iacc[4][4][4];
-  float facc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        iacc[i][j][e] = 0;
-        facc[i][j][e] = 0.f;
-      }
+// A_MAP reads A through a_src_row with cp.async (a row gather, which a
+// tensor map cannot express), into the layout TMA's 128-byte swizzle
+// gives; the other instances load A by TMA and compile without the
+// mapping (a runtime branch in every GEMM cost K3 and K4 ~1-3 %, on an
+// H100 at 700 W). Warpgroups 0 and 1 are the consumers of rows 0-63 and
+// 64-127, warpgroup 2 the producer (its first warp loads).
+template <int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE>
+__global__ void __launch_bounds__(QTHREADS, 1)
+    gemm_i8_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap, I8GemmArgs p) {
+  using T = I8Tile<ONE>;
+  constexpr int BN = T::BN;
+  constexpr int NACC = BN / 2;  // sums per thread
+  extern __shared__ uint8_t q_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(q_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
 
+  const int m0 = blockIdx.y * QBM;
+  // first output column; EPI_SWIGLU: the B tile is BN / 2 W1 rows (hidden
+  // columns c0..) over the same BN / 2 rows of W2
+  const int c0 = blockIdx.x * (EPI == EPI_SWIGLU ? BN / 2 : BN);
   const int nk = cdiv(p.K, QBK);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int s = 0; s < QSTAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s * QBK);
-    cp_async_commit();
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], A_MAP ? 33 : 1);  // + the producer warp's cp.async
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (wg == 2) {  // ---------------------------------------- producer
+    regs_shrink<40>();
+    const int lane = threadIdx.x - 256;
+    if (lane >= (A_MAP ? 32 : 1)) return;
+    if (!A_MAP) tma_prefetch_map(&amap);
+    tma_prefetch_map(&bmap);
+    const int8_t* arow[4];  // A_MAP: rows lane + 32 i of the tile, null past M
+    if constexpr (A_MAP) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + lane + 32 * i;
+        arow[i] = r < p.M ? p.A + a_src_row(p, r) * (long long)p.K : nullptr;
+      }
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % T::STAGES;
+      if (kt >= T::STAGES) mbar_wait(&empty[s], (kt / T::STAGES - 1) & 1);
+      uint8_t* As = smem + s * T::STAGE;
+      uint8_t* Bs = As + T::A_BYTES;
+      const int k0 = kt * QBK;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], A_MAP ? T::B_BYTES : T::STAGE);
+        if (!A_MAP) tma_load_2d(As, &amap, &full[s], k0, m0);
+        if (EPI == EPI_SWIGLU) {
+          tma_load_2d(Bs, &bmap, &full[s], k0, c0);
+          tma_load_2d(Bs + BN / 2 * QBK, &bmap, &full[s], k0, p.hid + c0);
+        } else {
+          tma_load_2d(Bs, &bmap, &full[s], k0, c0);
+        }
+      }
+      if constexpr (A_MAP) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = lane + 32 * i;
+#pragma unroll
+          for (int ch = 0; ch < 8; ++ch) {
+            const int k = k0 + ch * 16;
+            const bool ok = arow[i] != nullptr && k < p.K;
+            cp_async16(As + r * QBK + ((ch ^ (r & 7)) << 4), ok ? arow[i] + k : p.A, ok);
+          }
+        }
+        mbar_arrive_cp_async(&full[s]);
+      }
+    }
+    if (A_MAP) cp_async_wait<0>();
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  regs_grow<232>();
+  const int cw = wg;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + cw * 64 + warp * 16 + g;  // and row0 + 8
+  const int ng = p.K / p.group;
+  long long src0 = row0, src1 = row0 + 8;  // the rows of A (and row scales) they read
+  if (A_MAP) {
+    src0 = row0 < p.M ? a_src_row(p, row0) : 0;
+    src1 = row0 + 8 < p.M ? a_src_row(p, row0 + 8) : 0;
+  }
+
+  int acc[NACC];
+  float facc[NACC];  // the folded f32 sums (unused, so not kept, with one group)
+  if constexpr (!ONE) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) facc[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+
+  int pending = -1;  // the stage of the last tile whose wgmmas may still read it
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<QSTAGES - 2>();
-    __syncthreads();  // tile kt landed; tile kt-1's stage is free again
-    if (kt + QSTAGES - 1 < nk) load_stage((kt + QSTAGES - 1) % QSTAGES, (kt + QSTAGES - 1) * QBK);
-    cp_async_commit();
-    const int8_t* As = q_smem + (kt % QSTAGES) * Q_STAGE_BYTES;
-    const int8_t* Bs = As + QBM * QP;
+    const int s = kt % T::STAGES;
+    mbar_wait(&full[s], (kt / T::STAGES) & 1);
+    if (A_MAP) fence_proxy_async();  // cp.async wrote A through the generic proxy
+    const uint8_t* As = smem + s * T::STAGE + cw * 64 * QBK;
+    const uint8_t* Bs = smem + s * T::STAGE + T::A_BYTES;
+    wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < QBK / 32; ++ks) {
       const int kg = kt * QBK + ks * 32;
-      if (kg >= p.K) break;  // K % 32 == 0 (the wrappers check)
-      uint32_t a[4][4];
+      if (kg < p.K) {  // K % 32 == 0 (the wrappers check)
+        wgmma_s8(acc, smem_desc<128>(As + ks * 32, 16, 1024), smem_desc<128>(Bs + ks * 32, 16, 1024),
+                 ONE ? kg : kg % p.group);  // 0: a group starts, D = A * B
+        if (!ONE && (kg + 32) % p.group == 0) {  // the group ends: fold it into f32
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          const int gi = (kg + 32) / p.group - 1;
+          const float rs0 = row0 < p.M ? p.row_scale[src0 * ng + gi] : 0.f;
+          const float rs1 = row0 + 8 < p.M ? p.row_scale[src1 * ng + gi] : 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int8_t* ar = As + (wm + mt * 16 + g) * QP + ks * 32 + t * 4;
-        a[mt][0] = lds32(ar);
-        a[mt][1] = lds32(ar + 8 * QP);
-        a[mt][2] = lds32(ar + 16);
-        a[mt][3] = lds32(ar + 8 * QP + 16);
-      }
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = c0 + j * 8 + 2 * t;  // column scales from L1: no registers held
+            const float cs0 = col < p.N ? __ldg(p.col_scale + col) : 0.f;
+            const float cs1 = col < p.N ? __ldg(p.col_scale + col + 1) : 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* br = Bs + (wn + nt * 8 + g) * QP + ks * 32 + t * 4;
-        const uint32_t b0 = lds32(br), b1 = lds32(br + 16);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          mma_s8_16832(iacc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
-      }
-      if (EPI != EPI_I32 && (kg + 32) % p.group == 0) {  // the group ends: fold it into f32
-        const int gi = (kg + 32) / p.group - 1;
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int r0 = m0 + wm + mt * 16 + g;
-          const long long s0 = A_MAP ? a_src_row(p, r0) : r0;
-          const long long s1 = A_MAP ? a_src_row(p, r0 + 8) : r0 + 8;
-          const float rs0 = r0 < p.M ? p.row_scale[s0 * ng + gi] : 0.f;
-          const float rs1 = r0 + 8 < p.M ? p.row_scale[s1 * ng + gi] : 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float v = __fmul_rn(__fmul_rn(__int2float_rn(iacc[mt][nt][e]),
-                                                  e < 2 ? rs0 : rs1),
-                                        cs[nt][e & 1]);
-              facc[mt][nt][e] = __fadd_rn(facc[mt][nt][e], v);
-              iacc[mt][nt][e] = 0;
-            }
+            for (int e = 0; e < 4; ++e)
+              facc[4 * j + e] = __fadd_rn(
+                  facc[4 * j + e], dequant(acc[4 * j + e], e < 2 ? rs0 : rs1, e & 1 ? cs1 : cs0));
+          }
+          wgmma_fence();
         }
       }
     }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's products are done: free its stage
+    if (pending >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[pending]);
+    }
+    pending = s;
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-  // epilogue
+  // epilogue: each thread holds columns 8j + 2t, + 1 of rows row0, row0 + 8
+  const bool in0 = row0 < p.M, in1 = row0 + 8 < p.M;
+  float rs0 = 0.f, rs1 = 0.f;  // one group: the row scales (ng == 1)
+  if (ONE && EPI != EPI_I32) {
+    if (in0) rs0 = p.row_scale[src0];
+    if (in1) rs1 = p.row_scale[src1];
+  }
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mt * 16 + g + half * 8;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (EPI == EPI_SWIGLU && nt >= 2) continue;
-        const int tr = wn + nt * 8 + 2 * t;  // tile row of the first column
-        const int br = b_row<EPI>(p.N, p.hid, bn, tr);
-        if (br < 0) continue;  // N is even: the pair is valid together
-        float v0 = facc[mt][nt][2 * half], v1 = facc[mt][nt][2 * half + 1];
-        if (p.bias) {
-          v0 = __fadd_rn(v0, p.bias[br]);
-          v1 = __fadd_rn(v1, p.bias[br + 1]);
-        }
-        if (EPI == EPI_QKV) {
-          if (br < p.q_cols) {
-            v0 = __fmul_rn(v0, p.q_scale);
-            v1 = __fmul_rn(v1, p.q_scale);
-          }
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + (long long)row * p.N + br) =
-              pack_bf16(v0, v1);
-        } else if (EPI == EPI_SWIGLU) {
-          float u0 = facc[mt][nt + 2][2 * half], u1 = facc[mt][nt + 2][2 * half + 1];
-          if (p.bias) {
-            u0 = __fadd_rn(u0, p.bias[p.hid + br]);
-            u1 = __fadd_rn(u1, p.bias[p.hid + br + 1]);
-          }
-          const float g0 = __fmul_rn(v0 / (1.f + expf(-v0)), u0);
-          const float g1 = __fmul_rn(v1 / (1.f + expf(-v1)), u1);
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (long long)row * p.N + br) =
-              make_float2(g0, g1);
-        } else if (EPI == EPI_GELU) {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + (long long)row * p.N + br) =
-              make_float2(gelu_poly(v0), gelu_poly(v1));
-        } else if constexpr (EPI == EPI_RESID) {
-          if (p.gamma) {
-            v0 = __fmul_rn(v0, p.gamma[br]);
-            v1 = __fmul_rn(v1, p.gamma[br + 1]);
-          }
-          const long long off = (long long)row * p.N + br;
-          if (p.res) {
-            const ResT* r = static_cast<const ResT*>(p.res) + off;
-            v0 = __fadd_rn(v0, to_float(r[0]));
-            v1 = __fadd_rn(v1, to_float(r[1]));
-          }
-          OutT* o = static_cast<OutT*>(p.out) + off;
-          o[0] = from_float<OutT>(v0);
-          o[1] = from_float<OutT>(v1);
-        } else {  // EPI_I32: the int32 sums themselves, converted once
-          OutT* o = static_cast<OutT*>(p.out) + (long long)row * p.N + br;
-          o[0] = from_int<OutT>(iacc[mt][nt][2 * half]);
-          o[1] = from_int<OutT>(iacc[mt][nt][2 * half + 1]);
-        }
-      }
+  for (int j = 0; j < (EPI == EPI_SWIGLU ? BN / 16 : BN / 8); ++j) {
+    const int col = c0 + j * 8 + 2 * t;  // N is even: the pair is valid together
+    if (col >= p.N) continue;
+    const long long off0 = (long long)row0 * p.N + col, off1 = off0 + 8LL * p.N;
+    if constexpr (EPI == EPI_I32) {  // the int32 sums themselves, converted once
+      OutT* o = static_cast<OutT*>(p.out);
+      if (in0) store_pair(o + off0, from_int<OutT>(acc[4 * j]), from_int<OutT>(acc[4 * j + 1]));
+      if (in1) store_pair(o + off1, from_int<OutT>(acc[4 * j + 2]), from_int<OutT>(acc[4 * j + 3]));
+    } else {
+      const EpiCols c = epi_cols<EPI, ONE>(p, col);
+      if (in0) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j, rs0, off0, col, c);
+      if (in1) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j + 2, rs1, off1, col, c);
     }
   }
+}
+
+template <int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE>
+cudaError_t launch_gemm_i8_tiles(const I8GemmArgs& p, cudaStream_t st) {
+  using T = I8Tile<ONE>;
+  CUtensorMap amap = {}, bmap;
+  cudaError_t e = cudaSuccess;
+  const cuuint64_t kb = (cuuint64_t)p.K;  // bytes per row of A and B
+  if (!A_MAP) {
+    const cuuint64_t dims[2] = {kb, (cuuint64_t)p.M};
+    const cuuint32_t box[2] = {QBK, QBM};
+    e = make_tma_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.A, dims, &kb, box, 128);
+  }
+  if (e != cudaSuccess) return e;
+  const cuuint64_t b_rows = EPI == EPI_SWIGLU ? (cuuint64_t)(p.hid + p.N) : (cuuint64_t)p.N;
+  const cuuint64_t bdims[2] = {kb, b_rows};
+  const cuuint32_t bbox[2] = {QBK, (cuuint32_t)(EPI == EPI_SWIGLU ? T::BN / 2 : T::BN)};
+  e = make_tma_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.B, bdims, &kb, bbox, 128);
+  if (e != cudaSuccess) return e;
+  auto kernel = gemm_i8_kernel<EPI, OutT, ResT, A_MAP, ONE>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return e;
+  const int cols_per_block = EPI == EPI_SWIGLU ? T::BN / 2 : T::BN;
+  const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM));
+  kernel<<<grid, QTHREADS, T::SMEM, st>>>(amap, bmap, p);
+  return cudaGetLastError();
 }
 
 template <int EPI, typename OutT, typename ResT = OutT, bool A_MAP = false>
 cudaError_t launch_gemm_i8(const I8GemmArgs& p, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(gemm_i8_kernel<EPI, OutT, ResT, A_MAP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Q_SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  const int cols_per_block = EPI == EPI_SWIGLU ? 64 : QBN;
-  const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM));
-  gemm_i8_kernel<EPI, OutT, ResT, A_MAP><<<grid, QTHREADS, Q_SMEM_BYTES, st>>>(p);
-  return cudaGetLastError();
+  if (EPI == EPI_I32 || p.group == p.K)
+    return launch_gemm_i8_tiles<EPI, OutT, ResT, A_MAP, true>(p, st);
+  if constexpr (EPI == EPI_RESID && !A_MAP)  // only the residual products take K groups
+    return launch_gemm_i8_tiles<EPI, OutT, ResT, false, false>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 // The EPI_RESID GEMM for output and residual dtype codes (DT_*): K3 and K4
 // write x's dtype over x; K9 writes its f32 x2 over a bf16 x, then a bf16
 // output over that f32 x2.
-inline cudaError_t launch_gemm_i8_resid(const I8GemmArgs& p, int out_dt, int res_dt,
-                                        cudaStream_t st) {
+// (A template, so that a source that never calls it compiles none of its
+// four instances.)
+template <int EPI = EPI_RESID>
+cudaError_t launch_gemm_i8_resid(const I8GemmArgs& p, int out_dt, int res_dt, cudaStream_t st) {
   if (out_dt == DT_BF16)
-    return res_dt == DT_BF16 ? launch_gemm_i8<EPI_RESID, bf16, bf16>(p, st)
-                             : launch_gemm_i8<EPI_RESID, bf16, float>(p, st);
-  return res_dt == DT_BF16 ? launch_gemm_i8<EPI_RESID, float, bf16>(p, st)
-                           : launch_gemm_i8<EPI_RESID, float, float>(p, st);
+    return res_dt == DT_BF16 ? launch_gemm_i8<EPI, bf16, bf16>(p, st)
+                             : launch_gemm_i8<EPI, bf16, float>(p, st);
+  return res_dt == DT_BF16 ? launch_gemm_i8<EPI, float, bf16>(p, st)
+                           : launch_gemm_i8<EPI, float, float>(p, st);
 }
 
 }  // namespace

@@ -20,8 +20,10 @@ Phases, each of which must pass or the script exits non-zero:
      shapes, with the error bound stated on each line, timed beside the
      plain version, the least time the card could take (bound_ms), a
      PyTorch library call as a yardstick where one computes the same
-     (library_ms: SDPA for K2, torch._int_mm / cuBLAS for T1), and for
-     K6-K9, T2 and T3 the route the port wires instead (wired_ms);
+     (library_ms: SDPA for K2, torch._int_mm / cuBLAS for T1), for
+     K6-K9, T2 and T3 the route the port wires instead (wired_ms), and for
+     K2, K3 and T2 the rate their products reach (TFLOP/s or TOPS) and
+     their share of the bound (bound_ms / ms);
   4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
      value facet of layer 31 -> VLAD-32 fitted on the fixture's database
      -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
@@ -202,8 +204,19 @@ def run(profile_dir) -> dict:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
         if "wired_ms" in r:
             lib += f", wired route {r['wired_ms']:.3f} ms"
+        rate = ""
+        if "rate" in r:
+            rate = (f"; {r['rate']:.1f} {r['rate_unit']}, {100 * r['bound_share']:.1f} % of the "
+                    f"bound")
         print(f"{name} time {tag} at {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms"
-              f"{lib}; bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{lib}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}){rate}", flush=True)
+
+    def achieved(name, ops, unit):
+        """The kernel's rate (operations of its products over its time) and
+        its share of the bound (bound_ms / ms), beside its times."""
+        r = results[name]
+        r.update(rate=ops / (r["ms"] * 1e-3) / 1e12, rate_unit=unit,
+                 bound_share=r["bound_ms"] / r["ms"])
 
     # ---------------------------------------------------------------- K2
     k2_bound = dict(atol=2e-2, rtol=1e-2)
@@ -231,6 +244,7 @@ def run(profile_dir) -> dict:
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
                    shape=f"[{b},{h},{n},{hd}] bf16",
                    **bound({"bf16": 4 * b * h * n * n * hd}, 4 * b * h * n * hd * 2))
+            achieved("K2_flash_attention", 4 * b * h * n * n * hd, "TFLOP/s")
             timing_line("K2_flash_attention", "[1,24,5330,64] bf16")
 
     # ---------------------------------------------------------------- K5
@@ -377,6 +391,7 @@ def run(profile_dir) -> dict:
                    plain_ms=time_ms(lambda: K.fused_mlp_int8_ref(*args, **kw), iters=3),
                    shape=f"x [{m},1536] bf16, SwiGLU 4096, hidden chunk 512",
                    **bound({"int8": 2 * m * d * 3 * hid}, 2 * m * d * 2 + 3 * hid * d + (2 * hid + 4 * d) * 4))
+            achieved("K3_fused_mlp_int8", 2 * m * d * 3 * hid, "TOPS")
             timing_line("K3_fused_mlp_int8", "x [15520,1536] bf16")
 
     # ---------------------------------------------------------------- K9
@@ -656,6 +671,7 @@ def run(profile_dir) -> dict:
                    wired_ms=time_ms(lambda: int8_matmul(a8, b8, sa, sbn)),
                    shape=f"{shape} int8 -> bf16, bk 512",
                    **bound(ops, m * k + k * n + 4 * (m + n) + 2 * m * n))
+            achieved("T2_matmul_dequant", ops["int8"], "TOPS")
             timing_line("T2_matmul_dequant", f"{shape} int8 -> bf16 (wired: ops/quant.int8_matmul)")
 
     # T1's sums past 2^24, the reason for its int32 epilogue: at the tool's

@@ -47,9 +47,14 @@ def _randn(*shape, dtype=torch.float32, seed=0, scale=1.0):
     return torch.from_numpy((g.standard_normal(shape) * scale).astype(np.float32)).to("cuda", dtype)
 
 
+# sequence lengths around the 64-key tiles and the query tiles of 64 rows
+# (128 at head dim 128)
+ATTN_NS = [1, 63, 64, 65, 77, 127, 128, 129, 130, 257, 485]
+
+
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [77, 130])
+@pytest.mark.parametrize("n", ATTN_NS)
 def test_flash_attention_kernel_matches_ref(hd, dtype, n):
     q, k, v = (_randn(2, 3, n, hd, dtype=dtype, seed=s) for s in range(3))
     before = flash_attention.launches
@@ -60,14 +65,31 @@ def test_flash_attention_kernel_matches_ref(hd, dtype, n):
     torch.testing.assert_close(got.float(), want.float(), **(BF16 if dtype == torch.bfloat16 else F32))
 
 
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
+@pytest.mark.parametrize("n", [77, 130])
+def test_flash_attention_kernel_takes_any_scale(scale, n):
+    """The bf16 kernel keeps the running max as scale * max(s): a negative
+    scale is moved onto q, a zero one gives uniform weights, and the keys
+    past N (a tail tile) still add nothing."""
+    q, k, v = (_randn(2, 3, n, 64, dtype=torch.bfloat16, seed=s) for s in range(3))
+    got = flash_attention(q, k, v, scale=scale)
+    want = flash_attention_ref(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_single_token(dtype):
     q, k, v = (_randn(3, 2, 1, 64, dtype=dtype, seed=s) for s in range(3))
     torch.testing.assert_close(flash_attention(q, k, v).float(), v.float(), atol=0, rtol=0)
 
 
-def test_flash_attention_kernel_takes_qkv_views():
-    b, n, h, hd = 2, 300, 4, 64
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 65, 129, 300, 485])
+def test_flash_attention_kernel_takes_qkv_views(n, hd):
+    """Strided column views of a fused [B, N, 3D] tensor (K5's case): the
+    kernel's tensor maps read them in place."""
+    b, h = 2, 4
     d = h * hd
     qkv = _randn(b, n, 3 * d, dtype=torch.bfloat16)
     views = [qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2) for i in range(3)]
@@ -78,8 +100,11 @@ def test_flash_attention_kernel_takes_qkv_views():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("epilogue", [True, False])
-def test_qkv_proj_kernel_matches_ref(dtype, epilogue):
-    b, n, h, hd = 3, 97, 4, 64
+@pytest.mark.parametrize("n,hd", [(97, 64), (1, 64), (65, 16), (129, 32), (257, 128), (485, 64)])
+def test_qkv_proj_kernel_matches_ref(dtype, epilogue, n, hd):
+    """K5: the attention with q pre-scaled and rounded to the input dtype
+    (prescale_q) over strided views of qkv, then the projection."""
+    b, h = 3, 4
     d = h * hd
     qkv = _randn(b, n, 3 * d, dtype=dtype, seed=1)
     w = _randn(d, d, dtype=dtype, seed=2, scale=d ** -0.5).t()   # Linear layout
@@ -210,6 +235,37 @@ def test_attn_half_int8_kernel_matches_ref(dtype, b, n, h, hd, hc, with_gamma):
     assert got.dtype == dtype
     assert _rms_rel(got, want) <= 1e-2
     _close_but_rare_flips(got, want, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d,hid,chunk,mlp_type", [
+    (333, 96, 160, 32, "swiglu_fused"),     # K group 32; D, HID and M off the tiles
+    (200, 128, 320, 64, "swiglu_fused"),    # group 64
+    (333, 128, 768, 384, "mlp"),            # group 384 (three 128-byte K tiles)
+    (130, 160, 1024, 512, "swiglu_fused"),  # group 512
+    (333, 128, 352, 352, "swiglu_fused"),   # one group: the w3 GEMM's one-group instance
+])
+def test_int8_gemm_groups_match_ref(dtype, m, d, hid, chunk, mlp_type):
+    """The int8 GEMM through K3: w12 is a one-group product (SwiGLU's W1 and
+    W2 tiles as two TMA boxes, HID not a multiple of the 128-column tile),
+    w3 folds one K group per hidden chunk, at 32-byte granularity."""
+    from anyloc_tpu_torch.ops.kernels import fused_mlp_int8, fused_mlp_int8_ref
+
+    two = 2 if mlp_type == "swiglu_fused" else 1
+    x = _randn(m, d, dtype=dtype, seed=140)
+    w12, s12 = _int8_weights(d, two * hid, 141)
+    w3, s3 = _int8_weights(hid, d, 142)
+    args = (x, w12, s12, _randn(two * hid, seed=143, scale=0.1), w3, s3, _randn(d, seed=144, scale=0.1))
+    kw = dict(mlp_type=mlp_type, hidden_chunk=chunk, layerscale=_randn(d, seed=145, scale=0.5),
+              residual=True, ln_params=(1 + _randn(d, seed=146, scale=0.1), _randn(d, seed=147, scale=0.1)))
+    before = fused_mlp_int8.launches
+    got = fused_mlp_int8(*args, **kw)
+    assert fused_mlp_int8.launches == before + 1
+    want = fused_mlp_int8_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rms_rel(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-3)
+    tol = dict(atol=2e-2, rtol=1e-2) if dtype == torch.bfloat16 else dict(atol=1e-3, rtol=1e-4)
+    _close_but_rare_flips(got, want, **tol)
 
 
 def test_int8_trunk_on_the_card_matches_the_cpu():
@@ -457,6 +513,7 @@ def test_matmul_dequant_kernel_matches_ref(out_dtype, ulp):
     torch.cuda.synchronize()
     assert got.dtype == out_dtype
     assert ((got.float() - want.float()).abs() <= ulp * want.float().abs()).all()
+    assert torch.equal(got, want)   # the same f32 products in the same order: bit-exact
 
 
 def test_matmul_refuses_what_it_does_not_take():
@@ -486,7 +543,8 @@ def _variant_args(b, n, d, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pre_quant,batched_dots", [(False, False), (True, False), (False, True)])
-def test_attn_half_variant_kernel_matches_ref(dtype, pre_quant, batched_dots):
+@pytest.mark.parametrize("n", [77, 300])
+def test_attn_half_variant_kernel_matches_ref(dtype, pre_quant, batched_dots, n):
     """Besides K4's bound on the output, the heads' outputs o: at K4's bound
     of the plain version's o, f32 values (not bf16 ones) with batched_dots,
     and the output far nearer the stages after the attention applied to the
@@ -495,7 +553,8 @@ def test_attn_half_variant_kernel_matches_ref(dtype, pre_quant, batched_dots):
     from anyloc_tpu_torch.ops.kernels import (
         attn_half_variant, attn_half_variant_proj_ref, attn_half_variant_ref)
 
-    args = _variant_args(2, 77, 256, dtype, 110)   # 4 heads of 64, ragged N (pads to 80)
+    args = _variant_args(2, n, 256, dtype, 110)    # 4 heads of 64, ragged N (pads to 80, 304):
+    # pre_quant's A rows are gathered (A_MAP) from images of padded rows
     kw = dict(pre_quant=pre_quant, batched_dots=batched_dots)
     before = attn_half_variant.launches
     got, o = attn_half_variant(*args, return_o=True, **kw)
