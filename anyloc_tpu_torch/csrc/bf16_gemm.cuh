@@ -1,16 +1,24 @@
 // The float GEMMs of the bf16 block kernels K6 (attention_proj.cu), K7
 // (attn_half_bf16.cu) and K8 (fused_mlp_bf16.cu), of K5's projection
 // (attn_qkv_proj.cu) and of the float product T1 (matmul.cu), and their
-// LayerNorm:
-//   * gemm_bf16_kernel: out[M, N] = epilogue(A[M, K] @ B[rows, K]^T), bf16
-//     operands on mma.sync m16n8k16 with f32 sums — the bf16 twin of
-//     int8_common.cuh's int8 GEMM: 128x128 block tiles, 8 warps of 64x32, K
-//     steps of 32 elements through a three-stage cp.async ring (80-byte row
-//     pitch: the 32-bit fragment loads hit 32 distinct banks), the same
-//     EPI_* epilogues and the same W1 | W2 pairing for SwiGLU; no row or
-//     column scales, no K groups;
-//   * gemm_f32_kernel: the same function and epilogues for f32 operands, FMA
-//     on 64x64 tiles (K5's gemm_scalar_epilogue_kernel, attn_qkv_proj.cu);
+// LayerNorm. They stand for the products inside the TPU kernels
+// attn_proj.py::flash_attention_qkv_proj, ::fused_attn_half_bf16 and
+// ::attention_proj, fused_mlp.py::fused_mlp_bf16 and, on float operands,
+// tools/bench_int8_matmul.py::pallas_matmul:
+//   * bf16 operands: the TMA GEMM of int8_common.cuh (gemm_tma_kernel) with
+//     OpBF16 — wgmma m64n256k16 .f32.bf16.bf16 with both operands K-major
+//     in shared memory, fed by TMA (128-byte swizzle, boxes of 64 K
+//     elements) into four 48 KB stages guarded by full / empty mbarriers;
+//     the first thread of a producer warpgroup issues the loads, two
+//     consumer warpgroups of 64 rows each hold a 64 x 256 f32 tile (128
+//     registers of sums), setmaxnreg moves registers 40 / 232, and one
+//     stage's products stay in flight while the next stage lands. The
+//     int8 GEMM runs the same pipeline; EPI_SWIGLU loads B as two boxes,
+//     128 W1 rows and the same 128 rows of W2, so g1 and g2 of one hidden
+//     column sit in one thread (accumulator entries e and e + 64);
+//   * f32 operands: gemm_f32_kernel, the same function and epilogues by FMA
+//     on 64x64 tiles (K5's gemm_scalar_epilogue_kernel, attn_qkv_proj.cu;
+//     wgmma on f32 is TF32, which the f32 bounds would not hold);
 //   * ln_rows_kernel: LayerNorm in f32 (int8_common.cuh's ln_row), written
 //     in the activations' dtype.
 // Both operands are K-contiguous: A the activations, B the nn.Linear weight
@@ -18,13 +26,16 @@
 // no FMA contraction moves a rounding, and rounds once to the output dtype:
 // the operands' dtype, or OutT where a caller names it (T1 writes f32 sums
 // of bf16 operands, or bf16 from f32 operands; a residual is then read in
-// OutT).
+// OutT). Ragged M and N are masked in the epilogue, ragged K is TMA's zero
+// fill; the wrappers' K % 8 == 0 and 16-byte alignment give TMA's rule of
+// row strides in whole 16 bytes.
 //
 // What bounds these GEMMs on the H100: at the bench shapes (M 8224-15520,
 // D 1536, HID 4096) each is 39-206 GFLOP against tens of MB, far above the
-// card's ~295 FLOP/byte balance point: tensor-core issue. This mma.sync
-// design reaches a fraction of the 989 TFLOP/s that wgmma with TMA-fed
-// tiles can; this file is the one place a later version redesigns.
+// card's ~295 FLOP/byte balance point: tensor-core issue, at most 989
+// TFLOP/s of bf16 wgmma. On one H100 80GB HBM3 at 700 W (chip_smoke.py;
+// PERF.md) T1 bf16 runs at ~487 TFLOP/s at w12 [8704x1536]x[1536x8192]
+// and K8's two products at ~460.
 #pragma once
 
 #include <type_traits>
@@ -33,13 +44,6 @@
 
 namespace anyloc {
 namespace {
-
-constexpr int BBM = 128, BBN = 128, BBK = 32;
-constexpr int BSTAGES = 3;
-constexpr int BTHREADS = 256;
-constexpr int BPITCH = BBK + 8;  // smem row pitch in bf16 (80 bytes)
-constexpr int B_STAGE_ELEMS = (BBM + BBN) * BPITCH;
-constexpr int B_SMEM_BYTES = BSTAGES * B_STAGE_ELEMS * 2;  // 61,440: dynamic
 
 struct GemmArgs {
   const void* A;       // [M, K]
@@ -53,23 +57,6 @@ struct GemmArgs {
   int q_cols;          // EPI_QKV
   float q_scale;       // EPI_QKV
 };
-
-// The B row that tile row r (0..127) of column block bn reads, or -1, in a
-// GEMM of N output columns (EPI_SWIGLU: N = HID, W2 from B row hid on).
-// EPI_SWIGLU: each warp's 32 rows are 16 hidden columns of W1 then the
-// same 16 of W2, so one thread holds g1 (n-tiles 0, 1) and g2 (2, 3) of
-// the same hidden column; a block covers 64 hidden columns.
-template <int EPI>
-__device__ __forceinline__ int b_row(int N, int hid, int bn, int r) {
-  if (EPI == EPI_SWIGLU) {
-    const int j = r & 31;
-    const int hcol = bn * 64 + (r >> 5) * 16 + (j & 15);
-    if (hcol >= N) return -1;
-    return j < 16 ? hcol : hid + hcol;
-  }
-  const int c = bn * 128 + r;
-  return c < N ? c : -1;
-}
 
 // Output columns col, col + 1 of row `row` from their f32 sums (v0, v1) and,
 // for EPI_SWIGLU, the W2 sums of the same hidden columns (u0, u1).
@@ -107,108 +94,42 @@ __device__ __forceinline__ void epi_store(const GemmArgs& p, int row, int col, f
       v1 = __fadd_rn(v1, to_float(r[1]));
     }
   }
-  T* o = static_cast<T*>(p.out) + off;
-  o[0] = from_float<T>(v0);
-  o[1] = from_float<T>(v1);
+  store_pair(static_cast<T*>(p.out) + off, from_float<T>(v0), from_float<T>(v1));
 }
 
-template <int EPI, typename OutT>
-__global__ void __launch_bounds__(BTHREADS)
-    gemm_bf16_kernel(GemmArgs p) {
-  extern __shared__ __align__(16) bf16 b_smem[];
-  const bf16* A = static_cast<const bf16*>(p.A);
-  const bf16* B = static_cast<const bf16*>(p.B);
-  const int bn = blockIdx.x, m0 = blockIdx.y * BBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
+// The bf16 operands of the TMA GEMM (int8_common.cuh's OpS8 for the other
+// members): f32 sums, no scales, the epi_store epilogue.
+struct OpBF16 {
+  using Elem = bf16;
+  using Acc = float;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-  // this thread's two load slots per operand and stage (8 bf16 each)
-  int a_row[2], b_src[2], ld_r[2], ld_k[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * BTHREADS;
-    ld_r[i] = c >> 2;
-    ld_k[i] = (c & 3) * 8;
-    a_row[i] = m0 + ld_r[i];
-    b_src[i] = b_row<EPI>(p.N, p.hid, bn, ld_r[i]);
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    wgmma_bf16_ss(d, desc_a, desc_b, scale_d);
   }
-  auto load_stage = [&](int stage, int k0) {
-    bf16* As = b_smem + stage * B_STAGE_ELEMS;
-    bf16* Bs = As + BBM * BPITCH;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = k0 + ld_k[i];  // K % 8 == 0 (the wrappers check): whole vectors
-      const bool ka = a_row[i] < p.M && k < p.K;
-      const bool kb = b_src[i] >= 0 && k < p.K;
-      cp_async16(As + ld_r[i] * BPITCH + ld_k[i], ka ? A + (long long)a_row[i] * p.K + k : A, ka);
-      cp_async16(Bs + ld_r[i] * BPITCH + ld_k[i], kb ? B + (long long)b_src[i] * p.K + k : B, kb);
-    }
-  };
 
-  float acc[4][4][4];
+  // Each thread holds columns c0 + 8j + 2t, + 1 of rows row0 and row0 + 8;
+  // EPI_SWIGLU: W2's sums of the same hidden columns NACC / 2 entries on.
+  template <int EPI, typename OutT, typename ResT, bool ONE, int NACC>
+  __device__ static __forceinline__ void epilogue(const GemmArgs& p, const float (&acc)[NACC],
+                                                  const float (&)[NACC], int row0, long long,
+                                                  long long, int c0, int t) {
+    const bool in0 = row0 < p.M, in1 = row0 + 8 < p.M;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < (EPI == EPI_SWIGLU ? NACC / 8 : NACC / 4); ++j) {
+      const int col = c0 + j * 8 + 2 * t;  // N is even: the pair is valid together
+      if (col >= p.N) continue;
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (EPI == EPI_SWIGLU) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = cdiv(p.K, BBK);
-#pragma unroll
-  for (int s = 0; s < BSTAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s * BBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<BSTAGES - 2>();
-    __syncthreads();  // tile kt landed; tile kt-1's stage is free again
-    if (kt + BSTAGES - 1 < nk) load_stage((kt + BSTAGES - 1) % BSTAGES, (kt + BSTAGES - 1) * BBK);
-    cp_async_commit();
-    const bf16* As = b_smem + (kt % BSTAGES) * B_STAGE_ELEMS;
-    const bf16* Bs = As + BBM * BPITCH;
-#pragma unroll
-    for (int ks = 0; ks < BBK / 16; ++ks) {  // past K the tiles are zero-filled
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* ar = As + (wm + mt * 16 + g) * BPITCH + ks * 16 + t * 2;
-        a[mt][0] = lds32(ar);
-        a[mt][1] = lds32(ar + 8 * BPITCH);
-        a[mt][2] = lds32(ar + 8);
-        a[mt][3] = lds32(ar + 8 * BPITCH + 8);
+        for (int e = 0; e < 4; ++e) u[e] = acc[4 * j + e + NACC / 2];
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* br = Bs + (wn + nt * 8 + g) * BPITCH + ks * 16 + t * 2;
-        const uint32_t b0 = lds32(br), b1 = lds32(br + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          mma_bf16_16816(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
-      }
+      if (in0) epi_store<EPI, OutT>(p, row0, col, acc[4 * j], acc[4 * j + 1], u[0], u[1]);
+      if (in1) epi_store<EPI, OutT>(p, row0 + 8, col, acc[4 * j + 2], acc[4 * j + 3], u[2], u[3]);
     }
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mt * 16 + g + half * 8;
-      if (row >= p.M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (EPI == EPI_SWIGLU && nt >= 2) continue;
-        const int col = b_row<EPI>(p.N, p.hid, bn, wn + nt * 8 + 2 * t);
-        if (col < 0) continue;  // N is even: the pair is valid together
-        const float u0 = EPI == EPI_SWIGLU ? acc[mt][(nt + 2) & 3][2 * half] : 0.f;
-        const float u1 = EPI == EPI_SWIGLU ? acc[mt][(nt + 2) & 3][2 * half + 1] : 0.f;
-        epi_store<EPI, OutT>(p, row, col, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1],
-                             u0, u1);
-      }
-    }
-  }
-}
+};
 
 // The B row that tile row r (0..63) of column block bn reads in the FMA
 // GEMM, or -1. EPI_SWIGLU: rows 0..31 are 32 hidden columns of W1, rows
@@ -285,20 +206,15 @@ cudaError_t launch_gemm(const GemmArgs& p, int dtype, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
   if (dtype == DT_BF16) {
     using O = std::conditional_t<std::is_void_v<OutT>, bf16, OutT>;
-    cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<EPI, O>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         B_SMEM_BYTES);
-    if (e != cudaSuccess) return e;
-    const dim3 grid(cdiv(p.N, EPI == EPI_SWIGLU ? 64 : BBN), cdiv(p.M, BBM));
-    gemm_bf16_kernel<EPI, O><<<grid, BTHREADS, B_SMEM_BYTES, st>>>(p);
-  } else if (dtype == DT_F32) {
+    return launch_gemm_tiles<OpBF16, EPI, O, O, false, true>(p, st);
+  }
+  if (dtype == DT_F32) {
     using O = std::conditional_t<std::is_void_v<OutT>, float, OutT>;
     const dim3 grid(cdiv(p.N, EPI == EPI_SWIGLU ? 32 : 64), cdiv(p.M, 64));
     gemm_f32_kernel<EPI, O><<<grid, 256, 0, st>>>(p);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 // One block per row of x [M, D]: LayerNorm in f32, out [M, D] in T.

@@ -1,5 +1,5 @@
 // Shared helpers of the port's Hopper kernels: dtype codes, bf16 packing
-// and the m16n8k16 bf16 tensor-core product (mma.sync, sm_80 and later).
+// and conversions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,22 +36,6 @@ template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// D = A(16x16, row-major) * B(16x8, k-major) + D, bf16 operands, f32 sums.
-// Fragment layout (g = lane / 4, t = lane % 4):
-//   a0 (row g, k 2t..2t+1)  a1 (row g+8, k 2t..)  a2 (row g, k 2t+8..)
-//   a3 (row g+8, k 2t+8..)  b0 (k 2t..2t+1, col g)  b1 (k 2t+8.., col g)
-//   c0,c1 (row g, cols 2t, 2t+1)  c2,c3 (row g+8, cols 2t, 2t+1)
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // 32 bits (two bf16, four int8) from a 4-byte aligned address

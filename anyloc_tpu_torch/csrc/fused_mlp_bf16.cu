@@ -13,9 +13,11 @@
 // (0.314 ms at 989 TFLOP/s) against ~0.1 GB of activations and weights:
 // tensor-core bound. The design is three launches:
 //   (a) LN rows -> xn [M, D] in x's dtype, when there is a LayerNorm;
-//   (b) the w12 GEMM (bf16_gemm.cuh); for SwiGLU one block owns 64 hidden
-//       columns of W1 and the same 64 of W2 (K3's pairing), so g is formed
-//       in registers and written once, in x's dtype [M, HID];
+//   (b) the w12 GEMM (bf16_gemm.cuh: wgmma fed by TMA for bf16, FMA for
+//       f32); for SwiGLU one block owns 128 hidden columns of W1 and the
+//       same 128 of W2 (K3's pairing: two TMA boxes; 32 in the FMA GEMM),
+//       so g is formed in registers and written once, in x's dtype
+//       [M, HID];
 //   (c) the w3 GEMM (EPI_RESID) with + b3, * gamma, + x.
 // The TPU kernel keeps g in VMEM; here g makes one round trip through
 // device memory (M * HID * 2 bytes each way in bf16), the first thing a

@@ -1,23 +1,23 @@
 // Device code shared by the int8 W8A8 kernels K3 (fused_mlp_int8.cu), K4
 // (attn_half_int8.cu), K9 (fused_block_int8.cu, through K4's and K3's
 // entry points), T3 (attn_half_variant.cu, on K4's stages) and the int8
-// products T1 and T2 (matmul.cu); the LayerNorm, the erf polynomial, the
-// cp.async helpers and the EPI_* epilogue codes also serve the bf16 GEMM
+// products T1 and T2 (matmul.cu); the GEMM pipeline, the LayerNorm, the
+// erf polynomial and the EPI_* epilogue codes also serve the bf16 GEMM
 // (bf16_gemm.cuh):
 //   * ln_quant_rows_kernel: optional LayerNorm (f32, two-pass mean and
 //     variance, 1 / sqrtf — not the approximate rsqrtf) and a per-row int8
 //     quantize, scale = max(amax, 1e-6) / 127, codes rintf(x / scale)
 //     (half to even, as jnp.round) clamped to +-127;
 //   * requant_groups_kernel: the same quantize per (row, column group);
-//   * gemm_i8_kernel: int8 x int8 -> int32, both operands K-contiguous (A
-//     [M, K] activations, B [rows, K] = the nn.Linear weight layout). At
-//     each group's edge of the K loop the int32 partial turns into f32
-//     (__int2float_rn) and is added as (partial * row_scale[row, group]) *
-//     col_scale[col] — the JAX order — to an f32 accumulator; the epilogue
-//     (EPI_*) finishes the tile. EPI_I32 skips the fold: it keeps the exact
-//     int32 sums over the whole of K (f32 holds integers exactly only up to
-//     2^24, and a sum over K 4096 of int8 products reaches 4096 * 127^2 ~
-//     6.6e7).
+//   * gemm_tma_kernel<OpS8>: int8 x int8 -> int32, both operands
+//     K-contiguous (A [M, K] activations, B [rows, K] = the nn.Linear
+//     weight layout). At each group's edge of the K loop the int32 partial
+//     turns into f32 (__int2float_rn) and is added as (partial *
+//     row_scale[row, group]) * col_scale[col] — the JAX order — to an f32
+//     accumulator; the epilogue (EPI_*) finishes the tile. EPI_I32 skips
+//     the fold: it keeps the exact int32 sums over the whole of K (f32
+//     holds integers exactly only up to 2^24, and a sum over K 4096 of int8
+//     products reaches 4096 * 127^2 ~ 6.6e7).
 //
 // What bounds the GEMMs on the H100: at the 308-px batch-32 shape
 // (M = 15520 rows, D = 1536) each one is 73-391 G int8 ops against tens of
@@ -32,7 +32,12 @@
 // warp of a producer warpgroup issues the loads. setmaxnreg moves the
 // producer's registers to the consumers (40 / 232; nvcc -Xptxas -v reports
 // the 168 of the launch, no spills), which is why the producer is a whole
-// warpgroup. Two instances (I8Tile, below):
+// warpgroup. The pipeline is one template over the operand type (Op:
+// OpS8 below, OpBF16 in bf16_gemm.cuh): the ring, the boxes and the
+// descriptors count bytes (a stage holds one 128-byte swizzled row of K,
+// 128 int8 or 64 bf16 elements; a wgmma step is 32 bytes), and Op names
+// the element, the accumulator, the tensor-map type, the wgmma and the
+// epilogue. Two instances of the tiles (GemmTile, below):
 //   * one K group (w12, qkv, T1, T2): int32 sums only, folded once in the
 //     epilogue; 128 x 256 block tiles, four 48 KB stages; EPI_SWIGLU loads
 //     its B tile as two TMA boxes, 128 W1 rows and the same 128 rows of W2,
@@ -185,7 +190,7 @@ cudaError_t launch_requant(const T* in, int8_t* q, float* sc, long long rows,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- int8 GEMM
+// ---------------------------------------------------------------- the TMA GEMM
 
 constexpr int QBM = 128;       // rows per block: two consumer warpgroups of 64
 constexpr int QBK = 128;       // K bytes per stage: one 128-byte swizzled row
@@ -240,10 +245,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -266,14 +267,14 @@ __device__ __forceinline__ float gelu_poly(float x) {
 }
 
 // Tiles of the two GEMM instances. ONE: the product has one K group
-// (group == K: K3's w12, K4's qkv, T2; and EPI_I32, which never folds):
-// only int32 accumulators live in the K loop, folded once in the
-// epilogue, so a consumer warpgroup holds a 64 x 256 tile (128 registers
-// of sums). Otherwise (K3's w3, K4's projection: one group per hidden or
-// head chunk) f32 accumulators sit beside the int32 ones and the tile is
-// 64 x 128 per consumer.
+// (group == K: K3's w12, K4's qkv, T2; EPI_I32, which never folds; every
+// bf16 product): only the wgmma's accumulators live in the K loop, folded
+// (int8) once in the epilogue, so a consumer warpgroup holds a 64 x 256
+// tile (128 registers of sums). Otherwise (K3's w3, K4's projection: one
+// group per hidden or head chunk) f32 accumulators sit beside the int32
+// ones and the tile is 64 x 128 per consumer.
 template <bool ONE>
-struct I8Tile {
+struct GemmTile {
   static constexpr int BN = ONE ? 256 : 128;     // columns per block (B rows)
   static constexpr int STAGES = ONE ? 4 : 6;
   static constexpr int A_BYTES = QBM * QBK;       // 16 KB
@@ -389,19 +390,69 @@ __device__ __forceinline__ void epilogue2(const I8GemmArgs& p, const int (&acc)[
   }
 }
 
-// A_MAP reads A through a_src_row with cp.async (a row gather, which a
-// tensor map cannot express), into the layout TMA's 128-byte swizzle
-// gives; the other instances load A by TMA and compile without the
-// mapping (a runtime branch in every GEMM cost K3 and K4 ~1-3 %, on an
-// H100 at 700 W). Warpgroups 0 and 1 are the consumers of rows 0-63 and
-// 64-127, warpgroup 2 the producer (its first warp loads).
-template <int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE>
+// The int8 operands of the TMA GEMM. An operand type names the element,
+// the accumulator, the tensor-map type, the wgmma of one 32-byte K step
+// and the epilogue of a consumer's tile (OpBF16: bf16_gemm.cuh).
+struct OpS8 {
+  using Elem = int8_t;
+  using Acc = int;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+
+  template <int N>
+  __device__ static __forceinline__ void mma(int (&d)[N], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    wgmma_s8(d, desc_a, desc_b, scale_d);
+  }
+
+  // Each thread holds columns c0 + 8j + 2t, + 1 of rows row0 and row0 + 8,
+  // whose A rows (and row scales) are src0 and src1.
+  template <int EPI, typename OutT, typename ResT, bool ONE, int NACC>
+  __device__ static __forceinline__ void epilogue(const I8GemmArgs& p, const int (&acc)[NACC],
+                                                  const float (&facc)[NACC], int row0,
+                                                  long long src0, long long src1, int c0, int t) {
+    constexpr int BN = 2 * NACC;
+    const bool in0 = row0 < p.M, in1 = row0 + 8 < p.M;
+    float rs0 = 0.f, rs1 = 0.f;  // one group: the row scales (ng == 1)
+    if (ONE && EPI != EPI_I32) {
+      if (in0) rs0 = p.row_scale[src0];
+      if (in1) rs1 = p.row_scale[src1];
+    }
+#pragma unroll
+    for (int j = 0; j < (EPI == EPI_SWIGLU ? BN / 16 : BN / 8); ++j) {
+      const int col = c0 + j * 8 + 2 * t;  // N is even: the pair is valid together
+      if (col >= p.N) continue;
+      const long long off0 = (long long)row0 * p.N + col, off1 = off0 + 8LL * p.N;
+      if constexpr (EPI == EPI_I32) {  // the int32 sums themselves, converted once
+        OutT* o = static_cast<OutT*>(p.out);
+        if (in0) store_pair(o + off0, from_int<OutT>(acc[4 * j]), from_int<OutT>(acc[4 * j + 1]));
+        if (in1) store_pair(o + off1, from_int<OutT>(acc[4 * j + 2]), from_int<OutT>(acc[4 * j + 3]));
+      } else {
+        const EpiCols c = epi_cols<EPI, ONE>(p, col);
+        if (in0) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j, rs0, off0, col, c);
+        if (in1) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j + 2, rs1, off1, col, c);
+      }
+    }
+  }
+};
+
+// out = epilogue(A[M, K] @ B[rows, K]^T) over the operand type Op, with the
+// arguments Args (I8GemmArgs, or bf16_gemm.cuh's GemmArgs). Warpgroups 0
+// and 1 are the consumers of rows 0-63 and 64-127, warpgroup 2 the
+// producer (its first warp loads). A_MAP (int8 only) reads A through
+// a_src_row with cp.async (a row gather, which a tensor map cannot
+// express), into the layout TMA's 128-byte swizzle gives; the other
+// instances load A by TMA and compile without the mapping (a runtime
+// branch in every GEMM cost K3 and K4 ~1-3 %, on an H100 at 700 W).
+template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, class Args>
 __global__ void __launch_bounds__(QTHREADS, 1)
-    gemm_i8_kernel(const __grid_constant__ CUtensorMap amap,
-                   const __grid_constant__ CUtensorMap bmap, I8GemmArgs p) {
-  using T = I8Tile<ONE>;
+    gemm_tma_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap bmap, Args p) {
+  using T = GemmTile<ONE>;
   constexpr int BN = T::BN;
-  constexpr int NACC = BN / 2;  // sums per thread
+  constexpr int NACC = BN / 2;                           // sums per thread
+  constexpr int KE = QBK / sizeof(typename Op::Elem);    // K elements per stage
+  constexpr int KS = KE / 4;                             // K elements per 32-byte wgmma step
+  static_assert(!A_MAP || KE == QBK, "A_MAP gathers int8 rows");
   extern __shared__ uint8_t q_smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(q_smem_raw) + 1023) & ~uintptr_t(1023));
@@ -412,7 +463,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   // first output column; EPI_SWIGLU: the B tile is BN / 2 W1 rows (hidden
   // columns c0..) over the same BN / 2 rows of W2
   const int c0 = blockIdx.x * (EPI == EPI_SWIGLU ? BN / 2 : BN);
-  const int nk = cdiv(p.K, QBK);
+  const int nk = cdiv(p.K, KE);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -444,7 +495,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       if (kt >= T::STAGES) mbar_wait(&empty[s], (kt / T::STAGES - 1) & 1);
       uint8_t* As = smem + s * T::STAGE;
       uint8_t* Bs = As + T::A_BYTES;
-      const int k0 = kt * QBK;
+      const int k0 = kt * KE;
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], A_MAP ? T::B_BYTES : T::STAGE);
         if (!A_MAP) tma_load_2d(As, &amap, &full[s], k0, m0);
@@ -479,14 +530,15 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = m0 + cw * 64 + warp * 16 + g;  // and row0 + 8
-  const int ng = p.K / p.group;
+  int ng = 1;                                     // K groups
+  if constexpr (!ONE) ng = p.K / p.group;
   long long src0 = row0, src1 = row0 + 8;  // the rows of A (and row scales) they read
-  if (A_MAP) {
+  if constexpr (A_MAP) {
     src0 = row0 < p.M ? a_src_row(p, row0) : 0;
     src1 = row0 + 8 < p.M ? a_src_row(p, row0 + 8) : 0;
   }
 
-  int acc[NACC];
+  typename Op::Acc acc[NACC];
   float facc[NACC];  // the folded f32 sums (unused, so not kept, with one group)
   if constexpr (!ONE) {
 #pragma unroll
@@ -504,29 +556,36 @@ __global__ void __launch_bounds__(QTHREADS, 1)
     const uint8_t* Bs = smem + s * T::STAGE + T::A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < QBK / 32; ++ks) {
-      const int kg = kt * QBK + ks * 32;
-      if (kg < p.K) {  // K % 32 == 0 (the wrappers check)
-        wgmma_s8(acc, smem_desc<128>(As + ks * 32, 16, 1024), smem_desc<128>(Bs + ks * 32, 16, 1024),
-                 ONE ? kg : kg % p.group);  // 0: a group starts, D = A * B
-        if (!ONE && (kg + 32) % p.group == 0) {  // the group ends: fold it into f32
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(acc);
-          const int gi = (kg + 32) / p.group - 1;
-          const float rs0 = row0 < p.M ? p.row_scale[src0 * ng + gi] : 0.f;
-          const float rs1 = row0 + 8 < p.M ? p.row_scale[src1 * ng + gi] : 0.f;
+    for (int ks = 0; ks < 4; ++ks) {
+      const int kg = kt * KE + ks * KS;
+      // int8: K % 32 == 0 (the wrappers check); bf16: K % 8 == 0, and the
+      // last step's columns past K are TMA's zero fill
+      if (kg < p.K) {
+        const uint64_t da = smem_desc<128>(As + ks * 32, 16, 1024);
+        const uint64_t db = smem_desc<128>(Bs + ks * 32, 16, 1024);
+        if constexpr (ONE) {
+          Op::mma(acc, da, db, kg);  // 0: the first step, D = A * B
+        } else {
+          Op::mma(acc, da, db, kg % p.group);  // 0: a group starts
+          if ((kg + KS) % p.group == 0) {      // the group ends: fold it into f32
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+            const int gi = (kg + KS) / p.group - 1;
+            const float rs0 = row0 < p.M ? p.row_scale[src0 * ng + gi] : 0.f;
+            const float rs1 = row0 + 8 < p.M ? p.row_scale[src1 * ng + gi] : 0.f;
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const int col = c0 + j * 8 + 2 * t;  // column scales from L1: no registers held
-            const float cs0 = col < p.N ? __ldg(p.col_scale + col) : 0.f;
-            const float cs1 = col < p.N ? __ldg(p.col_scale + col + 1) : 0.f;
+            for (int j = 0; j < BN / 8; ++j) {
+              const int col = c0 + j * 8 + 2 * t;  // column scales from L1: no registers held
+              const float cs0 = col < p.N ? __ldg(p.col_scale + col) : 0.f;
+              const float cs1 = col < p.N ? __ldg(p.col_scale + col + 1) : 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              facc[4 * j + e] = __fadd_rn(
-                  facc[4 * j + e], dequant(acc[4 * j + e], e < 2 ? rs0 : rs1, e & 1 ? cs1 : cs0));
+              for (int e = 0; e < 4; ++e)
+                facc[4 * j + e] = __fadd_rn(
+                    facc[4 * j + e], dequant(acc[4 * j + e], e < 2 ? rs0 : rs1, e & 1 ? cs1 : cs0));
+            }
+            wgmma_fence();
           }
-          wgmma_fence();
         }
       }
     }
@@ -540,49 +599,31 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   }
   wgmma_wait<0>();
   fence_regs(acc);
-
-  // epilogue: each thread holds columns 8j + 2t, + 1 of rows row0, row0 + 8
-  const bool in0 = row0 < p.M, in1 = row0 + 8 < p.M;
-  float rs0 = 0.f, rs1 = 0.f;  // one group: the row scales (ng == 1)
-  if (ONE && EPI != EPI_I32) {
-    if (in0) rs0 = p.row_scale[src0];
-    if (in1) rs1 = p.row_scale[src1];
-  }
-#pragma unroll
-  for (int j = 0; j < (EPI == EPI_SWIGLU ? BN / 16 : BN / 8); ++j) {
-    const int col = c0 + j * 8 + 2 * t;  // N is even: the pair is valid together
-    if (col >= p.N) continue;
-    const long long off0 = (long long)row0 * p.N + col, off1 = off0 + 8LL * p.N;
-    if constexpr (EPI == EPI_I32) {  // the int32 sums themselves, converted once
-      OutT* o = static_cast<OutT*>(p.out);
-      if (in0) store_pair(o + off0, from_int<OutT>(acc[4 * j]), from_int<OutT>(acc[4 * j + 1]));
-      if (in1) store_pair(o + off1, from_int<OutT>(acc[4 * j + 2]), from_int<OutT>(acc[4 * j + 3]));
-    } else {
-      const EpiCols c = epi_cols<EPI, ONE>(p, col);
-      if (in0) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j, rs0, off0, col, c);
-      if (in1) epilogue2<EPI, OutT, ResT, ONE>(p, acc, facc, 4 * j + 2, rs1, off1, col, c);
-    }
-  }
+  Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
 }
 
-template <int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE>
-cudaError_t launch_gemm_i8_tiles(const I8GemmArgs& p, cudaStream_t st) {
-  using T = I8Tile<ONE>;
+// Encode the two tensor maps (A [M, K], B [rows, K], boxes of one 128-byte
+// row of K by 128 rows of A and BN rows of B, or two boxes of BN / 2 for
+// EPI_SWIGLU) and launch one block per 128 x BN output tile.
+template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, class Args>
+cudaError_t launch_gemm_tiles(const Args& p, cudaStream_t st) {
+  using T = GemmTile<ONE>;
+  constexpr cuuint32_t KE = QBK / sizeof(typename Op::Elem);  // K elements of a box row
   CUtensorMap amap = {}, bmap;
   cudaError_t e = cudaSuccess;
-  const cuuint64_t kb = (cuuint64_t)p.K;  // bytes per row of A and B
+  const cuuint64_t kb = (cuuint64_t)p.K * sizeof(typename Op::Elem);  // bytes per row of A and B
   if (!A_MAP) {
-    const cuuint64_t dims[2] = {kb, (cuuint64_t)p.M};
-    const cuuint32_t box[2] = {QBK, QBM};
-    e = make_tma_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.A, dims, &kb, box, 128);
+    const cuuint64_t dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
+    const cuuint32_t box[2] = {KE, QBM};
+    e = make_tma_map(&amap, Op::TMA_TYPE, 2, p.A, dims, &kb, box, 128);
   }
   if (e != cudaSuccess) return e;
   const cuuint64_t b_rows = EPI == EPI_SWIGLU ? (cuuint64_t)(p.hid + p.N) : (cuuint64_t)p.N;
-  const cuuint64_t bdims[2] = {kb, b_rows};
-  const cuuint32_t bbox[2] = {QBK, (cuuint32_t)(EPI == EPI_SWIGLU ? T::BN / 2 : T::BN)};
-  e = make_tma_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.B, bdims, &kb, bbox, 128);
+  const cuuint64_t bdims[2] = {(cuuint64_t)p.K, b_rows};
+  const cuuint32_t bbox[2] = {KE, (cuuint32_t)(EPI == EPI_SWIGLU ? T::BN / 2 : T::BN)};
+  e = make_tma_map(&bmap, Op::TMA_TYPE, 2, p.B, bdims, &kb, bbox, 128);
   if (e != cudaSuccess) return e;
-  auto kernel = gemm_i8_kernel<EPI, OutT, ResT, A_MAP, ONE>;
+  auto kernel = gemm_tma_kernel<Op, EPI, OutT, ResT, A_MAP, ONE, Args>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return e;
   const int cols_per_block = EPI == EPI_SWIGLU ? T::BN / 2 : T::BN;
@@ -595,9 +636,9 @@ template <int EPI, typename OutT, typename ResT = OutT, bool A_MAP = false>
 cudaError_t launch_gemm_i8(const I8GemmArgs& p, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
   if (EPI == EPI_I32 || p.group == p.K)
-    return launch_gemm_i8_tiles<EPI, OutT, ResT, A_MAP, true>(p, st);
+    return launch_gemm_tiles<OpS8, EPI, OutT, ResT, A_MAP, true>(p, st);
   if constexpr (EPI == EPI_RESID && !A_MAP)  // only the residual products take K groups
-    return launch_gemm_i8_tiles<EPI, OutT, ResT, false, false>(p, st);
+    return launch_gemm_tiles<OpS8, EPI, OutT, ResT, false, false>(p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -15,15 +15,17 @@
 // 1536 -> 8192, 1536 -> 4608, 4096 -> 1536, 1536 -> 1536) each product is
 // 41-219 G operations against at most ~0.3 GB of operands and output (the
 // int32 or f32 output dominates), far above the card's balance points:
-// tensor-core issue. The design is the repository's two GEMMs, B read
+// tensor-core issue. The design is the repository's TMA GEMM
+// (int8_common.cuh: wgmma fed by TMA through an mbarrier ring), B read
 // K-contiguous ([N, K] rows, the .t() of nn.Linear-style storage):
-//   * int8: int8_common.cuh's mma.sync m16n8k32 GEMM; T1 with EPI_I32 (the
-//     int32 sums over the whole of K, never folded into f32, which is not
-//     exact above 2^24), T2 with one K group of width K and EPI_RESID with
-//     no bias, LayerScale or residual, so the dequantize is the fold
+//   * int8: wgmma m64n256k32 .s32.s8.s8; T1 with EPI_I32 (the int32 sums
+//     over the whole of K, never folded into f32, which is not exact above
+//     2^24), T2 with one K group of width K and EPI_RESID with no bias,
+//     LayerScale or residual, so the dequantize is the fold
 //     (__fmul_rn(__fmul_rn(float(acc), sa), sb)), then one rounding;
-//   * float: bf16_gemm.cuh's bf16 mma.sync GEMM or its f32 FMA twin, with
-//     an output type of its own and the plain EPI_RESID epilogue.
+//   * bf16: wgmma m64n256k16 .f32.bf16.bf16 (bf16_gemm.cuh), f32 sums with
+//     an output type of their own and the plain EPI_RESID epilogue;
+//   * f32: bf16_gemm.cuh's FMA GEMM (wgmma would be TF32), the same way.
 #include "bf16_gemm.cuh"
 
 // a [M, K] and b [N, K], both of dtype (DT_I8, DT_BF16 or DT_F32), row-major

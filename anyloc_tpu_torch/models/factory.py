@@ -32,4 +32,4 @@ def make_extractor(
         )
     raise NotImplementedError(
         f"model family of {model_type!r} is not ported yet (ROADMAP.md, "
-        "port queue item 5: the other model families)")
+        'port queue: "The other model families")')

@@ -88,8 +88,8 @@ def get_top_k_recall(
     del use_gpu  # placement follows the inputs
     if engine != "device":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP.md, port queue "
-            "item 5: ANN engines); use engine='device'")
+            f"engine={engine!r} is not ported yet (ROADMAP.md, port queue: "
+            '"Retrieval engines"' "); use engine='device'")
     dev = db.device if isinstance(db, torch.Tensor) else torch.device("cpu")
     db = torch.as_tensor(np.asarray(db) if not isinstance(db, torch.Tensor) else db,
                          dtype=torch.float32).to(dev)

@@ -46,7 +46,7 @@ class DescriptorEngine:
         if cache_dir is not None:
             raise NotImplementedError(
                 "the descriptor cache is not ported yet (ROADMAP.md, port "
-                "queue item 3)")
+                'queue: "desc_cache")')
         self.transfer_dtype = transfer_dtype
         self.batch_size = batch_size
         if extractor is None:

@@ -22,7 +22,8 @@ from anyloc_tpu_torch.pipelines.engine import DescriptorEngine
 from anyloc_tpu_torch.pipelines.vlad_pipeline import build_results_dict
 
 _NOT_PORTED = ("the dataset registry and loaders are not ported yet "
-               "(ROADMAP.md, port queue item 2): pass {}= a VPRDataset")
+               '(ROADMAP.md, port queue: "The dataset registry and loaders"): '
+               "pass {}= a VPRDataset")
 
 
 def run_global_vocab_vlad(

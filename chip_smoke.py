@@ -22,8 +22,8 @@ Phases, each of which must pass or the script exits non-zero:
      PyTorch library call as a yardstick where one computes the same
      (library_ms: SDPA for K2, torch._int_mm / cuBLAS for T1), for
      K6-K9, T2 and T3 the route the port wires instead (wired_ms), and for
-     K2, K3 and T2 the rate their products reach (TFLOP/s or TOPS) and
-     their share of the bound (bound_ms / ms);
+     K2, K3, K5-K8, T1 on bf16 and T2 the rate their products reach
+     (TFLOP/s or TOPS) and their share of the bound (bound_ms / ms);
   4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
      value facet of layer 31 -> VLAD-32 fitted on the fixture's database
      -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
@@ -274,6 +274,8 @@ def run(profile_dir) -> dict:
                    shape=f"qkv [{b},{n},4608] bf16",
                    **bound({"bf16": 4 * b * 24 * n * n * 64 + 2 * m * d * d},
                            m * 3 * d * 2 + d * d * 2 + 2 * m * d * 2 + 2 * d * 4))
+            achieved("K5_flash_attention_qkv_proj", 4 * b * 24 * n * n * 64 + 2 * m * d * d,
+                     "TFLOP/s")
             timing_line("K5_flash_attention_qkv_proj", "qkv [32,485,4608] bf16")
 
     # ---------------------------------------------------------------- K1
@@ -508,6 +510,8 @@ def run(profile_dir) -> dict:
                    shape=f"x [{b},{n},1536] bf16",
                    **bound({"bf16": 2 * m * d * 4 * d + 4 * b * 24 * n * n * 64},
                            2 * m * d * 2 + 4 * d * d * 2 + 7 * d * 4))
+            achieved("K7_fused_attn_half_bf16", 2 * m * d * 4 * d + 4 * b * 24 * n * n * 64,
+                     "TFLOP/s")
             timing_line("K7_fused_attn_half_bf16", "x [32,257,1536] bf16")
 
     # ---------------------------------------------------------------- K8
@@ -555,6 +559,7 @@ def run(profile_dir) -> dict:
                    shape=f"x [{m},1536] bf16, SwiGLU 4096",
                    **bound({"bf16": 2 * m * d * 3 * hid},
                            2 * m * d * 2 + 3 * hid * d * 2 + (2 * hid + 4 * d) * 4))
+            achieved("K8_fused_mlp_bf16", 2 * m * d * 3 * hid, "TFLOP/s")
             timing_line("K8_fused_mlp_bf16", f"x [{m},1536] bf16")
 
     # ---------------------------------------------------------------- K6
@@ -586,6 +591,7 @@ def run(profile_dir) -> dict:
                                 4 * m * d * 2 + d * 1536 * 2))
             if n == 257:   # the JSON line keeps the 224-px shape; 320 px is printed
                 record("K6_attention_proj", 0.0, **line)
+                achieved("K6_attention_proj", 4 * b * h * n * n * 64 + 2 * m * d * 1536, "TFLOP/s")
                 timing_line("K6_attention_proj", f"q/k/v [{b},{h},{n},64] bf16")
             else:
                 lib = f"wired route {line['wired_ms']:.3f} ms"
@@ -662,8 +668,9 @@ def run(profile_dir) -> dict:
                            **bound({"bf16": 2 * m * k * n}, 2 * (m * k + k * n) + 4 * m * n))
             print(f"T1_matmul time {tag} at {shape} bf16 -> float32: kernel {bf_line['ms']:.3f} ms, "
                   f"plain {bf_line['plain_ms']:.3f} ms, library {bf_line['library_ms']:.3f} ms "
-                  f"({lib_name}); bound {bf_line['bound_ms']:.4f} ms ({bf_line['bound_by']})",
-                  flush=True)
+                  f"({lib_name}); bound {bf_line['bound_ms']:.4f} ms ({bf_line['bound_by']}); "
+                  f"{2 * m * k * n / (bf_line['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{100 * bf_line['bound_ms'] / bf_line['ms']:.1f} % of the bound", flush=True)
             sbn = sb.reshape(n)
             record("T2_matmul_dequant", 0.0,
                    ms=time_ms(lambda: K.matmul_dequant(a8, b8, sa, sb, bk=512)),

@@ -587,3 +587,118 @@ def test_attn_half_variant_base_is_k4_bit_for_bit(n):
                                 ln_params=(ln[0].ravel(), ln[1].ravel()), layerscale=gamma.ravel())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- the bf16 GEMM
+# csrc/bf16_gemm.cuh's bf16 operands run the TMA GEMM: 128 x 256 output
+# tiles, stages of 64 K elements, ragged K left to TMA's zero fill. So the
+# edges are M around the 128-row tile, N around the 256-column tile and K
+# off the 64-element stage; M 4100 by N 1536 is 198 tiles, more than one
+# wave on 132 SMs.
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 136, 1536, 4096])
+@pytest.mark.parametrize("n", [2, 254, 258, 1536])
+@pytest.mark.parametrize("m", [1, 127, 129, 4100])
+def test_bf16_gemm_edges_through_matmul(m, n, k, out_dtype):
+    """T1 on bf16 operands. The values are small integers (|x| <= 4), so
+    every product and every partial sum (at most 4096 * 16) is exact in
+    f32 and any order of summation gives the same sums: T1's bounds (f32
+    sums atol 1e-4 rtol 1e-5, one bf16 ulp for a bf16 output) hold at every
+    K here, where sums of random normals over K 4096 differ by more in
+    another order."""
+    from anyloc_tpu_torch.ops.kernels import matmul, matmul_ref
+
+    g = np.random.default_rng(200 + m + n + k)
+    a = torch.from_numpy(g.integers(-4, 5, (m, k)).astype(np.float32)).to("cuda", torch.bfloat16)
+    b = torch.from_numpy(g.integers(-4, 5, (n, k)).astype(np.float32)).to("cuda", torch.bfloat16).t()
+    tiles = dict(bm=m, bn=n)   # TPU tiles of the whole output (F8 refuses bn 1024 at N 1536)
+    before = matmul.launches
+    got = matmul(a, b, out_dtype=out_dtype, **tiles)
+    assert matmul.launches == before + 1
+    want = matmul_ref(a, b, out_dtype=out_dtype, **tiles)
+    torch.cuda.synchronize()
+    assert got.dtype == (out_dtype or torch.float32) and tuple(got.shape) == (m, n)
+    if out_dtype is None:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    else:
+        assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()).all()
+
+
+def _k5_case(residual, bias, gamma):
+    """K5's projection (EPI_RESID) with and without bias / LayerScale /
+    residual: 3 images of 111 tokens (333 rows), 4 heads of 64 -> 264
+    output columns (a whole 256-column tile and a ragged one)."""
+    from anyloc_tpu_torch.ops.kernels import flash_attention_qkv_proj, flash_attention_qkv_proj_ref
+
+    b, n, h, d, d_out = 3, 111, 4, 256, 264
+    qkv = _randn(b, n, 3 * d, dtype=torch.bfloat16, seed=210)
+    w = _randn(d_out, d, dtype=torch.bfloat16, seed=211, scale=d ** -0.5).t()   # Linear layout
+    kw = dict(num_heads=h,
+              b_proj=_randn(d_out, seed=212, scale=0.1) if bias else None,
+              layerscale=_randn(d_out, seed=213, scale=0.5) if gamma else None,
+              residual=_randn(b, n, d_out, dtype=torch.bfloat16, seed=214) if residual else None)
+    return flash_attention_qkv_proj, flash_attention_qkv_proj_ref, (qkv, w), kw
+
+
+def _k7_case(bias):
+    """K7's qkv product (EPI_QKV): 6 heads of 64, so q_cols = 384 ends half
+    way through the second 256-column tile, and N = 1152 is 4.5 tiles."""
+    from anyloc_tpu_torch.ops.kernels import fused_attn_half_bf16, fused_attn_half_bf16_ref
+
+    b, n, h, d = 3, 111, 6, 384
+    args = (_randn(b, n, d, dtype=torch.bfloat16, seed=220),
+            _randn(d, 3 * d, dtype=torch.bfloat16, seed=221, scale=d ** -0.5),
+            _randn(3 * d, seed=222, scale=0.1) if bias else None,
+            _randn(d, d, dtype=torch.bfloat16, seed=223, scale=d ** -0.5),
+            _randn(d, seed=224, scale=0.1) if bias else None)
+    kw = dict(num_heads=h, ln_params=(1 + _randn(d, seed=225, scale=0.1), _randn(d, seed=226, scale=0.1)),
+              layerscale=_randn(d, seed=227, scale=0.5))
+    return fused_attn_half_bf16, fused_attn_half_bf16_ref, args, kw
+
+
+def _k8_case(mlp_type, hid, epilogue):
+    """K8's w12 product (EPI_SWIGLU: W1 and W2 as two 128-row boxes; or
+    EPI_GELU) and its w3 product (EPI_RESID, with or without b3, LayerScale
+    and residual), at 333 rows and D 200 (off the 256-column tile)."""
+    from anyloc_tpu_torch.ops.kernels import fused_mlp_bf16, fused_mlp_bf16_ref
+
+    m, d = 333, 200
+    two = 2 if mlp_type == "swiglu_fused" else 1
+    args = (_randn(m, d, dtype=torch.bfloat16, seed=230),
+            _randn(d, two * hid, dtype=torch.bfloat16, seed=231, scale=d ** -0.5),
+            _randn(two * hid, seed=232, scale=0.1) if epilogue else None,
+            _randn(hid, d, dtype=torch.bfloat16, seed=233, scale=hid ** -0.5),
+            _randn(d, seed=234, scale=0.1) if epilogue else None)
+    kw = dict(mlp_type=mlp_type, residual=epilogue,
+              ln_params=(1 + _randn(d, seed=235, scale=0.1), _randn(d, seed=236, scale=0.1)),
+              layerscale=_randn(d, seed=237, scale=0.5) if epilogue else None)
+    return fused_mlp_bf16, fused_mlp_bf16_ref, args, kw
+
+
+BF16_GEMM_EPILOGUES = {
+    "resid-bias-gamma-residual": lambda: _k5_case(True, True, True),
+    "resid-none": lambda: _k5_case(False, False, False),
+    "resid-bias": lambda: _k5_case(False, True, False),
+    "resid-gamma-residual": lambda: _k5_case(True, False, True),
+    "qkv-bias": lambda: _k7_case(True),
+    "qkv-no-bias": lambda: _k7_case(False),
+    "swiglu-128": lambda: _k8_case("swiglu_fused", 128, True),
+    "swiglu-384": lambda: _k8_case("swiglu_fused", 384, True),
+    "swiglu-384-bare": lambda: _k8_case("swiglu_fused", 384, False),
+    "gelu-200": lambda: _k8_case("mlp", 200, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_GEMM_EPILOGUES))
+def test_bf16_gemm_epilogues_through_the_block_kernels(case):
+    """Each EPI_* epilogue of the bf16 GEMM through the kernel that runs
+    it, against its plain version at the block kernels' bf16 bound."""
+    kernel, ref, args, kw = BF16_GEMM_EPILOGUES[case]()
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    assert kernel.launches == before + 1
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **BF16)

@@ -8,6 +8,7 @@ the same DINOv2-named state dict natively. Tolerances are stated per test.
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -284,6 +285,36 @@ def test_empty_selection_keeps_three_dims():
     ds = port.VPRDataset(db[:2], [], img_size=(112, 112))
     out = eng.extract_dataset(ds, "queries", verbose=False)
     assert out.shape == (0, 64, 64)
+
+
+def _port_queue_titles():
+    """The item titles of ROADMAP.md's port queue ("N. **Title.**"), without
+    backticks and the closing period or colon."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### 1. Port queue"):text.index("### 2.")]
+    return {t.replace("`", "").rstrip(".:")
+            for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)}
+
+
+NOT_PORTED = {
+    "desc_cache": lambda: port.DescriptorEngine(cache_dir="cache", device="cpu"),
+    "engine": lambda: port.get_top_k_recall(
+        [1], np.zeros((2, 4), np.float32), np.zeros((1, 4), np.float32), [np.array([0])],
+        engine="ivf"),
+    "model family": lambda: port.make_extractor("dinov1_vitb8", 9, "key", device="cpu"),
+    "dataset registry": lambda: port.run_global_vocab_vlad(port.PipelineArgs(), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(NOT_PORTED))
+def test_not_ported_messages_name_a_port_queue_item(what):
+    """F9: each "not ported yet" message names its ROADMAP.md port-queue
+    item by title, which does not go stale when the queue is renumbered."""
+    with pytest.raises(NotImplementedError) as info:
+        NOT_PORTED[what]()
+    named = re.search(r'port queue: "([^"]+)"', str(info.value))
+    assert named, str(info.value)
+    assert named.group(1) in _port_queue_titles(), (named.group(1), _port_queue_titles())
 
 
 def test_import_pulls_in_no_jax():
