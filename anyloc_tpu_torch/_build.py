@@ -32,7 +32,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "anyloc_flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "anyloc_attn_qkv_proj": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "anyloc_vlad_aggregate": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "anyloc_vlad_aggregate": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
+    "anyloc_vlad_resident_clusters": [_I],
     "anyloc_fused_mlp_int8": [_P] * 16 + [_I] * 8 + [_F, _P],
     "anyloc_attn_half_int8": [_P] * 17 + [_I] * 7 + [_F, _F, _P],
     "anyloc_fused_block_int8": [_P] * 30 + [_I] * 9 + [_F, _F, _P],

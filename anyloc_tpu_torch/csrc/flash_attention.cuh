@@ -22,7 +22,8 @@
 //     two-stage ring of mbarrier-guarded shared memory, through 4-D tensor
 //     maps over the strided views (dims hd, N, H, B; keys >= N load as
 //     zeros and are masked to -inf); the tile rows are swizzled by
-//     min(2 hd, 128) bytes, hd 128 as two 64-column panels;
+//     min(2 hd, 128) bytes, hd 128 as two 64-column panels, hd 80 as five
+//     16-column panels swizzled by 32 bytes;
 //   * consumer warpgroups of 64 query rows each hold Q in registers as
 //     wgmma A fragments (pre-scaled and rounded to bf16 where prescale_q
 //     says so) and run S = Q K^T (wgmma, B = the K tile, K-major), the
@@ -99,14 +100,20 @@ __device__ __forceinline__ void store2(float* o, float a, float b) {
 // The K / V tiles of head dim HD, and the block: NWG consumer warpgroups
 // (one, compiled for three blocks per SM, or two at hd 128, where one
 // would spill), then the producer warp.
+// A tile row is split into panels of SW bytes, the largest TMA swizzle
+// (128, 64 or 32 bytes) that divides the row's 2·HD bytes: one panel up to
+// hd 64, two 128-byte panels at hd 128, five 32-byte panels at hd 80 (its
+// 160-byte row does not split into 64-column panels). At hd 80 the
+// products take 5 k16 steps (QK^T) and N = 80 (PV); two blocks per SM,
+// not three, so that the wider accumulator does not spill.
 template <int HD>
 struct FaTile {
   static constexpr int NWG = HD == 128 ? 2 : 1;
   static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr int BLOCKS_PER_SM = NWG == 1 ? 3 : 1;
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // bytes per tile row = swizzle
+  static constexpr int BLOCKS_PER_SM = NWG == 2 ? 1 : (HD == 80 ? 2 : 3);
+  static constexpr int SW = (HD * 2) % 128 == 0 ? 128 : ((HD * 2) % 64 == 0 ? 64 : 32);
   static constexpr int BOX = SW / 2;                       // head-dim columns per TMA box
-  static constexpr int PANELS = HD / BOX;                  // 1, or 2 at hd 128
+  static constexpr int PANELS = HD / BOX;                  // 1; 2 at hd 128; 5 at hd 80
   static constexpr int BK = 64;                            // keys per tile
   static constexpr int TILE = BK * HD * 2;                 // bytes of one K or V tile
   static constexpr int STAGES = 2;
@@ -405,8 +412,9 @@ cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
 
 }  // namespace
 
-// Launch attention over head dims 16, 32, 64 or 128 (the wrappers refuse
-// others before they get here); O_F32: bf16 operands write f32.
+// Launch attention over head dims 16, 32, 64, 80 or 128 (the wrappers
+// refuse others, and the block kernels' wrappers hd 80, before they get
+// here); O_F32: bf16 operands write f32.
 template <bool O_F32 = false>
 static inline cudaError_t launch_attention(const AttnArgs& p, int dtype, int hd,
                                            cudaStream_t st) {
@@ -415,6 +423,7 @@ static inline cudaError_t launch_attention(const AttnArgs& p, int dtype, int hd,
     case 16: return launch_attention_hd<16, O_F32>(p, dtype, st);
     case 32: return launch_attention_hd<32, O_F32>(p, dtype, st);
     case 64: return launch_attention_hd<64, O_F32>(p, dtype, st);
+    case 80: return launch_attention_hd<80, O_F32>(p, dtype, st);
     case 128: return launch_attention_hd<128, O_F32>(p, dtype, st);
     default: return cudaErrorInvalidValue;
   }

@@ -42,6 +42,7 @@ from anyloc_tpu_torch.ops.kernels.matmul import (
 from anyloc_tpu_torch.ops.kernels.vlad_kernel import (
     vlad_aggregate_fused,
     vlad_aggregate_fused_ref,
+    vlad_plan,
 )
 
 # name -> wrapper, for code that resets or reads the launch counts
@@ -82,5 +83,5 @@ __all__ = [
     "fused_mlp_int8_ref", "int8_mlp_geometry_ok",
     "launch_counts", "matmul", "matmul_dequant", "matmul_dequant_ref", "matmul_ref",
     "reset_launch_counts", "vlad_aggregate_fused",
-    "vlad_aggregate_fused_ref",
+    "vlad_aggregate_fused_ref", "vlad_plan",
 ]

@@ -62,7 +62,7 @@ import torch
 from anyloc_tpu_torch import _build
 from anyloc_tpu_torch.ops.common import round_up
 from anyloc_tpu_torch.ops.kernels import _launch
-from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+from anyloc_tpu_torch.ops.kernels.flash_attention import BLOCK_HEAD_DIMS, SUPPORTED_HEAD_DIMS
 from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows, row_quant_scratch
 from anyloc_tpu_torch.ops.quant import _int_mm, quantize_rows
 
@@ -346,9 +346,9 @@ def fused_attn_half_int8(
     code = _launch.dtype_code(x, "fused_attn_half_int8")
     if wqkv_q.dtype != torch.int8 or wp_q.dtype != torch.int8:
         raise TypeError("fused_attn_half_int8: wqkv_q and wp_q must be int8")
-    if hd not in SUPPORTED_HEAD_DIMS:
+    if hd not in BLOCK_HEAD_DIMS:
         raise ValueError(f"fused_attn_half_int8: head dim {hd} not supported "
-                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+                         f"(kernel takes {BLOCK_HEAD_DIMS})")
     if d % 32 or (hc * hd) % 32:
         raise ValueError(f"fused_attn_half_int8: the kernel needs D and the head chunk "
                          f"width % 32 == 0 (D={d}, chunk {hc} x {hd})")
@@ -588,9 +588,9 @@ def fused_attn_half_bf16(
     code = _launch.dtype_code(x, "fused_attn_half_bf16")
     if wqkv.dtype != x.dtype or wp.dtype != x.dtype:
         raise TypeError("fused_attn_half_bf16: wqkv and wp must have x's dtype")
-    if hd not in SUPPORTED_HEAD_DIMS:
+    if hd not in BLOCK_HEAD_DIMS:
         raise ValueError(f"fused_attn_half_bf16: head dim {hd} not supported "
-                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+                         f"(kernel takes {BLOCK_HEAD_DIMS})")
     if not attn_geometry_ok(num_heads, hd):
         raise ValueError(f"fused_attn_half_bf16: no head chunk with hc*head_dim % 128 == 0 "
                          f"exists for num_heads={num_heads}, head_dim={hd}")
@@ -663,9 +663,9 @@ def attention_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _launch.dtype_code(q, "attention_proj")
     if k.dtype != q.dtype or v.dtype != q.dtype or w_proj.dtype != q.dtype:
         raise TypeError("attention_proj: q, k, v and w_proj must share one dtype")
-    if hd not in SUPPORTED_HEAD_DIMS:
+    if hd not in BLOCK_HEAD_DIMS:
         raise ValueError(f"attention_proj: head dim {hd} not supported "
-                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
+                         f"(kernel takes {BLOCK_HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or not _launch.aligned(t, 8):
             raise ValueError(

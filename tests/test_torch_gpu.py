@@ -23,6 +23,7 @@ from anyloc_tpu_torch.ops.kernels import (
     vlad_aggregate_fused,
     vlad_aggregate_fused_ref,
 )
+from anyloc_tpu_torch.ops.kernels.vlad_kernel import hard_label_agreement
 
 pytestmark = pytest.mark.gpu
 
@@ -52,7 +53,7 @@ def _randn(*shape, dtype=torch.float32, seed=0, scale=1.0):
 ATTN_NS = [1, 63, 64, 65, 77, 127, 128, 129, 130, 257, 485]
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", ATTN_NS)
 def test_flash_attention_kernel_matches_ref(hd, dtype, n):
@@ -84,7 +85,7 @@ def test_flash_attention_kernel_single_token(dtype):
     torch.testing.assert_close(flash_attention(q, k, v).float(), v.float(), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("n", [1, 65, 129, 300, 485])
 def test_flash_attention_kernel_takes_qkv_views(n, hd):
     """Strided column views of a fused [B, N, 3D] tensor (K5's case): the
@@ -100,7 +101,8 @@ def test_flash_attention_kernel_takes_qkv_views(n, hd):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("epilogue", [True, False])
-@pytest.mark.parametrize("n,hd", [(97, 64), (1, 64), (65, 16), (129, 32), (257, 128), (485, 64)])
+@pytest.mark.parametrize("n,hd", [(97, 64), (1, 64), (65, 16), (129, 32), (257, 128), (485, 64),
+                                  (97, 80), (257, 80)])
 def test_qkv_proj_kernel_matches_ref(dtype, epilogue, n, hd):
     """K5: the attention with q pre-scaled and rounded to the input dtype
     (prescale_q) over strided views of qkv, then the projection."""
@@ -145,6 +147,99 @@ def test_vlad_kernel_cluster_counts(c):
         got = vlad_aggregate_fused(descs, centers, vlad_mode=mode)
         want = vlad_aggregate_fused_ref(descs, centers, vlad_mode=mode)
         torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dim_80_at_vit_h_width(dtype):
+    """MAE-H / ImageBind-H heads (D 1280, 16 heads of 80): K2 on contiguous
+    q/k/v and on qkv column views, K5 on qkv."""
+    b, n, h, hd = 2, 257, 16, 80
+    d = h * hd
+    qkv = _randn(b, n, 3 * d, dtype=dtype, seed=10)
+    views = [qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2) for i in range(3)]
+    tol = BF16 if dtype == torch.bfloat16 else F32
+    for q, k, v in (views, [t.contiguous() for t in views]):
+        torch.testing.assert_close(flash_attention(q, k, v).float(),
+                                   flash_attention_ref(q, k, v).float(), **tol)
+    w = _randn(d, d, dtype=dtype, seed=11, scale=d ** -0.5).t()
+    kw = dict(b_proj=_randn(d, seed=12, scale=0.1), layerscale=_randn(d, seed=13, scale=0.5),
+              residual=_randn(b, n, d, dtype=dtype, seed=14, scale=0.5), num_heads=h)
+    got = flash_attention_qkv_proj(qkv, w, **kw)
+    want = flash_attention_qkv_proj_ref(qkv, w, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_attention_at_1022_px_within_a_bound_scaled_to_the_output(hd):
+    """The 1022-px sequence (5330 tokens): outputs of about sqrt(e/N) ~ 0.02
+    sit under BF16's atol, so the bound is scaled to the output, 1e-2 of
+    its largest value (one bf16 rounding is at most 2^-7 of a value)."""
+    h = 1536 // 64 if hd == 64 else 16
+    q, k, v = (_randn(1, h, 5330, hd, dtype=torch.bfloat16, seed=30 + s) for s in range(3))
+    got = flash_attention(q, k, v).float()
+    want = flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+# K1 at the main path's shapes (224-px and 308-px batches of 32, the 1022-px
+# query, which splits its tokens over clusters), D 1536, C 32: a hard label
+# sits on a near tie now and then, and the kernel's f32 dots sum in another
+# order than the plain version's, so a label may flip there: min per-image
+# cosine after the near ties are explained (hard_label_agreement), as
+# chip_smoke.py bounds it. The ragged cases below are small enough to hold
+# elementwise.
+VLAD_MODES = [("hard", "cosine"), ("hard", "euclidean"), ("soft", "cosine")]
+
+
+def _facets(b, n, d, seed):
+    x = _randn(b, n, d, seed=seed)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("vlad_mode,dist_mode", VLAD_MODES)
+@pytest.mark.parametrize("b,n", [(8, 256), (32, 256), (32, 484), (1, 5329)])
+def test_vlad_kernel_at_main_path_shapes(vlad_mode, dist_mode, b, n):
+    x = _facets(b, n, 1536, seed=20)
+    centers = x.reshape(-1, 1536)[torch.from_numpy(
+        np.random.default_rng(21).choice(b * n, 32, replace=False)).cuda()]
+    kw = dict(vlad_mode=vlad_mode, dist_mode=dist_mode)
+    got = vlad_aggregate_fused(x, centers, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if vlad_mode == "hard":
+        cos = hard_label_agreement(got, x, centers, dist_mode=dist_mode)[1]
+    else:
+        cos = torch.nn.functional.cosine_similarity(
+            got, vlad_aggregate_fused_ref(x, centers, **kw), dim=-1)
+    assert cos.min().item() >= 0.9999
+
+
+@pytest.mark.parametrize("vlad_mode,dist_mode", VLAD_MODES)
+@pytest.mark.parametrize("c", [1, 32, 64])
+@pytest.mark.parametrize("b,n", [(3, 77), (1, 1001)])   # ragged tiles; 1001: token splits
+def test_vlad_kernel_ragged_and_cluster_counts(vlad_mode, dist_mode, c, b, n):
+    descs = _randn(b, n, 1536, seed=22)
+    centers = _randn(c, 1536, seed=23)
+    kw = dict(vlad_mode=vlad_mode, dist_mode=dist_mode, soft_temp=2.0)
+    got = vlad_aggregate_fused(descs, centers, **kw)
+    want = vlad_aggregate_fused_ref(descs, centers, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("vlad_mode", ["hard", "soft"])
+@pytest.mark.parametrize("b,n", [(32, 484), (1, 5329)])
+def test_vlad_kernel_is_bit_equal_across_launches(vlad_mode, b, n):
+    """Fixed summation orders and no float atomics: two launches agree to
+    the bit, the token-split path (1 x 5329) included."""
+    x = _facets(b, n, 1536, seed=24)
+    centers = _randn(32, 1536, seed=25)
+    first = vlad_aggregate_fused(x, centers, vlad_mode=vlad_mode)
+    second = vlad_aggregate_fused(x, centers, vlad_mode=vlad_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_kernels_refuse_what_they_do_not_take():
