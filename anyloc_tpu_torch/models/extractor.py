@@ -23,7 +23,7 @@ from anyloc_tpu_torch.models.dinov2 import (
     native_state_dict,
 )
 from anyloc_tpu_torch.models.vit import ViTConfig
-from anyloc_tpu_torch.ops.common import l2_normalize
+from anyloc_tpu_torch.ops.common import l2_normalize, resolve_device
 from anyloc_tpu_torch.ops.quant import quantize_vit_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -35,19 +35,6 @@ def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {list(_DTYPES)}, got {dtype!r}")
     return _DTYPES[dtype]
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another one. With no card and no device named it raises; it never
-    falls back to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless the caller "
-            "names another device (device='cpu' runs the plain PyTorch path)")
-    return torch.device("cuda")
 
 
 class ViTFacetExtractor:

@@ -9,6 +9,8 @@ scores) run in full float32: the port relies on PyTorch's defaults
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 # torch.nn.functional.normalize uses x / max(||x||, eps) with eps=1e-12; the
@@ -20,6 +22,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = NORM_EPS) -> torch
     """``x / max(||x||, eps)`` along ``dim`` — zero vectors stay zero."""
     norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
     return x / torch.clamp_min(norm, eps)
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another one. With no card and no device named it raises; it never
+    falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "names another device (device='cpu' runs the plain PyTorch path)")
+    return torch.device("cuda")
 
 
 def score_dot(score_dtype: str = "float32"):

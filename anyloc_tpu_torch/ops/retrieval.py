@@ -8,12 +8,12 @@ Ties go to the lower database index, as ``jax.lax.top_k`` orders them.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from anyloc_tpu_torch.ops.common import l2_normalize, score_dot
+from anyloc_tpu_torch.ops.common import l2_normalize, resolve_device, score_dot
 
 
 def _topk_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,22 +79,22 @@ def get_top_k_recall(
     sub_sample_qu: int = 1,
     engine: str = "device",
     score_dtype: str = "float32",
+    device: Union[None, str, torch.device] = None,
 ) -> Tuple[np.ndarray, np.ndarray, Dict[int, float]]:
     """The reference's ``get_top_k_recall``: (distances [Q, max k],
-    indices [Q, max k], {k: recall}). The search runs on the device the
-    database tensor lies on (numpy inputs: the CPU). Only the exact
-    "device" engine is ported; "blocked", "native", "ivf", "pq" and
-    "ivf_pq" are later items of the port (ROADMAP.md)."""
-    del use_gpu  # placement follows the inputs
+    indices [Q, max k], {k: recall}). The search runs on ``device``, numpy
+    and tensor inputs alike: None means the card (it raises without one),
+    "cpu" only when the caller asks. Only the exact "device" engine is
+    ported; "blocked", "native", "ivf", "pq" and "ivf_pq" are a later item
+    of the port (ROADMAP.md)."""
+    del use_gpu  # the device is named by ``device``
     if engine != "device":
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet (ROADMAP.md, port queue: "
             '"Retrieval engines"' "); use engine='device'")
-    dev = db.device if isinstance(db, torch.Tensor) else torch.device("cpu")
-    db = torch.as_tensor(np.asarray(db) if not isinstance(db, torch.Tensor) else db,
-                         dtype=torch.float32).to(dev)
-    qu = torch.as_tensor(np.asarray(qu) if not isinstance(qu, torch.Tensor) else qu,
-                         dtype=torch.float32).to(dev)
+    dev = resolve_device(device)
+    db = torch.as_tensor(db, dtype=torch.float32, device=dev)
+    qu = torch.as_tensor(qu, dtype=torch.float32, device=dev)
     if qu.dim() == 1:
         qu = qu[None]
     if norm_descs:

@@ -5,11 +5,14 @@ Static-shape batches from ``dataset.batches()`` (host prefetch thread),
 center-crop to a patch multiple once per batch, one truncated trunk
 forward per batch, and a depth-1 pipeline: batch i+1 is dispatched to the
 device before batch i's result is copied back, so the card is never idle
-on the copy.
+on the copy. With ``cache_dir`` the results that come home are kept in a
+sharded ``DescriptorCache`` keyed by the extraction config and the
+dataset's identity (the JAX package's keys and layout).
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Union
 
 import numpy as np
@@ -40,15 +43,14 @@ class DescriptorEngine:
         traffic) and normalizes on the device. ``quant`` selects an int8
         trunk ("int8_full" is the serving mode). ``device`` None means the
         card. ``extractor`` replaces the model built from ``model_type``
-        (its own device is then used)."""
+        (its own device is then used). ``cache_dir`` keeps what
+        ``extract_dataset`` and ``extract_aggregated_dataset`` bring home in
+        a ``DescriptorCache`` there."""
         if transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype must be 'float32' or 'uint8', got {transfer_dtype!r}")
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "the descriptor cache is not ported yet (ROADMAP.md, port "
-                'queue: "desc_cache")')
         self.transfer_dtype = transfer_dtype
         self.batch_size = batch_size
+        custom_extractor = extractor is not None
         if extractor is None:
             from anyloc_tpu_torch.models.factory import make_extractor
 
@@ -61,6 +63,21 @@ class DescriptorEngine:
                              f"{type(extractor).__name__}; use 'float32'")
         self.extractor = extractor
         self.patch = getattr(extractor.cfg, "patch_size", 14)
+        # the key names everything that changes the descriptors: the
+        # checkpoint (random and real weights never share a cache) and, for
+        # a caller's extractor, its class (the arguments do not describe it)
+        self.desc_cache = None
+        if cache_dir is not None:
+            from anyloc_tpu_torch.utils.desc_cache import DescriptorCache
+
+            cfg = {"model": model_type, "layer": desc_layer,
+                   "facet": desc_facet, "use_cls": use_cls,
+                   "norm": norm_descs, "dtype": str(dtype).removeprefix("torch."),
+                   "transfer": transfer_dtype, "quant": quant,
+                   "checkpoint": checkpoint}
+            if custom_extractor:
+                cfg["custom_extractor"] = type(extractor).__name__
+            self.desc_cache = DescriptorCache(cache_dir, cfg)
 
     def _crop(self, images: np.ndarray) -> np.ndarray:
         return np.stack([center_crop_multiple(im, self.patch) for im in images])
@@ -80,28 +97,57 @@ class DescriptorEngine:
                         verbose: bool = True, keep_on_device: bool = False):
         """-> [N, P, D] float32 patch descriptors of the selected items:
         numpy, or a tensor on the extractor's device with
-        ``keep_on_device`` (no copy back; for results that feed more device
-        work, such as the vocabulary k-means)."""
-        if len(dataset.indices(which, sub_sample)) == 0:
+        ``keep_on_device`` (no copy back and no cache; for results that
+        feed more device work, such as the vocabulary k-means)."""
+        idx = dataset.indices(which, sub_sample)
+        if len(idx) == 0:
             empty = np.zeros(self._empty_shape(dataset), np.float32)
             return torch.from_numpy(empty).to(self.extractor.device) if keep_on_device else empty
+        if self.desc_cache is not None and not keep_on_device:
+            return self.desc_cache.get_or_compute(
+                self._cache_key(dataset, which, sub_sample, idx), len(idx),
+                lambda: self._extract_dataset(dataset, which, sub_sample, verbose))
         return self._extract_dataset(dataset, which, sub_sample, verbose,
                                      keep_on_device=keep_on_device)
 
-    def extract_aggregated_dataset(self, dataset, aggregate, which: str = "all",
-                                   sub_sample: int = 1, verbose: bool = True) -> np.ndarray:
+    @staticmethod
+    def _cache_key(dataset, which, sub_sample, idx) -> str:
+        """The dataset's identity, not just its class: many dataset names
+        map to one class (every domain recipe is a GlobalVocabDataset),
+        so the digest covers the selected image paths and the load size."""
+        h = hashlib.sha1()
+        h.update(str(getattr(dataset, "img_size", None)).encode())
+        for i in idx:
+            h.update(str(dataset.images_paths[i]).encode())
+            h.update(b"|")
+        return (f"{type(dataset).__name__}_{which}_ss{sub_sample}_"
+                f"{h.hexdigest()[:12]}")
+
+    def extract_aggregated_dataset(self, dataset, aggregate, agg_key: str,
+                                   which: str = "all", sub_sample: int = 1,
+                                   verbose: bool = True) -> np.ndarray:
         """Extraction plus a device-side aggregation per batch:
         ``aggregate`` maps the [B, P, D] facets to what comes home (VLAD
-        [B, C·D], ...); the patch tensor stays on the device."""
+        [B, C·D], ...); the patch tensor stays on the device. ``agg_key``
+        names the aggregation in the descriptor cache."""
+        if self.desc_cache is not None:
+            idx = dataset.indices(which, sub_sample)
+            return self.desc_cache.get_or_compute(
+                f"{agg_key}_{self._cache_key(dataset, which, sub_sample, idx)}", len(idx),
+                lambda: self._extract_dataset(dataset, which, sub_sample, verbose,
+                                              aggregate=aggregate))
         return self._extract_dataset(dataset, which, sub_sample, verbose,
                                      aggregate=aggregate)
 
     def extract_vlads_dataset(self, dataset, vlad, which: str = "all",
                               sub_sample: int = 1, verbose: bool = True) -> np.ndarray:
         """Extraction + VLAD aggregation per batch -> [N, C·D] float32;
-        only the VLAD vectors cross back to the host. ``vlad`` is fitted."""
-        return self.extract_aggregated_dataset(dataset, vlad.aggregate, which,
-                                               sub_sample, verbose)
+        only the VLAD vectors cross back to the host. ``vlad`` is fitted;
+        its vocabulary digest is part of the cache key, so a refit never
+        reads VLADs of other centers."""
+        return self.extract_aggregated_dataset(
+            dataset, vlad.aggregate, f"vlad{vlad.num_clusters}_{vlad.vocab_key()}",
+            which, sub_sample, verbose)
 
     def _extract_dataset(self, dataset, which, sub_sample, verbose,
                          aggregate=None, keep_on_device=False):

@@ -1,12 +1,10 @@
-"""AnyLoc-VLAD with a vocabulary fitted on one dataset's database images
-and applied to another (counterpart of
-``anyloc_tpu/pipelines/global_vocab_vlad.py::run_global_vocab_vlad``):
-k-means vocabulary -> fused extract + VLAD per batch -> exact top-k ->
-Recall@K.
-
-The dataset registry, the loaders and the CLI are a later item of the port
-(ROADMAP.md): callers pass ``dataset`` and ``vocab_dataset`` objects with
-the ``VPRDataset`` protocol.
+"""AnyLoc-VLAD with a multi-dataset domain vocabulary (counterpart of
+``anyloc_tpu/pipelines/global_vocab_vlad.py``; reference
+scripts/dino_v2_global_vocab_vlad.py): k-means vocabulary over the
+concatenated database images of the domain's datasets (each sub-sampled
+by its recipe) -> fused extract + VLAD per batch on the target dataset ->
+exact top-k on the card -> Recall@K; VPAir appends distractor VLADs to
+the database.
 """
 
 from __future__ import annotations
@@ -16,14 +14,12 @@ from typing import Dict, Optional
 import numpy as np
 
 from anyloc_tpu_torch.config import PipelineArgs
+from anyloc_tpu_torch.data.loaders.global_vocab import GlobalVocabDataset
+from anyloc_tpu_torch.data.registry import DOMAIN_RECIPES
 from anyloc_tpu_torch.ops.retrieval import get_top_k_recall
-from anyloc_tpu_torch.ops.vlad import VLAD
 from anyloc_tpu_torch.pipelines.engine import DescriptorEngine
-from anyloc_tpu_torch.pipelines.vlad_pipeline import build_results_dict
-
-_NOT_PORTED = ("the dataset registry and loaders are not ported yet "
-               '(ROADMAP.md, port queue: "The dataset registry and loaders"): '
-               "pass {}= a VPRDataset")
+from anyloc_tpu_torch.pipelines.vlad_pipeline import (
+    build_results_dict, dataset_from_args, engine_from_args, fit_vocabulary)
 
 
 def run_global_vocab_vlad(
@@ -35,34 +31,20 @@ def run_global_vocab_vlad(
     device=None,
 ) -> Dict:
     """``device`` places the engine built from ``largs`` (None: the card;
-    ignored when an ``engine`` is given)."""
-    if dataset is None:
-        raise NotImplementedError(_NOT_PORTED.format("dataset"))
-    if vocab_dataset is None:
-        raise NotImplementedError(_NOT_PORTED.format("vocab_dataset"))
+    an ``engine`` given keeps its own). Retrieval runs on the engine's
+    device."""
     ds_name = largs.prog.vg_dataset_name
-    if engine is None:
-        engine = DescriptorEngine(
-            largs.extractor.model_type, largs.extractor.desc_layer,
-            largs.extractor.desc_facet, largs.extractor.checkpoint,
-            largs.extractor.dtype, largs.extractor.batch_size,
-            quant=largs.extractor.quant,
-            transfer_dtype=largs.extractor.transfer_dtype, device=device,
+    if dataset is None:
+        dataset = dataset_from_args(largs, ds_name)
+    if vocab_dataset is None:
+        samples = largs.db_samples or DOMAIN_RECIPES[largs.global_vocab]
+        vocab_dataset = GlobalVocabDataset(
+            list(samples), largs.prog.data_vg_dir, largs.data_split,
+            dict(samples), img_size=tuple(largs.bd_args.resize),
         )
-    vlad = VLAD(
-        largs.vlad.num_clusters,
-        vlad_mode=largs.vlad.vlad_assignment,
-        soft_temp=largs.vlad.vlad_soft_temp,
-        cache_dir=largs.vlad.cache_dir,
-    )
-    if vlad.can_use_cache_vlad():
-        vlad.fit(None)
-    else:
-        # the vocabulary set stays on the device for the k-means fit
-        vocab_descs = engine.extract_dataset(
-            vocab_dataset, "db", largs.sub_sample_db_vlad, verbose,
-            keep_on_device=True)
-        vlad.fit(vocab_descs.reshape(-1, vocab_descs.shape[-1]))
+    if engine is None:
+        engine = engine_from_args(largs, device)
+    vlad = fit_vocabulary(largs, engine, vocab_dataset, verbose)
 
     # fused extract + aggregate: only the VLAD vectors leave the device
     db_vlads = engine.extract_vlads_dataset(
@@ -70,14 +52,22 @@ def run_global_vocab_vlad(
     qu_vlads = engine.extract_vlads_dataset(
         dataset, vlad, "queries", largs.sub_sample_qu, verbose)
 
+    # VPAir: distractors extend the database only
+    # (ref dino_v2_global_vocab_vlad.py:434-470)
+    if largs.use_distractor and ds_name == "VPAir":
+        distractor = dataset_from_args(largs, "VPAir_distractor")
+        dis_vlads = engine.extract_vlads_dataset(distractor, vlad, "db", 1, verbose)
+        db_vlads = np.concatenate([db_vlads, dis_vlads])
+
     dists, indices, recalls = get_top_k_recall(
         largs.top_k_vals, db_vlads, qu_vlads, dataset.get_positives(),
         sub_sample_db=largs.sub_sample_db, sub_sample_qu=largs.sub_sample_qu,
+        device=engine.extractor.device,
     )
     results = build_results_dict(largs, db_vlads, qu_vlads, recalls, ds_name)
     results["Global-Vocab"] = str(largs.global_vocab or sorted(largs.db_samples))
-    results["Qual-Dists"] = np.asarray(dists)
-    results["Qual-Indices"] = np.asarray(indices)
+    results["Qual-Dists"] = dists
+    results["Qual-Indices"] = indices
     if verbose:
         for k in largs.top_k_vals:
             print(f"R@{k}: {recalls[k]:.5f}")

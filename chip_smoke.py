@@ -46,8 +46,21 @@ Phases, each of which must pass or the script exits non-zero:
      (anyloc_tpu_torch/tools/) with short stacks; K6-K9 must launch in
      the tools' run; then the T1-T3 tools (bench_int8_matmul,
      bench_xlayer) with few iterations, in which T1-T3 must launch;
-  7. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
-     and 1022 px (batch 1), bf16 and int8_full. ``--profile DIR`` also
+  7. the entry point: dataset roots written to a temporary directory
+     (17places in the vpr_bench layout from the fixture's JPEGs, gardens
+     from data/synthetic.py at 640x480), then ``python -m anyloc_tpu_torch
+     global-vocab-vlad`` through ``cli.main`` at DINOv2-G/14 layer 31
+     value, 320 -> 308 px, VLAD-32, in bf16 (K1 and K5 must launch) and in
+     int8_full with uint8 transfer (K1, K3 and K4 must launch), then the
+     ``vlad`` subcommand in bf16; each writes its results JSON and runs its
+     top-k on the card; then the descriptor cache (a second engine launches
+     nothing and reads bit-equal VLADs; a truncated shard is recomputed);
+     then ingest: images/s of host decode alone (PIL and the native pipe,
+     float32 and uint8) and of decode + extract + VLAD through the engine
+     on a 384-image database, best of 3;
+  8. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
+     and 1022 px (batch 1), bf16 and int8_full, images already on the
+     card, then the ingest rates beside them. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -57,8 +70,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,7 +130,19 @@ PATH_KERNELS = {
                  "K9_fused_block_int8"),
     # the micro-benchmark tools (T1-T3 drive nothing else, as in the JAX package)
     "tools": ("T1_matmul", "T2_matmul_dequant", "T3_attn_half_variant"),
+    # python -m anyloc_tpu_torch global-vocab-vlad / vlad at 308 px
+    "entry bf16": ("K1_vlad_aggregate_fused", "K5_flash_attention_qkv_proj"),
+    "entry int8_full": ("K1_vlad_aggregate_fused", "K3_fused_mlp_int8", "K4_fused_attn_half_int8"),
 }
+# the trunk's kernels: a read from the descriptor cache launches none of them
+TRUNK_KERNELS = ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
+                 "K4_fused_attn_half_int8", "K5_flash_attention_qkv_proj")
+INGEST_DB = 384   # the fixture's 24 JPEGs (640x480), 16 times
+# the entry point's flags, as a user runs AnyLoc-VLAD-DINOv2 at 320 -> 308 px
+ENTRY_ARGS = ["--prog.vg-dataset-name", "17places", "--db-samples", "17places=1", "gardens=1",
+              "--extractor.model-type", "dinov2_vitg14", "--extractor.desc-layer", "31",
+              "--extractor.desc-facet", "value", "--bd-args.resize", "320", "320",
+              "--top-k-vals", "1", "5", "10"]
 # One H100 SXM's published dense peaks at its 700 W limit (NVIDIA's data
 # sheet; f32 outside the tensor cores): operations/s by type, bytes/s.
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "hbm": 3.35e12}
@@ -163,6 +192,7 @@ def run(profile_dir) -> dict:
         ViTConfig, ViTFacetExtractor, get_top_k_recall, listdir_abs)
     import torch.nn.functional as F
 
+    from anyloc_tpu_torch.data import synthetic
     from anyloc_tpu_torch.data.transforms import preprocess_image
     from anyloc_tpu_torch.models import vit as vit_module
     from anyloc_tpu_torch.ops import kernels as K
@@ -995,8 +1025,7 @@ def run(profile_dir) -> dict:
         vlad.fit(vocab.reshape(-1, vocab.shape[-1]))
         dbv = engine.extract_vlads_dataset(ds, vlad, "db", verbose=False)
         quv = engine.extract_vlads_dataset(ds, vlad, "queries", verbose=False)
-        dists, idx, recalls = get_top_k_recall(
-            [1, 5, 10], torch.from_numpy(dbv).to(dev), torch.from_numpy(quv).to(dev), gt)
+        dists, idx, recalls = get_top_k_recall([1, 5, 10], dbv, quv, gt)   # on the card (F11)
         e2e_s = time.perf_counter() - t0
         check(dbv.shape == (16, 32 * 1536) and quv.shape == (8, 32 * 1536),
               f"VLAD shapes {dbv.shape} {quv.shape}")
@@ -1207,7 +1236,24 @@ def run(profile_dir) -> dict:
         check(counts_t[name] > 0, f"{name} never launched in the tools' run")
         results[name]["launches"] = counts_t[name]
 
+    # ---------------------------------------------------------------- the entry point
+    with tempfile.TemporaryDirectory(prefix="anyloc_smoke_") as work:
+        work = Path(work)
+        root = work / "datasets"
+        write_vpr_bench(root / "17places", db, qu, gt)
+        synthetic.build_gardens(str(root), size=(480, 640))
+        for label, cmd, extra, path in (
+                ("gvv_bf16", "global-vocab-vlad", [], "entry bf16"),
+                ("gvv_int8_full", "global-vocab-vlad",
+                 ["--extractor.quant", "int8_full", "--extractor.transfer-dtype", "uint8"],
+                 "entry int8_full"),
+                ("vlad_bf16", "vlad", [], "entry bf16")):
+            run_cli(label, cmd, root, extra, work / "results", path)
+        cache_phase(ext, vlad, root, work / "descriptor_cache")
+        ingest = ingest_phase(ext, vlad, ext8, vlad8, db + qu, qu, gt, work / "ingest", tag)
+
     # ---------------------------------------------------------------- throughput
+    device_rate = {}
     for path, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):
         for px, bsz in [(224, 32), (308, 32), (1022, 1)]:
             x = torch.randint(0, 256, (bsz, px, px, 3), dtype=torch.uint8).to(dev)
@@ -1219,13 +1265,185 @@ def run(profile_dir) -> dict:
             n_tok = (px // 14) ** 2 + 1
             print(f"throughput {tag}: {path} extract+VLAD {px} px ({n_tok} tokens) batch {bsz}: "
                   f"{ms:.2f} ms/batch, {bsz * 1000 / ms:.2f} images/s", flush=True)
+            device_rate[path, px] = bsz * 1000 / ms
             if profile_dir is not None:
                 profile(step, Path(profile_dir) / f"profile_{path}_{px}px_b{bsz}.txt",
                         f"{path} {px} px batch {bsz} {tag}")
 
+    for (label, path), rate in ingest.items():
+        dev_rate = device_rate[path, 308]
+        print(f"ingest vs device-only {tag}: {label}: {rate:.2f} images/s with host decode, "
+              f"{dev_rate:.2f} images/s with the images already on the card (throughput {path} "
+              f"308 px above): {rate / dev_rate:.3f} of it", flush=True)
     print(f"card: {card}", flush=True)
     return {name: {"name": name, "route": "cuda", **KERNEL_INFO[name], **r}
             for name, r in results.items()}
+
+
+def write_vpr_bench(ds_dir: Path, db_paths, query_paths, gt, copies: int = 1) -> None:
+    """A vpr_bench dataset (ref/, query/, ground_truth_new.npy) of copies
+    of existing JPEGs: ``db_paths`` ``copies`` times in ref/, each query's
+    positives moved along with every copy."""
+    import numpy as np
+
+    (ds_dir / "ref").mkdir(parents=True)
+    (ds_dir / "query").mkdir()
+    n = len(db_paths)
+    for c in range(copies):
+        for i, src in enumerate(db_paths):
+            shutil.copyfile(src, ds_dir / "ref" / f"{c * n + i}.jpg")
+    rows = np.empty((len(query_paths), 2), object)
+    for i, src in enumerate(query_paths):
+        shutil.copyfile(src, ds_dir / "query" / f"{i}.jpg")
+        rows[i] = (i, np.concatenate([np.asarray(gt[i]) + c * n for c in range(copies)]))
+    np.save(ds_dir / "ground_truth_new.npy", rows, allow_pickle=True)
+
+
+def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str) -> None:
+    """``python -m anyloc_tpu_torch <cmd> ENTRY_ARGS <extra>`` on the
+    dataset root through ``cli.main`` with no device named, launch counts
+    reset just before and read just after; the search must run on the card
+    (F11) and the results JSON be complete."""
+    from anyloc_tpu_torch import cli
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops import retrieval
+
+    searched = []
+    search = retrieval.top_k_search
+
+    def spy(db, qu, k, *a, **kw):
+        searched.append(db.device.type)
+        return search(db, qu, k, *a, **kw)
+
+    argv = [cmd, *ENTRY_ARGS, *extra, "--prog.data-vg-dir", str(root),
+            "--prog.cache-dir", str(out), "--exp-id", label]
+    retrieval.top_k_search = spy
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:   # the pipeline's progress lines
+            rc = cli.main(argv)
+    finally:
+        retrieval.top_k_search = search
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(rc == 0, f"cli {label} returned {rc}")
+    saved = sorted((out / "experiments" / label).glob("results_*.json"))
+    check(len(saved) == 1, f"cli {label}: results JSON {saved}")
+    res = json.loads(saved[0].read_text())
+    check(res["VLAD-Dim"] == str(32 * 1536) and res["Num-DB"] == "16" and res["Num-QU"] == "8",
+          f"cli {label}: {res}")
+    check(all(0.0 <= res[f"R@{k}"] <= 1.0 for k in (1, 5, 10)), f"cli {label}: recalls {res}")
+    check(searched == ["cuda"], f"cli {label}: top-k ran on {searched}, not the card")
+    for name in PATH_KERNELS[path]:
+        check(counts[name] > 0, f"{name} never launched in the cli {label} run")
+    recalls = {k: res[f"R@{k}"] for k in (1, 5, 10)}
+    print(f"entry point {label}: python -m anyloc_tpu_torch {cmd} {' '.join(ENTRY_ARGS + extra)} "
+          f"(17places 16 db + 8 queries, vocabulary {res.get('Global-Vocab', '17places db')}): "
+          f"rc 0 in {seconds:.1f} s (model build included), VLAD-Dim {res['VLAD-Dim']}, recall "
+          f"(random weights, not asserted) {recalls}, top-k on {searched[0]}, results JSON "
+          f"{saved[0].name}; {len(log.getvalue().splitlines())} progress lines; launch counts "
+          f"{counts}", flush=True)
+
+
+def cache_phase(ext, vlad, root: Path, cache_dir: Path) -> None:
+    """Two engines over one descriptor cache on the 17places tree: the
+    second launches no trunk kernel and reads bit-equal VLADs; a shard
+    truncated on purpose is recomputed."""
+    import numpy as np
+
+    from anyloc_tpu_torch import DescriptorEngine, get_dataset
+    from anyloc_tpu_torch.ops import kernels as K
+
+    ds = get_dataset("17places", str(root), img_size=(320, 320))
+
+    def vlads():
+        K.reset_launch_counts()
+        out = DescriptorEngine(extractor=ext, cache_dir=str(cache_dir)).extract_vlads_dataset(
+            ds, vlad, "all", verbose=False)
+        return out, K.launch_counts()
+
+    first, counts1 = vlads()
+    again, counts2 = vlads()
+    check(counts1["K5_flash_attention_qkv_proj"] > 0, "cache: the first engine did not compute")
+    launched = {n: counts2[n] for n in TRUNK_KERNELS if counts2[n]}
+    same = np.array_equal(first, again)
+    print(f"descriptor cache: first engine {first.shape} VLADs computed (launch counts {counts1}); "
+          f"second engine launched {launched or 'no trunk kernel'} (bound: none) and read "
+          f"{'bit-equal' if same else 'DIFFERENT'} VLADs (bound: bit-equal)", flush=True)
+    check(not launched and same, "cache: the second engine computed or read other VLADs")
+    shards = sorted(cache_dir.glob("descs_*/vlad32_*.npz"))
+    check(len(shards) == 1, f"cache: shards {shards}")
+    raw = shards[0].read_bytes()
+    shards[0].write_bytes(raw[: len(raw) // 2])
+    redo, counts3 = vlads()
+    cos = (redo * first).sum(1) / (np.linalg.norm(redo, axis=1) * np.linalg.norm(first, axis=1))
+    print(f"descriptor cache: shard truncated to {len(raw) // 2} of {len(raw)} bytes -> a miss, "
+          f"recomputed (K5 launches {counts3['K5_flash_attention_qkv_proj']}), "
+          f"{'bit-equal' if np.array_equal(redo, first) else 'not bit-equal'} to the first, "
+          f"min cosine {cos.min():.7f} (bound >= 0.9999)", flush=True)
+    check(counts3["K5_flash_attention_qkv_proj"] > 0 and cos.min() >= 0.9999,
+          "cache: a truncated shard was not recomputed")
+
+
+def ingest_phase(ext, vlad, ext8, vlad8, jpegs, queries, gt, work: Path, tag: str) -> dict:
+    """Images/s with host decode on an INGEST_DB-image vpr_bench database at 320
+    -> 308 px, batch 32, best of 3: decode alone (``dataset.batches``, no
+    device work), then decode + extract + VLAD through the engine, wall
+    clock from the call to the last VLAD on the host."""
+    import numpy as np
+
+    from anyloc_tpu_torch import DescriptorEngine, get_dataset, native
+
+    write_vpr_bench(work / "17places", jpegs, queries, gt, copies=INGEST_DB // len(jpegs))
+    ds = get_dataset("17places", str(work), img_size=(320, 320))
+    check(ds.database_num == INGEST_DB, f"ingest database of {ds.database_num}")
+    cores = os.cpu_count()
+    decoders = ["PIL", "native"]
+    if not native.imagepipe_available():
+        decoders = ["PIL"]
+        lines = (native.build_error or "no reason given").splitlines()
+        reason = next((line for line in lines if "error" in line), lines[-1])
+        print(f"ingest: the native image pipe did not build on this machine ({reason}): "
+              "PIL only", flush=True)
+
+    def best_of_3(fn):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return INGEST_DB / best
+
+    def decode_only(output):
+        n = sum(int((idx >= 0).sum()) for _, idx in ds.batches(32, "db", output=output))
+        check(n == INGEST_DB, f"decode gave {n} images")
+
+    for decoder in decoders:
+        ds.use_native_loader = decoder == "native"
+        check(ds.decoder() == decoder, f"dataset decodes with {ds.decoder()}, not {decoder}")
+        for output in ("float32", "uint8"):
+            rate = best_of_3(lambda: decode_only(output))
+            print(f"ingest {tag}, {cores} cores: decode alone, {decoder} "
+                  f"({'one prefetch thread' if decoder == 'PIL' else 'a thread per core'}), "
+                  f"{output}, 640x480 JPEG -> 320x320: {rate:.2f} images/s", flush=True)
+    rates = {}
+    for path, extractor, vl, transfer in (("bf16", ext, vlad, "float32"),
+                                          ("int8_full", ext8, vlad8, "uint8")):
+        engine = DescriptorEngine(extractor=extractor, batch_size=32, transfer_dtype=transfer)
+        for decoder in (decoders if path == "bf16" else decoders[-1:]):
+            ds.use_native_loader = decoder == "native"
+            out = []
+            rate = best_of_3(lambda: out.append(engine.extract_vlads_dataset(
+                ds, vl, "db", verbose=False)))
+            check(out[-1].shape == (INGEST_DB, 32 * 1536) and bool(np.isfinite(out[-1]).all()),
+                  f"ingest {path}: VLADs {out[-1].shape}")
+            label = f"{path}, {transfer} transfer, {decoder} decode"
+            rates[label, path] = rate
+            print(f"ingest {tag}, {cores} cores: decode + extract + VLAD through the engine, "
+                  f"{label}, {INGEST_DB} images at 320 -> 308 px, batch 32: {rate:.2f} images/s",
+                  flush=True)
+    return rates
 
 
 def profile(step, out_path: Path, label: str) -> None:

@@ -797,3 +797,125 @@ def test_bf16_gemm_epilogues_through_the_block_kernels(case):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+# ---------------------------------------------------------------- the entry point on the card
+# Retrieval, the command line and the descriptor cache, each against the
+# same call on the CPU (F11: with no device named, everything runs on the
+# card).
+
+def test_get_top_k_recall_on_the_card_matches_the_cpu(monkeypatch):
+    """No device named: numpy inputs are searched on the card, with the
+    CPU's indices exactly and its distances within 1e-5 (l2: and 1e-6 of
+    their size)."""
+    from anyloc_tpu_torch import get_top_k_recall
+    from anyloc_tpu_torch.ops import retrieval
+
+    rng = np.random.default_rng(7)
+    db = rng.standard_normal((300, 512)).astype(np.float32)
+    qu = rng.standard_normal((40, 512)).astype(np.float32)
+    gt = [rng.choice(300, size=3, replace=False) for _ in range(40)]
+    seen = []
+    search = retrieval.top_k_search
+
+    def spy(d, q, k, *a, **kw):
+        seen.append(d.device.type)
+        return search(d, q, k, *a, **kw)
+
+    monkeypatch.setattr(retrieval, "top_k_search", spy)
+    for method in ("cosine", "l2"):
+        gd, gi, gr = get_top_k_recall([1, 5, 10], db, qu, gt, method=method)
+        cd, ci, cr = get_top_k_recall([1, 5, 10], db, qu, gt, method=method, device="cpu")
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_allclose(gd, cd, atol=1e-5, rtol=1e-6 if method == "l2" else 0)
+        assert gr == cr
+    assert seen == ["cuda", "cpu", "cuda", "cpu"]
+
+
+def _vits14_checkpoint(path):
+    """A ViT-S/14 state dict from a numpy seed (both devices load the same
+    weights; a torch generator draws differently on the card)."""
+    from anyloc_tpu_torch.models.dinov2 import dinov2_config, init_params
+
+    shapes = {k: tuple(v.shape) for k, v in init_params(
+        dinov2_config("dinov2_vits14", dtype=torch.float32), n_blocks=2).items()}
+    rng = np.random.default_rng(0)
+    sd = {k: torch.from_numpy((rng.standard_normal(s) * (np.prod(s[1:]) ** -0.5 if len(s) > 1
+                                                         else 0.1)).astype(np.float32))
+          for k, s in sorted(shapes.items())}
+    torch.save(sd, path)
+    return path
+
+
+def test_cli_with_a_small_trunk_on_the_card(tmp_path):
+    """``cli.main`` with no device on a synthetic 17places + gardens root
+    (ViT-S/14 layer 1, float32, 56 px, a shared vocabulary): the card's
+    results JSON equals the CPU's but for the time stamp, and the trunk ran
+    through K5 and K1."""
+    import glob
+    import json
+
+    from anyloc_tpu_torch import cli
+    from anyloc_tpu_torch.data import synthetic
+    from anyloc_tpu_torch.ops import kernels as K
+
+    synthetic.build_vpr_bench(str(tmp_path), n_db=12, n_q=6, seed=1, size=(60, 80))
+    synthetic.build_gardens(str(tmp_path), n_db=6, n_q=3, seed=2, size=(60, 80))
+    (tmp_path / "vocab").mkdir()
+    np.savez(tmp_path / "vocab" / "c_centers.npz",
+             centers=np.random.default_rng(3).standard_normal((8, 384)).astype(np.float32))
+    ckpt = _vits14_checkpoint(tmp_path / "vits14.pth")
+    saved = {}
+    for side, device in (("card", None), ("cpu", "cpu")):
+        args = ["global-vocab-vlad", "--prog.data-vg-dir", str(tmp_path),
+                "--prog.vg-dataset-name", "17places", "--db-samples", "17places=1", "gardens=2",
+                "--prog.cache-dir", str(tmp_path / side), "--extractor.model-type",
+                "dinov2_vits14", "--extractor.desc-layer", "1", "--extractor.dtype", "float32",
+                "--extractor.checkpoint", str(ckpt), "--bd-args.resize", "56", "56",
+                "--vlad.num-clusters", "8", "--vlad.cache-dir", str(tmp_path / "vocab"),
+                "--top-k-vals", "1", "3", "5"]
+        K.reset_launch_counts()
+        assert cli.main(args, device=device) == 0
+        counts = K.launch_counts()
+        (path,) = glob.glob(str(tmp_path / side / "experiments" / "default" / "*.json"))
+        saved[side] = json.loads(open(path).read())
+        saved[side].pop("Timestamp")
+        ran = counts["K5_flash_attention_qkv_proj"] > 0 and counts["K1_vlad_aggregate_fused"] > 0
+        assert ran == (side == "card"), counts
+    assert saved["card"] == saved["cpu"]
+    assert saved["card"]["VLAD-Dim"] == str(8 * 384)
+
+
+def test_descriptor_cache_round_trip_on_the_card(tmp_path):
+    """Two engines on the card over one cache directory: the second
+    computes nothing and returns bit-equal VLADs and facets."""
+    from pathlib import Path
+
+    from anyloc_tpu_torch import VLAD, DescriptorEngine, ViTConfig, ViTFacetExtractor, VPRDataset
+    from anyloc_tpu_torch import listdir_abs
+
+    fixture = Path(__file__).parent / "fixtures" / "e2e"
+    ds = VPRDataset(listdir_abs(str(fixture), "db")[:8], listdir_abs(str(fixture), "queries")[:4],
+                    img_size=(112, 112))
+    cfg = ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2, dtype=torch.bfloat16)
+    sd = ViTFacetExtractor(cfg, None, 1, "value", device="cpu", seed=5).model.state_dict()
+
+    def engine():
+        return DescriptorEngine(batch_size=4, cache_dir=str(tmp_path),
+                                extractor=ViTFacetExtractor(cfg, sd, 1, "value", device="cuda"))
+
+    first = engine()
+    vlad = VLAD(8)
+    vlad.fit(first.extract_dataset(ds, "db", verbose=False, keep_on_device=True).reshape(-1, 128))
+    assert vlad.c_centers.device.type == "cuda"
+    v1 = first.extract_vlads_dataset(ds, vlad, "all", verbose=False)
+    f1 = first.extract_dataset(ds, "queries", verbose=False)
+    second = engine()
+
+    def no_compute(*a, **k):
+        raise AssertionError("the second engine computed instead of reading the cache")
+
+    second._extract_dataset = no_compute
+    np.testing.assert_array_equal(second.extract_vlads_dataset(ds, vlad, "all", verbose=False), v1)
+    np.testing.assert_array_equal(second.extract_dataset(ds, "queries", verbose=False), f1)
+    assert v1.shape == (12, 8 * 128) and np.isfinite(v1).all()

@@ -33,6 +33,8 @@ from anyloc_tpu.ops.vlad import vlad_aggregate as jax_vlad_aggregate
 from anyloc_tpu.pipelines.engine import DescriptorEngine as JaxEngine
 
 import anyloc_tpu_torch as port
+from anyloc_tpu_torch import cli as port_cli
+from anyloc_tpu_torch.ops import retrieval as port_retrieval
 from anyloc_tpu_torch.models.dinov2 import from_jax_params, native_state_dict
 
 torch.set_num_threads(2)
@@ -175,10 +177,51 @@ def test_get_top_k_recall_with_sub_sampling_matches_jax():
     args = ([1, 3, 5], db[::2], qu[::3], gt)
     kw = dict(sub_sample_db=2, sub_sample_qu=3)
     jd, ji, jr = jax_get_top_k_recall(*args, **kw)
-    pd, pi, pr = port.get_top_k_recall(*args, **kw)
+    pd, pi, pr = port.get_top_k_recall(*args, **kw, device="cpu")
     np.testing.assert_array_equal(pi, np.asarray(ji))
     np.testing.assert_allclose(pd, np.asarray(jd), atol=1e-5)
     assert pr == jr
+
+
+def test_get_top_k_recall_runs_on_the_card_unless_asked():
+    """F11: the search runs on ``device``, for numpy and tensor inputs
+    alike; None means the card, so without one it raises instead of
+    searching on the host."""
+    db = np.eye(4, dtype=np.float32)
+    args = ([1], db, db[:2], [np.array([0]), np.array([1])])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_gpu.py holds the card's search")
+    for a in (args, ([1], torch.from_numpy(db), torch.from_numpy(db[:2]), args[3])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.get_top_k_recall(*a)
+        _, idx, rec = port.get_top_k_recall(*a, device="cpu")
+        assert idx[:, 0].tolist() == [0, 1] and rec == {1: 1.0}
+
+
+def test_pipelines_search_on_the_engines_device(monkeypatch):
+    """F11: both pipelines hand retrieval the engine's device (here the
+    CPU, as the caller asked), not the host by default."""
+    db, qu, gt = _fixture()
+    _, pcfg = _configs(64, 2, 4, 56)
+    eng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(
+        pcfg, _mini_state_dict(14, depth=2), 1, "value", device="cpu"))
+    ds = port.VPRDataset(db, qu, soft_positives_per_query=gt, img_size=(56, 56))
+    largs = port.PipelineArgs()
+    largs.vlad.num_clusters, largs.top_k_vals = 4, [1, 2]
+    seen = []
+    real = port_retrieval.get_top_k_recall
+
+    def spy(*a, **kw):
+        seen.append(kw.get("device"))
+        return real(*a, **kw)
+
+    from anyloc_tpu_torch.pipelines import global_vocab_vlad, vlad_pipeline
+
+    monkeypatch.setattr(global_vocab_vlad, "get_top_k_recall", spy)
+    monkeypatch.setattr(vlad_pipeline, "get_top_k_recall", spy)
+    port.run_global_vocab_vlad(largs, dataset=ds, vocab_dataset=ds, engine=eng, verbose=False)
+    port.run_vlad_pipeline(largs, dataset=ds, engine=eng, verbose=False)
+    assert seen == [torch.device("cpu")] * 2
 
 
 def test_masked_vlad_matches_jax():
@@ -245,13 +288,14 @@ def test_slice_matches_jax_pipeline_on_fixture(tmp_path, transfer_dtype):
     _, jidx, jrec = jax_get_top_k_recall(top_k, jall[:len(db)], jall[len(db):], gt)
 
     pds = port.VPRDataset(db, qu, soft_positives_per_query=gt, img_size=resize)
+    pds.use_native_loader = False
     peng = port.DescriptorEngine(batch_size=8, extractor=port.ViTFacetExtractor(pcfg, sd, layer, facet,
                                                                                  device="cpu"),
                                  transfer_dtype=transfer_dtype)
     pvlad = port.VLAD(nc, desc_dim=64, cache_dir=str(vdir))
     pvlad.fit(None)
     pall = peng.extract_vlads_dataset(pds, pvlad, which="all", verbose=False)
-    _, pidx, prec = port.get_top_k_recall(top_k, pall[:len(db)], pall[len(db):], gt)
+    _, pidx, prec = port.get_top_k_recall(top_k, pall[:len(db)], pall[len(db):], gt, device="cpu")
 
     assert pall.shape == jall.shape == (24, nc * 64)
     assert _cos_rows(pall, jall).min() >= 0.9999
@@ -274,7 +318,9 @@ def test_run_global_vocab_vlad_on_fixture():
     assert res["VLAD-Dim"] == str(8 * 64) and res["Num-QU"] == "8"
     assert res["Qual-Indices"].shape == (8, 5)
     assert 0.0 <= res["R@1"] <= res["R@5"] <= 1.0
-    with pytest.raises(NotImplementedError, match="dataset"):
+    # datasets come from the registry under largs.prog.data_vg_dir now
+    largs.prog.data_vg_dir = str(FIXTURE / "no-such-root")
+    with pytest.raises(FileNotFoundError):
         port.run_global_vocab_vlad(largs, engine=eng, verbose=False)
 
 
@@ -297,12 +343,13 @@ def _port_queue_titles():
 
 
 NOT_PORTED = {
-    "desc_cache": lambda: port.DescriptorEngine(cache_dir="cache", device="cpu"),
     "engine": lambda: port.get_top_k_recall(
         [1], np.zeros((2, 4), np.float32), np.zeros((1, 4), np.float32), [np.array([0])],
         engine="ivf"),
     "model family": lambda: port.make_extractor("dinov1_vitb8", 9, "key", device="cpu"),
-    "dataset registry": lambda: port.run_global_vocab_vlad(port.PipelineArgs(), device="cpu"),
+    **{f"cli {cmd}": (lambda cmd=cmd: port_cli.main([cmd, "--help"]))
+       for cmd in ("gem", "global-vpr", "gp", "clip-top-k", "patch-clip", "demo", "serve",
+                   "sweep", "train", "eval", "viz")},
 }
 
 
