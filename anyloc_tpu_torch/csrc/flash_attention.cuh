@@ -413,8 +413,7 @@ cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
 }  // namespace
 
 // Launch attention over head dims 16, 32, 64, 80 or 128 (the wrappers
-// refuse others, and the block kernels' wrappers hd 80, before they get
-// here); O_F32: bf16 operands write f32.
+// refuse others before they get here); O_F32: bf16 operands write f32.
 template <bool O_F32 = false>
 static inline cudaError_t launch_attention(const AttnArgs& p, int dtype, int hd,
                                            cudaStream_t st) {

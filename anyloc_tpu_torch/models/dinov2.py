@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from anyloc_tpu_torch.models.hf_convert import ensure_native_naming
 from anyloc_tpu_torch.models.vit import ViT, ViTConfig
 from anyloc_tpu_torch.ops.quant import quantize_vit_params
 
@@ -53,14 +54,17 @@ _BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
 
 def native_state_dict(sd: Mapping, n_blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """A facebookresearch DINOv2 state dict in the port's key space:
+    """A DINOv2 state dict in the port's key space. A HuggingFace
+    ``Dinov2Model`` layout is renamed first (``ensure_native_naming``);
     chunked ``blocks.{c}.{i}.*`` keys (``block_chunks > 0``; ``i`` stays the
-    global block index) become ``blocks.{i}.*``; blocks at or past
-    ``n_blocks``, the trunk-final ``norm`` (a truncated trunk never runs
-    it) and the training-only ``mask_token`` are dropped."""
+    global block index) become ``blocks.{i}.*``; the training-only
+    ``mask_token`` is dropped, and with ``n_blocks`` (a truncated trunk)
+    the blocks at or past it and the trunk-final ``norm``, which such a
+    trunk never runs."""
+    sd = ensure_native_naming(sd, "dinov2")
     out = {}
     for k, v in sd.items():
-        if k == "mask_token" or k.startswith("norm."):
+        if k == "mask_token" or (n_blocks is not None and k.startswith("norm.")):
             continue
         m = _CHUNKED.match(k)
         if m:

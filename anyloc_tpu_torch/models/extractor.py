@@ -79,16 +79,30 @@ class ViTFacetExtractor:
             params = init_params(cfg, seed, n_blocks=n_blocks, device=self.device)
         self.model = build_vit(cfg, params, n_blocks, device=self.device)
 
-    @torch.inference_mode()
-    def __call__(self, imgs) -> torch.Tensor:
+    def _images(self, imgs) -> torch.Tensor:
         if isinstance(imgs, np.ndarray):
             imgs = torch.from_numpy(imgs)
         imgs = imgs.to(self.device, non_blocking=True)
         if imgs.dim() == 3:
             imgs = imgs[None]
-        if imgs.dtype == torch.uint8:
-            imgs = device_normalize(imgs)
-        out = self.model(imgs, capture_layer=self.layer, capture_facet=self.facet)
+        return device_normalize(imgs) if imgs.dtype == torch.uint8 else imgs
+
+    @torch.inference_mode()
+    def __call__(self, imgs) -> torch.Tensor:
+        return self._post(self.model(self._images(imgs), capture_layer=self.layer,
+                                     capture_facet=self.facet))
+
+    @torch.inference_mode()
+    def extract_multilayer(self, imgs, layers) -> dict:
+        """Facets of several layers from one trunk pass (the reference's
+        multi-hook pattern): {layer: [B, N (+1), D]}. The trunk holds blocks
+        0..``layer``, so ``layers`` may not pass the extractor's own."""
+        outs = self.model(self._images(imgs), capture_layers=tuple(layers),
+                          capture_facet=self.facet)
+        return {li: self._post(out) for li, out in outs.items()}
+
+    def _post(self, out: torch.Tensor) -> torch.Tensor:
+        """Drop registers (and CLS unless ``use_cls``), f32, L2-normalize."""
         skip = 1 + self.cfg.num_register_tokens
         if self.use_cls:
             # keep CLS (token 0) with the patches; registers always drop

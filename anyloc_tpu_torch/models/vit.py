@@ -7,8 +7,12 @@ the subset the AnyLoc-VLAD-DINOv2 path runs).
   interpolated bicubically with DINOv2's 0.1 scale offset;
 * pre-norm blocks with LayerScale, GELU or SwiGLU-fused MLP;
 * ``capture_layer`` truncation: blocks after the captured one never run,
-  and the captured block runs only norm1 + qkv for the q/k/v facets (the
-  trunk-final LayerNorm never runs, so it is not built).
+  and the captured block runs only norm1 + qkv for the q/k/v facets;
+  ``capture_layers`` captures several layers in one pass;
+* the untruncated forward (``capture_layer=None``) ends with the
+  trunk-final LayerNorm, built only for the whole trunk (``n_blocks``
+  None); ``embed_only`` returns the embedded tokens; the "attn" facet
+  returns a block's softmax attention probabilities.
 
 Attention routing follows the JAX trunk: N <= ``MAX_FUSED_TOKENS`` goes
 to K5 (attention + projection + LayerScale + residual from the fused
@@ -37,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,6 +137,16 @@ def interpolate_pos_embed(
     return torch.cat([prefix.float(), patch], dim=1)
 
 
+def layer_norm(cfg: "ViTConfig", norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """A trunk LayerNorm: the module itself in a float trunk; in a
+    quantized one f32 math and parameters, output in the trunk dtype
+    (flax's ``LayerNorm(dtype=...)``)."""
+    if cfg.quant is None:
+        return norm(x)
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(cfg.dtype)
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int, init: float, **factory) -> None:
         super().__init__()
@@ -223,19 +237,17 @@ class Block(nn.Module):
         self.ls1 = LayerScale(d, cfg.layerscale_init, **keep)
         self.ls2 = LayerScale(d, cfg.layerscale_init, **keep)
 
-    def _norm(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.quant is None:
-            return norm(x)
-        # flax's LayerNorm(dtype=...): f32 math and parameters, output in the
-        # trunk dtype
-        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
-                            norm.eps).to(self.cfg.dtype)
-
-    def forward(self, x: torch.Tensor, qkv_only: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, qkv_only: bool = False, return_qkv: bool = False,
+                return_attn_probs: bool = False):
+        """The block; ``qkv_only``: norm1 + qkv only, returns the fused
+        [B, N, 3D] qkv; ``return_qkv``: (block output, qkv), the int8_full
+        attention half then unfused as in the JAX trunk;
+        ``return_attn_probs``: the post-softmax attention [B, H, N, N] f32
+        (plain attention on every device, as in the JAX trunk)."""
         c = self.cfg
         b, n, d = x.shape
-        if (c.quant == "int8_full" and not qkv_only and n <= MAX_FUSED_TOKENS
-                and attn_geometry_ok(c.num_heads, c.head_dim)):
+        if (c.quant == "int8_full" and not (qkv_only or return_qkv or return_attn_probs)
+                and n <= MAX_FUSED_TOKENS and attn_geometry_ok(c.num_heads, c.head_dim)):
             # K4: norm1 + int8 qkv + attention + int8 proj + ls1 + residual
             qkv, proj = self.attn.qkv, self.attn.proj
             x = fused_attn_half_int8(
@@ -244,9 +256,22 @@ class Block(nn.Module):
                 ln_params=(self.norm1.weight, self.norm1.bias), ln_eps=c.ln_eps,
                 layerscale=self.ls1.gamma)
             return self._mlp_half(x)
-        qkv = self.attn.qkv(self._norm(self.norm1, x))   # [B, N, 3D] facet source
+        qkv = self.attn.qkv(layer_norm(c, self.norm1, x))   # [B, N, 3D] facet source
         if qkv_only:
             return qkv
+        if return_attn_probs:
+            h, hd = c.num_heads, c.head_dim
+            q, k = (qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2)
+                    for i in range(2))
+            s = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2)
+            return torch.softmax(s, dim=-1)
+        x = self._attn_half(x, qkv)
+        out = self._mlp_half(x)
+        return (out, qkv) if return_qkv else out
+
+    def _attn_half(self, x: torch.Tensor, qkv: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        b, n, d = x.shape
         if n <= MAX_FUSED_TOKENS and c.quant not in ("int8", "int8_full"):
             # K5: attention + proj + LayerScale + residual from the raw qkv
             x = flash_attention_qkv_proj(
@@ -259,12 +284,12 @@ class Block(nn.Module):
                        for i in range(3))
             o = flash_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
             x = x + self.ls1(self.attn.proj(o))
-        return self._mlp_half(x)
+        return x
 
     def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         if c.quant not in ("int8_fused", "int8_full"):
-            return x + self.ls2(self.mlp(self._norm(self.norm2, x)))
+            return x + self.ls2(self.mlp(layer_norm(c, self.norm2, x)))
         ln = (self.norm2.weight, self.norm2.bias)
         if int8_mlp_geometry_ok(c.mlp_type, c.mlp_hidden):
             # K3: norm2 + int8 w12 + SwiGLU/GELU + int8 w3 + ls2 + residual
@@ -287,13 +312,24 @@ class PatchEmbed(nn.Module):
 
 
 class ViT(nn.Module):
-    """The truncated trunk: ``n_blocks`` (default: all) materializes only
-    the first blocks — an extractor never needs the rest.
+    """The trunk: ``n_blocks`` materializes only the first blocks (an
+    extractor never needs the rest); None builds every block and the
+    trunk-final ``norm``.
 
     ``forward(x, capture_layer=L, capture_facet=f)``:
       * facet "query" | "key" | "value": blocks 0..L-1, then norm1 + qkv of
         block L; returns [B, 1+R+N, D] (prefix tokens included);
-      * facet "token": blocks 0..L, returns block L's output.
+      * facet "token": blocks 0..L, returns block L's output;
+      * facet "attn": blocks 0..L-1, then block L's post-softmax attention
+        probabilities [B, H, N, N] (f32, plain attention);
+      * ``capture_layers=(L1, L2, ...)``: those layers' facets (q/k/v or
+        token) from one pass, {L: [B, 1+R+N, D]}; a captured block that is
+        not the last runs whole, the last one norm1 + qkv only;
+      * ``capture_layer=None``: the full forward with the final norm, a
+        dict of ``tokens`` [B, N, D] (patch tokens after the norm), ``cls``
+        [B, D], ``prefix`` (CLS and registers after the norm) and
+        ``pre_norm_tokens`` (every token before it);
+      * ``embed_only``: the embedded tokens [B, 1+R+N, D] before any block.
     """
 
     def __init__(self, cfg: ViTConfig, n_blocks: Optional[int] = None,
@@ -308,7 +344,11 @@ class ViT(nn.Module):
         if cfg.num_register_tokens:
             self.register_tokens = nn.Parameter(
                 torch.zeros(1, cfg.num_register_tokens, d, **factory))
-        n_blocks = cfg.depth if n_blocks is None else n_blocks
+        if n_blocks is None:
+            # the whole trunk, with its final norm (f32 in a quantized trunk)
+            self.norm = nn.LayerNorm(d, eps=cfg.ln_eps, device=device,
+                                     dtype=torch.float32 if cfg.quant else cfg.dtype)
+            n_blocks = cfg.depth
         if not 0 < n_blocks <= cfg.depth:
             raise ValueError(f"n_blocks {n_blocks} not in 1..{cfg.depth}")
         self.blocks = nn.ModuleList([Block(cfg, device) for _ in range(n_blocks)])
@@ -331,14 +371,26 @@ class ViT(nn.Module):
                            x[:, 1:]], dim=1)
         return x
 
-    def forward(self, x: torch.Tensor, capture_layer: int,
-                capture_facet: str = "value") -> torch.Tensor:
-        if capture_facet != "token" and capture_facet not in FACET_OFFSETS:
+    def forward(self, x: torch.Tensor, capture_layer: Optional[int] = None,
+                capture_facet: str = "value", embed_only: bool = False,
+                capture_layers: Optional[Sequence[int]] = None):
+        if capture_facet not in ("token", "attn") and capture_facet not in FACET_OFFSETS:
             raise ValueError(f"unknown facet {capture_facet!r}")
-        if not 0 <= capture_layer < len(self.blocks):
-            raise ValueError(f"layer {capture_layer} is outside the "
-                             f"{len(self.blocks)} materialized blocks")
         x = self.embed(x)
+        if embed_only:
+            return x
+        if capture_layers is not None:
+            if capture_layer is not None:
+                raise ValueError("pass either capture_layer or capture_layers, not both")
+            return self._capture_many(x, sorted(set(int(i) for i in capture_layers)),
+                                      capture_facet)
+        if capture_layer is None:
+            return self._full(x)
+        self._check_layer(capture_layer)
+        if capture_facet == "attn":
+            for blk in self.blocks[:capture_layer]:
+                x = blk(x)
+            return self.blocks[capture_layer](x, return_attn_probs=True)
         if capture_facet == "token":
             for blk in self.blocks[:capture_layer + 1]:
                 x = blk(x)
@@ -346,6 +398,47 @@ class ViT(nn.Module):
         for blk in self.blocks[:capture_layer]:
             x = blk(x)
         qkv = self.blocks[capture_layer](x, qkv_only=True)
+        return self._facet(qkv, capture_facet)
+
+    def _check_layer(self, layer: int) -> None:
+        if not 0 <= layer < len(self.blocks):
+            raise ValueError(f"layer {layer} is outside the {len(self.blocks)} "
+                             f"materialized blocks")
+
+    def _facet(self, qkv: torch.Tensor, facet: str) -> torch.Tensor:
         d = self.cfg.embed_dim
-        off = FACET_OFFSETS[capture_facet] * d
+        off = FACET_OFFSETS[facet] * d
         return qkv[..., off:off + d]
+
+    def _capture_many(self, x: torch.Tensor, want, facet: str) -> Dict[int, torch.Tensor]:
+        """Several layers' facets in one pass (the reference hooks several
+        blocks at once): max(L) + 1 blocks instead of sum(L_i + 1)."""
+        if facet == "attn":
+            raise ValueError("capture_layers supports q/k/v/token facets")
+        self._check_layer(want[-1])
+        outs = {}
+        for i in range(want[-1] + 1):
+            blk = self.blocks[i]
+            if facet == "token":
+                x = blk(x)
+                if i in want:
+                    outs[i] = x
+            elif i == want[-1]:
+                outs[i] = self._facet(blk(x, qkv_only=True), facet)
+            elif i in want:
+                x, qkv = blk(x, return_qkv=True)
+                outs[i] = self._facet(qkv, facet)
+            else:
+                x = blk(x)
+        return outs
+
+    def _full(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if not hasattr(self, "norm"):
+            raise ValueError("the full forward needs the whole trunk (ViT(cfg, n_blocks=None))")
+        for blk in self.blocks:
+            x = blk(x)
+        pre_norm_tokens = x
+        x = layer_norm(self.cfg, self.norm, x)
+        skip = 1 + self.cfg.num_register_tokens
+        return {"tokens": x[:, skip:], "cls": x[:, 0], "prefix": x[:, :skip],
+                "pre_norm_tokens": pre_norm_tokens}

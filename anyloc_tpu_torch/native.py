@@ -1,16 +1,21 @@
-"""ctypes bindings of the native image pipe (``native/imagepipe.cpp``):
-JPEG/PNG decode, tensor-mode bilinear resize and ImageNet normalization of
-a whole batch on a thread pool — the DataLoader-worker equivalent.
+"""ctypes bindings of the native host libraries: the image pipe
+(``native/imagepipe.cpp``: JPEG/PNG decode, tensor-mode bilinear resize
+and ImageNet normalization of a whole batch on a thread pool, the
+DataLoader-worker equivalent) and nnsearch (``native/nnsearch.cpp``:
+threaded exact top-k, the FAISS ``IndexFlat`` stand-in, a host IVF and
+Recall@K).
 
-A copy of the image-pipe half of ``anyloc_tpu/native.py`` (the port cannot
-import that package without importing JAX). The source is the JAX
-package's, unchanged; the port builds its own library with ``g++ ...
--ljpeg -lpng`` into ``build/native/`` at the repository root, named by a
-hash of the source, the flags and the host's instruction set, and
-published by tmp file + ``os.replace`` so that concurrent builders never
-load a half-written file. Nothing builds at import time. Where g++ or the
+A copy of ``anyloc_tpu/native.py`` (the port cannot import that package
+without importing JAX). The sources are the JAX package's, unchanged; the
+port builds its own libraries with the JAX package's flags into
+``build/native/`` at the repository root, each named by a hash of its
+source, the flags and the host's instruction set, and published by tmp
+file + ``os.replace`` so that concurrent builders never load a
+half-written file. It never writes into ``native/`` and never loads the
+library committed there. Nothing builds at import time. Where g++ or the
 libjpeg / libpng headers are missing, ``get_imagepipe()`` returns None and
-callers decode with PIL, as the JAX package does.
+callers decode with PIL, as the JAX package does; where nnsearch cannot be
+built, its functions raise (``nnsearch_build_error`` says why).
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ SRC = ROOT / "native" / "imagepipe.cpp"
 BUILD_DIR = ROOT / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-ljpeg", "-lpng")
+NN_SRC = ROOT / "native" / "nnsearch.cpp"
+NN_FLAGS = ("-O3", "-march=native", "-ffast-math", "-pthread", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _ip_lib: Optional[ctypes.CDLL] = None
-build_error: Optional[str] = None  # why the library could not be built, once it could not
+build_error: Optional[str] = None  # why the image pipe could not be built, once it could not
+_nn_lib: Optional[ctypes.CDLL] = None
+nnsearch_build_error: Optional[str] = None  # the same for nnsearch
 
 
 def _host_isa() -> bytes:
@@ -49,21 +58,31 @@ def _host_isa() -> bytes:
     return os.uname().machine.encode()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(CXX_FLAGS + LIBS).encode())
+def _library_path(src: Path, flags, libs, stem: str) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(tuple(flags) + tuple(libs)).encode())
     h.update(_host_isa())
-    return BUILD_DIR / f"libimagepipe_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build() -> Path:
-    out = library_path()
+def library_path() -> Path:
+    """Where the image pipe's library is built."""
+    return _library_path(SRC, CXX_FLAGS, LIBS, "libimagepipe")
+
+
+def nnsearch_library_path() -> Path:
+    """Where the nnsearch library is built."""
+    return _library_path(NN_SRC, NN_FLAGS, (), "libnnsearch")
+
+
+def _build(src: Path = SRC, flags=CXX_FLAGS, libs=LIBS, out: Optional[Path] = None) -> Path:
+    out = library_path() if out is None else out
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp), *LIBS],
+        subprocess.run(["g++", *flags, str(src), "-o", str(tmp), *libs],
                        check=True, capture_output=True)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees a torn file
     finally:
@@ -222,3 +241,144 @@ def decode_bytes_u8(
         return None
     return out.reshape(-1)[: gh.value * gw.value * 3].reshape(
         gh.value, gw.value, 3).copy()
+
+
+# ------------------------------------------------------- nnsearch
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The nnsearch library, built on first use; None where it cannot be
+    built (no g++)."""
+    global _nn_lib, nnsearch_build_error
+    with _lock:
+        if _nn_lib is not None or nnsearch_build_error is not None:
+            return _nn_lib
+        try:
+            lib = ctypes.CDLL(str(_build(NN_SRC, NN_FLAGS, (), nnsearch_library_path())))
+        except subprocess.CalledProcessError as e:
+            nnsearch_build_error = (e.stderr or b"").decode(errors="replace").strip() or str(e)
+            return None
+        except OSError as e:
+            nnsearch_build_error = str(e)
+            return None
+        i64 = ctypes.c_int64
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.nn_search_mt.argtypes = [f32p, i64, i64, f32p, i64, i64, ctypes.c_int,
+                                     f32p, i64p, ctypes.c_int]
+        lib.nn_search_mt.restype = None
+        lib.recall_at_k.argtypes = [i64p, i64, i64, i64p, i64p, i64p, i64, i64, i64, i64p]
+        lib.recall_at_k.restype = None
+        lib.ivf_search_mt.argtypes = [f32p, i64, i64, f32p, i64, i64p, i64p, f32p, i64, i64,
+                                      i64, ctypes.c_int, f32p, i64p, ctypes.c_int]
+        lib.ivf_search_mt.restype = None
+        _nn_lib = lib
+        return _nn_lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+def _require_nn() -> ctypes.CDLL:
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"native nnsearch unavailable (no g++?): {nnsearch_build_error}")
+    return lib
+
+
+def nn_search(db: np.ndarray, qu: np.ndarray, k: int, method: str = "cosine",
+              n_threads: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact top-k on the host, with ``ops.retrieval.top_k_search``'s
+    conventions (cosine: inner products descending; l2: squared distances
+    ascending). ``n_threads`` 0: one per core; queries split across
+    threads, results do not depend on the count."""
+    lib = _require_nn()
+    db = np.ascontiguousarray(db, np.float32)
+    qu = np.ascontiguousarray(qu, np.float32)
+    k = min(k, db.shape[0])
+    scores = np.empty((qu.shape[0], k), np.float32)
+    idx = np.empty((qu.shape[0], k), np.int64)
+    lib.nn_search_mt(db, db.shape[0], db.shape[1], qu, qu.shape[0], k,
+                     0 if method == "cosine" else 1, scores, idx, n_threads)
+    return scores, idx
+
+
+def ivf_build(db: np.ndarray, n_cells: Optional[int] = None, n_iters: int = 20, seed: int = 0,
+              method: str = "cosine") -> Tuple[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+    """Host IVF build: numpy Lloyd steps -> (cells [n_cells, d], CSR
+    (indptr [n_cells + 1], rows [n_db])), the inverted file of FAISS
+    ``IndexIVFFlat`` for the host search. The start is drawn with
+    ``np.random.default_rng(seed)``, as the JAX package draws it."""
+    db = np.ascontiguousarray(db, np.float32)
+    n, d = db.shape
+    if n_cells is None:
+        n_cells = max(1, int(np.sqrt(n)))
+    n_cells = min(n_cells, n)
+    rng = np.random.default_rng(seed)
+    pts = db
+    if method == "cosine":
+        pts = db / np.maximum(np.linalg.norm(db, axis=1, keepdims=True), 1e-12)
+    cells = pts[rng.choice(n, n_cells, replace=False)].copy()
+
+    def assign(c):
+        if method == "cosine":
+            cn = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-12)
+            return np.argmax(pts @ cn.T, axis=1)
+        return np.argmin(-2.0 * (pts @ c.T) + np.sum(c ** 2, 1)[None], axis=1)
+
+    for _ in range(n_iters):
+        labels = assign(cells)
+        counts = np.bincount(labels, minlength=n_cells).astype(np.float64)
+        sums = np.zeros((n_cells, d), np.float64)
+        np.add.at(sums, labels, pts)
+        nz = counts > 0
+        cells[nz] = (sums[nz] / counts[nz, None]).astype(np.float32)
+    # the final assignment with the final centroids, so that a row sits in
+    # the cell the search-time probe ranks first
+    labels = assign(cells)
+    if method == "cosine":
+        # unit-norm centroids: the search probes by raw q·c
+        cells = (cells / np.maximum(np.linalg.norm(cells, axis=1, keepdims=True), 1e-12)
+                 ).astype(np.float32)
+    order = np.argsort(labels, kind="stable").astype(np.int64)
+    indptr = np.zeros(n_cells + 1, np.int64)
+    np.cumsum(np.bincount(labels, minlength=n_cells), out=indptr[1:])
+    return cells, (indptr, order)
+
+
+def ivf_search(db: np.ndarray, qu: np.ndarray, k: int, cells: np.ndarray,
+               csr: Tuple[np.ndarray, np.ndarray], n_probe: int = 8, method: str = "cosine",
+               n_threads: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Host IVF probed search (threaded), ``nn_search``'s conventions;
+    probing every cell equals exact search."""
+    lib = _require_nn()
+    db = np.ascontiguousarray(db, np.float32)
+    qu = np.ascontiguousarray(qu, np.float32)
+    cells = np.ascontiguousarray(cells, np.float32)
+    indptr, rows = (np.ascontiguousarray(a, np.int64) for a in csr)
+    k = min(k, db.shape[0])
+    scores = np.empty((qu.shape[0], k), np.float32)
+    idx = np.empty((qu.shape[0], k), np.int64)
+    lib.ivf_search_mt(db, db.shape[0], db.shape[1], cells, cells.shape[0], indptr, rows, qu,
+                      qu.shape[0], k, n_probe, 0 if method == "cosine" else 1, scores, idx,
+                      n_threads)
+    return scores, idx
+
+
+def recall_at_k(retrieved: np.ndarray, gt_pos: Sequence[np.ndarray], top_k: Sequence[int],
+                sub_sample_db: int = 1, sub_sample_qu: int = 1) -> dict:
+    """Recall@K hit counts over CSR-packed ground truth, on the host."""
+    lib = _require_nn()
+    retrieved = np.ascontiguousarray(retrieved, np.int64)
+    n_qu, max_k = retrieved.shape
+    indptr = np.zeros(len(gt_pos) + 1, np.int64)
+    for i, g in enumerate(gt_pos):
+        indptr[i + 1] = indptr[i] + len(g)
+    data = (np.concatenate([np.asarray(g, np.int64) for g in gt_pos])
+            if indptr[-1] else np.zeros(0, np.int64))
+    ks = np.asarray(sorted(top_k), np.int64)
+    hits = np.zeros(len(ks), np.int64)
+    lib.recall_at_k(retrieved, n_qu, max_k, indptr, data, ks, len(ks), sub_sample_db,
+                    sub_sample_qu, hits)
+    return {int(k): int(h) for k, h in zip(ks, hits)}

@@ -53,6 +53,19 @@ def score_dot(score_dtype: str = "float32"):
     return dot
 
 
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` [M, K] x [K, N] with bf16 operands and float32 sums and
+    result (the JAX package's ``preferred_element_type=float32`` products).
+    On the card the tensor cores take it through ``mm``'s ``out_dtype``;
+    on the CPU the operands are rounded to bf16 and multiplied in float32,
+    the same math (a product of two bf16 values is exact in float32), as
+    the JAX package emulates it off the TPU."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a16.is_cuda:
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return a16.float() @ b16.float()
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

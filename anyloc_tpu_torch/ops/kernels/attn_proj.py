@@ -62,7 +62,7 @@ import torch
 from anyloc_tpu_torch import _build
 from anyloc_tpu_torch.ops.common import round_up
 from anyloc_tpu_torch.ops.kernels import _launch
-from anyloc_tpu_torch.ops.kernels.flash_attention import BLOCK_HEAD_DIMS, SUPPORTED_HEAD_DIMS
+from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
 from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows, row_quant_scratch
 from anyloc_tpu_torch.ops.quant import _int_mm, quantize_rows
 
@@ -346,9 +346,9 @@ def fused_attn_half_int8(
     code = _launch.dtype_code(x, "fused_attn_half_int8")
     if wqkv_q.dtype != torch.int8 or wp_q.dtype != torch.int8:
         raise TypeError("fused_attn_half_int8: wqkv_q and wp_q must be int8")
-    if hd not in BLOCK_HEAD_DIMS:
+    if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"fused_attn_half_int8: head dim {hd} not supported "
-                         f"(kernel takes {BLOCK_HEAD_DIMS})")
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
     if d % 32 or (hc * hd) % 32:
         raise ValueError(f"fused_attn_half_int8: the kernel needs D and the head chunk "
                          f"width % 32 == 0 (D={d}, chunk {hc} x {hd})")
@@ -385,25 +385,25 @@ fused_attn_half_int8.launches = 0
 # ---------------------------------------------------------------- T3
 
 # tools/bench_xlayer.py:42,184: heads of 64 (24 of them at its D 1536; the
-# port takes D // 64), LayerNorm eps 1e-6, softmax scale 64 ** -0.5
+# port takes D // head_dim, 64 unless the caller names another one of
+# SUPPORTED_HEAD_DIMS), LayerNorm eps 1e-6, softmax scale head_dim ** -0.5
 VARIANT_HEAD_DIM = 64
 VARIANT_EPS = 1e-6
 
 
-def _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant):
+def _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant, hd=VARIANT_HEAD_DIM):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, N, D], got {tuple(x.shape)}")
     b, n, d = x.shape
-    if d % VARIANT_HEAD_DIM:
-        raise ValueError(f"attn_half_variant: D={d} is not a multiple of the head dim "
-                         f"{VARIANT_HEAD_DIM}")
-    h = d // VARIANT_HEAD_DIM
+    if d % hd:
+        raise ValueError(f"attn_half_variant: D={d} is not a multiple of the head dim {hd}")
+    h = d // hd
     if tuple(wqkv_q.shape) != (d, 3 * d) or tuple(wp_q.shape) != (d, d):
         raise ValueError(f"attn_half_variant: wqkv_q must be [{d}, {3 * d}] and wp_q [{d}, {d}], "
                          f"got {tuple(wqkv_q.shape)} {tuple(wp_q.shape)}")
-    hc = _pick_int8_head_chunk(n, h, VARIANT_HEAD_DIM, None)
+    hc = _pick_int8_head_chunk(n, h, hd, None)
     if hc is None:
-        raise ValueError(f"attn_half_variant: no head chunk with hc*64 % 128 == 0 exists "
+        raise ValueError(f"attn_half_variant: no head chunk with hc*{hd} % 128 == 0 exists "
                          f"for {h} heads")
     np_pad = round_up(n, 8)
     if pre_quant and (xq_in is None or xs_in is None
@@ -418,11 +418,12 @@ def _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant):
 
 
 def attn_half_variant_ref(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, gamma, *,
-                          pre_quant: bool, batched_dots: bool, return_o: bool = False):
+                          pre_quant: bool, batched_dots: bool, return_o: bool = False,
+                          head_dim: int = VARIANT_HEAD_DIM):
     """Plain PyTorch version of the kernel's math: K4's plain version with
     no biases, reading the first N pre-quantized rows of each image with
     ``pre_quant``, each head's output kept in f32 with ``batched_dots``."""
-    b, n, d, h, hc, _ = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant)
+    b, n, d, h, hc, _ = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant, head_dim)
     if pre_quant:
         xq = xq_in[:, :n].reshape(-1, d)
         xs = xs_in[:, :n].reshape(-1, 1).float()
@@ -431,29 +432,32 @@ def attn_half_variant_ref(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, l
                                        ln[1].reshape(d), VARIANT_EPS))
     return _attn_half_int8_from_codes(
         x, xq, xs, wqkv_q, wqkv_scale.reshape(3 * d), None, wp_q, wp_scale.reshape(d), None,
-        None if gamma is None else gamma.reshape(d), h, VARIANT_HEAD_DIM ** -0.5, hc,
+        None if gamma is None else gamma.reshape(d), h, head_dim ** -0.5, hc,
         o_bf16=not batched_dots, return_o=return_o)
 
 
-def attn_half_variant_proj_ref(x, o, wp_q, wp_scale, gamma) -> torch.Tensor:
+def attn_half_variant_proj_ref(x, o, wp_q, wp_scale, gamma,
+                               head_dim: int = VARIANT_HEAD_DIM) -> torch.Tensor:
     """T3's plain math from the heads' outputs o [B, N, D] (``return_o``)
     on: requantize per (row, head chunk), out-projection, LayerScale,
     residual. Given the kernel's own o, it isolates the stages after the
     attention: the kernel's output must match it far more closely than it
     matches the same math on o rounded to bf16 (batched_dots)."""
     b, n, d = x.shape
-    hc = _pick_int8_head_chunk(n, d // VARIANT_HEAD_DIM, VARIANT_HEAD_DIM, None)
+    hc = _pick_int8_head_chunk(n, d // head_dim, head_dim, None)
     return _attn_half_int8_from_heads(x, o.reshape(b * n, d).float(), wp_q, wp_scale.reshape(d),
                                       None, None if gamma is None else gamma.reshape(d),
-                                      hc * VARIANT_HEAD_DIM)
+                                      hc * head_dim)
 
 
 def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, gamma, *,
-                      pre_quant: bool, batched_dots: bool, return_o: bool = False):
+                      pre_quant: bool, batched_dots: bool, return_o: bool = False,
+                      head_dim: int = VARIANT_HEAD_DIM):
     """T3, the counterpart of ``tools/bench_xlayer.py::attn_half_variant``:
     K4 (``fused_attn_half_int8``) with zero biases and two experiment knobs.
 
-    x [B, N, D] (bf16 or f32, D a multiple of 64: D // 64 heads of 64);
+    x [B, N, D] (bf16 or f32, D a multiple of ``head_dim``: D // head_dim
+    heads; 64 as in the JAX tool, or another of ``SUPPORTED_HEAD_DIMS``);
     wqkv_q [D, 3D] and wp_q [D, D] int8 in the JAX layout (pass
     ``weight_q.t()`` of [out, in] storage: no copy), wqkv_scale (3D values)
     and wp_scale (D values) f32; ``ln`` = (scale, bias) and ``gamma``, D
@@ -462,14 +466,14 @@ def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, g
     xs_in [B, round_up(N, 8), 1] f32 instead (the first N rows of each
     image, read in place); otherwise both may be None. ``batched_dots``
     keeps each head's attention output in f32 for the requantize. The head
-    chunk is the TPU kernel's (``_pick_int8_head_chunk(N, H, 64, None)``).
+    chunk is the TPU kernel's (``_pick_int8_head_chunk(N, H, head_dim, None)``).
     ``return_o`` also returns the heads' outputs, the requantize's input,
     as f32 [B, N, D] (bf16 values unless ``batched_dots``): the one place
     where the knob shows beyond the int8 noise of the output. CPU tensors
     take ``attn_half_variant_ref``; CUDA tensors launch the kernels or
     raise."""
-    b, n, d, h, hc, np_pad = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant)
-    hd = VARIANT_HEAD_DIM
+    b, n, d, h, hc, np_pad = _check_variant(x, xq_in, xs_in, wqkv_q, wp_q, pre_quant, head_dim)
+    hd = head_dim
     vecs = dict(wqkv_scale=wqkv_scale, wp_scale=wp_scale, ln_scale=ln[0], ln_bias=ln[1],
                 gamma=gamma)
     rows = (xq_in, xs_in) if pre_quant else ()
@@ -477,13 +481,16 @@ def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, g
     if all(t.device.type == "cpu" for t in tensors):
         return attn_half_variant_ref(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln,
                                      gamma, pre_quant=pre_quant, batched_dots=batched_dots,
-                                     return_o=return_o)
+                                     return_o=return_o, head_dim=hd)
     _launch.require_cuda("attn_half_variant", *tensors)
     code = _launch.dtype_code(x, "attn_half_variant")
     if wqkv_q.dtype != torch.int8 or wp_q.dtype != torch.int8:
         raise TypeError("attn_half_variant: wqkv_q and wp_q must be int8")
     if pre_quant and xq_in.dtype != torch.int8:
         raise TypeError("attn_half_variant: xq_in must be int8")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"attn_half_variant: head dim {hd} not supported "
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
     if d % 32:
         raise ValueError(f"attn_half_variant: the kernel needs D % 32 == 0 (D={d})")
     widths = dict(wqkv_scale=3 * d)
@@ -511,7 +518,7 @@ def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, g
         x.data_ptr(), f32["ln_scale"].data_ptr(), f32["ln_bias"].data_ptr(), wqkv_nk.data_ptr(),
         f32["wqkv_scale"].data_ptr(), wp_nk.data_ptr(), f32["wp_scale"].data_ptr(),
         p(f32["gamma"]), *[p(t) for t in rows + scratch], out.data_ptr(), code, b, n, np_pad,
-        h, hd, hc, int(batched_dots), VARIANT_EPS, VARIANT_HEAD_DIM ** -0.5, _launch.stream(x))
+        h, hd, hc, int(batched_dots), VARIANT_EPS, hd ** -0.5, _launch.stream(x))
     _build.check(rc, "attn_half_variant")
     attn_half_variant.launches += 1
     return (out, scratch[3].float().reshape(b, n, d)) if return_o else out
@@ -588,9 +595,9 @@ def fused_attn_half_bf16(
     code = _launch.dtype_code(x, "fused_attn_half_bf16")
     if wqkv.dtype != x.dtype or wp.dtype != x.dtype:
         raise TypeError("fused_attn_half_bf16: wqkv and wp must have x's dtype")
-    if hd not in BLOCK_HEAD_DIMS:
+    if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"fused_attn_half_bf16: head dim {hd} not supported "
-                         f"(kernel takes {BLOCK_HEAD_DIMS})")
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
     if not attn_geometry_ok(num_heads, hd):
         raise ValueError(f"fused_attn_half_bf16: no head chunk with hc*head_dim % 128 == 0 "
                          f"exists for num_heads={num_heads}, head_dim={hd}")
@@ -663,9 +670,9 @@ def attention_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _launch.dtype_code(q, "attention_proj")
     if k.dtype != q.dtype or v.dtype != q.dtype or w_proj.dtype != q.dtype:
         raise TypeError("attention_proj: q, k, v and w_proj must share one dtype")
-    if hd not in BLOCK_HEAD_DIMS:
+    if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"attention_proj: head dim {hd} not supported "
-                         f"(kernel takes {BLOCK_HEAD_DIMS})")
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or not _launch.aligned(t, 8):
             raise ValueError(

@@ -21,11 +21,9 @@ import torch
 from anyloc_tpu_torch import _build
 from anyloc_tpu_torch.ops.kernels import _launch
 
-# K2 and K5 (the bf16 trunk's two routes) take hd 80 (MAE-H, ImageBind-H,
-# SAM-H); the block kernels that share the attention core (K4, K6, K7, K9,
-# T3) keep BLOCK_HEAD_DIMS until their gpu tests cover hd 80
+# every kernel on the shared attention core (K2, K4-K7, K9, T3) takes these;
+# hd 80 is MAE-H, ImageBind-H and SAM-H
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
-BLOCK_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

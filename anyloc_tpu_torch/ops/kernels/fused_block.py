@@ -36,7 +36,7 @@ from anyloc_tpu_torch.ops.kernels.attn_proj import (
     fused_attn_half_int8_ref,
     resolve_head_chunk,
 )
-from anyloc_tpu_torch.ops.kernels.flash_attention import BLOCK_HEAD_DIMS
+from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
 from anyloc_tpu_torch.ops.kernels.fused_mlp import (
     _check_shapes,
     fused_mlp_int8_ref,
@@ -113,9 +113,9 @@ def fused_block_int8(
     code = _launch.dtype_code(x, "fused_block_int8")
     if any(w.dtype != torch.int8 for w in (wqkv_q, wp_q, w12_q, w3_q)):
         raise TypeError("fused_block_int8: the weight codes must be int8")
-    if hd not in BLOCK_HEAD_DIMS:
+    if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"fused_block_int8: head dim {hd} not supported "
-                         f"(kernel takes {BLOCK_HEAD_DIMS})")
+                         f"(kernel takes {SUPPORTED_HEAD_DIMS})")
     if d % 32 or (hc * hd) % 32 or hid % 32 or mc % 32:
         raise ValueError(f"fused_block_int8: the kernels need D, HID and both chunk widths "
                          f"% 32 == 0 (D={d}, head chunk {hc} x {hd}, HID={hid}, chunk {mc})")

@@ -12,7 +12,12 @@ Unmasked CUDA batches run K1 (``ops/kernels/vlad_kernel.py``); CPU
 batches and masked batches run the plain path below, as in the JAX
 package. The vocabulary cache is ``c_centers.npz`` (key "centers"),
 written atomically, so a vocabulary fitted by either package loads in the
-other.
+other; a reference-exported ``c_centers.pt`` (a tensor written with
+``torch.save``) is read when no ``c_centers.npz`` is there. The residual
+API (``vlad_residuals``, ``VLAD.generate_res_vec`` and
+``generate_multi_res_vec``) caches ``<id>_r.npz`` (key "res");
+``generate_multi_res_vec`` passes its ``cache_ids`` on (the JAX package
+drops them, F3).
 """
 
 from __future__ import annotations
@@ -117,10 +122,20 @@ def vlad_aggregate(
     return out[0] if squeeze else out
 
 
+def vlad_residuals(descs: torch.Tensor, centers: torch.Tensor, *,
+                   norm_descs: bool = True) -> torch.Tensor:
+    """The full residual tensor [..., N, C, D] (the reference's
+    ``generate_res_vec``): API parity and visualization only, the
+    aggregation never builds it."""
+    x = l2_normalize(descs) if norm_descs else descs
+    return x[..., :, None, :] - centers.to(x.device)[None, :, :]
+
+
 class VLAD:
     """The reference ``VLAD`` API (fit / fit_and_generate / generate /
-    generate_multi) over batched aggregation. Results are torch tensors on
-    the descriptors' device; the per-image cache stores ``<id>_v.npz``."""
+    generate_multi, and the residual API) over batched aggregation. Results
+    are torch tensors on the descriptors' device; the per-image cache
+    stores ``<id>_v.npz``, the residual API ``<id>_r.npz``."""
 
     def __init__(
         self,
@@ -154,8 +169,36 @@ class VLAD:
     def _centers_path(self) -> str:
         return f"{self.cache_dir}/c_centers.npz"
 
+    def _centers_pt_path(self) -> str:
+        return f"{self.cache_dir}/c_centers.pt"
+
     def can_use_cache_vlad(self) -> bool:
-        return self.cache_dir is not None and os.path.exists(self._centers_path())
+        return self.cache_dir is not None and (os.path.exists(self._centers_path())
+                                               or os.path.exists(self._centers_pt_path()))
+
+    def can_use_cache_ids(self, cache_ids: Union[List[str], str, None],
+                          only_residuals: bool = False) -> bool:
+        """Whether every id has a cached result: ``<id>_v.npz`` (the global
+        descriptor), or ``<id>_r.npz`` with ``only_residuals`` (what
+        ``generate_res_vec`` reads and writes)."""
+        if not self.can_use_cache_vlad() or cache_ids is None:
+            return False
+        if isinstance(cache_ids, str):
+            cache_ids = [cache_ids]
+        suffix = "_r.npz" if only_residuals else "_v.npz"
+        return all(os.path.exists(f"{self.cache_dir}/{cid}{suffix}") for cid in cache_ids)
+
+    def _load_cached_centers(self) -> Optional[torch.Tensor]:
+        """The cached vocabulary: ``c_centers.npz``, else the reference's
+        ``c_centers.pt``; None when the npz is torn and no .pt is there."""
+        if os.path.exists(self._centers_path()):
+            z = _load_npz_or_none(self._centers_path())
+            if z is not None and "centers" in z:
+                return torch.from_numpy(np.asarray(z["centers"], np.float32))
+            if not os.path.exists(self._centers_pt_path()):
+                return None
+        t = torch.load(self._centers_pt_path(), map_location="cpu", weights_only=True)
+        return t.detach().float().cpu()
 
     def fit(self, train_descs=None) -> None:
         """Build (or load from ``cache_dir``) the vocabulary.
@@ -163,13 +206,12 @@ class VLAD:
         cached vocabulary exists."""
         self.kmeans = KMeans(self.num_clusters, mode=self.mode, seed=self.seed)
         if self.can_use_cache_vlad():
-            z = _load_npz_or_none(self._centers_path())
-            if (z is None or "centers" not in z) and train_descs is None:
+            centers = self._load_cached_centers()
+            if centers is None and train_descs is None:
                 raise ValueError(
                     f"cached vocabulary at {self.cache_dir} is unreadable "
                     "(torn write?) and no training descriptors were given")
-            if z is not None and "centers" in z:
-                centers = torch.from_numpy(np.asarray(z["centers"], np.float32))
+            if centers is not None:
                 if centers.shape[0] != self.num_clusters:
                     raise ValueError(
                         f"cached vocabulary at {self.cache_dir} has "
@@ -291,3 +333,29 @@ class VLAD:
                 out[i] = res[j]
                 self._save_v(cache_ids[i], out[i])
         return out
+
+    # -- the residual API (the reference's generate_res_vec) -----------------
+    def generate_res_vec(self, query_descs, cache_id: Optional[str] = None) -> torch.Tensor:
+        """[N, D] -> residuals [N, C, D]; ``cache_id`` stores/loads
+        ``<id>_r.npz``."""
+        if self.c_centers is None:
+            raise RuntimeError("Call fit() before generate_res_vec()")
+        path = None if cache_id is None or self.cache_dir is None else \
+            f"{self.cache_dir}/{cache_id}_r.npz"
+        if path is not None:
+            z = _load_npz_or_none(path)
+            if z is not None and "res" in z:
+                return torch.from_numpy(z["res"])
+        res = vlad_residuals(_as_f32(query_descs), self.c_centers.float(),
+                             norm_descs=self.norm_descs)
+        if path is not None:
+            _save_npz_atomic(path, res=res.cpu().numpy())
+        return res
+
+    def generate_multi_res_vec(self, multi_query, cache_ids: Optional[List[str]] = None
+                               ) -> torch.Tensor:
+        """[B, N, D] (or a list of [N, D]) -> [B, N, C, D], each image
+        through ``generate_res_vec`` with its cache id (F3: the JAX package
+        drops ``cache_ids`` here)."""
+        ids = cache_ids if cache_ids is not None else [None] * len(multi_query)
+        return torch.stack([self.generate_res_vec(q, cid) for q, cid in zip(multi_query, ids)])

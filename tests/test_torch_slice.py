@@ -343,9 +343,6 @@ def _port_queue_titles():
 
 
 NOT_PORTED = {
-    "engine": lambda: port.get_top_k_recall(
-        [1], np.zeros((2, 4), np.float32), np.zeros((1, 4), np.float32), [np.array([0])],
-        engine="ivf"),
     "model family": lambda: port.make_extractor("dinov1_vitb8", 9, "key", device="cpu"),
     **{f"cli {cmd}": (lambda cmd=cmd: port_cli.main([cmd, "--help"]))
        for cmd in ("gem", "global-vpr", "gp", "clip-top-k", "patch-clip", "demo", "serve",
