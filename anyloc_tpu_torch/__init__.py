@@ -20,7 +20,10 @@ from anyloc_tpu_torch.ops.kmeans import KMeans
 from anyloc_tpu_torch.ops.retrieval import compute_recalls, get_top_k_recall, top_k_search
 from anyloc_tpu_torch.ops.vlad import VLAD, vlad_aggregate
 from anyloc_tpu_torch.pipelines.engine import DescriptorEngine
+from anyloc_tpu_torch.pipelines.gem_pipeline import run_gem_pipeline
 from anyloc_tpu_torch.pipelines.global_vocab_vlad import run_global_vocab_vlad
+from anyloc_tpu_torch.pipelines.global_vpr import run_global_vpr
+from anyloc_tpu_torch.pipelines.gp_pipeline import run_gp_pipeline
 from anyloc_tpu_torch.pipelines.vlad_pipeline import run_vlad_pipeline
 
 __all__ = [
@@ -28,6 +31,7 @@ __all__ = [
     "VLAD", "ViT", "ViTConfig", "ViTFacetExtractor", "VPRDataset",
     "compute_recalls", "dataset_names", "dinov2_config", "from_jax_params",
     "get_dataset", "get_top_k_recall", "init_params", "l2_normalize",
-    "listdir_abs", "make_extractor", "run_global_vocab_vlad",
-    "run_vlad_pipeline", "top_k_search", "vlad_aggregate",
+    "listdir_abs", "make_extractor", "run_gem_pipeline", "run_global_vocab_vlad",
+    "run_global_vpr", "run_gp_pipeline", "run_vlad_pipeline", "top_k_search",
+    "vlad_aggregate",
 ]

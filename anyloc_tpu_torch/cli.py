@@ -6,17 +6,25 @@ flags; it runs on the CUDA card.
   global-vocab-vlad   SOTA AnyLoc-VLAD with a domain vocabulary
                       (--global-vocab indoor, or --db-samples NAME=FREQ ...)
   vlad                per-dataset-vocabulary VLAD
+  gem                 GeM pooling
+  global-vpr          CLS-token global descriptor
+  gp                  global max pooling
+  demo                a directory of images -> one VLAD .npy each
+                      (the reference's demo/anyloc_vlad_generate.py)
+  serve               HTTP daemon: /describe + /search over a loaded
+                      vocabulary and database
+  sweep               ablation grids (the reference's *_ablations.sh)
 
 Datasets come from the registry under --prog.data-vg-dir (the reference's
 layouts, e.g. 17places as ref/ query/ ground_truth_new.npy); the results
 JSON (no per-query rows) goes to <--prog.cache-dir>/experiments/<--exp-id>/.
 
-Serving fast path flags:
+Serving fast path flags (vlad / global-vocab-vlad / gem / gp):
   --extractor.quant int8_full --extractor.transfer-dtype uint8
 
 Not ported yet (each raises, naming its ROADMAP.md port-queue item):
-gem, global-vpr, gp, clip-top-k, patch-clip, demo, serve, sweep
-("The other pipelines"), train, eval ("Training"), viz ("Tooling").
+clip-top-k, patch-clip ("The other model families"), train, eval
+("Training"), viz ("Tooling").
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ from anyloc_tpu_torch.config import PipelineArgs, parse_args
 # subcommands of the JAX package's CLI that the port has not reached, by
 # the title of their ROADMAP.md port-queue item
 NOT_PORTED = {
-    "gem": "The other pipelines", "global-vpr": "The other pipelines",
-    "gp": "The other pipelines", "clip-top-k": "The other pipelines",
-    "patch-clip": "The other pipelines", "demo": "The other pipelines",
-    "serve": "The other pipelines", "sweep": "The other pipelines",
+    "clip-top-k": "The other model families", "patch-clip": "The other model families",
     "train": "Training", "eval": "Training", "viz": "Tooling",
+}
+# subcommands with their own argument parsers
+OWN_PARSERS = {
+    "demo": "anyloc_tpu_torch.pipelines.demo",
+    "serve": "anyloc_tpu_torch.pipelines.serve_http",
+    "sweep": "anyloc_tpu_torch.sweeps",
 }
 
 
@@ -63,10 +74,20 @@ def main(argv=None, device=None) -> int:
         raise NotImplementedError(
             f"the {cmd!r} subcommand is not ported yet (ROADMAP.md, port "
             f'queue: "{NOT_PORTED[cmd]}")')
+    if cmd in OWN_PARSERS:
+        import importlib
+
+        return importlib.import_module(OWN_PARSERS[cmd]).main(rest, device=device)
     if cmd == "global-vocab-vlad":
         from anyloc_tpu_torch.pipelines.global_vocab_vlad import run_global_vocab_vlad as fn
     elif cmd == "vlad":
         from anyloc_tpu_torch.pipelines.vlad_pipeline import run_vlad_pipeline as fn
+    elif cmd == "gem":
+        from anyloc_tpu_torch.pipelines.gem_pipeline import run_gem_pipeline as fn
+    elif cmd == "global-vpr":
+        from anyloc_tpu_torch.pipelines.global_vpr import run_global_vpr as fn
+    elif cmd == "gp":
+        from anyloc_tpu_torch.pipelines.gp_pipeline import run_gp_pipeline as fn
     else:
         print(f"Unknown pipeline: {cmd}", file=sys.stderr)
         return 2

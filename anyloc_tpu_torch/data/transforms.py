@@ -105,11 +105,20 @@ def load_image_u8(
     return resize_round_u8(np.asarray(load_pil(path), np.float32), size_hw)
 
 
+_DEVICE_STATS: dict = {}
+
+
 def device_normalize(imgs: torch.Tensor) -> torch.Tensor:
     """On-device counterpart of ``normalize`` for uint8 batches:
-    (x/255 - mean)/std in float32, on the batch's device."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=imgs.device)
-    std = torch.as_tensor(IMAGENET_STD, device=imgs.device)
+    (x/255 - mean)/std in float32, on the batch's device. The statistics
+    are copied to a device once: a copy from pageable host memory waits
+    for the device's queued work."""
+    stats = _DEVICE_STATS.get(imgs.device)
+    if stats is None:
+        stats = _DEVICE_STATS[imgs.device] = (
+            torch.as_tensor(IMAGENET_MEAN, device=imgs.device),
+            torch.as_tensor(IMAGENET_STD, device=imgs.device))
+    mean, std = stats
     return (imgs.float() / 255.0 - mean) / std
 
 

@@ -63,7 +63,22 @@ Phases, each of which must pass or the script exits non-zero:
      and "native" at 10,000 x 49152, "ivf", "pq" and "ivf_pq" fitted at
      1,000,000 x 512, each timed with its recall against exact search, the
      exact ones (and full probe / decode()) held to exact search;
-  8. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
+  8. the other entry points (``other_entry_points_phase``), each through
+     what a user calls with no device named, at DINOv2-G/14 layer 31
+     value: ``python -m anyloc_tpu_torch demo`` on 4 JPEGs at 1024 px
+     (1022 px, 5330 tokens) in bf16 (K1, K2 must launch) and int8_full
+     (K1, K2, K3), each .npy held to extractor + aggregate, timed with
+     the extractor built, then ``--domain auto`` with
+     ``build_gem_centroids``; the serving daemon (``serve_http``,
+     int8_full, uint8 transfer, --img-size 308): 16 concurrent /describe
+     and /search requests held to the engine's VLADs and exact search,
+     mean_batch > 1, K1, K3, K4 launching, a group's fetch returning
+     while the next group runs, requests/s and p50 / p99 latency at
+     concurrency 1 and 16, then --ivf and a 1-row --pq database (F3);
+     ``gem`` (int8_full: K3, K4), ``gp`` and ``global-vpr`` (bf16: K5)
+     through ``cli.main``; a 2-point ``run_sweep`` on one engine with no
+     failed point;
+  9. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
@@ -78,6 +93,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -138,6 +154,14 @@ PATH_KERNELS = {
     # python -m anyloc_tpu_torch global-vocab-vlad / vlad at 308 px
     "entry bf16": ("K1_vlad_aggregate_fused", "K5_flash_attention_qkv_proj"),
     "entry int8_full": ("K1_vlad_aggregate_fused", "K3_fused_mlp_int8", "K4_fused_attn_half_int8"),
+    # the other entry points: demo at 1022 px, the daemon at 308 px, the
+    # pooling pipelines at 308 px
+    "demo bf16": ("K1_vlad_aggregate_fused", "K2_flash_attention"),
+    "demo int8_full": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8"),
+    "serve int8_full": ("K1_vlad_aggregate_fused", "K3_fused_mlp_int8", "K4_fused_attn_half_int8"),
+    "gem int8_full": ("K3_fused_mlp_int8", "K4_fused_attn_half_int8"),
+    "gp bf16": ("K5_flash_attention_qkv_proj",),
+    "global-vpr bf16": ("K5_flash_attention_qkv_proj",),
 }
 # the trunk's kernels: a read from the descriptor cache launches none of them
 TRUNK_KERNELS = ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
@@ -1317,6 +1341,9 @@ def run(profile_dir) -> dict:
         cache_phase(ext, vlad, root, work / "descriptor_cache")
         ingest = ingest_phase(ext, vlad, ext8, vlad8, db + qu, qu, gt, work / "ingest", tag)
 
+        # ------------------------------------------------------------ the other entry points
+        other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root, work / "other", tag)
+
     # ---------------------------------------------------------------- the retrieval engines
     retrieval_phase(tag)
     torch.cuda.empty_cache()
@@ -1535,11 +1562,13 @@ def write_vpr_bench(ds_dir: Path, db_paths, query_paths, gt, copies: int = 1) ->
     np.save(ds_dir / "ground_truth_new.npy", rows, allow_pickle=True)
 
 
-def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str) -> None:
+def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str,
+            dim: int = 32 * 1536) -> None:
     """``python -m anyloc_tpu_torch <cmd> ENTRY_ARGS <extra>`` on the
     dataset root through ``cli.main`` with no device named, launch counts
     reset just before and read just after; the search must run on the card
-    (F11) and the results JSON be complete."""
+    (F11) and the results JSON be complete, with ``dim``-wide
+    descriptors."""
     from anyloc_tpu_torch import cli
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops import retrieval
@@ -1567,7 +1596,7 @@ def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str) -> No
     saved = sorted((out / "experiments" / label).glob("results_*.json"))
     check(len(saved) == 1, f"cli {label}: results JSON {saved}")
     res = json.loads(saved[0].read_text())
-    check(res["VLAD-Dim"] == str(32 * 1536) and res["Num-DB"] == "16" and res["Num-QU"] == "8",
+    check(res["VLAD-Dim"] == str(dim) and res["Num-DB"] == "16" and res["Num-QU"] == "8",
           f"cli {label}: {res}")
     check(all(0.0 <= res[f"R@{k}"] <= 1.0 for k in (1, 5, 10)), f"cli {label}: recalls {res}")
     check(searched == ["cuda"], f"cli {label}: top-k ran on {searched}, not the card")
@@ -1575,11 +1604,369 @@ def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str) -> No
         check(counts[name] > 0, f"{name} never launched in the cli {label} run")
     recalls = {k: res[f"R@{k}"] for k in (1, 5, 10)}
     print(f"entry point {label}: python -m anyloc_tpu_torch {cmd} {' '.join(ENTRY_ARGS + extra)} "
-          f"(17places 16 db + 8 queries, vocabulary {res.get('Global-Vocab', '17places db')}): "
+          f"(17places 16 db + 8 queries, {res['Agg-Method']}, vocabulary "
+          f"{res.get('Global-Vocab', '17places db' if res['Agg-Method'] == 'VLAD' else 'none')}): "
           f"rc 0 in {seconds:.1f} s (model build included), VLAD-Dim {res['VLAD-Dim']}, recall "
           f"(random weights, not asserted) {recalls}, top-k on {searched[0]}, results JSON "
           f"{saved[0].name}; {len(log.getvalue().splitlines())} progress lines; launch counts "
           f"{counts}", flush=True)
+
+
+def other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root: Path, work: Path,
+                             tag: str) -> None:
+    """The other entry points at DINOv2-G/14 layer 31 value, each through
+    what a user calls, with no device named: the demo at 1022 px, the
+    serving daemon at 308 px, the gem / gp / global-vpr pipelines and a
+    sweep over the 17places tree at 320 -> 308 px. Each sub-phase prints
+    its wall seconds."""
+    t0 = time.perf_counter()
+    demo_phase(ext, vlad, ext8, vlad8, db, work / "demo", tag)
+    t1 = time.perf_counter()
+    serve_phase(ext8, vlad8, db, qu, gt, work / "serve", tag)
+    t2 = time.perf_counter()
+    for label, cmd, extra, path in (
+            ("gem_int8_full", "gem",
+             ["--extractor.quant", "int8_full", "--extractor.transfer-dtype", "uint8"],
+             "gem int8_full"),
+            ("gp_bf16", "gp", [], "gp bf16"),
+            ("global_vpr_bf16", "global-vpr", [], "global-vpr bf16")):
+        run_cli(label, cmd, root, extra, work / "results", path, dim=1536)
+    t3 = time.perf_counter()
+    sweep_phase(root, work / "sweep")
+    t4 = time.perf_counter()
+    print(f"other entry points, wall seconds: demo {t1 - t0:.1f}, serve {t2 - t1:.1f}, "
+          f"gem + gp + global-vpr {t3 - t2:.1f}, sweep {t4 - t3:.1f}, total {t4 - t0:.1f}",
+          flush=True)
+
+
+def cos_rows(a, b):
+    import numpy as np
+
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def demo_phase(ext, vlad, ext8, vlad8, db, work: Path, tag: str) -> None:
+    """``python -m anyloc_tpu_torch demo`` over 4 square JPEGs at 1024 px
+    (1022 px, 5330 tokens, one image a call), bf16 then int8_full, each
+    .npy held to the smoke's own extractor + ``aggregate`` of the same
+    preprocessed image (same seed, same weights); then the same run with
+    the extractor already built, timed (images/s with decode); then
+    ``--domain auto`` over two cached domains with centroids from
+    ``build_gem_centroids``, each route held to ``route_by_domain``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from anyloc_tpu_torch import cli
+    from anyloc_tpu_torch.data.transforms import preprocess_image
+    from anyloc_tpu_torch.models import extractor as extractor_module
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.parallel.ep import route_by_domain
+    from anyloc_tpu_torch.pipelines.demo import build_gem_centroids, vocab_dir
+
+    imgs = work / "imgs"
+    imgs.mkdir(parents=True)
+    for i, src in enumerate(db[:4]):
+        Image.open(src).convert("RGB").resize((1024, 1024), Image.BILINEAR).save(
+            imgs / f"q{i}.jpg", quality=95)
+    cache = work / "cache"
+    for domain, vl in (("indoor", vlad), ("urban", vlad8)):
+        vdir = Path(vocab_dir(str(cache), "dinov2_vitg14", 31, "value", 32, domain))
+        vdir.mkdir(parents=True)
+        np.savez(vdir / "c_centers.npz", centers=vl.c_centers.cpu().numpy())
+    base = ["demo", "--in-dir", str(imgs), "--cache-dir", str(cache)]
+    arrs = [preprocess_image(Image.open(imgs / f"q{i}.jpg").convert("RGB"), max_edge=1024)
+            for i in range(4)]
+    check(all(a.shape == (1022, 1022, 3) for a in arrs), "demo: 1024-px JPEGs not at 1022 px")
+
+    def run(argv, prebuilt=None):
+        """cli.main(argv), its stdout kept; ``prebuilt`` stands in for the
+        demo's extractor (the timed run)."""
+        real = extractor_module.DinoV2ExtractFeatures
+        if prebuilt is not None:
+            extractor_module.DinoV2ExtractFeatures = lambda *a, **kw: prebuilt
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            extractor_module.DinoV2ExtractFeatures = real
+        check(rc == 0, f"demo {argv} returned {rc}")
+        return log.getvalue(), seconds
+
+    for path, quant, extractor, vl in (("demo bf16", [], ext, vlad),
+                                       ("demo int8_full", ["--quant", "int8_full"], ext8, vlad)):
+        out = work / path.replace(" ", "_")
+        K.reset_launch_counts()
+        _, seconds = run(base + ["--out-dir", str(out)] + quant)
+        counts = K.launch_counts()
+        for name in PATH_KERNELS[path]:
+            check(counts[name] > 0, f"{name} never launched on the {path} path")
+        got = np.stack([np.load(out / f"q{i}.npy") for i in range(4)])
+        want = np.stack([vl.aggregate(extractor(a[None]))[0].cpu().numpy() for a in arrs])
+        err = float(np.abs(got - want).max())
+        cos = float(cos_rows(got, want).min())
+        print(f"{path}: python -m anyloc_tpu_torch {' '.join(base + quant)} (dinov2_vitg14 l31 "
+              f"value, VLAD-32, --max-img-size 1024): 4 JPEGs 1024x1024 -> 1022 px, .npy "
+              f"{got.shape[1]}-dim, {seconds:.1f} s with the model build; against extractor + "
+              f"aggregate on the card: max_abs_err {err:.2e} (bound 1e-4), min cosine {cos:.7f} "
+              f"(bound >= 0.9999); launch counts {counts}", flush=True)
+        check(got.shape == (4, 32 * 1536) and bool(np.isfinite(got).all()),
+              f"{path}: .npy {got.shape}")
+        check(err <= 1e-4 and cos >= 0.9999, f"{path}: .npy disagrees with extractor + aggregate")
+        _, seconds = run(base + ["--out-dir", str(out)] + quant, prebuilt=extractor)
+        print(f"{path} {tag}: 4 images at 1022 px with decode (PIL, 1024x1024 JPEG) + resize + "
+              f"trunk + VLAD + save, the extractor built: {seconds:.3f} s, {4 / seconds:.2f} "
+              f"images/s", flush=True)
+
+    # --domain auto: GeM centroids from two images a domain, at 448 px
+    vroot = Path(vocab_dir(str(cache), "dinov2_vitg14", 31, "value", 32, "x")).parent
+    doms = {"indoor": [str(imgs / "q0.jpg"), str(imgs / "q1.jpg")],
+            "urban": [str(imgs / "q2.jpg"), str(imgs / "q3.jpg")]}
+    cents = build_gem_centroids(ext, doms, str(vroot / "gem_centroids.npz"), max_edge=448)
+    log, seconds = run(base + ["--out-dir", str(work / "auto"), "--domain", "auto",
+                               "--max-img-size", "448"])
+    got = dict(re.findall(r"^(q\d)\.jpg -> .*\[(\w+)\]$", log, re.M))
+    order = sorted(doms)
+    c = torch.from_numpy(np.stack([cents[d] for d in order])).cuda()
+    a448 = [preprocess_image(Image.open(imgs / f"q{i}.jpg").convert("RGB"), max_edge=448)
+            for i in range(4)]
+    want = {f"q{i}": order[int(route_by_domain(ext(a[None]), c)[0])] for i, a in enumerate(a448)}
+    print(f"demo --domain auto {order} at 448 px: routes {got} (route_by_domain on the smoke's "
+          f"extractor: {want}), {seconds:.1f} s with the model build", flush=True)
+    check(got == want, f"demo --domain auto routed {got}, route_by_domain {want}")
+
+
+def serve_phase(ext8, vlad8, db, qu, gt, work: Path, tag: str) -> None:
+    """The daemon as ``python -m anyloc_tpu_torch serve`` builds it, no
+    device named: int8_full, uint8 transfer, --img-size 308, DINOv2-G l31,
+    the int8_full path's vocabulary, a database of the fixture's 16
+    database VLADs from the engine (the same seed's weights). 16 concurrent requests (8 /describe of
+    database images, 8 /search of queries): all 200, descriptors within
+    int8_full's bound of the engine's VLADs of the same images, ids those
+    of the card's exact search of the engine's query VLADs; /stats
+    mean_batch > 1; K1, K3, K4 launch. Then requests/s and latency at
+    concurrency 1 and 16; then a group's fetch returning while the next
+    group runs (each group's work led by ~50 ms of device spin); then
+    --ivf (full probe = exact) and --pq over a 1-row database (F3)."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch import DescriptorEngine, VPRDataset, top_k_search
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.pipelines import serve_http
+
+    work.mkdir(parents=True)
+    vdir = work / "vocab"
+    vdir.mkdir()
+    np.savez(vdir / "c_centers.npz", centers=vlad8.c_centers.cpu().numpy())
+    ds = VPRDataset(db, qu, soft_positives_per_query=gt, img_size=(308, 308))
+    engine = DescriptorEngine(extractor=ext8, batch_size=16, transfer_dtype="uint8")
+    dbv = engine.extract_vlads_dataset(ds, vlad8, "db", verbose=False)
+    quv = engine.extract_vlads_dataset(ds, vlad8, "queries", verbose=False)
+    np.save(work / "db.npy", dbv)
+    np.save(work / "db1.npy", dbv[:1])
+    raw = {p: Path(p).read_bytes() for p in db + qu}
+
+    def start(*extra):
+        args = serve_http._parser().parse_args(
+            ["--model", "dinov2_vitg14", "--layer", "31", "--facet", "value",
+             "--num-clusters", "32", "--vocab-dir", str(vdir), "--quant", "int8_full",
+             "--transfer-dtype", "uint8", "--img-size", "308", "--port", "0", *extra])
+        t0 = time.perf_counter()
+        server = serve_http.build_server(args)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, time.perf_counter() - t0
+
+    def post(server, path, data):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}{path}",
+                                     data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:   # a 4xx / 5xx raises
+            check(r.status == 200, f"serve {path}: HTTP {r.status}")
+            out = json.loads(r.read())
+        return out, time.perf_counter() - t0
+
+    def get(server, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}{path}",
+                                    timeout=60) as r:
+            return json.loads(r.read())
+
+    def stop(server):
+        server.shutdown()
+        server.server_close()
+
+    server, build_s = start("--db", str(work / "db.npy"))   # the default 5-ms window
+    svc = server.service
+    try:
+        check(svc.device.type == "cuda" and get(server, "/health")["engine"] == "device",
+              "serve: not on the card's exact engine")
+        plan = [("/describe", raw[p]) for p in db[:8]] + [("/search?k=5", raw[p]) for p in qu]
+        K.reset_launch_counts()
+        with ThreadPoolExecutor(16) as ex:
+            outs = list(ex.map(lambda pd: post(server, *pd)[0], plan))
+        counts = K.launch_counts()
+        stats = get(server, "/stats")
+        desc = np.asarray([o["descriptor"] for o in outs[:8]], np.float32)
+        err = float(np.abs(desc - dbv[:8]).max())
+        cos = float(cos_rows(desc, dbv[:8]).min())
+        compared = same_ids(outs[8:], dbv, quv, 5)
+        print(f"serve int8_full {tag}: python -m anyloc_tpu_torch serve --model dinov2_vitg14 "
+              f"--layer 31 --quant int8_full --transfer-dtype uint8 --img-size 308 (built and "
+              f"warm in {build_s:.1f} s), 16 concurrent requests (8 /describe, 8 /search k=5): all "
+              f"200; descriptors vs the engine's VLADs of the same images max_abs_err {err:.2e}, "
+              f"min cosine {cos:.7f} (bound >= 0.999); /search ids equal the card's exact search "
+              f"of the engine's query VLADs at {compared} of 40 ranks (the others past a score "
+              f"gap <= 1e-3); /stats requests {stats['requests']}, batches {stats['batches']}, "
+              f"mean_batch {stats['mean_batch']:.2f} (bound > 1); decoded by {svc.decoded}; "
+              f"launch counts {counts}", flush=True)
+        check(cos >= 0.999, "serve: /describe disagrees with the engine's VLADs")
+        check(stats["mean_batch"] > 1, f"serve: no coalescing, {stats}")
+        for name in PATH_KERNELS["serve int8_full"]:
+            check(counts[name] > 0, f"{name} never launched while serving")
+
+        def load(conc, n):
+            imgs = [raw[qu[i % len(qu)]] for i in range(n)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(conc) as ex:
+                lat = [s for _, s in ex.map(lambda d: post(server, "/search?k=5", d), imgs)]
+            wall = time.perf_counter() - t0
+            lat = np.sort(np.asarray(lat)) * 1e3
+            return n / wall, np.percentile(lat, 50), np.percentile(lat, 99)
+
+        for conc, n in ((1, 24), (16, 96)):
+            before = get(server, "/stats")
+            rps, p50, p99 = load(conc, n)
+            after = get(server, "/stats")
+            mb = (after["requests"] - before["requests"]) / max(1, after["batches"] - before["batches"])
+            split = []
+            for k, v in after["stages"].items():
+                tot0, cnt0 = (before["stages"][k]["total_ms"], before["stages"][k]["count"]) \
+                    if k in before["stages"] else (0.0, 0)
+                if v["count"] > cnt0:
+                    split.append(f"{k} {(v['total_ms'] - tot0) / (v['count'] - cnt0):.2f} ms "
+                                 f"x{v['count'] - cnt0}")
+            print(f"serve int8_full {tag}: concurrency {conc}, {n} /search requests of 640x480 "
+                  f"JPEGs at 308 px: {rps:.2f} requests/s, latency p50 {p50:.1f} ms, p99 "
+                  f"{p99:.1f} ms, mean batch {mb:.2f}; stages (mean, count): {', '.join(split)}",
+                  flush=True)
+        b = svc.batcher
+        print(f"serve int8_full: under that load {b.n_pipelined} fetches were made with the "
+              f"next group queued, {b.n_overlapped} of them returned while the next group still "
+              f"ran on the card (not asserted: it hangs on the host's pace)", flush=True)
+        # the ordering itself: each group's device work starts with ~50 ms of
+        # spinning, far longer than the host's side of a fetch, so a fetch
+        # that waits on its own group's event returns while the next group
+        # runs; one that waited for all queued work would never do so
+        trunk = svc.extractor
+
+        def spinning(imgs):
+            torch.cuda._sleep(100_000_000)
+            return trunk(imgs)
+
+        # groups of at most 2: the 8 requests make 4 or more groups, queued
+        # behind each other's spin
+        pipe0, over0, max_batch = b.n_pipelined, b.n_overlapped, b.max_batch
+        svc.extractor, b.max_batch = spinning, 2
+        try:
+            with ThreadPoolExecutor(8) as ex:
+                list(ex.map(lambda p: post(server, "/search?k=5", raw[p]), qu))
+        finally:
+            svc.extractor, b.max_batch = trunk, max_batch
+        pipe, over = b.n_pipelined - pipe0, b.n_overlapped - over0
+        print(f"serve int8_full: 8 concurrent /search in groups of at most 2 with ~50 ms of "
+              f"device spin ahead of each group: {pipe} fetches made with the next group queued, "
+              f"{over} of them returned while the next group still ran (bound: > 0)", flush=True)
+        check(pipe > 0 and over > 0, "serve: the fetch of a group waited for the next group")
+    finally:
+        stop(server)
+    for label, extra, want_engine, rows in (
+            ("--ivf", ["--db", str(work / "db.npy"), "--ivf"], "ivf", 16),
+            ("--pq, 1-row database (F3)", ["--db", str(work / "db1.npy"), "--pq"], "device", 1)):
+        server, build_s = start(*extra)
+        try:
+            h = get(server, "/health")
+            outs = [post(server, "/search?k=5", raw[p])[0] for p in qu[:4]]
+        finally:
+            stop(server)
+        compared = same_ids(outs, dbv[:rows], quv[:4], min(5, rows))
+        exact = top_k_search(torch.from_numpy(dbv[:rows]).cuda(),
+                             torch.from_numpy(quv[:4]).cuda(), min(5, rows))[0].cpu().numpy()
+        score_err = max(float(np.abs(np.asarray(o["scores"]) - exact[i]).max())
+                        for i, o in enumerate(outs))
+        print(f"serve {label}: engine {h['engine']}, {h['db_rows']} rows, built and warm in "
+              f"{build_s:.1f} s; 4 /search of queries: ids equal exact search of the engine's "
+              f"VLADs at {compared} of {4 * min(5, rows)} ranks, score max_abs_err "
+              f"{score_err:.2e} (bound 2e-3: int8_full descriptors; IVF at full probe and a "
+              f"1-row database are exact searches)", flush=True)
+        check(h["engine"] == want_engine and h["db_rows"] == rows and score_err <= 2e-3,
+              f"serve {label}: {h}, score error {score_err}")
+    torch.cuda.empty_cache()
+
+
+def same_ids(outs, dbv, quv, k: int) -> int:
+    """Check each /search reply's ids against the card's exact search of
+    the engine's query VLADs, up to the first rank whose score lies within
+    1e-3 of the next (int8_full descriptors move scores by less); returns
+    the number of ranks compared."""
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch import top_k_search
+
+    n = min(k + 1, dbv.shape[0])
+    s, i = top_k_search(torch.from_numpy(dbv).cuda(), torch.from_numpy(quv).cuda(), n)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    compared = 0
+    for row, o in enumerate(outs):
+        gaps = -np.diff(s[row])
+        keep = k if np.all(gaps[:k] > 1e-3) else int(np.argmax(gaps <= 1e-3))
+        check(o["ids"][:keep] == i[row, :keep].tolist(),
+              f"serve: /search ids {o['ids']} vs the engine's {i[row].tolist()}")
+        compared += keep
+    return compared
+
+
+def sweep_phase(root: Path, work: Path) -> None:
+    """``run_sweep`` over a 2-point vlad grid (num_clusters 8, 16) at
+    DINOv2-G l31 on the 17places tree: one engine for both points, and no
+    row with ``error`` (run_sweep catches a failing point by design)."""
+    from anyloc_tpu_torch import config
+    from anyloc_tpu_torch import sweeps
+    from anyloc_tpu_torch.pipelines.engine import DescriptorEngine
+
+    built = []
+    init = DescriptorEngine.__init__
+
+    def spy(self, *a, **kw):
+        built.append(1)
+        init(self, *a, **kw)
+
+    base = config.parse_args(argv=[*ENTRY_ARGS, "--prog.data-vg-dir", str(root),
+                                   "--prog.cache-dir", str(work)])
+    DescriptorEngine.__init__ = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rows = sweeps.run_sweep("vlad", {"num_clusters": [8, 16]}, base,
+                                    str(work / "sweep.csv"), verbose=False)
+    finally:
+        DescriptorEngine.__init__ = init
+    seconds = time.perf_counter() - t0
+    print(f"sweep: run_sweep vlad over num_clusters [8, 16] at dinov2_vitg14 l31 value, 308 px: "
+          f"{len(rows)} rows in {seconds:.1f} s, {len(built)} engine built (bound 1), R@1 "
+          f"{[r.get('R@1') for r in rows]} (random weights, not asserted); errors "
+          f"{[r for r in rows if r.get('error')] or 'none'}", flush=True)
+    check(len(rows) == 2 and not any(r.get("error") for r in rows),
+          f"sweep: a grid point failed: {err.getvalue()[-2000:]}")
+    check(len(built) == 1 and [r["Num-Clusters"] for r in rows] == ["8", "16"],
+          f"sweep: {len(built)} engines, rows {rows}")
 
 
 def cache_phase(ext, vlad, root: Path, cache_dir: Path) -> None:

@@ -1098,3 +1098,180 @@ def test_fits_on_the_card_match_the_cpu():
     assert c_gpu.is_cuda
     torch.testing.assert_close(c_gpu.cpu(), c_cpu, atol=1e-4, rtol=0)
     assert (l_gpu == l_cpu).mean() >= 0.999
+
+
+# ---------------------------------------------------------------- the other pipelines on the card
+# GeM and the pooling ops, the demo at 1022 px and the serving daemon, each
+# against the CPU or against the extractor + aggregate they are built on.
+
+def test_gem_and_pooling_on_the_card_match_the_cpu():
+    """Float32 on both devices: the mean of 485 powers sums in another
+    order (up to ~N·2^-24 of it), and the 1/p root passes that on: 5e-5
+    relative."""
+    from anyloc_tpu_torch.ops import gem, pooling
+
+    x = _randn(4, 485, 64, seed=1)
+    for p, use_abs, eps in ((3.0, False, 0.0), (3.0, True, 0.0), (3.0, False, 1e-3),
+                            (2.5, True, 0.0)):
+        got = gem.gem_pool(x, p=p, use_abs=use_abs, eps=eps)
+        want = gem.gem_pool(x.cpu(), p=p, use_abs=use_abs, eps=eps)
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-5, atol=1e-7)
+    m = _randn(2, 9, 12, 16, seed=2)
+    torch.testing.assert_close(gem.gem_pool_spatial(m).cpu(), gem.gem_pool_spatial(m.cpu()),
+                               rtol=5e-5, atol=1e-7)
+    for fn in (pooling.global_max_pool, pooling.global_avg_pool):
+        torch.testing.assert_close(fn(x).cpu(), fn(x.cpu()), rtol=1e-5, atol=1e-6)
+    for fn in (pooling.mac_spatial, pooling.spoc_spatial, pooling.rmac_spatial):
+        torch.testing.assert_close(fn(m).cpu(), fn(m.cpu()), rtol=1e-5, atol=1e-6)
+
+
+def _png(path, rng, h, w):
+    from PIL import Image
+
+    Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(path)
+    return path
+
+
+def test_demo_at_1022_px_on_the_card_is_the_extractor_and_aggregate(tmp_path):
+    """``python -m anyloc_tpu_torch demo`` with no device: a 1100-px square
+    runs at 1022 px (5330 tokens) through K2 and K1, and its .npy is the
+    extractor + ``VLAD.aggregate`` of the preprocessed image on the card
+    (1e-6)."""
+    from PIL import Image
+
+    from anyloc_tpu_torch import VLAD, cli
+    from anyloc_tpu_torch.data.transforms import preprocess_image
+    from anyloc_tpu_torch.models.extractor import DinoV2ExtractFeatures
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.pipelines.demo import vocab_dir
+
+    rng = np.random.default_rng(5)
+    (tmp_path / "imgs").mkdir()
+    src = _png(tmp_path / "imgs" / "a.png", rng, 1100, 1100)
+    ckpt = _vits14_checkpoint(tmp_path / "vits14.pth")
+    vdir = vocab_dir(str(tmp_path / "cache"), "dinov2_vits14", 1, "value", 8, "indoor")
+    VLAD(8, cache_dir=vdir).fit(rng.standard_normal((100, 384)).astype(np.float32))
+    K.reset_launch_counts()
+    assert cli.main(["demo", "--in-dir", str(tmp_path / "imgs"), "--out-dir", str(tmp_path / "out"),
+                     "--cache-dir", str(tmp_path / "cache"), "--model", "dinov2_vits14",
+                     "--layer", "1", "--num-clusters", "8", "--checkpoint", str(ckpt)]) == 0
+    counts = K.launch_counts()
+    assert counts["K2_flash_attention"] > 0 and counts["K1_vlad_aggregate_fused"] > 0, counts
+    arr = preprocess_image(Image.open(src).convert("RGB"), max_edge=1024)
+    assert arr.shape == (1022, 1022, 3)
+    vlad = VLAD(8, cache_dir=vdir)
+    vlad.fit(None)
+    ext = DinoV2ExtractFeatures("dinov2_vits14", 1, "value", checkpoint=str(ckpt))
+    want = vlad.aggregate(ext(arr[None]))[0].cpu().numpy()
+    np.testing.assert_allclose(np.load(tmp_path / "out" / "a.npy"), want, atol=1e-6)
+
+
+def _serve_burst(port, plan):
+    import json
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def post(path, data):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    with ThreadPoolExecutor(len(plan)) as ex:
+        return list(ex.map(lambda pd: post(*pd), plan))
+
+
+def test_serve_on_the_card_answers_groups_as_batch_1_and_fetches_its_own_group(tmp_path):
+    """The daemon on the card (no device named): a coalesced group's
+    replies equal the batch-1 server's (ids; scores and descriptors within
+    2e-3), and the fetch of one group returns while the next group's work
+    is still running on the card (ordering, not milliseconds: the
+    dispatcher's ``n_overlapped``). Each group's device work starts with
+    ~50 ms of spinning, far longer than the host's side of a fetch: a
+    fetch that waited for every queued group would never see the next one
+    running."""
+    import argparse
+    import io
+    import threading
+
+    from PIL import Image
+
+    from anyloc_tpu_torch import VLAD
+    from anyloc_tpu_torch.pipelines import serve_http
+
+    rng = np.random.default_rng(9)
+    VLAD(8, cache_dir=str(tmp_path / "vocab")).fit(
+        rng.standard_normal((100, 384)).astype(np.float32))
+    np.save(tmp_path / "db.npy", rng.standard_normal((64, 8 * 384)).astype(np.float32))
+    imgs = []
+    for _ in range(12):
+        buf = io.BytesIO()
+        Image.fromarray((rng.random((300, 400, 3)) * 255).astype(np.uint8)).save(buf, "PNG")
+        imgs.append(buf.getvalue())
+    plan = [("/describe" if i % 3 == 0 else "/search?k=5", d) for i, d in enumerate(imgs)]
+
+    def run(max_batch, window_ms, burst):
+        args = argparse.Namespace(
+            model="dinov2_vits14", layer=11, facet="value", num_clusters=8,
+            vocab_dir=str(tmp_path / "vocab"), checkpoint=None, quant=None, max_img_size=640,
+            img_size=448, max_batch=max_batch, batch_window_ms=window_ms,
+            db=str(tmp_path / "db.npy"), ivf=False, n_probe=8, host="127.0.0.1", port=0)
+        server = serve_http.build_server(args)
+        svc = server.service
+        assert svc.device.type == "cuda"
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            if burst:
+                trunk = svc.extractor
+
+                def spinning(imgs):
+                    torch.cuda._sleep(100_000_000)
+                    return trunk(imgs)
+
+                svc.extractor = spinning
+                outs = _serve_burst(server.server_address[1], plan)
+            else:
+                outs = [_serve_burst(server.server_address[1], [pd])[0] for pd in plan]
+            b = svc.batcher
+            return outs, (b.n_requests, b.n_batches, b.n_pipelined, b.n_overlapped)
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    ref, _ = run(1, 0.0, burst=False)
+    outs, (n_req, n_bat, n_pipe, n_over) = run(3, 50.0, burst=True)
+    for (path, _), got, want in zip(plan, outs, ref):
+        if path == "/describe":
+            np.testing.assert_allclose(got["descriptor"], want["descriptor"], rtol=2e-3, atol=2e-3)
+        else:
+            assert got["ids"] == want["ids"]
+            np.testing.assert_allclose(got["scores"], want["scores"], rtol=2e-3, atol=2e-3)
+    assert n_req == 12 and n_bat < 12
+    assert n_pipe > 0 and n_over > 0, (n_pipe, n_over)
+
+
+def test_pca_on_the_card_is_full_float32():
+    """PCA's products on the card run in float32, never TF32 (10-bit
+    mantissa: errors ~1e-3 relative): projections' pairwise distances
+    within 1e-4 relative of the CPU's, the residual-concat descriptor within
+    1e-5."""
+    from anyloc_tpu_torch.ops import pca
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    rng = np.random.default_rng(4)
+    spectrum = np.linspace(3, 0.2, 256).astype(np.float32)
+    train = rng.standard_normal((400, 256)).astype(np.float32) * spectrum
+    test = rng.standard_normal((50, 256)).astype(np.float32) * spectrum
+    for kw in (dict(lower_dim=32), dict(lower_dim=32, whitening=True),
+               dict(lower_dim=32, low_factor=0.25)):
+        got = pca.reduce_pca(train, test, **kw)          # the card
+        want = pca.reduce_pca(train, test, device="cpu", **kw)
+        for g, w in zip(got, want):
+            dg = np.linalg.norm(g[:, None] - g[None], axis=-1)
+            dw = np.linalg.norm(w[:, None] - w[None], axis=-1)
+            np.testing.assert_allclose(dg, dw, rtol=1e-4, atol=1e-4 * dw.max())
+    centers, descs = rng.standard_normal((8, 256)), rng.standard_normal((60, 256))
+    np.testing.assert_allclose(pca.concat_desc_dists_clusters(centers, descs).cpu().numpy(),
+                               pca.concat_desc_dists_clusters(centers, descs, "cpu").numpy(),
+                               atol=1e-5)

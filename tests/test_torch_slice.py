@@ -342,11 +342,21 @@ def _port_queue_titles():
             for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)}
 
 
+def _extras(name):
+    from anyloc_tpu_torch.pipelines import extras
+
+    return getattr(extras, name)()
+
+
 NOT_PORTED = {
     "model family": lambda: port.make_extractor("dinov1_vitb8", 9, "key", device="cpu"),
     **{f"cli {cmd}": (lambda cmd=cmd: port_cli.main([cmd, "--help"]))
-       for cmd in ("gem", "global-vpr", "gp", "clip-top-k", "patch-clip", "demo", "serve",
-                   "sweep", "train", "eval", "viz")},
+       for cmd in ("clip-top-k", "patch-clip", "train", "eval", "viz")},
+    "serve --mesh": lambda: port_cli.main(["serve", "--vocab-dir", ".", "--mesh", "2"]),
+    "sweep --plot": lambda: port_cli.main(["sweep", "--plot"]),
+    **{f"extras.{name}": (lambda name=name: _extras(name))
+       for name in ("ContrastiveMLP", "contrastive_loss", "make_contrastive_train_step",
+                    "trivial_clip_vpr")},
 }
 
 
