@@ -9,6 +9,8 @@ flags; it runs on the CUDA card.
   gem                 GeM pooling
   global-vpr          CLS-token global descriptor
   gp                  global max pooling
+  clip-top-k          CLIP global-descriptor retrieval
+  patch-clip          CLIP crops -> VLAD
   demo                a directory of images -> one VLAD .npy each
                       (the reference's demo/anyloc_vlad_generate.py)
   serve               HTTP daemon: /describe + /search over a loaded
@@ -23,8 +25,7 @@ Serving fast path flags (vlad / global-vocab-vlad / gem / gp):
   --extractor.quant int8_full --extractor.transfer-dtype uint8
 
 Not ported yet (each raises, naming its ROADMAP.md port-queue item):
-clip-top-k, patch-clip ("The other model families"), train, eval
-("Training"), viz ("Tooling").
+train, eval ("Training"), viz ("Tooling").
 """
 
 from __future__ import annotations
@@ -37,10 +38,7 @@ from anyloc_tpu_torch.config import PipelineArgs, parse_args
 
 # subcommands of the JAX package's CLI that the port has not reached, by
 # the title of their ROADMAP.md port-queue item
-NOT_PORTED = {
-    "clip-top-k": "The other model families", "patch-clip": "The other model families",
-    "train": "Training", "eval": "Training", "viz": "Tooling",
-}
+NOT_PORTED = {"train": "Training", "eval": "Training", "viz": "Tooling"}
 # subcommands with their own argument parsers
 OWN_PARSERS = {
     "demo": "anyloc_tpu_torch.pipelines.demo",
@@ -88,6 +86,10 @@ def main(argv=None, device=None) -> int:
         from anyloc_tpu_torch.pipelines.global_vpr import run_global_vpr as fn
     elif cmd == "gp":
         from anyloc_tpu_torch.pipelines.gp_pipeline import run_gp_pipeline as fn
+    elif cmd == "clip-top-k":
+        from anyloc_tpu_torch.pipelines.clip_pipelines import run_clip_top_k as fn
+    elif cmd == "patch-clip":
+        from anyloc_tpu_torch.pipelines.clip_pipelines import run_patch_clip as fn
     else:
         print(f"Unknown pipeline: {cmd}", file=sys.stderr)
         return 2

@@ -32,10 +32,14 @@
 //     centers x 4 columns a thread;
 //   * the epilogue forms wsum - counts·c (hard) or C·wsum - counts·Σc
 //     (soft), reduces the row norms across the cluster, and writes [C, D]
-//     once. When a batch splits its tokens (the 1022-px query) the splits
-//     write their [C, D] sums and counts, and a finishing launch, one
-//     8-block cluster per image, adds them in split order and runs the
-//     same epilogue.
+//     once. A hard residual within counts·2^-19·|c| is rounding noise (its
+//     tokens equal its center up to the last bits of their normalization,
+//     as a k-means singleton's do) and is written as zero, as the plain
+//     versions do, where the intra norm would blow it up to a unit vector
+//     that depends on the order of the sums. When a batch splits its
+//     tokens (the 1022-px query) the splits write their [C, D] sums and
+//     counts, and a finishing launch, one 8-block cluster per image, adds
+//     them in split order and runs the same epilogue.
 // Every sum runs in a fixed order and the counts are integers, so two
 // launches give bit-equal outputs; no float atomics. The centers' prep
 // (norms, inverse norms, Σc) runs in the kernel. The token splits come
@@ -53,6 +57,7 @@ constexpr int MAX_C = 64;
 constexpr int VL_CL = 8;  // blocks per cluster, one D slice each (portable size)
 constexpr int VL_TT = 32;  // tokens a tile
 constexpr int VL_THREADS = 256;
+constexpr float VL_RESIDUAL_FLOOR = 0x1p-19f;  // ops/kernels/vlad_kernel.py's RESIDUAL_FLOOR
 
 struct VladArgs {
   const float* x;    // [B, N, D]
@@ -210,9 +215,10 @@ __device__ void vlad_epilogue(const VladArgs& p, cg::cluster_group& cluster, con
   cluster.sync();
   if (tid < C) {
     const float nrm = sqrtf(cluster_sum(cluster, L.rowpart, tid));
+    const bool noise = !soft && nrm <= VL_RESIDUAL_FLOOR * L.cnt[tid] * sqrtf(L.c2[tid]);
     const float dv = p.intra ? fmaxf(nrm, 1e-12f) : 1.f;
-    L.rowdiv[tid] = dv;
-    L.cpart[tid] = nrm / dv;  // the row's norm after the intra norm
+    L.rowdiv[tid] = noise ? 0.f : dv;  // 0: the row is written as zero
+    L.cpart[tid] = noise ? 0.f : nrm / dv;  // the row's norm after the intra norm
   }
   __syncthreads();
   if (tid == 0) {
@@ -221,7 +227,7 @@ __device__ void vlad_epilogue(const VladArgs& p, cg::cluster_group& cluster, con
     L.misc[0] = fmaxf(sqrtf(tot), 1e-12f);
   }
   __syncthreads();
-  if (tid < C) L.rowdiv[tid] = 1.f / (L.rowdiv[tid] * L.misc[0]);
+  if (tid < C) L.rowdiv[tid] = L.rowdiv[tid] == 0.f ? 0.f : 1.f / (L.rowdiv[tid] * L.misc[0]);
   __syncthreads();
   for (int c = warp; c < C; c += VL_THREADS / 32) {
     const float f = L.rowdiv[c];
@@ -230,6 +236,25 @@ __device__ void vlad_epilogue(const VladArgs& p, cg::cluster_group& cluster, con
     for (int d = lane; d < width; d += 32) o[d] = row[d] * f;
   }
   cluster.sync();
+}
+
+// the centers' squared and inverse norms, across the cluster (their slice
+// in L.cs, loaded and synced)
+__device__ void center_norms(const VladArgs& p, cg::cluster_group& cluster, const VladSmem& L,
+                             int width) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, DSP = L.DSP;
+  for (int c = warp; c < p.C; c += VL_THREADS / 32) {
+    float ss = 0.f;
+    for (int d = lane; d < width; d += 32) ss = fmaf(L.cs[c * DSP + d], L.cs[c * DSP + d], ss);
+    ss = warp_sum(ss);
+    if (lane == 0) L.cpart[c] = ss;
+  }
+  cluster.sync();
+  if (tid < p.C) {
+    const float n2 = cluster_sum(cluster, L.cpart, tid);
+    L.c2[tid] = n2;
+    L.cinv[tid] = 1.f / fmaxf(sqrtf(n2), 1e-12f);  // unit centers, for cosine
+  }
 }
 
 // zeros where no load lands (the pad columns of the tiles and of the
@@ -286,19 +311,7 @@ __global__ void __cluster_dims__(VL_CL, 1, 1) __launch_bounds__(VL_THREADS)
   }
   __syncthreads();
 
-  // the centers' squared norms, across the cluster
-  for (int c = warp; c < C; c += VL_THREADS / 32) {
-    float ss = 0.f;
-    for (int d = lane; d < width; d += 32) ss = fmaf(L.cs[c * DSP + d], L.cs[c * DSP + d], ss);
-    ss = warp_sum(ss);
-    if (lane == 0) L.cpart[c] = ss;
-  }
-  cluster.sync();
-  if (tid < C) {
-    const float n2 = cluster_sum(cluster, L.cpart, tid);
-    L.c2[tid] = n2;
-    L.cinv[tid] = 1.f / fmaxf(sqrtf(n2), 1e-12f);  // unit centers, for cosine
-  }
+  center_norms(p, cluster, L, width);
 
   for (int t = 0; t < ntiles; ++t) {
     const int tok0 = t_begin + t * TT;
@@ -605,6 +618,7 @@ __global__ void __cluster_dims__(VL_CL, 1, 1) __launch_bounds__(VL_THREADS)
   }
   cp_async_wait<0>();
   __syncthreads();
+  center_norms(p, cluster, L, width);  // the epilogue's floor reads |c|
   vlad_epilogue(p, cluster, L, b, dlo, width);
 }
 

@@ -108,16 +108,19 @@ def load_image_u8(
 _DEVICE_STATS: dict = {}
 
 
-def device_normalize(imgs: torch.Tensor) -> torch.Tensor:
+def device_normalize(imgs: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """On-device counterpart of ``normalize`` for uint8 batches:
-    (x/255 - mean)/std in float32, on the batch's device. The statistics
-    are copied to a device once: a copy from pageable host memory waits
-    for the device's queued work."""
-    stats = _DEVICE_STATS.get(imgs.device)
-    if stats is None:
-        stats = _DEVICE_STATS[imgs.device] = (
-            torch.as_tensor(IMAGENET_MEAN, device=imgs.device),
-            torch.as_tensor(IMAGENET_STD, device=imgs.device))
+    (x/255 - mean)/std in float32, on the batch's device. The default
+    (ImageNet) statistics are copied to a device once: a copy from pageable
+    host memory waits for the device's queued work."""
+    if mean is IMAGENET_MEAN and std is IMAGENET_STD:
+        stats = _DEVICE_STATS.get(imgs.device)
+        if stats is None:
+            stats = _DEVICE_STATS[imgs.device] = (
+                torch.as_tensor(mean, device=imgs.device), torch.as_tensor(std, device=imgs.device))
+    else:
+        stats = (torch.as_tensor(np.asarray(mean, np.float32), device=imgs.device),
+                 torch.as_tensor(np.asarray(std, np.float32), device=imgs.device))
     mean, std = stats
     return (imgs.float() / 255.0 - mean) / std
 

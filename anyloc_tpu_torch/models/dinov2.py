@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from anyloc_tpu_torch.models.convert import from_jax_params  # noqa: F401 (the JAX tree's loader)
 from anyloc_tpu_torch.models.hf_convert import ensure_native_naming
 from anyloc_tpu_torch.models.vit import ViT, ViTConfig
 from anyloc_tpu_torch.ops.quant import quantize_vit_params
@@ -59,12 +60,12 @@ def native_state_dict(sd: Mapping, n_blocks: Optional[int] = None) -> Dict[str, 
     chunked ``blocks.{c}.{i}.*`` keys (``block_chunks > 0``; ``i`` stays the
     global block index) become ``blocks.{i}.*``; the training-only
     ``mask_token`` is dropped, and with ``n_blocks`` (a truncated trunk)
-    the blocks at or past it and the trunk-final ``norm``, which such a
-    trunk never runs."""
+    the blocks at or past it, the trunk-final ``norm`` and ``proj_out``,
+    which such a trunk never runs."""
     sd = ensure_native_naming(sd, "dinov2")
     out = {}
     for k, v in sd.items():
-        if k == "mask_token" or (n_blocks is not None and k.startswith("norm.")):
+        if k == "mask_token" or (n_blocks is not None and k.startswith(("norm.", "proj_out."))):
             continue
         m = _CHUNKED.match(k)
         if m:
@@ -85,45 +86,6 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
             sd = sd[key]
             break
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
-
-
-def from_jax_params(params) -> Dict[str, torch.Tensor]:
-    """The JAX package's Flax parameter tree (numpy leaves, optionally
-    under "params") -> this port's state dict; inverts
-    ``anyloc_tpu.models.dinov2.convert_dinov2``: HWIO conv kernel -> OIHW,
-    Dense kernel [in, out] -> weight [out, in], LayerNorm ``scale`` ->
-    ``weight``, ``blocks_{i}`` -> ``blocks.{i}``, ``patch_embed`` ->
-    ``patch_embed.proj``. A quantized tree (``quantize_vit_params``) keeps
-    its types: int8 ``kernel_q`` [in, out] -> ``weight_q`` [out, in],
-    f32 ``kernel_scale`` -> ``weight_scale``. The fused qkv column order
-    (q|k|v, head-minor) is the same in both."""
-    tree = params.get("params", params)
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, path):
-        if hasattr(node, "items"):
-            for k, v in node.items():
-                walk(v, path + [str(k)])
-            return
-        parts = [re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in path]
-        if parts[0] == "patch_embed":
-            parts.insert(1, "proj")
-        leaf = parts[-1]
-        arr = np.asarray(node, np.int8 if leaf == "kernel_q" else np.float32)
-        if leaf == "kernel":
-            parts[-1] = "weight"
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        elif leaf == "kernel_q":
-            parts[-1] = "weight_q"
-            arr = arr.T
-        elif leaf == "kernel_scale":
-            parts[-1] = "weight_scale"
-        elif leaf == "scale":
-            parts[-1] = "weight"
-        out[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
-
-    walk(tree, [])
-    return out
 
 
 @torch.no_grad()

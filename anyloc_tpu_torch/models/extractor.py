@@ -15,10 +15,10 @@ import numpy as np
 import torch
 
 from anyloc_tpu_torch.data.transforms import device_normalize
+from anyloc_tpu_torch.models import dinov2
 from anyloc_tpu_torch.models.dinov2 import (
     build_vit,
     dinov2_config,
-    init_params,
     load_checkpoint,
     native_state_dict,
 )
@@ -37,6 +37,16 @@ def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype]
 
 
+def init_params(cfg: ViTConfig, seed: int = 42, img_size: Optional[int] = None, *,
+                n_blocks: Optional[int] = None, device=None):
+    """Random shape-true weights of a ``ViT`` config (``dinov2.init_params``:
+    made on ``device`` from a ``torch.Generator`` seeded with ``seed``;
+    ``n_blocks`` the blocks a truncated trunk holds, None the whole trunk).
+    ``img_size`` is the JAX signature's: the weights do not depend on it."""
+    del img_size
+    return dinov2.init_params(cfg, seed, n_blocks=n_blocks, device=device)
+
+
 class ViTFacetExtractor:
     """Batched facet extraction over a ``ViT`` config.
 
@@ -45,9 +55,10 @@ class ViTFacetExtractor:
     device with ImageNet statistics. Returns [B, n_patches (+1 with
     ``use_cls``), D] float32 facets on ``device``.
 
-    ``params``: a DINOv2-named state dict (torch tensors or numpy arrays;
-    for a quantized ``cfg`` in ``quantize_vit_params``' layout), or None
-    for random weights from ``seed``. ``device`` None means the card.
+    ``params``: a state dict in the trunk's (DINOv2 / timm) naming (torch
+    tensors or numpy arrays; for a quantized ``cfg`` in
+    ``quantize_vit_params``' layout), or None for random weights from
+    ``seed``. ``device`` None means the card.
     """
 
     supports_uint8 = True
@@ -103,7 +114,7 @@ class ViTFacetExtractor:
 
     def _post(self, out: torch.Tensor) -> torch.Tensor:
         """Drop registers (and CLS unless ``use_cls``), f32, L2-normalize."""
-        skip = 1 + self.cfg.num_register_tokens
+        skip = self.cfg.num_prefix_tokens
         if self.use_cls:
             # keep CLS (token 0) with the patches; registers always drop
             if self.cfg.num_register_tokens:
@@ -112,7 +123,7 @@ class ViTFacetExtractor:
             out = out[:, skip:]
         out = out.float()
         if self.norm_descs:
-            out = l2_normalize(out, dim=-1)
+            out = l2_normalize(out)
         return out.contiguous()
 
 

@@ -18,9 +18,9 @@ import torch
 NORM_EPS = 1e-12
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = NORM_EPS) -> torch.Tensor:
-    """``x / max(||x||, eps)`` along ``dim`` — zero vectors stay zero."""
-    norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = NORM_EPS) -> torch.Tensor:
+    """``x / max(||x||, eps)`` along ``axis`` — zero vectors stay zero."""
+    norm = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
     return x / torch.clamp_min(norm, eps)
 
 

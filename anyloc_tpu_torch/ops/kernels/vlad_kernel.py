@@ -7,7 +7,8 @@ batch splits its tokens) replacing
 Per image: optional L2 norm of the tokens; hard cosine argmax (ties to the
 lowest index), hard euclidean ``2x·c - |c|²`` or soft ``softmax(T·cos)``;
 ``wsum = aᵀx``, ``counts = Σa``; residual ``wsum - counts·c`` (hard) or
-``C·wsum - counts·Σc`` (soft); intra-cluster L2, then global L2.
+``C·wsum - counts·Σc`` (soft); a hard residual at its rounding floor
+(``zero_noise_residuals``) is zero; intra-cluster L2, then global L2.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ CLUSTER = 8             # blocks per thread block cluster, one D slice each
 TILE = 32               # tokens a step
 SMEM_LIMIT = 232_448    # dynamic shared memory a block may use (227 KB)
 _MODES = {("hard", "cosine"): 0, ("hard", "euclidean"): 1}
+RESIDUAL_FLOOR = 2.0 ** -19   # csrc/vlad.cu's VL_RESIDUAL_FLOOR
+
+
+def zero_noise_residuals(v: torch.Tensor, counts: torch.Tensor,
+                         centers: torch.Tensor) -> torch.Tensor:
+    """Hard residuals v [B, C, D] with norm within ``counts · 2^-19 · |c|``
+    set to zero. Such a residual is rounding noise: its tokens equal its
+    center up to the last bits of their normalization, as a k-means
+    singleton's token does (patch-CLIP: 4 crops an image, 32 clusters).
+    The intra norm would blow it up to a unit vector that depends on the
+    order of the sums, and so differ between any two implementations."""
+    floor = counts * RESIDUAL_FLOOR * centers.norm(dim=-1)
+    return torch.where((v.norm(dim=-1) <= floor)[..., None], torch.zeros_like(v), v)
 
 
 def _mode(vlad_mode: str, dist_mode: str) -> int:
@@ -42,6 +56,15 @@ def _scores(x: torch.Tensor, centers: torch.Tensor, mode: int) -> torch.Tensor:
     if mode == 1:
         return 2.0 * (x @ centers.T) - (centers * centers).sum(-1)
     return x @ l2_normalize(centers).T
+
+
+def vlad_cosine(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per-image cosine of two VLAD batches [B, C·D] in f64; 1 where both
+    are the zero vector (every residual of the image at its floor: each of
+    its tokens a center, F16), where the cosine is undefined."""
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
+    both_zero = (got == 0).all(-1) & (want == 0).all(-1)
+    return torch.where(both_zero, torch.ones_like(cos), cos)
 
 
 def hard_label_agreement(got: torch.Tensor, descs: torch.Tensor, centers: torch.Tensor, *,
@@ -77,11 +100,9 @@ def hard_label_agreement(got: torch.Tensor, descs: torch.Tensor, centers: torch.
     def cosine(i, lab):
         want = vlad_aggregate_fused_ref(descs[i:i + 1], centers, dist_mode=dist_mode,
                                         labels=lab[None])
-        return torch.nn.functional.cosine_similarity(got[i:i + 1].double(), want.double())[0]
+        return vlad_cosine(got[i:i + 1], want)[0]
 
-    raw = torch.nn.functional.cosine_similarity(
-        got.double(), vlad_aggregate_fused_ref(descs, centers, dist_mode=dist_mode).double(),
-        dim=-1)
+    raw = vlad_cosine(got, vlad_aggregate_fused_ref(descs, centers, dist_mode=dist_mode))
     best, flips = raw.clone(), torch.zeros(b, dtype=torch.long)
     for i in tie.any(-1).nonzero().flatten().tolist():
         lab = labels[i].clone()
@@ -180,10 +201,10 @@ def vlad_aggregate_fused_ref(
     if mode == 2:
         v = c * wsum - counts[..., None] * centers.sum(0)
     else:
-        v = wsum - counts[..., None] * centers
+        v = zero_noise_residuals(wsum - counts[..., None] * centers, counts, centers)
     if intra_norm:
-        v = l2_normalize(v, dim=-1)
-    return l2_normalize(v.reshape(b, c * d), dim=-1)
+        v = l2_normalize(v)
+    return l2_normalize(v.reshape(b, c * d))
 
 
 def vlad_aggregate_fused(

@@ -32,6 +32,7 @@ import torch
 
 from anyloc_tpu_torch.ops.common import l2_normalize
 from anyloc_tpu_torch.ops.kernels import vlad_aggregate_fused
+from anyloc_tpu_torch.ops.kernels.vlad_kernel import zero_noise_residuals
 from anyloc_tpu_torch.ops.kmeans import KMeans, _similarity
 
 
@@ -84,14 +85,19 @@ def vlad_aggregate(
     norm_descs: bool = True,
     soft_temp: float = 1.0,
     mask: Optional[torch.Tensor] = None,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Batched VLAD. descs [B, N, D] (or [N, D]), centers [C, D] ->
-    [B, C·D] float32. ``mask`` [B, N] zeroes padded tokens."""
+    [B, C·D] float32. ``mask`` [B, N] zeroes padded tokens. ``impl``:
+    "auto" (or "pallas", the JAX name) launches K1 for an unmasked batch on
+    the card; "xla" takes the plain torch path on every device."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got {impl!r}")
     squeeze = descs.dim() == 2
     if squeeze:
         descs = descs[None]
     centers = centers.to(descs.device)
-    if mask is None and descs.is_cuda:
+    if mask is None and descs.is_cuda and impl != "xla":
         out = vlad_aggregate_fused(
             descs.float().contiguous(), centers, dist_mode=dist_mode,
             intra_norm=intra_norm, norm_descs=norm_descs, vlad_mode=vlad_mode,
@@ -113,12 +119,12 @@ def vlad_aggregate(
     wsum = a.transpose(1, 2) @ x                      # [B, C, D]
     counts = a.sum(1)
     if vlad_mode == "hard":
-        v = wsum - counts[..., None] * centers[None]
+        v = zero_noise_residuals(wsum - counts[..., None] * centers[None], counts, centers)
     else:
         v = c * wsum - counts[..., None] * centers.sum(0)
     if intra_norm:
-        v = l2_normalize(v, dim=-1)
-    out = l2_normalize(v.reshape(b, c * d), dim=-1)
+        v = l2_normalize(v)
+    out = l2_normalize(v.reshape(b, c * d))
     return out[0] if squeeze else out
 
 

@@ -32,6 +32,7 @@ class DescriptorEngine:
         batch_size: int = 32,
         use_cls: bool = False,
         norm_descs: bool = True,
+        mesh=None,
         extractor=None,
         cache_dir: Optional[str] = None,
         transfer_dtype: str = "float32",
@@ -45,7 +46,12 @@ class DescriptorEngine:
         card. ``extractor`` replaces the model built from ``model_type``
         (its own device is then used). ``cache_dir`` keeps what
         ``extract_dataset`` and ``extract_aggregated_dataset`` bring home in
-        a ``DescriptorCache`` there."""
+        a ``DescriptorCache`` there. ``mesh`` (the JAX package's sharded
+        extraction) must be None until ``parallel/`` is ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                'DescriptorEngine(mesh=...) is not ported yet (ROADMAP.md, port queue: '
+                '"parallel/ on torch.distributed")')
         if transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype must be 'float32' or 'uint8', got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
@@ -89,7 +95,10 @@ class DescriptorEngine:
         size = getattr(dataset, "img_size", None)
         p = 0
         if size is not None:
-            p = (size[0] // self.patch) * (size[1] // self.patch)
+            crop = [s // self.patch * self.patch for s in size]
+            grid = getattr(cfg, "grid", None)   # ViTConfig's, with a patch stride
+            gh, gw = grid(*crop) if callable(grid) else [c // self.patch for c in crop]
+            p = gh * gw
             p += 1 if getattr(self.extractor, "use_cls", False) else 0
         return (0, p, cfg.embed_dim)
 

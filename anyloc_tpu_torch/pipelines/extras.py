@@ -17,9 +17,7 @@ passes its rows), else rows drawn with a ``torch.Generator`` seeded from
 ``seed``. Numpy inputs run on ``device`` (None: the card).
 
 Not ported yet, each raising and naming its ROADMAP.md port-queue item:
-the contrastive MLP head and its loss and train step ("Training"), and
-``trivial_clip_vpr``, which encodes images with CLIP ("The other model
-families").
+the contrastive MLP head and its loss and train step ("Training").
 """
 
 from __future__ import annotations
@@ -226,10 +224,65 @@ def group_images_by_cluster(imgfiles: Sequence[str], labels,
     return out
 
 
-def trivial_clip_vpr(*args, **kwargs):
-    """Image-level CLIP VPR over a sequence (examples/trivial_vpr_with_clip.py):
-    it needs a CLIP image encoder, not ported yet."""
-    _not_ported("trivial_clip_vpr (a CLIP image encoder)", "The other model families")
+def _natural_key(path: str):
+    """natsort-style key: the basename split into (text, int) runs, so
+    ``img_2`` sorts before ``img_10`` (the reference natsorts the glob
+    before striding, examples/trivial_vpr_with_clip.py)."""
+    import re
+
+    name = os.path.basename(path)
+    return [int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", name)]
+
+
+def trivial_clip_vpr(imgfiles: Sequence[str], encode_fn, stride: int = 1,
+                     feat_dir: Optional[str] = None, n_clusters: int = 10, use_pca: bool = False,
+                     n_components: int = 256, save_dir: Optional[str] = None, seed: int = 0,
+                     cache_tag: str = "", *, init_centers=None, device: Device = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Image-level CLIP VPR over a directory sequence
+    (examples/trivial_vpr_with_clip.py end to end): natural-sort the file
+    list, stride-subsample it, encode each image to one L2-normalized
+    global descriptor with ``encode_fn(path) -> [1, D]`` (e.g. a
+    ClipWrapper image encode), optionally cache the vectors as per-image
+    ``.npy`` files, then cluster the sequence with cosine k-means
+    (optionally after PCA; ``sequence_clusters``, whose start is
+    ``init_centers`` or rows drawn from ``seed``) and copy the images into
+    per-cluster folders. Returns (descs [N, D], labels [N]).
+
+    Cache files are keyed by the image's basename stem plus ``cache_tag``
+    and never invalidated: when switching encoders, or when two directories
+    share stems, pass a distinct ``cache_tag`` or a fresh ``feat_dir``. A
+    cached vector whose dimension disagrees with the run's is re-encoded."""
+    files = sorted(imgfiles, key=_natural_key)[::stride]
+    descs = []
+    seen_dim: Optional[int] = None
+    tag = f".{cache_tag}" if cache_tag else ""
+    for f in files:
+        stem = os.path.splitext(os.path.basename(f))[0]
+        cached = os.path.join(feat_dir, stem + tag + ".npy") if feat_dir is not None else None
+        v = None
+        if cached is not None and os.path.exists(cached):
+            v = np.load(cached)
+            if seen_dim is not None and v.size != seen_dim:
+                v = None   # a stale cache (another dimension): encode again
+        if v is None:
+            out = encode_fn(f)
+            out = out.detach().cpu().numpy() if isinstance(out, torch.Tensor) else out
+            v = np.asarray(out, np.float32).reshape(1, -1)
+            v = v / max(float(np.linalg.norm(v)), 1e-12)
+            if cached is not None:
+                os.makedirs(feat_dir, exist_ok=True)
+                np.save(cached, v)
+        if seen_dim is None:
+            seen_dim = v.size
+        descs.append(v.reshape(1, -1))
+    descs = np.concatenate(descs, axis=0)
+    labels = sequence_clusters(descs, n_clusters=n_clusters, use_pca=use_pca,
+                               n_components=n_components, seed=seed, init_centers=init_centers,
+                               device=device)
+    if save_dir is not None:
+        group_images_by_cluster(files, labels, save_dir)
+    return descs, labels
 
 
 def residual_vpr(db_descs, qu_descs, soft_positives,

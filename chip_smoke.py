@@ -10,8 +10,8 @@ Phases, each of which must pass or the script exits non-zero:
   3. kernels: K2 (flash attention; at 5330 tokens within a bound scaled
      to its output, with faults planted in the plain version beyond it),
      K5 (qkv attention + out-projection), K2 and K5 at head dim 80 (ViT-H
-     width, F10), K1 (VLAD, at the main path's three shapes in its three
-     modes, hard labels up to near ties, two launches bit-equal; then
+     width, F10), K1 (VLAD, at the main path's three shapes and the family
+     phase's two at D 768, in its three modes, hard labels up to near ties, two launches bit-equal; then
      draws that count label flips on near ties, tools/vlad_near_ties.py),
      K4 (int8 attention half), K3 (int8 MLP half), the block variants
      K9 (whole int8 block), K7 (bf16 attention half), K8 (bf16 MLP
@@ -22,6 +22,11 @@ Phases, each of which must pass or the script exits non-zero:
      pre_quant / batched_dots knobs; its base bit-equal to K4, its heads'
      outputs f32 with batched_dots), then K4, K6, K7, K9 and T3 at head
      dim 80 (ViT-H width, F10),
+     then K5 with a bias and a residual but no LayerScale (every family
+     but DINOv2) at CLIP-L/14@336px (float32) and MAE-H/14 (bf16) widths
+     and at the family phase's other shapes (patch-CLIP crops in float32,
+     HF ViT-B/16 and LSeg ViT-L/16 in bf16), and K2 at DINO v1 ViT-B/8's
+     and ViT-S/8's stride-4 sequence beside SDPA,
      against their plain PyTorch versions at the main paths' and the tools'
      shapes, with the error bound stated on each line, timed beside the
      plain version, the least time the card could take (bound_ms), a
@@ -78,7 +83,18 @@ Phases, each of which must pass or the script exits non-zero:
      ``gem`` (int8_full: K3, K4), ``gp`` and ``global-vpr`` (bf16: K5)
      through ``cli.main``; a 2-point ``run_sweep`` on one engine with no
      failed point;
-  9. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
+  9. the other model families (``other_families_phase``), through what a
+     user calls, no device named: ``global-vocab-vlad`` with DINO v1
+     ViT-B/8 (layer 9 key, stride 4, 224 px: 3026 tokens; K1 and K2 must
+     launch), ``clip-top-k`` (K5) and ``patch-clip`` (K1, K5) with CLIP
+     ViT-L/14@336px in float32 at full depth, CLIP-L's images/s, a
+     zero-shot call through the BPE fixture's tokenizer and
+     ``trivial_clip_vpr`` over the fixture's JPEGs; one ``make_extractor``
+     forward each of MAE-H/14, ImageBind-H, SAM-H (1024 px), LSeg, HF
+     ViT-B and DINO v1 S/8 at full width and depth, weights drawn on the
+     card, with the kernels each launched (K5; K2 for DINO v1; none for
+     SAM); each family's 2-block float32 trunk on the card against the CPU;
+ 10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
@@ -162,7 +178,28 @@ PATH_KERNELS = {
     "gem int8_full": ("K3_fused_mlp_int8", "K4_fused_attn_half_int8"),
     "gp bf16": ("K5_flash_attention_qkv_proj",),
     "global-vpr bf16": ("K5_flash_attention_qkv_proj",),
+    # the other model families: DINO v1 ViT-B/8 at stride 4 (3026 tokens),
+    # CLIP ViT-L/14@336px in float32 (577 tokens; patch-clip's crops 145)
+    "dino_v1 entry": ("K1_vlad_aggregate_fused", "K2_flash_attention"),
+    "clip-top-k": ("K5_flash_attention_qkv_proj",),
+    "patch-clip": ("K1_vlad_aggregate_fused", "K5_flash_attention_qkv_proj"),
 }
+# make_extractor of each other family at its published width: (images,
+# pixels, the kernels its forward must launch; SAM's attention is plain)
+FAMILY_FORWARDS = {
+    "mae_vit_huge_patch14": (8, 224, ("K5_flash_attention_qkv_proj",)),
+    "imagebind_huge": (8, 224, ("K5_flash_attention_qkv_proj",)),
+    "sam_vit_h": (1, 1024, ()),
+    "lseg": (2, 384, ("K5_flash_attention_qkv_proj",)),
+    "hf_vit_base": (8, 224, ("K5_flash_attention_qkv_proj",)),
+    "dino_vits8": (8, 224, ("K2_flash_attention",)),
+}
+DINO_V1_ARGS = ["--prog.vg-dataset-name", "17places", "--db-samples", "17places=1", "gardens=1",
+                "--extractor.model-type", "dino_vitb8", "--extractor.desc-layer", "9",
+                "--extractor.desc-facet", "key", "--bd-args.resize", "224", "224",
+                "--top-k-vals", "1", "5", "10"]
+CLIP_ARGS = ["--prog.vg-dataset-name", "17places", "--extractor.model-type",
+             "clip_ViT-L/14@336px", "--bd-args.resize", "336", "336", "--top-k-vals", "1", "5", "10"]
 # the trunk's kernels: a read from the descriptor cache launches none of them
 TRUNK_KERNELS = ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
                  "K4_fused_attn_half_int8", "K5_flash_attention_qkv_proj")
@@ -437,9 +474,80 @@ def run(profile_dir) -> dict:
     record("K5_flash_attention_qkv_proj", err, hd80=dict(shape=f"qkv [{b},{n},{3 * d}] bf16", **line))
     del qkv, w, kw, got, want
 
+    # ---------------------------------------------------------------- the other model families' shapes
+    # K5 with a bias and a residual but no LayerScale (no family but DINOv2
+    # has one): CLIP-L/14@336px in float32 (the CLIP pipelines' type) and
+    # MAE-H/14 / ImageBind-H/14 at 224 px in bf16, each against its plain
+    # version and timed beside it and the bound; then the other shapes the
+    # family phase gives it: patch-CLIP's 168-px crops (f32, 145 tokens),
+    # HF ViT-B/16 at 224 px and LSeg's ViT-L/16 at 384 px (bf16)
+    results["K5_flash_attention_qkv_proj"]["no_layerscale"] = []
+    for label, (b, n, h, hd, dtype) in [("CLIP-L/14@336px", (8, 577, 16, 64, torch.float32)),
+                                        ("MAE-H/14", (32, 257, 16, 80, torch.bfloat16)),
+                                        ("patch-CLIP crops", (32, 145, 16, 64, torch.float32)),
+                                        ("HF ViT-B/16", (8, 197, 12, 64, torch.bfloat16)),
+                                        ("LSeg ViT-L/16", (2, 577, 16, 64, torch.bfloat16))]:
+        d = h * hd
+        qkv = randn(b, n, 3 * d, dtype=dtype)
+        w = randn(d, d, dtype=dtype, scale=d ** -0.5).t()
+        kw = dict(b_proj=randn(d, scale=0.1), layerscale=None,
+                  residual=randn(b, n, d, dtype=dtype), num_heads=h)
+        got = K.flash_attention_qkv_proj(qkv, w, **kw)
+        want = K.flash_attention_qkv_proj_ref(qkv, w, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        f32 = dtype == torch.float32
+        tol = dict(atol=2e-5, rtol=0) if f32 else k2_bound
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        m, size = b * n, 4 if f32 else 2
+        ops = 4 * b * h * n * n * hd + 2 * m * d * d
+        line = dict(shape=f"qkv [{b},{n},{3 * d}] {str(dtype)[6:]}, {h} heads of {hd}",
+                    ms=time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw)),
+                    plain_ms=time_ms(lambda: K.flash_attention_qkv_proj_ref(qkv, w, **kw), iters=3),
+                    **bound({"f32" if f32 else "bf16": ops},
+                            m * 3 * d * size + d * d * size + 2 * m * d * size + d * 4))
+        print(f"K5 flash_attention_qkv_proj without LayerScale, {label} {line['shape']} (bias + "
+              f"residual): max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
+              f"{'ok' if ok else 'FAIL'}; time {tag}: kernel {line['ms']:.3f} ms, plain "
+              f"{line['plain_ms']:.3f} ms; bound {line['bound_ms']:.4f} ms ({line['bound_by']}), "
+              f"{ops / (line['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{100 * line['bound_ms'] / line['ms']:.1f} % of the bound", flush=True)
+        check(ok, f"K5 without LayerScale at {label} width disagrees with its plain version")
+        record("K5_flash_attention_qkv_proj", err)
+        results["K5_flash_attention_qkv_proj"]["no_layerscale"].append(line)
+        del qkv, w, kw, got, want
+    # K2 at DINO v1's stride-4 sequence (224 px: 3026 tokens): ViT-B/8 (12
+    # heads of 64) in a 32-image batch and ViT-S/8 (6 heads of 64) in the
+    # family phase's batch of 8, the scaled bound, beside SDPA
+    for label, (b, h) in (("ViT-B/8", (32, 12)), ("ViT-S/8", (8, 6))):
+        n, hd = 3026, 64
+        qkv = randn(b, n, 3 * h * hd, dtype=torch.bfloat16)
+        q, k, v = (qkv[..., i * h * hd:(i + 1) * h * hd].view(b, n, h, hd).transpose(1, 2)
+                   for i in range(3))
+        got = K.flash_attention(q, k, v)
+        want = K.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = scaled_err(got, want) <= k2_scaled
+        line = dict(shape=f"[{b},{h},{n},{hd}] bf16", ms=time_ms(lambda: K.flash_attention(q, k, v)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                    **bound({"bf16": 4 * b * h * n * n * hd}, 4 * b * h * n * hd * 2))
+        print(f"K2 flash_attention at DINO v1 {label} stride 4, {line['shape']} (qkv views): "
+              f"max_abs_err {err:.3e}, scaled {scaled_err(got, want):.3e} (bound: max error <= "
+              f"{k2_scaled} max|want|) {'ok' if ok else 'FAIL'}; time {tag}: kernel "
+              f"{line['ms']:.3f} ms, SDPA {line['library_ms']:.3f} ms "
+              f"({line['ms'] / line['library_ms']:.2f}x); bound {line['bound_ms']:.4f} ms "
+              f"({line['bound_by']}), {4 * b * h * n * n * hd / (line['ms'] * 1e-3) / 1e12:.1f} "
+              f"TFLOP/s, {100 * line['bound_ms'] / line['ms']:.1f} % of the bound", flush=True)
+        check(ok, f"K2 at DINO v1 {label}'s sequence disagrees with its plain version")
+        record("K2_flash_attention", err, **{"dino_v1" if h == 12 else "dino_v1_s8": line})
+        del qkv, q, k, v, got, want
+
     # ---------------------------------------------------------------- K1
     # the main path's three shapes (224-px and 308-px database batches, the
-    # 1022-px query, whose tokens the kernel splits over clusters), each in
+    # 1022-px query, whose tokens the kernel splits over clusters) and the
+    # family phase's two at D 768 (DINO v1 ViT-B/8's 224-px key facets, 3025
+    # patches; patch-CLIP's 16 database images of 4 crop descriptors), each in
     # the three modes against the plain version, two launches bit-equal,
     # and timed (hard cosine, the main path's mode) beside the bound. Hard
     # labels are the argmax of f32 dots that the kernel and the plain
@@ -466,9 +574,11 @@ def run(profile_dir) -> dict:
     min_cos_bound = 0.9999
     k1_modes = [("hard", "cosine"), ("hard", "euclidean"), ("soft", "cosine")]
     k1_shapes = {}
-    for label, b, n in [("224px", 32, 256), ("308px", 32, 484), ("1022px", 1, 5329)]:
-        x = facets(b, n)
-        c, d = 32, 1536
+    for label, b, n, d in [("224px", 32, 256, 1536), ("308px", 32, 484, 1536),
+                           ("1022px", 1, 5329, 1536), ("dino_v1 224px", 32, 3025, 768),
+                           ("patch-clip", 16, 4, 768)]:
+        x = facets(b, n, d)
+        c = 32
         centers = x.reshape(-1, d)[torch.randperm(b * n, generator=gen, device=dev)[:c]]
         for vlad_mode, dist_mode in k1_modes:
             kw = dict(vlad_mode=vlad_mode, dist_mode=dist_mode)
@@ -1344,6 +1454,12 @@ def run(profile_dir) -> dict:
         # ------------------------------------------------------------ the other entry points
         other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root, work / "other", tag)
 
+        # ------------------------------------------------------------ the other model families
+        families = other_families_phase(db, qu, root, work / "families", tag)
+        for path in ("dino_v1 entry", "clip-top-k", "patch-clip"):
+            for name in PATH_KERNELS[path]:
+                results[name].setdefault("family_launches", {})[path] = families[path][name]
+
     # ---------------------------------------------------------------- the retrieval engines
     retrieval_phase(tag)
     torch.cuda.empty_cache()
@@ -1563,12 +1679,12 @@ def write_vpr_bench(ds_dir: Path, db_paths, query_paths, gt, copies: int = 1) ->
 
 
 def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str,
-            dim: int = 32 * 1536) -> None:
-    """``python -m anyloc_tpu_torch <cmd> ENTRY_ARGS <extra>`` on the
-    dataset root through ``cli.main`` with no device named, launch counts
-    reset just before and read just after; the search must run on the card
+            dim: int = 32 * 1536, args=ENTRY_ARGS) -> dict:
+    """``python -m anyloc_tpu_torch <cmd> <args> <extra>`` on the dataset
+    root through ``cli.main`` with no device named, launch counts reset
+    just before and read just after; the search must run on the card
     (F11) and the results JSON be complete, with ``dim``-wide
-    descriptors."""
+    descriptors. Returns the launch counts and the wall seconds."""
     from anyloc_tpu_torch import cli
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops import retrieval
@@ -1580,7 +1696,7 @@ def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str,
         searched.append(db.device.type)
         return search(db, qu, k, *a, **kw)
 
-    argv = [cmd, *ENTRY_ARGS, *extra, "--prog.data-vg-dir", str(root),
+    argv = [cmd, *args, *extra, "--prog.data-vg-dir", str(root),
             "--prog.cache-dir", str(out), "--exp-id", label]
     retrieval.top_k_search = spy
     K.reset_launch_counts()
@@ -1603,13 +1719,14 @@ def run_cli(label: str, cmd: str, root: Path, extra, out: Path, path: str,
     for name in PATH_KERNELS[path]:
         check(counts[name] > 0, f"{name} never launched in the cli {label} run")
     recalls = {k: res[f"R@{k}"] for k in (1, 5, 10)}
-    print(f"entry point {label}: python -m anyloc_tpu_torch {cmd} {' '.join(ENTRY_ARGS + extra)} "
+    print(f"entry point {label}: python -m anyloc_tpu_torch {cmd} {' '.join(list(args) + extra)} "
           f"(17places 16 db + 8 queries, {res['Agg-Method']}, vocabulary "
           f"{res.get('Global-Vocab', '17places db' if res['Agg-Method'] == 'VLAD' else 'none')}): "
           f"rc 0 in {seconds:.1f} s (model build included), VLAD-Dim {res['VLAD-Dim']}, recall "
           f"(random weights, not asserted) {recalls}, top-k on {searched[0]}, results JSON "
           f"{saved[0].name}; {len(log.getvalue().splitlines())} progress lines; launch counts "
           f"{counts}", flush=True)
+    return dict(counts=counts, seconds=seconds)
 
 
 def other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root: Path, work: Path,
@@ -1637,6 +1754,112 @@ def other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root: Path, wor
     print(f"other entry points, wall seconds: demo {t1 - t0:.1f}, serve {t2 - t1:.1f}, "
           f"gem + gp + global-vpr {t3 - t2:.1f}, sweep {t4 - t3:.1f}, total {t4 - t0:.1f}",
           flush=True)
+
+
+def other_families_phase(db, qu, root: Path, work: Path, tag: str) -> dict:
+    """The other model families through what a user calls, no device
+    named: ``global-vocab-vlad`` with DINO v1 ViT-B/8 (layer 9 key, stride
+    4, 224 px: K1 + K2), ``clip-top-k`` and ``patch-clip`` with CLIP
+    ViT-L/14@336px at full depth in float32 (K5; K1 + K5), CLIP-L's
+    images/s, its zero-shot call, ``trivial_clip_vpr`` over the fixture's
+    JPEGs; then one ``make_extractor`` forward of each other family at its
+    published width and depth (random weights drawn on the card), and each
+    family's small float32 trunk on the card (kernels) against the CPU
+    (plain versions). Returns the CLI runs' launch counts by path."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from anyloc_tpu_torch import make_extractor
+    from anyloc_tpu_torch.models.clip import ClipWrapper, SimpleTokenizer
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.pipelines.extras import trivial_clip_vpr
+    from anyloc_tpu_torch.tools import family_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    launches = {}
+    launches["dino_v1 entry"] = run_cli("dino_v1_vitb8", "global-vocab-vlad", root, [],
+                                        work / "results", "dino_v1 entry", dim=32 * 768,
+                                        args=DINO_V1_ARGS)["counts"]
+    for label, cmd, dim in (("clip_top_k", "clip-top-k", 768), ("patch_clip", "patch-clip", 32 * 768)):
+        launches[cmd] = run_cli(label, cmd, root, [], work / "results", cmd, dim=dim,
+                                args=CLIP_ARGS)["counts"]
+    # the first CLIP run pays the float32 route's first use on the card; a
+    # second one is the steady wall time
+    again = run_cli("clip_top_k_again", "clip-top-k", root, [], work / "results", "clip-top-k",
+                    dim=768, args=CLIP_ARGS)
+    print(f"clip-top-k again {tag}: 24 images (16 db + 8 queries, PIL decode, model build "
+          f"included) in {again['seconds']:.2f} s: {24 / again['seconds']:.2f} images/s", flush=True)
+    t1 = time.perf_counter()
+
+    # CLIP-L/14@336px: images/s of the vision tower (f32, images on the
+    # card), a zero-shot call through the tokenizer, trivial_clip_vpr
+    m = ClipWrapper(ClipWrapper.IMPL_OPENAI, "ViT-L/14@336px", use_caching=False)
+    x = torch.randn(32, 336, 336, 3, device=dev)
+    ms = time_ms(lambda: m.encode_image(x), iters=5, reps=3)
+    print(f"CLIP ViT-L/14@336px vision tower {tag}: float32, 24 blocks x 1024, 577 tokens, batch "
+          f"32, images on the card: {ms:.2f} ms/batch, {32000 / ms:.2f} images/s", flush=True)
+    m.tokenizer = SimpleTokenizer(str(ROOT / "tests" / "fixtures" / "bpe" / "merges.txt"),
+                                  vocab=49408)
+    check(bool(m.tokenizer.bpe), "the BPE fixture did not load into the CLIP-L tokenizer")
+    prompts = ["a photo of a street", "a building at night", "the sea"]
+    probs, imf, txf = m(x[:2], prompts, normalize=True)
+    check(tuple(probs.shape) == (2, 3) and bool(torch.isfinite(probs).all())
+          and abs(probs.sum(-1) - 1).max().item() <= 1e-5, f"zero-shot probs {probs}")
+    print(f"CLIP zero-shot: tokenizer = the BPE fixture tests/fixtures/bpe "
+          f"({len(m.tokenizer.bpe_ranks)} merges, SOT {m.tokenizer.SOT}, EOT {m.tokenizer.EOT}), "
+          f"{len(prompts)} prompts x 2 images -> probs {tuple(probs.shape)}, rows sum to 1",
+          flush=True)
+    prep = m.get_preprocessing(disable_prep=False)
+    files = list(db) + list(qu)
+    descs, labels = trivial_clip_vpr(
+        files, lambda f: m.encode_image(prep(Image.open(f).convert("RGB")), normalize=True),
+        n_clusters=3, save_dir=str(work / "trivial_clip_vpr"))
+    check(descs.shape == (len(files), 768) and len(labels) == len(files)
+          and bool(np.isfinite(descs).all()), f"trivial_clip_vpr: {descs.shape} {len(labels)}")
+    print(f"trivial_clip_vpr: {len(files)} fixture JPEGs -> descriptors {descs.shape}, cluster "
+          f"sizes {np.bincount(labels).tolist()}, images copied per cluster", flush=True)
+    del m, x
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # one forward of each other family at its published width and depth
+    for name, (b, px, want) in FAMILY_FORWARDS.items():
+        tb = time.perf_counter()
+        ext = make_extractor(name)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+        x = torch.randn(b, px, px, 3, device=dev)
+        K.reset_launch_counts()
+        out = ext(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        check(out.dim() == 3 and out.shape[0] == b and bool(torch.isfinite(out).all())
+              and abs(out.norm(dim=-1) - 1).max().item() <= 1e-3, f"{name}: output {out.shape}")
+        for kname in want:
+            check(counts.get(kname, 0) > 0, f"{name}: {kname} never launched")
+        if not want:
+            check(not counts, f"{name}: launched {counts}, its attention is plain")
+        ms = time_ms(lambda: ext(x))
+        cfg = getattr(ext, "cfg", None)
+        print(f"family {name} {tag}: full depth, batch {b} at {px} px, descriptors "
+              f"{tuple(out.shape)}, random init on the card {build_s:.1f} s, forward {ms:.2f} ms "
+              f"({b * 1000 / ms:.2f} images/s), dtype {getattr(cfg, 'dtype', '?')}, kernels "
+              f"launched {counts or 'none (plain attention)'}", flush=True)
+        del ext, x, out
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    for family in family_checks.FAMILIES:   # each family's small trunk, card vs CPU
+        r = family_checks.compare(family)
+        print(family_checks.line(r), flush=True)
+        check(r["ok"], f"family card vs CPU: {r['what']}")
+    t4 = time.perf_counter()
+    print(f"other model families, wall seconds: entry points {t1 - t0:.1f}, CLIP-L rate + zero-shot "
+          f"+ trivial_clip_vpr {t2 - t1:.1f}, family forwards {t3 - t2:.1f}, card vs CPU "
+          f"{t4 - t3:.1f}, total {t4 - t0:.1f}", flush=True)
+    return launches
 
 
 def cos_rows(a, b):

@@ -100,12 +100,14 @@ def test_flash_attention_kernel_takes_qkv_views(n, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("epilogue", [True, False])
+@pytest.mark.parametrize("epilogue", [True, False, "no_layerscale"])
 @pytest.mark.parametrize("n,hd", [(97, 64), (1, 64), (65, 16), (129, 32), (257, 128), (485, 64),
-                                  (97, 80), (257, 80)])
+                                  (97, 80), (257, 80), (145, 64), (197, 64), (577, 64)])
 def test_qkv_proj_kernel_matches_ref(dtype, epilogue, n, hd):
     """K5: the attention with q pre-scaled and rounded to the input dtype
-    (prescale_q) over strided views of qkv, then the projection."""
+    (prescale_q) over strided views of qkv, then the projection; the
+    epilogue with bias, LayerScale and residual, none of them, or bias and
+    residual without LayerScale (every family but DINOv2)."""
     b, h = 3, 4
     d = h * hd
     qkv = _randn(b, n, 3 * d, dtype=dtype, seed=1)
@@ -114,6 +116,8 @@ def test_qkv_proj_kernel_matches_ref(dtype, epilogue, n, hd):
     if epilogue:
         kw = dict(b_proj=_randn(d, seed=3, scale=0.1), layerscale=_randn(d, seed=4, scale=0.5),
                   residual=_randn(b, n, d, dtype=dtype, seed=5, scale=0.5))
+    if epilogue == "no_layerscale":
+        kw["layerscale"] = None
     before = flash_attention_qkv_proj.launches
     got = flash_attention_qkv_proj(qkv, w, num_heads=h, **kw)
     assert flash_attention_qkv_proj.launches == before + 1
@@ -199,10 +203,13 @@ def _facets(b, n, d, seed):
 
 
 @pytest.mark.parametrize("vlad_mode,dist_mode", VLAD_MODES)
-@pytest.mark.parametrize("b,n", [(8, 256), (32, 256), (32, 484), (1, 5329)])
-def test_vlad_kernel_at_main_path_shapes(vlad_mode, dist_mode, b, n):
-    x = _facets(b, n, 1536, seed=20)
-    centers = x.reshape(-1, 1536)[torch.from_numpy(
+@pytest.mark.parametrize("b,n,d", [(8, 256, 1536), (32, 256, 1536), (32, 484, 1536),
+                                   (1, 5329, 1536), (32, 3025, 768), (16, 4, 768)])
+def test_vlad_kernel_at_main_path_shapes(vlad_mode, dist_mode, b, n, d):
+    """DINOv2-G's 224 / 308 / 1022-px facets, DINO v1 ViT-B/8's 224-px
+    key facets at stride 4 and patch-CLIP's crop descriptors."""
+    x = _facets(b, n, d, seed=20)
+    centers = x.reshape(-1, d)[torch.from_numpy(
         np.random.default_rng(21).choice(b * n, 32, replace=False)).cuda()]
     kw = dict(vlad_mode=vlad_mode, dist_mode=dist_mode)
     got = vlad_aggregate_fused(x, centers, **kw)
@@ -1275,3 +1282,17 @@ def test_pca_on_the_card_is_full_float32():
     np.testing.assert_allclose(pca.concat_desc_dists_clusters(centers, descs).cpu().numpy(),
                                pca.concat_desc_dists_clusters(centers, descs, "cpu").numpy(),
                                atol=1e-5)
+
+
+
+@pytest.mark.parametrize("family", ["dino_v1", "dino_v1_long", "clip", "imagebind", "hf_vit",
+                                    "mae", "lseg", "sam"])
+def test_family_trunks_on_the_card_match_the_cpu(family):
+    """Each model family's small float32 trunk, one state dict on the CPU
+    (plain versions) and on the card (K5 / K2; SAM's attention is plain),
+    within ``family_checks.BOUND`` of the largest |value|, the expected
+    kernels launched (tools/family_checks.py)."""
+    from anyloc_tpu_torch.tools import family_checks
+
+    r = family_checks.compare(family)
+    assert r["ok"], family_checks.line(r)

@@ -31,7 +31,7 @@ from anyloc_tpu_torch.ops.kernels import (
     vlad_aggregate_fused,
     vlad_aggregate_fused_ref,
 )
-from anyloc_tpu_torch.ops.kernels.vlad_kernel import hard_label_agreement, vlad_plan
+from anyloc_tpu_torch.ops.kernels.vlad_kernel import hard_label_agreement, vlad_cosine, vlad_plan
 
 torch.set_num_threads(2)
 
@@ -155,6 +155,47 @@ def test_k1_ref_takes_its_own_labels():
         labels[0, 0] = (labels[0, 0] + 1) % 5
         moved = vlad_aggregate_fused_ref(descs, centers, dist_mode=dist_mode, labels=labels)
         assert not torch.allclose(moved[0], want[0]) and torch.equal(moved[1], want[1])
+
+
+@pytest.mark.parametrize("dist_mode", ["cosine", "euclidean"])
+def test_k1_zeroes_a_hard_residual_at_its_rounding_floor(dist_mode):
+    """patch-CLIP's shape: 16 images of 4 unit crop descriptors over 32
+    clusters from the port's k-means, so that some tokens are singleton
+    clusters' centers. Normalizing the tokens another way (their last bits
+    change, as the kernel's rsqrt changes them) leaves every VLAD as it
+    was: such residuals are zero in the plain versions, not unit noise. A
+    token 1e-4 from its center keeps its residual."""
+    from anyloc_tpu_torch.ops.common import l2_normalize
+    from anyloc_tpu_torch.ops.vlad import VLAD, vlad_aggregate
+
+    torch.manual_seed(0)
+    descs = l2_normalize(torch.randn(16, 4, 768))
+    vlad = VLAD(32)
+    vlad.fit(descs.reshape(-1, 768))
+    centers = vlad.c_centers
+    other = descs * torch.rsqrt((descs.double() ** 2).sum(-1, keepdim=True)).float()
+    assert not torch.equal(other, descs)
+    kw = dict(dist_mode=dist_mode)
+    want = vlad_aggregate_fused_ref(descs, centers, **kw)
+    for got in (vlad_aggregate_fused_ref(other, centers, norm_descs=False, **kw),
+                vlad_aggregate(descs, centers, **kw),
+                vlad_aggregate(other, centers, norm_descs=False, **kw)):
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert cos.min().item() >= 1 - 1e-6, cos.min().item()
+    rows = want.view(16, 32, 768).norm(dim=-1)
+    assert (rows == 0).sum() > (rows.sum(-1) == 0).sum()   # zeroed clusters, no empty image
+    near = centers[:1] + 1e-4 * l2_normalize(torch.randn(1, 768))
+    kept = vlad_aggregate_fused_ref(near[None], centers, norm_descs=False, **kw)
+    assert kept.view(32, 768)[0].norm().item() > 0.99
+    # an image whose every token is a center: the zero vector, which
+    # vlad_cosine takes as agreeing only with the zero vector
+    unit = l2_normalize(torch.randn(8, 768))
+    zero = vlad_aggregate_fused_ref(unit[None, :4], unit, **kw)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    assert vlad_cosine(zero, zero).tolist() == [1.0]
+    ones = torch.ones_like(zero)
+    assert vlad_cosine(zero, ones).tolist() == [0.0]
+    assert vlad_cosine(ones, zero).tolist() == [0.0]
 
 
 @pytest.mark.parametrize("dist_mode", ["cosine", "euclidean"])

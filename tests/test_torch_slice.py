@@ -6,6 +6,7 @@ JAX side receives the weights through ``convert_dinov2``, the port loads
 the same DINOv2-named state dict natively. Tolerances are stated per test.
 """
 
+import dataclasses
 import os
 import pathlib
 import re
@@ -348,16 +349,47 @@ def _extras(name):
     return getattr(extras, name)()
 
 
+def _backbone(name):
+    from anyloc_tpu_torch import models
+
+    return getattr(models, name)
+
+
+def _imagebind(full):
+    from anyloc_tpu_torch.models import imagebind
+
+    return imagebind.imagebind_huge(full=True) if full else imagebind.ImageBindModel(None)
+
+
 NOT_PORTED = {
-    "model family": lambda: port.make_extractor("dinov1_vitb8", 9, "key", device="cpu"),
     **{f"cli {cmd}": (lambda cmd=cmd: port_cli.main([cmd, "--help"]))
-       for cmd in ("clip-top-k", "patch-clip", "train", "eval", "viz")},
+       for cmd in ("train", "eval", "viz")},
     "serve --mesh": lambda: port_cli.main(["serve", "--vocab-dir", ".", "--mesh", "2"]),
     "sweep --plot": lambda: port_cli.main(["sweep", "--plot"]),
     **{f"extras.{name}": (lambda name=name: _extras(name))
-       for name in ("ContrastiveMLP", "contrastive_loss", "make_contrastive_train_step",
-                    "trivial_clip_vpr")},
+       for name in ("ContrastiveMLP", "contrastive_loss", "make_contrastive_train_step")},
+    "imagebind.ImageBindModel": lambda: _imagebind(False),
+    "imagebind.imagebind_huge(full=True)": lambda: _imagebind(True),
+    **{f"models.{name}": (lambda name=name: _backbone(name))
+       for name in ("resnet", "cct", "efficientnet", "swin")},
+    "DescriptorEngine(mesh=...)": lambda: port.DescriptorEngine(mesh=object(), device="cpu"),
+    "ViT(ViTConfig(tp_split=True))": lambda: _trunk(tp_split=True),
+    "ViT(ViTConfig(remat=True))": lambda: _trunk(remat=True),
+    "convert_dino_v1(tp_split=True)": lambda: _convert_tp_split(),
 }
+
+
+def _trunk(**flags):
+    from anyloc_tpu_torch.models.vit import ViT, ViTConfig
+
+    return ViT(ViTConfig(embed_dim=32, depth=1, num_heads=2, img_size=28, **flags),
+               device="cpu")
+
+
+def _convert_tp_split():
+    from anyloc_tpu_torch.models.dino_v1 import convert_dino_v1, dino_v1_config
+
+    return convert_dino_v1({}, dataclasses.replace(dino_v1_config("dino_vits8"), tp_split=True))
 
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
@@ -372,13 +404,16 @@ def test_not_ported_messages_name_a_port_queue_item(what):
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port and every submodule leaves jax and flax out."""
+    """Importing the port and every submodule leaves jax, flax, the JAX
+    package and ``regex`` out (the port runs where none of them is
+    installed)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import anyloc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'anyloc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'anyloc_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'anyloc_tpu', 'regex')]\n"
         "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

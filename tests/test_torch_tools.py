@@ -329,7 +329,8 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_card(kernel):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("tool", ["bench_int8_matmul", "bench_xlayer", "vlad_near_ties"])
+@pytest.mark.parametrize("tool", ["bench_int8_matmul", "bench_xlayer", "vlad_near_ties",
+                                  "family_checks", "bench_throughput"])
 def test_tools_need_a_card(tool, monkeypatch):
     """The ported tools import without CUDA and raise rather than time the CPU."""
     mod = importlib.import_module(f"anyloc_tpu_torch.tools.{tool}")
