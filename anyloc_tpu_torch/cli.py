@@ -16,6 +16,9 @@ flags; it runs on the CUDA card.
   serve               HTTP daemon: /describe + /search over a loaded
                       vocabulary and database
   sweep               ablation grids (the reference's *_ablations.sh)
+  eval                a trained baseline (dvgl GeoLocalizationNet, MixVPR,
+                      CosPlace) on a dataset: --model-family dvgl | mixvpr |
+                      cosplace, --checkpoint .pth / .ckpt (dvgl's eval.py)
 
 Datasets come from the registry under --prog.data-vg-dir (the reference's
 layouts, e.g. 17places as ref/ query/ ground_truth_new.npy); the results
@@ -25,7 +28,7 @@ Serving fast path flags (vlad / global-vocab-vlad / gem / gp):
   --extractor.quant int8_full --extractor.transfer-dtype uint8
 
 Not ported yet (each raises, naming its ROADMAP.md port-queue item):
-train, eval ("Training"), viz ("Tooling").
+train ("Training"), viz ("Tooling").
 """
 
 from __future__ import annotations
@@ -38,12 +41,13 @@ from anyloc_tpu_torch.config import PipelineArgs, parse_args
 
 # subcommands of the JAX package's CLI that the port has not reached, by
 # the title of their ROADMAP.md port-queue item
-NOT_PORTED = {"train": "Training", "eval": "Training", "viz": "Tooling"}
+NOT_PORTED = {"train": "Training", "viz": "Tooling"}
 # subcommands with their own argument parsers
 OWN_PARSERS = {
     "demo": "anyloc_tpu_torch.pipelines.demo",
     "serve": "anyloc_tpu_torch.pipelines.serve_http",
     "sweep": "anyloc_tpu_torch.sweeps",
+    "eval": "anyloc_tpu_torch.training.eval_cli",
 }
 
 

@@ -84,22 +84,42 @@ def tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
 
 
 _INDEXED = re.compile(r"^(.+)_(\d+)$")
+_INNER_INDEX = re.compile(r"^([A-Za-z]\w*?)_(\d+)_([A-Za-z]\w*)$")
+_WHOLE = re.compile(r"^filter_\d+_\d+$")   # CRN's context convs keep their names
 Rename = Callable[[str, np.ndarray], Optional[Tuple[str, np.ndarray]]]
 
 
+def _split(name: str, leaf: bool = False) -> list:
+    """A Flax name -> the port's path parts: ``name_{i}`` -> name, i (a
+    module, not a leaf); ``name_{i}_rest`` -> name, i, rest (the flat
+    names of CCT, ImageBind's trunks and Swin's stages); CRN's
+    ``filter_{k}_{k}`` stays whole."""
+    if _WHOLE.match(name):
+        return [name]
+    m = _INNER_INDEX.match(name)
+    if m:
+        return [m.group(1), m.group(2)] + _split(m.group(3), leaf)
+    m = None if leaf else _INDEXED.match(name)
+    return [m.group(1), m.group(2)] if m else [name]
+
+
 def from_jax_params(params, rename: Optional[Rename] = None) -> Dict[str, torch.Tensor]:
-    """The JAX package's Flax parameter tree (numpy leaves, optionally
-    under "params") -> this port's state dict: HWIO conv kernel -> OIHW,
+    """The JAX package's Flax variables (numpy leaves: a parameter tree, or
+    a variables dict with "params" and, for BatchNorm, "batch_stats") ->
+    this port's state dict: HWIO conv kernel -> OIHW (a grouped conv's
+    [kh, kw, in / groups, out] -> torch's [out, in / groups, kh, kw]),
     Dense kernel [in, out] -> weight [out, in], LayerNorm / BatchNorm
     ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``, BatchNorm
     ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, indexed
-    modules ``name_{i}`` -> ``name.{i}``, ``patch_embed`` ->
-    ``patch_embed.proj``. A quantized tree (``quantize_vit_params``) keeps
-    its types: int8 ``kernel_q`` [in, out] -> ``weight_q`` [out, in], f32
-    ``kernel_scale`` -> ``weight_scale``. The fused qkv column order (q|k|v,
-    head-minor) is the same in both. ``rename(key, array)`` then maps
-    each entry to its family's name and layout (None drops it)."""
-    tree = params.get("params", params)
+    modules ``name_{i}`` -> ``name.{i}``, flat names ``name_{i}_rest`` ->
+    ``name.{i}.rest``, ``patch_embed`` -> ``patch_embed.proj``. A quantized
+    tree (``quantize_vit_params``) keeps its types: int8 ``kernel_q`` [in,
+    out] -> ``weight_q`` [out, in], f32 ``kernel_scale`` ->
+    ``weight_scale``. The fused qkv column order (q|k|v, head-minor) is
+    the same in both. ``rename(key, array)`` then maps each entry to its
+    family's name and layout (None drops it)."""
+    trees = ([params["params"]] + ([params["batch_stats"]] if "batch_stats" in params else [])
+             if "params" in params else [params])
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -109,8 +129,7 @@ def from_jax_params(params, rename: Optional[Rename] = None) -> Dict[str, torch.
             return
         parts = []
         for p in path[:-1]:
-            m = _INDEXED.match(p)
-            parts += [m.group(1), m.group(2)] if m else [p]
+            parts += _split(p)
             if p == "patch_embed":
                 parts.append("proj")
         leaf = path[-1]
@@ -122,7 +141,7 @@ def from_jax_params(params, rename: Optional[Rename] = None) -> Dict[str, torch.
             leaf, arr = "weight_q", arr.T
         leaf = {"kernel_scale": "weight_scale", "scale": "weight", "embedding": "weight",
                 "mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
-        key = ".".join(parts + [leaf])
+        key = ".".join(parts + _split(leaf, leaf=True))
         if rename is not None:
             renamed = rename(key, arr)
             if renamed is None:
@@ -130,7 +149,8 @@ def from_jax_params(params, rename: Optional[Rename] = None) -> Dict[str, torch.
             key, arr = renamed
         out[key] = torch.from_numpy(np.array(arr, order="C"))   # a writable copy
 
-    walk(tree, [])
+    for tree in trees:
+        walk(tree, [])
     return out
 
 
@@ -142,7 +162,9 @@ def random_init_(module: torch.nn.Module, seed: int, stds: Optional[Mapping[str,
     are available): Linear / Conv weights normal(0, 1/sqrt(fan_in)),
     biases 0, LayerNorm and BatchNorm 1 / 0 with running statistics 0 / 1,
     Embeddings and every other parameter normal(0, 0.02), or the std that
-    ``stds`` gives for a name ending in one of its keys (0: zeros)."""
+    ``stds`` gives for a name ending in one of its keys (0: zeros); then
+    each submodule's ``init_constants_()``, where it has one, sets the
+    parameters that start at a constant (GeM's p, Swin's logit scale)."""
     params = dict(module.named_parameters())
     device = next(iter(params.values())).device
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -175,6 +197,9 @@ def random_init_(module: torch.nn.Module, seed: int, stds: Optional[Mapping[str,
         if name not in done:
             std = next((v for k, v in (stds or {}).items() if name.endswith(k)), 0.02)
             fill(p, std)
+    for mod in module.modules():   # parameters whose init is a constant (GeM's p, ...)
+        if hasattr(mod, "init_constants_"):
+            mod.init_constants_()
     return module
 
 

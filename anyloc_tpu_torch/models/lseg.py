@@ -31,6 +31,7 @@ from torch import nn
 
 from anyloc_tpu_torch.models.convert import from_jax_params, t2np, tensors
 from anyloc_tpu_torch.models.vit import ViT, ViTConfig
+from anyloc_tpu_torch.ops.common import Conv2d
 
 
 def lseg_backbone_config(dtype=None, img_size: int = 384) -> ViTConfig:
@@ -136,8 +137,8 @@ class ResidualConvUnit(nn.Module):
                  device=None) -> None:
         super().__init__()
         f = dict(device=device, dtype=dtype)
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=not use_bn, **f)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=not use_bn, **f)
+        self.conv1 = Conv2d(features, features, 3, padding=1, bias=not use_bn, **f)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=not use_bn, **f)
         if use_bn:
             self.bn1 = FrozenBN(features, bn_eps, dtype, device)
             self.bn2 = FrozenBN(features, bn_eps, dtype, device)
@@ -163,7 +164,7 @@ class FeatureFusionBlock(nn.Module):
         if lateral:
             self.rcu1 = ResidualConvUnit(features, use_bn, bn_eps, dtype, device)
         self.rcu2 = ResidualConvUnit(features, use_bn, bn_eps, dtype, device)
-        self.out_conv = nn.Conv2d(features, features, 1, device=device, dtype=dtype)
+        self.out_conv = Conv2d(features, features, 1, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
         if res is not None:
@@ -186,17 +187,17 @@ class LSegEncoder(nn.Module):
         d, dims = bc.embed_dim, cfg.reassemble_dims
         self.trunk = ViT(bc, n_blocks=max(cfg.hooks) + 1, device=device)
         self.readout = nn.ModuleList([nn.Linear(2 * d, d, **f) for _ in dims])
-        self.reassemble = nn.ModuleList([nn.Conv2d(d, n, 1, **f) for n in dims])
+        self.reassemble = nn.ModuleList([Conv2d(d, n, 1, **f) for n in dims])
         self.resample = nn.ModuleDict({
             "0": TileDeconv(dims[0], 4, bc.dtype, in_features=dims[0], device=device),
             "1": TileDeconv(dims[1], 2, bc.dtype, in_features=dims[1], device=device),
-            "3": nn.Conv2d(dims[3], dims[3], 3, stride=2, padding=1, **f)})
-        self.layer_rn = nn.ModuleList([nn.Conv2d(n, cfg.features, 3, padding=1, bias=False, **f)
+            "3": Conv2d(dims[3], dims[3], 3, stride=2, padding=1, **f)})
+        self.layer_rn = nn.ModuleList([Conv2d(n, cfg.features, 3, padding=1, bias=False, **f)
                                        for n in dims])
         self.refinenet = nn.ModuleList([
             FeatureFusionBlock(cfg.features, cfg.use_bn, cfg.bn_eps, bc.dtype, lateral=i != 3,
                                device=device) for i in range(4)])
-        self.head1 = nn.Conv2d(cfg.features, cfg.out_dim, 1, **f)
+        self.head1 = Conv2d(cfg.features, cfg.out_dim, 1, **f)
 
     def forward(self, imgs: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         c, bc = self.cfg, self.cfg.backbone

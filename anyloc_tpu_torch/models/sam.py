@@ -30,6 +30,7 @@ from torch import nn
 
 from anyloc_tpu_torch.models.convert import from_jax_params, tensors
 from anyloc_tpu_torch.models.hf_convert import ensure_native_naming
+from anyloc_tpu_torch.ops.common import Conv2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +214,7 @@ class LayerNorm2d(nn.Module):
 class _PatchEmbed(nn.Module):
     def __init__(self, cfg: SAMConfig, device=None) -> None:
         super().__init__()
-        self.proj = nn.Conv2d(3, cfg.embed_dim, cfg.patch_size, cfg.patch_size,
+        self.proj = Conv2d(3, cfg.embed_dim, cfg.patch_size, cfg.patch_size,
                               device=device, dtype=cfg.dtype)
 
 
@@ -233,9 +234,9 @@ class SAMImageEncoder(nn.Module):
             SAMBlock(cfg, 0 if i in cfg.global_attn_indexes else cfg.window_size, device)
             for i in range(cfg.depth)])
         self.neck = nn.Sequential(
-            nn.Conv2d(cfg.embed_dim, cfg.out_chans, 1, bias=False, **f),
+            Conv2d(cfg.embed_dim, cfg.out_chans, 1, bias=False, **f),
             LayerNorm2d(cfg.out_chans, device),
-            nn.Conv2d(cfg.out_chans, cfg.out_chans, 3, padding=1, bias=False, **f),
+            Conv2d(cfg.out_chans, cfg.out_chans, 3, padding=1, bias=False, **f),
             LayerNorm2d(cfg.out_chans, device))
 
     def forward(self, x: torch.Tensor, return_tokens: bool = False) -> torch.Tensor:

@@ -72,6 +72,7 @@ from anyloc_tpu_torch.ops.kernels import (
 )
 from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows
 from anyloc_tpu_torch.ops.quant import MLP_MODULE_NAMES, QUANT_MODES, qdense
+from anyloc_tpu_torch.ops.common import Conv2d
 
 FACET_OFFSETS = {"query": 0, "key": 1, "value": 2}
 
@@ -418,7 +419,7 @@ class Block(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
-        self.proj = nn.Conv2d(3, cfg.embed_dim, cfg.patch_size,
+        self.proj = Conv2d(3, cfg.embed_dim, cfg.patch_size,
                               cfg.patch_stride or cfg.patch_size, bias=cfg.patch_bias,
                               device=device, dtype=cfg.dtype)
 

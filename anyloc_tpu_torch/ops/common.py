@@ -4,7 +4,10 @@
 Float32 products that decide rankings (cluster assignment, retrieval
 scores) run in full float32: the port relies on PyTorch's defaults
 (``torch.backends.cuda.matmul.allow_tf32`` False, float32 matmul precision
-"highest") and never flips them.
+"highest") and never flips them. cuDNN's convolutions default to TF32
+(``torch.backends.cudnn.allow_tf32`` True), so every convolution of the
+port is a ``Conv2d`` below, which runs a float32 one in full float32
+whatever the process's flags say (F17).
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 # torch.nn.functional.normalize uses x / max(||x||, eps) with eps=1e-12; the
 # JAX package matches that, and so does the port.
@@ -22,6 +27,30 @@ def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = NORM_EPS) -> torc
     """``x / max(||x||, eps)`` along ``axis`` — zero vectors stay zero."""
     norm = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
     return x / torch.clamp_min(norm, eps)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (zero padding) that runs a float32 input in full
+    float32 (F17): cuDNN's convolution precision is set to "ieee" for the
+    call, then put back as it was. It uses the per-operator
+    ``torch.backends.cudnn.conv.fp32_precision`` only (not the legacy
+    ``allow_tf32``, whose mixing with it can raise). Every convolution of
+    the port is one."""
+
+    def _conv_forward(self, input: torch.Tensor, weight: torch.Tensor, bias):
+        def conv():
+            return F.conv2d(input, weight, bias, self.stride, self.padding, self.dilation,
+                            self.groups)
+
+        if input.dtype != torch.float32:
+            return conv()
+        flags = torch.backends.cudnn.conv
+        before = flags.fp32_precision
+        flags.fp32_precision = "ieee"
+        try:
+            return conv()
+        finally:
+            flags.fp32_precision = before
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:

@@ -25,7 +25,8 @@ Phases, each of which must pass or the script exits non-zero:
      then K5 with a bias and a residual but no LayerScale (every family
      but DINOv2) at CLIP-L/14@336px (float32) and MAE-H/14 (bf16) widths
      and at the family phase's other shapes (patch-CLIP crops in float32,
-     HF ViT-B/16 and LSeg ViT-L/16 in bf16), and K2 at DINO v1 ViT-B/8's
+     HF ViT-B/16 and LSeg ViT-L/16 in bf16; the eval phase's dvgl
+     ViT-B/16 at 224 px and ImageBind-H/14 in float32), and K2 at DINO v1 ViT-B/8's
      and ViT-S/8's stride-4 sequence beside SDPA,
      against their plain PyTorch versions at the main paths' and the tools'
      shapes, with the error bound stated on each line, timed beside the
@@ -94,6 +95,19 @@ Phases, each of which must pass or the script exits non-zero:
      ViT-B and DINO v1 S/8 at full width and depth, weights drawn on the
      card, with the kernels each launched (K5; K2 for DINO v1; none for
      SAM); each family's 2-block float32 trunk on the card against the CPU;
+     then the trained baselines (``eval_phase``): ``python -m
+     anyloc_tpu_torch eval`` on the 17places tree for dvgl ResNet-18
+     conv4 + NetVLAD-64 at 480x640, dvgl ViT-B/16 + NetVLAD-64 at 224 px
+     (K5 in float32 must launch), MixVPR (ResNet-50 conv4, 1024 x 4 mixer,
+     320 px) and CosPlace (ResNet-50, GeM + fc 512), each from its random
+     init and again from a checkpoint in its release layout (descriptors
+     bit-equal), the eval rate on the card and with PIL decode, and one
+     float32 forward each of VGG-16, AlexNet, CCT-14/7x2, EfficientNet-b0
+     and b7, SwinV2-B, CRN and RRM on ResNet-18 conv4 and ImageBind-H's
+     five towers (K5), card against CPU within 1e-4 of the largest value,
+     with cuDNN's TF32 flag at PyTorch's default (F17: the port's float32
+     convolutions run in full float32 on their own; the script checks the
+     flag and never sets it);
  10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
@@ -183,7 +197,32 @@ PATH_KERNELS = {
     "dino_v1 entry": ("K1_vlad_aggregate_fused", "K2_flash_attention"),
     "clip-top-k": ("K5_flash_attention_qkv_proj",),
     "patch-clip": ("K1_vlad_aggregate_fused", "K5_flash_attention_qkv_proj"),
+    # python -m anyloc_tpu_torch eval: the dvgl ViT-B/16 backbone at 224 px
+    # in float32 (197 tokens); the CNN baselines launch no kernel
+    "eval dvgl vit": ("K5_flash_attention_qkv_proj",),
+    "eval dvgl resnet18conv4": (),
+    "eval mixvpr": (),
+    "eval cosplace": (),
+    # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
+    "imagebind_huge": ("K5_flash_attention_qkv_proj",),
 }
+# the eval phase's runs: label -> the CLI's flags (17places, 16 db + 8
+# queries), the descriptor width
+EVAL_RUNS = {
+    "eval dvgl resnet18conv4": (["--backbone", "resnet18conv4", "--aggregation", "netvlad"],
+                                64 * 256),
+    "eval dvgl vit": (["--backbone", "vit", "--aggregation", "netvlad", "--resize", "224", "224"],
+                      64 * 768),
+    "eval mixvpr": (["--model-family", "mixvpr"], 1024 * 4),
+    "eval cosplace": (["--model-family", "cosplace", "--backbone", "resnet50"], 512),
+}
+# the file each run's weights are written to and read back from
+EVAL_CHECKPOINTS = {"eval dvgl resnet18conv4": "dvgl.pth", "eval dvgl vit": "dvgl_vit_ckpt",
+                    "eval mixvpr": "mixvpr.ckpt", "eval cosplace": "cosplace.pth"}
+# the networks held card vs CPU at full width and depth, with their batch
+EVAL_NETWORKS = {"vgg16": 2, "alexnet": 2, "cct384": 2, "efficientnet_b0": 2,
+                 "efficientnet_b7": 2, "swinv2_base": 1, "crn": 2, "rrm": 2,
+                 "imagebind_huge": 1}
 # make_extractor of each other family at its published width: (images,
 # pixels, the kernels its forward must launch; SAM's attention is plain)
 FAMILY_FORWARDS = {
@@ -281,7 +320,9 @@ def run(profile_dir) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is enabled")
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision is not 'highest'")
-    torch.backends.cudnn.allow_tf32 = False   # the f32 patch-embed conv
+    # cuDNN's TF32 flag stays at PyTorch's default (True): the port's f32
+    # convolutions run in full float32 on their own (F17)
+    check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag is not PyTorch's default")
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -480,13 +521,17 @@ def run(profile_dir) -> dict:
     # MAE-H/14 / ImageBind-H/14 at 224 px in bf16, each against its plain
     # version and timed beside it and the bound; then the other shapes the
     # family phase gives it: patch-CLIP's 168-px crops (f32, 145 tokens),
-    # HF ViT-B/16 at 224 px and LSeg's ViT-L/16 at 384 px (bf16)
+    # HF ViT-B/16 at 224 px and LSeg's ViT-L/16 at 384 px (bf16); and the
+    # eval phase's two in float32: dvgl's ViT-B/16 backbone at 224 px (the
+    # eval batch of 16) and ImageBind-H's vision tower (heads of 80)
     results["K5_flash_attention_qkv_proj"]["no_layerscale"] = []
     for label, (b, n, h, hd, dtype) in [("CLIP-L/14@336px", (8, 577, 16, 64, torch.float32)),
                                         ("MAE-H/14", (32, 257, 16, 80, torch.bfloat16)),
                                         ("patch-CLIP crops", (32, 145, 16, 64, torch.float32)),
                                         ("HF ViT-B/16", (8, 197, 12, 64, torch.bfloat16)),
-                                        ("LSeg ViT-L/16", (2, 577, 16, 64, torch.bfloat16))]:
+                                        ("LSeg ViT-L/16", (2, 577, 16, 64, torch.bfloat16)),
+                                        ("dvgl ViT-B/16 eval", (16, 197, 12, 64, torch.float32)),
+                                        ("ImageBind-H/14 f32", (8, 257, 16, 80, torch.float32))]:
         d = h * hd
         qkv = randn(b, n, 3 * d, dtype=dtype)
         w = randn(d, d, dtype=dtype, scale=d ** -0.5).t()
@@ -1460,6 +1505,12 @@ def run(profile_dir) -> dict:
             for name in PATH_KERNELS[path]:
                 results[name].setdefault("family_launches", {})[path] = families[path][name]
 
+        # ------------------------------------------------------------ the trained baselines' eval
+        evals = eval_phase(root, work / "eval", tag)
+        for path, counts in evals.items():
+            for name in PATH_KERNELS.get(path, ()):
+                results[name].setdefault("eval_launches", {})[path] = counts[name]
+
     # ---------------------------------------------------------------- the retrieval engines
     retrieval_phase(tag)
     torch.cuda.empty_cache()
@@ -1778,6 +1829,7 @@ def other_families_phase(db, qu, root: Path, work: Path, tag: str) -> dict:
     from anyloc_tpu_torch.tools._timing import time_ms
 
     dev = torch.device("cuda")
+    check(torch.backends.cudnn.allow_tf32, "family phase: cuDNN's TF32 flag is not the default")
     t0 = time.perf_counter()
     launches = {}
     launches["dino_v1 entry"] = run_cli("dino_v1_vitb8", "global-vocab-vlad", root, [],
@@ -1860,6 +1912,216 @@ def other_families_phase(db, qu, root: Path, work: Path, tag: str) -> dict:
           f"+ trivial_clip_vpr {t2 - t1:.1f}, family forwards {t3 - t2:.1f}, card vs CPU "
           f"{t4 - t3:.1f}, total {t4 - t0:.1f}", flush=True)
     return launches
+
+
+def torchvision_resnet(sd: dict, prefix: str = "backbone.") -> dict:
+    """The port's ResNet state dict (under ``prefix``) in torchvision's
+    naming: BatchNorm out of its ``bn``, the downsample pair as
+    ``downsample.0`` / ``.1``."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(prefix):
+            k = (k[len(prefix):].replace(".bn.", ".").replace("downsample_conv", "downsample.0")
+                 .replace("downsample_bn", "downsample.1"))
+            out[k] = v.clone()
+    return out
+
+
+def release_checkpoint(label: str, model, path: Path) -> Path:
+    """``model``'s weights as its release would hold them: dvgl a
+    torchvision ResNet ``.pth`` (the CLI grafts it into its random init),
+    MixVPR the lightning ``.ckpt`` (``backbone.model.*``, the mixer as
+    ``aggregator.mix.{i}.mix.{0,1,3}``), CosPlace its Sequential ``.pth``
+    (``backbone.{i}.*``, ``aggregation.1.p`` and ``.3``); the vit backbone
+    the port's own ``save_checkpoint`` file."""
+    import torch
+
+    from anyloc_tpu_torch.utils.checkpoint import save_checkpoint
+
+    sd = model.state_dict()
+    if label == "eval dvgl vit":
+        save_checkpoint(str(path.parent), {"params": sd}, False, path.name)
+        return path
+    if label == "eval dvgl resnet18conv4":
+        torch.save(torchvision_resnet(sd), path)
+    elif label == "eval mixvpr":
+        rel = {f"backbone.model.{k}": v for k, v in torchvision_resnet(sd).items()}
+        for k, v in sd.items():
+            if k.startswith("aggregator.mixer."):
+                _, _, i, name, kind = k.split(".")
+                rel[f"aggregator.mix.{i}.mix.{dict(norm=0, mix1=1, mix2=3)[name]}.{kind}"] = v
+            elif k.startswith("aggregator."):
+                rel[k] = v
+        torch.save({"state_dict": rel}, path)
+    else:
+        idx = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6",
+               "layer4": "7"}
+        rel = {}
+        for k, v in torchvision_resnet(sd).items():
+            head, rest = k.split(".", 1)
+            rel[f"backbone.{idx[head]}.{rest}"] = v
+        rel["aggregation.1.p"] = sd["aggregator.p"].reshape(1).clone()
+        rel["aggregation.3.weight"] = sd["aggregator.fc.weight"].clone()
+        rel["aggregation.3.bias"] = sd["aggregator.fc.bias"].clone()
+        torch.save(rel, path)
+    return path
+
+
+def run_eval(label: str, root: Path, out: Path, extra=()) -> dict:
+    """``python -m anyloc_tpu_torch eval`` on the 17places tree through
+    ``cli.main`` with no device named, launch counts reset just before and
+    read just after; the search must run on the card (F11). Returns the
+    recalls, the saved descriptors, the launch counts and the wall
+    seconds."""
+    import numpy as np
+
+    from anyloc_tpu_torch import cli
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops import retrieval
+    from anyloc_tpu_torch.training import evaluate
+
+    flags, dim = EVAL_RUNS[label]
+    descs = out / f"{label.replace(' ', '_')}{'_ckpt' if extra else ''}"
+    argv = ["eval", *flags, "--dataset", "17places", "--datasets-folder", str(root),
+            "--save-descs", str(descs), *extra]
+    searched = []
+    search = evaluate.top_k_search
+
+    def spy(db, qu, k, *a, **kw):
+        searched.append(db.device.type)
+        return search(db, qu, k, *a, **kw)
+
+    evaluate.top_k_search = spy
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = cli.main(argv)
+    finally:
+        evaluate.top_k_search = search
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(rc == 0, f"{label} returned {rc}")
+    recalls = json.loads(log.getvalue().strip().splitlines()[-1])
+    check(set(recalls) == {"R@1", "R@5", "R@10", "R@20"}
+          and all(0.0 <= r <= 100.0 for r in recalls.values()), f"{label}: recalls {recalls}")
+    check(searched == ["cuda"], f"{label}: top-k ran on {searched}, not the card")
+    d = np.load(f"{descs}.npy")
+    check(d.shape == (24, dim) and bool(np.isfinite(d).all())
+          and float(np.abs(np.linalg.norm(d, axis=1) - 1).max()) <= 1e-4,
+          f"{label}: descriptors {d.shape}")
+    for name in PATH_KERNELS[label]:
+        check(counts[name] > 0, f"{name} never launched in the {label} run")
+    return dict(recalls=recalls, descs=d, counts=counts, seconds=seconds,
+                line=f"python -m anyloc_tpu_torch {' '.join(argv[:1] + list(flags) + list(extra))}")
+
+
+def eval_phase(root: Path, work: Path, tag: str) -> dict:
+    """The trained baselines through what a user calls, no device named:
+    ``python -m anyloc_tpu_torch eval`` for dvgl resnet18conv4 + NetVLAD-64
+    at 480x640, dvgl vit + NetVLAD-64 at 224 px (K5), MixVPR (ResNet-50
+    conv4, 1024 x 4 mixer, 320 px) and CosPlace (ResNet-50, GeM + fc 512),
+    each from its random init, then again from a checkpoint of the same
+    weights in its release layout (descriptors bit-equal); the eval rate
+    on the card alone and with PIL decode; then one float32 forward of each
+    network at full width and depth held card vs CPU (VGG-16, AlexNet,
+    CCT-14/7x2, EfficientNet-b0 / b7, SwinV2-B, CRN and RRM on ResNet-18
+    conv4, ImageBind-H's five towers: K5 in its vision tower), cuDNN's
+    TF32 flag at PyTorch's default (F17). Returns the CLI runs' launch
+    counts by path."""
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch.data.registry import get_dataset
+    from anyloc_tpu_torch.tools import family_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+    from anyloc_tpu_torch.training.evaluate import extract_features
+
+    check(torch.backends.cudnn.allow_tf32, "eval phase: cuDNN's TF32 flag is not the default")
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launches = {}
+    for label in EVAL_RUNS:
+        r = run_eval(label, root, work)
+        # the in-memory model of that run (the CLI's random init, seed 0),
+        # written in the release layout, read back through --checkpoint
+        model = eval_model(label)
+        ckpt = release_checkpoint(label, model, work / EVAL_CHECKPOINTS[label])
+        r2 = run_eval(label, root, work, ["--checkpoint", str(ckpt)])
+        same = bool(np.array_equal(r["descs"], r2["descs"]))
+        check(same and r2["recalls"] == r["recalls"],
+              f"{label}: --checkpoint descriptors differ from the in-memory model's "
+              f"(max {np.abs(r['descs'] - r2['descs']).max():.3e})")
+        launches[label] = r["counts"]
+        k5 = "K5_flash_attention_qkv_proj"
+        print(f"eval {tag}: {r['line']} (17places 16 db + 8 queries, random init seed 0): rc 0 in "
+              f"{r['seconds']:.2f} s wall (model build + PIL decode included), descriptors "
+              f"{r['descs'].shape}, recalls (random weights, not asserted) {r['recalls']}, top-k "
+              f"on cuda; K5 launches {r['counts'][k5]}; again from its release-layout checkpoint "
+              f"{ckpt.name} in {r2['seconds']:.2f} s: descriptors bit-equal", flush=True)
+    t1 = time.perf_counter()
+
+    # the eval rate of dvgl resnet18conv4 + NetVLAD-64 at 480x640: the card
+    # alone (a batch of 16 already on it) and with PIL decode (the
+    # dataset's 24 images through extract_features)
+    dev = torch.device("cuda")
+    model = eval_model("eval dvgl resnet18conv4").to(dev)
+    x = torch.randn(16, 480, 640, 3, device=dev)
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(x), iters=5, reps=3)
+    ds = get_dataset("17places", str(root), "test", img_size=(480, 640))
+
+    @torch.inference_mode()
+    def desc_fn(imgs):
+        return model(torch.as_tensor(np.asarray(imgs, np.float32)).to(dev))
+
+    extract_features(desc_fn, ds, batch_size=16)
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    extract_features(desc_fn, ds, batch_size=16)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - tb
+    print(f"eval rate {tag}: dvgl resnet18conv4 + NetVLAD-64 at 480x640, float32: "
+          f"{ms:.2f} ms per batch of 16 on the card, {16000 / ms:.2f} images/s (device only); "
+          f"{24 / decode_s:.2f} images/s with PIL decode ({ds.decoder()}, 24 images through "
+          f"extract_features, batch 16)", flush=True)
+    del model, x
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    for name, batch in EVAL_NETWORKS.items():
+        check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag changed during the phase")
+        r = family_checks.compare_network(name, batch=batch)
+        print(family_checks.network_line(r).replace("network card", f"network {tag} card"),
+              flush=True)
+        check(r["ok"], f"network card vs CPU: {r['what']}")
+        if name == "imagebind_huge":
+            launches["imagebind_huge"] = r["counts"]
+    t3 = time.perf_counter()
+    print(f"trained baselines' eval, wall seconds: eval CLI runs {t1 - t0:.1f}, eval rate "
+          f"{t2 - t1:.1f}, networks card vs CPU {t3 - t2:.1f}, total {t3 - t0:.1f}", flush=True)
+    return launches
+
+
+def eval_model(label: str):
+    """The model ``eval`` builds for ``label`` with no checkpoint (its random
+    init from ``eval_cli.SEED``, on the CPU)."""
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.training import eval_cli
+    from anyloc_tpu_torch.training.mixvpr import VPRModel
+    from anyloc_tpu_torch.training.network import GeoLocalizationNet
+
+    if label == "eval dvgl resnet18conv4":
+        make = lambda: GeoLocalizationNet("resnet18conv4", "netvlad", img_size=480)  # noqa: E731
+    elif label == "eval dvgl vit":
+        make = lambda: GeoLocalizationNet("vit", "netvlad", img_size=224)  # noqa: E731
+    elif label == "eval mixvpr":
+        make = lambda: VPRModel("resnet50", "mixvpr", {  # noqa: E731
+            "out_channels": 1024, "out_rows": 4, "mix_depth": 4}, input_hw=(320, 320))
+    else:
+        make = lambda: VPRModel("resnet50", "cosplace", {"in_dim": 2048, "out_dim": 512},  # noqa
+                                layers_to_crop=(), input_hw=(480, 640))
+    return materialize(make, None, "cpu", seed=eval_cli.SEED)
 
 
 def cos_rows(a, b):

@@ -33,14 +33,10 @@ F32 = dict(atol=2e-5, rtol=0)
 
 @pytest.fixture(autouse=True)
 def _card():
+    """A card, and cuDNN's flags left at PyTorch's defaults: the tests see
+    what a user's process runs (F17)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
 
 
 def _randn(*shape, dtype=torch.float32, seed=0, scale=1.0):
@@ -1296,3 +1292,53 @@ def test_family_trunks_on_the_card_match_the_cpu(family):
 
     r = family_checks.compare(family)
     assert r["ok"], family_checks.line(r)
+
+
+@pytest.mark.parametrize("network", ["vgg16", "alexnet", "cct384", "efficientnet_b0",
+                                     "efficientnet_b7", "swinv2_base", "crn", "rrm",
+                                     "imagebind_huge"])
+def test_trained_baseline_networks_on_the_card_match_the_cpu(network):
+    """Each network of the trained baselines and ImageBind-H's five towers
+    at full width and depth in float32, one state on the CPU and the card,
+    within ``family_checks.BOUND`` of the largest |value| with cuDNN's
+    TF32 flag at its default (F17), K5 launched by ImageBind's vision."""
+    from anyloc_tpu_torch.tools import family_checks
+
+    assert torch.backends.cudnn.allow_tf32   # PyTorch's default, untouched
+    r = family_checks.compare_network(network)
+    assert r["ok"], family_checks.network_line(r)
+
+
+def test_float32_conv_on_the_card_is_full_float32():
+    """F17: a float32 convolution through ``ops.common.Conv2d`` on the card
+    with PyTorch's default flags (cuDNN's TF32 on) is within float32
+    rounding of the CPU's; TF32's 10-bit mantissa would miss by ~1e-3."""
+    from anyloc_tpu_torch.ops.common import Conv2d
+
+    assert torch.backends.cudnn.allow_tf32
+    torch.manual_seed(0)
+    conv = Conv2d(512, 512, 3, padding=1)
+    x = torch.randn(2, 512, 30, 40)
+    want = conv(x)
+    got = conv.cuda()(x.cuda()).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.conv.fp32_precision != "ieee"
+
+
+@pytest.mark.parametrize("b,n,h,hd", [(16, 197, 12, 64), (8, 257, 16, 80)],
+                         ids=["dvgl-vit-b16-224px", "imagebind-h14-f32"])
+def test_k5_float32_at_the_eval_shapes(b, n, h, hd):
+    """K5's float32 route at the shapes this slice gives it: dvgl's ViT-B/16
+    backbone at 224 px (qkv [16, 197, 2304]) and ImageBind-H's vision tower
+    (qkv [8, 257, 3840], heads of 80), no LayerScale."""
+    d = h * hd
+    qkv = _randn(b, n, 3 * d, seed=20)
+    w = _randn(d, d, seed=21, scale=d ** -0.5).t()
+    kw = dict(b_proj=_randn(d, seed=22, scale=0.1), layerscale=None,
+              residual=_randn(b, n, d, seed=23), num_heads=h)
+    before = flash_attention_qkv_proj.launches
+    got = flash_attention_qkv_proj(qkv, w, **kw)
+    assert flash_attention_qkv_proj.launches == before + 1
+    want = flash_attention_qkv_proj_ref(qkv, w, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)

@@ -35,9 +35,6 @@ DROPPED = {
 STUBS = {
     ("pipelines.extras", "ContrastiveMLP"), ("pipelines.extras", "contrastive_loss"),
     ("pipelines.extras", "make_contrastive_train_step"),
-    ("models.imagebind", "ImageBindModel"), ("models.imagebind", "ImageBindText"),
-    ("models.imagebind", "log_mel_spectrogram"), ("models.imagebind", "convert_imagebind_text"),
-    ("models.imagebind", "convert_imagebind_patch"),
 }
 
 
