@@ -19,6 +19,9 @@ flags; it runs on the CUDA card.
   eval                a trained baseline (dvgl GeoLocalizationNet, MixVPR,
                       CosPlace) on a dataset: --model-family dvgl | mixvpr |
                       cosplace, --checkpoint .pth / .ckpt (dvgl's eval.py)
+  train               dvgl triplet training of a GeoLocalizationNet
+                      (dvgl's train.py flags: --backbone, --aggregation,
+                      --mining, --epochs, --resume, ...)
 
 Datasets come from the registry under --prog.data-vg-dir (the reference's
 layouts, e.g. 17places as ref/ query/ ground_truth_new.npy); the results
@@ -27,8 +30,8 @@ JSON (no per-query rows) goes to <--prog.cache-dir>/experiments/<--exp-id>/.
 Serving fast path flags (vlad / global-vocab-vlad / gem / gp):
   --extractor.quant int8_full --extractor.transfer-dtype uint8
 
-Not ported yet (each raises, naming its ROADMAP.md port-queue item):
-train ("Training"), viz ("Tooling").
+Not ported yet (raises, naming its ROADMAP.md port-queue item):
+viz ("Tooling").
 """
 
 from __future__ import annotations
@@ -41,13 +44,14 @@ from anyloc_tpu_torch.config import PipelineArgs, parse_args
 
 # subcommands of the JAX package's CLI that the port has not reached, by
 # the title of their ROADMAP.md port-queue item
-NOT_PORTED = {"train": "Training", "viz": "Tooling"}
+NOT_PORTED = {"viz": "Tooling"}
 # subcommands with their own argument parsers
 OWN_PARSERS = {
     "demo": "anyloc_tpu_torch.pipelines.demo",
     "serve": "anyloc_tpu_torch.pipelines.serve_http",
     "sweep": "anyloc_tpu_torch.sweeps",
     "eval": "anyloc_tpu_torch.training.eval_cli",
+    "train": "anyloc_tpu_torch.training.train_cli",
 }
 
 

@@ -10,7 +10,7 @@ depthwise conv (k//2 - 1, k//2)), MBConv with squeeze-excite sized from
 the pre-expansion width, residuals inside a stage only, a 1x1 head conv.
 Images [B, H, W, 3] in, the feature map [B, h, w, C] out; NCHW inside,
 every conv through ``ops.common.Conv2d`` (F17), BatchNorm on its stored
-statistics.
+statistics, or with ``train=True`` on the batch's (Flax's momentum 0.99).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from anyloc_tpu_torch.models.convert import t2np, tensors
-from anyloc_tpu_torch.models.resnet import BatchNorm, nchw, nhwc, refuse_sync, refuse_train
+from anyloc_tpu_torch.models.resnet import BatchNorm, nchw, nhwc, refuse_sync
 from anyloc_tpu_torch.ops.common import Conv2d
 
 
@@ -86,15 +86,15 @@ def efficientnet_config(variant: str = "b0", **kw) -> EfficientNetConfig:
 
 
 class _BN(nn.Module):
-    """BatchNorm with the config's eps under ``bn``."""
+    """BatchNorm with the config's eps under ``bn``, Flax momentum 0.99."""
 
     def __init__(self, cfg: EfficientNetConfig, features: int) -> None:
         super().__init__()
         refuse_sync(cfg.sync_axis)
-        self.bn = BatchNorm(features, cfg.bn_eps, cfg.dtype)
+        self.bn = BatchNorm(features, cfg.bn_eps, cfg.dtype, momentum=0.99)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.bn(x, train)
 
 
 def _swish(x: torch.Tensor) -> torch.Tensor:
@@ -127,19 +127,18 @@ class MBConvBlock(nn.Module):
         self.project_bn = _BN(c, out_dim)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
         inputs = x
         if self.expand:
-            x = _swish(self.expand_bn(self.expand_conv(x)))
+            x = _swish(self.expand_bn(self.expand_conv(x), train))
         if self.stride == 2:
             lo, hi = self.kernel // 2 - 1, self.kernel // 2
             x = F.pad(x, (lo, hi, lo, hi))
-        x = _swish(self.dw_bn(self.dw_conv(x)))
+        x = _swish(self.dw_bn(self.dw_conv(x), train))
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self.se_expand(_swish(self.se_reduce(s)))
-        x = self.project_bn(self.project_conv(x * torch.sigmoid(s)))
+        x = self.project_bn(self.project_conv(x * torch.sigmoid(s)), train)
         if self.stride == 1 and not self.id_skip:
-            x = x + inputs   # drop-connect is the identity at inference
+            x = x + inputs   # no drop-connect, as in the JAX package
         return x
 
 
@@ -172,14 +171,13 @@ class EfficientNet(nn.Module):
         return side(h), side(w)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
         c = self.cfg
         # stem: TF 'same' for a 3x3 stride-2 conv == pad (0, 1) per side
         x = F.pad(nchw(x.to(c.dtype)), (0, 1, 0, 1))
-        x = _swish(self.stem_bn(self.stem_conv(x)))
+        x = _swish(self.stem_bn(self.stem_conv(x), train))
         for blk in self.block:
-            x = blk(x)
-        return nhwc(_swish(self.top_bn(self.top_conv(x))))
+            x = blk(x, train)
+        return nhwc(_swish(self.top_bn(self.top_conv(x), train)))
 
 
 def convert_hf_efficientnet(sd: Dict, cfg: EfficientNetConfig) -> Dict[str, torch.Tensor]:

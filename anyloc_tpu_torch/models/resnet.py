@@ -6,9 +6,10 @@ conv5, vgg16 at its last conv, alexnet at ``features[:-2]``).
 The API keeps the JAX layout: images [B, H, W, 3] in, a feature map [B,
 h, w, C] out. Inside, the blocks run NCHW on channels-last memory (the
 layout cuDNN prefers), and every convolution goes through
-``ops.common.Conv2d``: full float32 for float32 inputs (F17). BatchNorm
-runs over its stored statistics (inference); the JAX package's
-cross-device BatchNorm (``sync_axis``) and its training mode raise.
+``ops.common.Conv2d``: full float32 for float32 inputs (F17, F17b).
+BatchNorm runs over its stored statistics, or with ``train=True`` over
+the batch's, updating the stored ones as Flax does; the JAX package's
+cross-device BatchNorm (``sync_axis``) raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from anyloc_tpu_torch.models.convert import t2np, tensors
 from anyloc_tpu_torch.ops.common import Conv2d
 
 _PARALLEL = '(ROADMAP.md, port queue: "parallel/ on torch.distributed")'
-_TRAINING = '(ROADMAP.md, port queue: "Training")'
 
 
 def refuse_sync(sync_axis: Optional[str]) -> None:
@@ -32,12 +32,6 @@ def refuse_sync(sync_axis: Optional[str]) -> None:
     if sync_axis is not None:
         raise NotImplementedError(
             f"sync_axis={sync_axis!r} (cross-device BatchNorm) is not ported yet {_PARALLEL}")
-
-
-def refuse_train(train: bool) -> None:
-    """The port evaluates; a forward in training mode raises."""
-    if train:
-        raise NotImplementedError(f"train=True (batch statistics) is not ported yet {_TRAINING}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,21 +80,36 @@ def pool_out(n: int, k: int, s: int, p: int) -> int:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW with stored statistics (the Flax
-    ``BatchNorm(use_running_average=True)``): weight, bias, running_mean,
-    running_var."""
+    """Flax's ``BatchNorm`` over NCHW: weight, bias, running_mean,
+    running_var. ``train=False`` normalizes with the stored statistics;
+    ``train=True`` with the batch's mean and biased variance, and moves the
+    stored ones to ``momentum * running + (1 - momentum) * batch``, the
+    variance biased too (Flax's convention; ``nn.BatchNorm2d`` stores the
+    unbiased variance, with its momentum the other way round)."""
 
-    def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32) -> None:
+    def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32,
+                 momentum: float = 0.9) -> None:
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
         self.register_buffer("running_mean", torch.zeros(features, dtype=dtype))
         self.register_buffer("running_var", torch.ones(features, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean   # Flax's fast variance
+        var = torch.clamp_min(var, 0.0)
+        with torch.no_grad():
+            for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
+                buf.mul_(self.momentum).add_(batch.detach().to(buf.dtype), alpha=1 - self.momentum)
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.float().view(shape) + self.bias.float().view(shape)).to(x.dtype)
 
 
 class _BN(nn.Module):
@@ -113,8 +122,8 @@ class _BN(nn.Module):
         refuse_sync(sync_axis)
         self.bn = BatchNorm(features, 1e-5, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.bn(x, train)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0, bias: bool = False,
@@ -144,14 +153,13 @@ class _Block(nn.Module):
             self.downsample_bn = _BN(widths[-1], t, sync)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
         y = x
         for j in range(1, self.n + 1):
-            y = getattr(self, f"bn{j}")(getattr(self, f"conv{j}")(y))
+            y = getattr(self, f"bn{j}")(getattr(self, f"conv{j}")(y), train)
             if j < self.n:
                 y = F.relu(y)
         if hasattr(self, "downsample_conv"):
-            x = self.downsample_bn(self.downsample_conv(x))
+            x = self.downsample_bn(self.downsample_conv(x), train)
         return F.relu(y + x)
 
 
@@ -211,14 +219,13 @@ class ResNet(nn.Module):
         return side(h), side(w)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
         c = self.cfg
         x = nchw(x.to(c.dtype))
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(_n_stages(c.truncate)):
             for blk in getattr(self, f"layer{stage + 1}"):
-                x = blk(x)
+                x = blk(x, train)
         return nhwc(x)
 
 
@@ -244,7 +251,7 @@ class VGG16(nn.Module):
         return h // 16, w // 16
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
+        del train   # no BatchNorm
         x = nchw(x.to(self.dtype))
         convs = iter(self.conv)
         for v in _VGG16_PLAN:
@@ -274,7 +281,7 @@ class AlexNet(nn.Module):
         return side(h), side(w)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
+        del train   # no BatchNorm
         x = nchw(x.to(self.dtype))
         x = F.max_pool2d(F.relu(self.conv[0](x)), 3, 2)
         x = F.max_pool2d(F.relu(self.conv[1](x)), 3, 2)

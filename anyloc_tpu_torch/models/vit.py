@@ -60,6 +60,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from anyloc_tpu_torch.ops.kernels import (
     MAX_FUSED_TOKENS,
@@ -109,7 +110,7 @@ class ViTConfig:
     quant: Optional[str] = None    # None | "int8" | "int8_mlp" | "int8_fused" | "int8_full"
     attn_pack_pairs: bool = False  # taken, not read: a TPU MXU tiling of int8_full
     tp_split: bool = False         # split qkv / w12 layouts: the trunk and the converters raise
-    remat: bool = False            # rematerialize each block in training: the trunk raises
+    remat: bool = False            # recompute each block in the backward (activation memory)
 
     def __post_init__(self) -> None:
         if self.attn_impl not in ("auto", "pallas", "xla"):
@@ -451,11 +452,9 @@ class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, n_blocks: Optional[int] = None,
                  device=None) -> None:
         super().__init__()
-        for flag, item in (("tp_split", "parallel/ on torch.distributed"),
-                           ("remat", "Training")):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f'ViTConfig.{flag} is not ported yet (ROADMAP.md, port queue: "{item}")')
+        if cfg.tp_split:
+            raise NotImplementedError('ViTConfig.tp_split is not ported yet (ROADMAP.md, port '
+                                      'queue: "parallel/ on torch.distributed")')
         factory = dict(device=device, dtype=cfg.dtype)
         # LayerNorms outside the blocks are f32 in a quantized trunk
         ln = dict(eps=cfg.ln_eps, device=device,
@@ -526,16 +525,24 @@ class ViT(nn.Module):
         self._check_layer(capture_layer)
         if capture_facet == "attn":
             for blk in self.blocks[:capture_layer]:
-                x = blk(x)
+                x = self._run(blk, x)
             return self.blocks[capture_layer](x, return_attn_probs=True)
         if capture_facet == "token":
             for blk in self.blocks[:capture_layer + 1]:
-                x = blk(x)
+                x = self._run(blk, x)
             return x
         for blk in self.blocks[:capture_layer]:
-            x = blk(x)
+            x = self._run(blk, x)
         qkv = self.blocks[capture_layer](x, qkv_only=True)
         return self._facet(qkv, capture_facet)
+
+    def _run(self, blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """One whole block; with ``cfg.remat`` and a gradient to build, its
+        activations are recomputed in the backward instead of kept (the JAX
+        trunk's ``nn.remat(Block)``)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(blk, x, use_reentrant=False)
+        return blk(x)
 
     def _check_layer(self, layer: int) -> None:
         if not 0 <= layer < len(self.blocks):
@@ -557,7 +564,7 @@ class ViT(nn.Module):
         for i in range(want[-1] + 1):
             blk = self.blocks[i]
             if facet == "token":
-                x = blk(x)
+                x = self._run(blk, x)
                 if i in want:
                     outs[i] = x
             elif i == want[-1]:
@@ -566,7 +573,7 @@ class ViT(nn.Module):
                 x, qkv = blk(x, return_qkv=True)
                 outs[i] = self._facet(qkv, facet)
             else:
-                x = blk(x)
+                x = self._run(blk, x)
         return outs
 
     def _full(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -574,7 +581,7 @@ class ViT(nn.Module):
         if not self.whole:
             raise ValueError("the full forward needs the whole trunk (ViT(cfg, n_blocks=None))")
         for blk in self.blocks:
-            x = blk(x)
+            x = self._run(blk, x)
         pre_norm_tokens = x
         if c.final_norm:
             x = layer_norm(c, self.norm, x)

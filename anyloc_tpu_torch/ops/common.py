@@ -6,12 +6,13 @@ scores) run in full float32: the port relies on PyTorch's defaults
 (``torch.backends.cuda.matmul.allow_tf32`` False, float32 matmul precision
 "highest") and never flips them. cuDNN's convolutions default to TF32
 (``torch.backends.cudnn.allow_tf32`` True), so every convolution of the
-port is a ``Conv2d`` below, which runs a float32 one in full float32
-whatever the process's flags say (F17).
+port is a ``Conv2d`` below, which runs a float32 one in full float32,
+its backward included, whatever the process's flags say (F17, F17b).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -29,28 +30,64 @@ def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = NORM_EPS) -> torc
     return x / torch.clamp_min(norm, eps)
 
 
+@contextlib.contextmanager
+def ieee_convolutions():
+    """cuDNN's convolution precision set to "ieee" (full float32) inside,
+    put back as it was on the way out. It uses the per-operator
+    ``torch.backends.cudnn.conv.fp32_precision`` only (not the legacy
+    ``allow_tf32``, whose mixing with it can raise)."""
+    flags = torch.backends.cudnn.conv
+    before = flags.fp32_precision
+    flags.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        flags.fp32_precision = before
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """A float32 convolution whose backward runs in full float32 too
+    (F17b): autograd calls a convolution's backward after the forward has
+    returned, under whatever flag holds then (TF32 by PyTorch's default),
+    so the input and weight gradients are computed here, inside
+    ``ieee_convolutions``, by the same ``convolution_backward`` that
+    autograd's own node calls. No double backward."""
+
+    @staticmethod
+    def forward(ctx, input, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(input, weight)
+        ctx.conf = (stride, padding, dilation, groups, bias is not None)
+        with ieee_convolutions():
+            return F.conv2d(input, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        input, weight = ctx.saved_tensors
+        stride, padding, dilation, groups, has_bias = ctx.conf
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                has_bias and ctx.needs_input_grad[2]]
+        with ieee_convolutions():
+            gi, gw, gb = torch.ops.aten.convolution_backward(
+                grad, input, weight, [weight.shape[0]] if has_bias else None, list(stride),
+                list(padding), list(dilation), False, [0, 0], groups, mask)
+        return gi, gw, gb, None, None, None, None
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (zero padding) that runs a float32 input in full
-    float32 (F17): cuDNN's convolution precision is set to "ieee" for the
-    call, then put back as it was. It uses the per-operator
-    ``torch.backends.cudnn.conv.fp32_precision`` only (not the legacy
-    ``allow_tf32``, whose mixing with it can raise). Every convolution of
-    the port is one."""
+    float32 (F17), forward and backward (F17b), whatever the process's
+    flags say. Every convolution of the port is one. With no gradient
+    asked, the forward is one ``F.conv2d`` inside ``ieee_convolutions``."""
 
     def _conv_forward(self, input: torch.Tensor, weight: torch.Tensor, bias):
-        def conv():
-            return F.conv2d(input, weight, bias, self.stride, self.padding, self.dilation,
-                            self.groups)
-
+        args = (self.stride, self.padding, self.dilation, self.groups)
         if input.dtype != torch.float32:
-            return conv()
-        flags = torch.backends.cudnn.conv
-        before = flags.fp32_precision
-        flags.fp32_precision = "ieee"
-        try:
-            return conv()
-        finally:
-            flags.fp32_precision = before
+            return F.conv2d(input, weight, bias, *args)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (input, weight, bias)):
+            return _Fp32Conv.apply(input, weight, bias, *args)
+        with ieee_convolutions():
+            return F.conv2d(input, weight, bias, *args)
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:

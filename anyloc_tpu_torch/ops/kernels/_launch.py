@@ -20,13 +20,29 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every tensor on one CUDA device — a CUDA call never takes the plain
-    path."""
+    path — and no gradient asked of it (``refuse_grad``). Every wrapper
+    calls it after its CPU branch."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(
                 f"{name}: tensors must share one CUDA device "
                 f"(got {[str(x.device) for x in tensors]})")
+    refuse_grad(name, *tensors)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels write through raw pointers into fresh tensors, which
+    carry no ``grad_fn``: with grad mode on and an input that requires a
+    gradient, a launch would cut the graph without a word, so it raises
+    instead (F18). K5 is the one kernel with a gradient: its wrapper runs
+    the launch inside an ``autograd.Function``, whose forward has grad
+    mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires a gradient and this kernel has none (its output "
+            "would be detached); call it under torch.no_grad() / torch.inference_mode(), "
+            "or use its plain version")
 
 
 def aligned(t: torch.Tensor, elems: int) -> bool:

@@ -142,11 +142,17 @@ def _split_heads(qkv: torch.Tensor, num_heads: int):
             for i in range(3)]
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """At least float32 (float64 stays: gradcheck runs the plain versions
+    in float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ) v per head for q already scaled and rounded: f32 sums
     and softmax, P rounded to v's dtype, the output rounded to v's dtype."""
-    p = torch.softmax(q.float() @ k.float().transpose(-1, -2), dim=-1)
-    return (p.to(v.dtype).float() @ v.float()).to(v.dtype)
+    p = torch.softmax(_f32(q) @ _f32(k).transpose(-1, -2), dim=-1)
+    return (_f32(p.to(v.dtype)) @ _f32(v)).to(v.dtype)
 
 
 def flash_attention_qkv_proj_ref(
@@ -165,15 +171,15 @@ def flash_attention_qkv_proj_ref(
     hd = d // num_heads
     scale = hd ** -0.5 if scale is None else float(scale)
     q, k, v = _split_heads(qkv, num_heads)
-    o = _attention_ref((q.float() * scale).to(qkv.dtype), k, v)
+    o = _attention_ref((_f32(q) * scale).to(qkv.dtype), k, v)
     o_cat = o.transpose(1, 2).reshape(b, n, d)
-    out = o_cat.float() @ w_proj.float()
+    out = _f32(o_cat) @ _f32(w_proj)
     if b_proj is not None:
-        out = out + b_proj.float()
+        out = out + _f32(b_proj)
     if layerscale is not None:
-        out = out * layerscale.float()
+        out = out * _f32(layerscale)
     if residual is not None:
-        out = out + residual.float()
+        out = out + _f32(residual)
     return out.to(qkv.dtype)
 
 
@@ -213,6 +219,49 @@ def flash_attention_qkv_proj(
         return flash_attention_qkv_proj_ref(
             qkv, w_proj, b_proj, num_heads=num_heads, layerscale=layerscale,
             residual=residual, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return QkvProjGrad.apply(_qkv_proj_launch, num_heads, scale, qkv, w_proj, b_proj,
+                                 layerscale, residual)
+    return _qkv_proj_launch(qkv, w_proj, b_proj, num_heads=num_heads, layerscale=layerscale,
+                            residual=residual, scale=scale)
+
+
+class QkvProjGrad(torch.autograd.Function):
+    """K5 with a gradient (F18): ``forward`` runs ``kernel`` (the launch;
+    the tests fill the slot with the plain version on the CPU) on the
+    inputs as given; ``backward`` recomputes the plain version under
+    autograd on detached copies of them and returns its gradients for qkv,
+    w_proj, b_proj, layerscale and residual. That is the gradient of the
+    JAX package's XLA attention route: no Pallas kernel there has a
+    backward, so none is written here."""
+
+    @staticmethod
+    def forward(ctx, kernel, num_heads, scale, qkv, w_proj, b_proj, layerscale, residual):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(qkv, w_proj, b_proj, layerscale, residual)
+        return kernel(qkv, w_proj, b_proj, num_heads=num_heads, layerscale=layerscale,
+                      residual=residual, scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_qkv_proj_ref(
+                inputs[0], inputs[1], inputs[2], num_heads=ctx.num_heads,
+                layerscale=inputs[3], residual=inputs[4], scale=ctx.scale)
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None, None) + tuple(
+            next(grads) if t is not None and t.requires_grad else None for t in inputs)
+
+
+def _qkv_proj_launch(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, scale):
+    """K5's launch on CUDA tensors (shapes checked by the caller)."""
+    tensors = [t for t in (qkv, w_proj, b_proj, layerscale, residual) if t is not None]
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    hd, d_out = d // num_heads, w_proj.shape[1]
     _launch.require_cuda("flash_attention_qkv_proj", *tensors)
     code = _launch.dtype_code(qkv, "flash_attention_qkv_proj")
     if w_proj.dtype != qkv.dtype or (residual is not None and residual.dtype != qkv.dtype):

@@ -16,8 +16,8 @@ package's ``jax.random`` draw cannot be reproduced in torch, so a test
 passes its rows), else rows drawn with a ``torch.Generator`` seeded from
 ``seed``. Numpy inputs run on ``device`` (None: the card).
 
-Not ported yet, each raising and naming its ROADMAP.md port-queue item:
-the contrastive MLP head and its loss and train step ("Training").
+Also the contrastive MLP head over VLADs, its loss and its train step
+(scripts/dino_vlad_contrastive_train.py).
 """
 
 from __future__ import annotations
@@ -39,10 +39,6 @@ from anyloc_tpu_torch.ops.retrieval import get_top_k_recall
 from anyloc_tpu_torch.ops.vlad import VLAD, vlad_aggregate
 
 Device = Union[None, str, torch.device]
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, port queue: \"{item}\")")
 
 
 def _fit(vlad: VLAD, flat: torch.Tensor, init_centers=None) -> VLAD:
@@ -106,20 +102,59 @@ def sliding_window_scores(db_wins: np.ndarray, qu_wins: np.ndarray) -> np.ndarra
 
 # --------------------------------------------------------------- contrastive MLP head
 
-class ContrastiveMLP:
+class ContrastiveMLP(torch.nn.Module):
     """The 2-layer MLP head over VLAD descriptors
-    (dino_vlad_contrastive_train.py:344-358): not ported yet."""
+    (dino_vlad_contrastive_train.py:344-358): fc1 -> relu -> fc2. ``in_dim``
+    (a keyword after the JAX fields) is what Flax infers at the first
+    call."""
 
-    def __init__(self, *args, **kwargs):
-        _not_ported("ContrastiveMLP (a trained head)", "Training")
+    def __init__(self, out_dim: int, hidden_dim: int = 512, *, in_dim: int = 512) -> None:
+        super().__init__()
+        self.fc1 = torch.nn.Linear(in_dim, hidden_dim)
+        self.fc2 = torch.nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(x)))
 
 
-def contrastive_loss(*args, **kwargs):
-    _not_ported("contrastive_loss", "Training")
+def contrastive_loss(emb: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+                     temp: float = 1.0) -> torch.Tensor:
+    """The reference's loss (:360-381): -log(sum_p e^{cos(a,p)/T} /
+    sum_n e^{cos(a,n)/T}), averaged over the batch. emb [B, D], pos
+    [B, P, D], neg [B, N, D]."""
+    ea = l2_normalize(emb)[:, None, :]
+    sp = (ea * l2_normalize(pos)).sum(-1)   # [B, P]
+    sn = (ea * l2_normalize(neg)).sum(-1)   # [B, N]
+    return (-torch.log(torch.exp(sp / temp).sum(-1) / torch.exp(sn / temp).sum(-1))).mean()
 
 
-def make_contrastive_train_step(*args, **kwargs):
-    _not_ported("make_contrastive_train_step", "Training")
+def make_contrastive_train_step(mlp: ContrastiveMLP, optimizer, temp: float = 1.0):
+    """``step(params, opt_state, anchor, pos, neg) -> (params, opt_state,
+    loss)``: ``params`` a dict {name: tensor} of the head's (the
+    optimizer's leaves, updated in place), ``opt_state`` the torch.optim
+    optimizer over them; ``step.init_state(params) -> (params, opt_state)``
+    makes both from a state dict and ``optimizer`` (a factory or a built
+    optimizer, as in ``training.triplet``)."""
+    from anyloc_tpu_torch.training.triplet import make_optimizer, trainable_leaves
+
+    def step(params, opt_state, anchor, pos, neg):
+        def f(x):
+            return torch.func.functional_call(mlp, params, (x,))
+
+        opt_state.zero_grad(set_to_none=True)
+        loss = contrastive_loss(
+            f(anchor), f(pos.reshape(-1, pos.shape[-1])).reshape(*pos.shape[:-1], -1),
+            f(neg.reshape(-1, neg.shape[-1])).reshape(*neg.shape[:-1], -1), temp)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    def init_state(params):
+        leaves = trainable_leaves(params, optimizer)
+        return leaves, make_optimizer(optimizer, list(leaves.values()))
+
+    step.init_state = init_state
+    return step
 
 
 # --------------------------------------------------------------- PCA tools

@@ -490,6 +490,12 @@ class _Server(ThreadingHTTPServer):
     """The HTTP server of one ``_Service`` (``server.service``);
     ``server_close`` also stops its dispatcher."""
 
+    # the listen backlog: socketserver's default of 5 is less than one
+    # coalesced batch, so a burst of concurrent clients overflows the
+    # accept queue while the handler threads hold the GIL, and the kernel
+    # drops (a 1-s SYN retry) or resets the connections past it
+    request_queue_size = 1024
+
     def __init__(self, svc: _Service) -> None:
         super().__init__((svc.args.host, svc.args.port), make_handler(svc))
         self.service = svc

@@ -22,8 +22,6 @@ from torch import nn
 
 from anyloc_tpu_torch.ops.common import l2_normalize
 
-_TRAINING = '(ROADMAP.md, port queue: "Training")'
-
 
 class NetVLAD(nn.Module):
     """NetVLAD with a learned soft assignment: [B, N, D] -> [B, C*D]."""
@@ -43,11 +41,37 @@ class NetVLAD(nn.Module):
         return l2_normalize(l2_normalize(v).reshape(b, self.num_clusters * d))
 
     @staticmethod
-    def init_from_descriptors(params, descs, seed: int = 42):
-        """The k-means initialization of training (dvgl init_params)."""
-        raise NotImplementedError(
-            f"NetVLAD.init_from_descriptors (training's k-means init) is not ported yet "
-            f"{_TRAINING}")
+    def init_from_descriptors(params, descs, seed: int = 42, *, init_rows=None):
+        """dvgl's k-means initialization (init_params, aggregation.py:112-124)
+        of the state dict ``params`` (``assign.weight``, ``centroids``) from
+        L2-normalized local descriptors ``descs`` [N, D]: centroids = the
+        euclidean k-means centers; the dots of the normalized centers with
+        the descriptors give ``alpha = -log(0.01) / mean(top1 - top2)``;
+        the assignment weight is ``alpha * normalized centers``. The fit
+        starts from rows ``init_rows`` when given (F2: the JAX package draws
+        them with ``jax.random``), else from rows drawn with a
+        ``torch.Generator`` seeded with ``seed``. Returns a new state dict
+        on the devices of ``params``."""
+        import numpy as np
+
+        from anyloc_tpu_torch.ops.kmeans import draw_rows, kmeans_fit
+
+        centroids = params["centroids"]
+        c = centroids.shape[0]
+        x = torch.as_tensor(np.asarray(descs, np.float32)).to(centroids.device)
+        if init_rows is None:
+            init_rows = draw_rows(len(x), c, torch.Generator().manual_seed(seed))
+        rows = torch.as_tensor(np.asarray(init_rows, np.int64)).to(x.device)
+        centers, _ = kmeans_fit(x, c, mode="euclidean", init_centers=x[rows])
+        cnorm = centers / torch.clamp_min(torch.linalg.vector_norm(centers, dim=1,
+                                                                   keepdim=True), 1e-12)
+        dots = torch.sort(cnorm @ x.T, dim=0, descending=True).values
+        alpha = float(-np.log(0.01) / (dots[0] - dots[1] + 1e-9).mean().item())
+        out = dict(params)
+        out["centroids"] = centers.to(centroids.dtype)
+        out["assign.weight"] = (alpha * cnorm).to(params["assign.weight"].device,
+                                                  params["assign.weight"].dtype)
+        return out
 
 
 class GeMHead(nn.Module):

@@ -21,7 +21,7 @@ from torch import nn
 from anyloc_tpu_torch.models.convert import t2np, tensors
 from anyloc_tpu_torch.models.efficientnet import EfficientNet, efficientnet_config
 from anyloc_tpu_torch.models.resnet import (ResNet, VGG16, convert_torchvision_resnet,
-                                            refuse_sync, refuse_train, resnet18_config,
+                                            refuse_sync, resnet18_config,
                                             resnet50_config, resnet101_config)
 from anyloc_tpu_torch.models.swin import SwinV2, swinv2_base_config
 from anyloc_tpu_torch.training.aggregators import ConvAP, GeMHead, GeMPool, MixVPRHead
@@ -178,8 +178,8 @@ class VPRModel(nn.Module):
         self.aggregator = get_aggregator(agg_arch, cfg)
 
     def forward(self, imgs: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
-        fmap = self.backbone(imgs)["fmap"] if self.swin else self.backbone(imgs)
+        # train=True: the CNN trunks' BatchNorm on batch statistics (SwinV2 has none)
+        fmap = self.backbone(imgs)["fmap"] if self.swin else self.backbone(imgs, train=train)
         if isinstance(self.aggregator, ConvAP):
             return self.aggregator(fmap)
         b, h, w, d = fmap.shape

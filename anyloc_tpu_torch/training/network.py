@@ -15,21 +15,19 @@ it from the first input's height.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import re
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from anyloc_tpu_torch.models.resnet import (AlexNet, ResNet, VGG16, nchw, nhwc, refuse_sync,
-                                            refuse_train, resnet18_config, resnet50_config,
-                                            resnet101_config)
+                                            resnet18_config, resnet50_config, resnet101_config)
 from anyloc_tpu_torch.ops.common import Conv2d, l2_normalize
 from anyloc_tpu_torch.ops.gem import gem_pool, gem_pool_spatial
 from anyloc_tpu_torch.ops.pooling import mac_spatial, rmac_spatial, spoc_spatial
 from anyloc_tpu_torch.training.aggregators import NetVLAD
-
-_TRAINING = '(ROADMAP.md, port queue: "Training")'
 
 
 class CRNModule(nn.Module):
@@ -112,9 +110,6 @@ class GeoLocalizationNet(nn.Module):
                  img_size: int = 224) -> None:
         super().__init__()
         refuse_sync(sync_axis)
-        if remat:
-            raise NotImplementedError(f"remat (a training memory lever) is not ported yet "
-                                      f"{_TRAINING}")
         self.arch, self.agg, self.gem_p = backbone, aggregation, gem_p
         self.tokens = backbone.startswith(("cct", "vit"))
         if self.tokens:
@@ -124,6 +119,9 @@ class GeoLocalizationNet(nn.Module):
                 raise ValueError(f"{backbone} can't work with aggregation {aggregation}; use "
                                  f"one among {list(allowed)}")
             if backbone.startswith("cct"):
+                if remat:
+                    # CCT's blocks are inline, as in the JAX package: no hook
+                    raise ValueError("remat is supported for the 'vit' token backbone only")
                 from anyloc_tpu_torch.models.cct import CCT, cct_14_7x2_384
 
                 self.backbone = CCT(cct_14_7x2_384(truncate_at=trunc_te),
@@ -136,6 +134,7 @@ class GeoLocalizationNet(nn.Module):
                 cfg = hf_vit_config(img_size=img_size)
                 if trunc_te is not None:
                     cfg = dataclasses.replace(cfg, depth=trunc_te)
+                cfg = dataclasses.replace(cfg, remat=remat)
                 self.backbone, channels = ViT(cfg), cfg.embed_dim
             out = channels
             if aggregation == "netvlad":
@@ -178,11 +177,12 @@ class GeoLocalizationNet(nn.Module):
         return l2_normalize(gem_pool(tokens.float(), p=self.gem_p))
 
     def forward(self, imgs: torch.Tensor, train: bool = False) -> torch.Tensor:
-        refuse_train(train)
+        """``train=True``: a CNN trunk's BatchNorm on batch statistics (the
+        token backbones have none)."""
         if self.tokens:
             out = self._token_route(imgs)
         else:
-            fmap = self.backbone(imgs)                         # [B, h, w, C]
+            fmap = self.backbone(imgs, train=train)            # [B, h, w, C]
             if self.agg == "netvlad":
                 b, h, w, d = fmap.shape
                 out = self.aggregation(l2_normalize(fmap).reshape(b, h * w, d))
@@ -197,7 +197,28 @@ class GeoLocalizationNet(nn.Module):
         return out
 
 
+_TE_BLOCK = re.compile(r"(?:^|\.)(?:blocks|norm1|norm2|qkv|proj|fc1|fc2)\.(\d+)(?:\.|$)")
+
+
 def make_freeze_te_mask(freeze_te: int):
-    """The trainability mask of dvgl's ``--freeze_te``: a training concern."""
-    raise NotImplementedError(f"make_freeze_te_mask (training's optimizer mask) is not ported "
-                              f"yet {_TRAINING}")
+    """dvgl's ``--freeze_te`` (network.py:150-160, 169-180) as a mask over
+    the port's parameter names: ``mask(params) -> {name: trainable}``.
+    Every backbone parameter freezes except those of transformer-encoder
+    blocks with an index above ``freeze_te`` (embeddings, tokenizer and the
+    final norm stay frozen; -1 unfreezes every block); heads and the
+    aggregation stay trainable. The JAX regex over Flax paths
+    (``blocks_i``, CCT's flat ``qkv_i`` ...), read through the converter's
+    name map (``blocks.i``, ``qkv.i``)."""
+
+    def mask(params) -> Dict[str, bool]:
+        out = {}
+        for name in params:
+            parts = name.split(".")
+            if "backbone" not in parts:
+                out[name] = True
+                continue
+            m = _TE_BLOCK.search(".".join(parts[parts.index("backbone") + 1:]))
+            out[name] = m is not None and int(m.group(1)) > freeze_te
+        return out
+
+    return mask

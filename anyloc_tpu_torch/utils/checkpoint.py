@@ -6,7 +6,8 @@ The JAX package writes orbax directories; the port writes one
 port's state dict, ``epoch``, ``best_r5``, ...). An orbax directory is not
 readable without orbax: ``load_checkpoint`` given one raises, naming
 ``models.convert.from_jax_params`` as the way across (restore the tree
-with the JAX package, then convert it). Resuming training is not ported.
+with the JAX package, then convert it). ``resume_train`` reads the file
+back with its epoch and best Recall@5.
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ def load_checkpoint(path: str, target: Optional[Any] = None) -> Dict[str, Any]:
 
 def resume_train(output_dir: str, template_state: Optional[Dict[str, Any]] = None,
                  filename: str = "last_checkpoint") -> Tuple[Dict[str, Any], int, float]:
-    """Resuming a training run: not ported."""
-    raise NotImplementedError(
-        'resume_train (checkpoint resume of training) is not ported yet (ROADMAP.md, port '
-        'queue: "Training")')
+    """-> (state, start_epoch, best_r5) from ``<dir>/<filename>`` (dvgl
+    util.py:29-60 keys). ``template_state`` (the JAX package's restore
+    target) is not needed by a ``torch.save`` file: the state comes back as
+    saved, on the CPU."""
+    del template_state
+    state = load_checkpoint(os.path.join(output_dir, filename))
+    return state, int(state.get("epoch", 0)), float(state.get("best_r5", 0.0))

@@ -1,13 +1,51 @@
-"""Run naming and metrics logging for sweeps (copies of ``run_name_for``
-and ``MetricsLogger`` in ``anyloc_tpu/utils/logging_utils.py``; the
-framework-free files are copied, not imported). wandb is optional."""
+"""Logging: the training run's dual log files (``setup_logging``; dvgl
+``commons.py:30-74``), run naming and metrics logging for sweeps (copies
+of ``anyloc_tpu/utils/logging_utils.py``; the framework-free files are
+copied, not imported). wandb is optional."""
 
 from __future__ import annotations
 
 import json
 import logging
 import os
+import sys
+import traceback
 from typing import Optional
+
+
+def setup_logging(output_folder: str, console: str = "info", info_filename: str = "info.log",
+                  debug_filename: str = "debug.log") -> None:
+    """Info and debug log files in ``output_folder``, a console handler,
+    and an excepthook that also logs an uncaught exception
+    (commons.py:30-74)."""
+    os.makedirs(output_folder, exist_ok=True)
+    base = logging.getLogger()
+    base.setLevel(logging.DEBUG)
+    for h in list(base.handlers):
+        base.removeHandler(h)
+    fmt = logging.Formatter("%(asctime)s   %(message)s", "%Y-%m-%d %H:%M:%S")
+    for filename, level in ((info_filename, logging.INFO), (debug_filename, logging.DEBUG)):
+        if filename:
+            fh = logging.FileHandler(os.path.join(output_folder, filename))
+            fh.setLevel(level)
+            fh.setFormatter(fmt)
+            base.addHandler(fh)
+    if console:
+        ch = logging.StreamHandler()
+        ch.setLevel(logging.INFO if console == "info" else logging.DEBUG)
+        ch.setFormatter(fmt)
+        base.addHandler(ch)
+
+    def exception_handler(type_, value, tb):
+        if issubclass(type_, KeyboardInterrupt):
+            sys.__excepthook__(type_, value, tb)
+            return
+        base.info("\n" + "".join(traceback.format_exception(type_, value, tb)))
+        # keep the standard stderr traceback: with console="" the log-only
+        # hook would exit with a blank terminal
+        sys.__excepthook__(type_, value, tb)
+
+    sys.excepthook = exception_handler
 
 
 def run_name_for(pipeline: str, model: str, layer=None, facet=None, clusters=None,

@@ -108,6 +108,22 @@ Phases, each of which must pass or the script exits non-zero:
      with cuDNN's TF32 flag at PyTorch's default (F17: the port's float32
      convolutions run in full float32 on their own; the script checks the
      flag and never sets it);
+     then training (``train_phase``): ``python -m anyloc_tpu_torch train``
+     on the 17places tree with dvgl's defaults (resnet18conv4 + NetVLAD-64
+     at 480x640, batch 4 tuples of 1 + 1 + 10 images, Adam at 1e-5,
+     partial mining), 2 epochs of 8 queries, NetVLAD's k-means init, then
+     again with --resume (its starting parameters bit-equal to the saved
+     ones); the same for the vit backbone at 224 px (K5 in every block of
+     every step with its gradient, F18: the patch embedding and block 0's
+     qkv get non-zero gradients); a few CosPlace CosFace steps (ResNet-50,
+     GeM + fc 512, 512x512, batch 32); each path's step time, tuples/s and
+     images/s, K5's forward and backward ms inside the vit step; one step's
+     gradients card vs CPU for both dvgl models (vit: within 1e-4 of the
+     largest |g| but rare flips; resnet18conv4: no farther from a CPU
+     float64 run than 10x the CPU's float32 run), each convolution of
+     resnet18conv4 at the step's shapes card vs CPU within 1e-4 of the
+     largest |g| (F17b; a planted TF32 backward must fail it) and K5's
+     gradient against its plain version's at [48, 197, 2304] float32;
  10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
@@ -203,6 +219,11 @@ PATH_KERNELS = {
     "eval dvgl resnet18conv4": (),
     "eval mixvpr": (),
     "eval cosplace": (),
+    # python -m anyloc_tpu_torch train: the vit backbone's K5 in every block of
+    # every step (forward kernel, plain-version backward) and in mining and
+    # validation; resnet18conv4 + NetVLAD launches no kernel
+    "train dvgl vit": ("K5_flash_attention_qkv_proj",),
+    "train dvgl resnet18conv4": (),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
 }
@@ -531,7 +552,8 @@ def run(profile_dir) -> dict:
                                         ("HF ViT-B/16", (8, 197, 12, 64, torch.bfloat16)),
                                         ("LSeg ViT-L/16", (2, 577, 16, 64, torch.bfloat16)),
                                         ("dvgl ViT-B/16 eval", (16, 197, 12, 64, torch.float32)),
-                                        ("ImageBind-H/14 f32", (8, 257, 16, 80, torch.float32))]:
+                                        ("ImageBind-H/14 f32", (8, 257, 16, 80, torch.float32)),
+                                        ("dvgl ViT-B/16 train", (48, 197, 12, 64, torch.float32))]:
         d = h * hd
         qkv = randn(b, n, 3 * d, dtype=dtype)
         w = randn(d, d, dtype=dtype, scale=d ** -0.5).t()
@@ -1511,6 +1533,13 @@ def run(profile_dir) -> dict:
             for name in PATH_KERNELS.get(path, ()):
                 results[name].setdefault("eval_launches", {})[path] = counts[name]
 
+        # ------------------------------------------------------------ training
+        # K5's launches under autograd in the train CLI's steps (each has one
+        # backward call); its mining and validation launches are inference
+        trained = train_phase(root, work / "train", tag)
+        results["K5_flash_attention_qkv_proj"]["train_launches"] = trained["k5_train"]
+        results["K5_flash_attention_qkv_proj"]["train_backward"] = trained["k5_backward"]
+
     # ---------------------------------------------------------------- the retrieval engines
     retrieval_phase(tag)
     torch.cuda.empty_cache()
@@ -2101,6 +2130,275 @@ def eval_phase(root: Path, work: Path, tag: str) -> dict:
     print(f"trained baselines' eval, wall seconds: eval CLI runs {t1 - t0:.1f}, eval rate "
           f"{t2 - t1:.1f}, networks card vs CPU {t3 - t2:.1f}, total {t3 - t0:.1f}", flush=True)
     return launches
+
+
+# the train phase's runs: label -> the train CLI's flags beyond the shared
+# ones (dvgl's defaults: batch 4 tuples of 1 + 1 + 10 images, Adam at lr
+# 1e-5, partial mining, NetVLAD-64). The loss is dvgl's SARE-ind: the
+# fixture's queries are near-copies of their positives, so at a random init
+# every triplet clears the triplet loss's 0.1 margin, its loss is 0 and
+# nothing would train; SARE-ind never vanishes
+TRAIN_RUNS = {
+    "train dvgl resnet18conv4": ["--netvlad-init-samples", "1024"],
+    "train dvgl vit": ["--backbone", "vit", "--resize", "224", "224"],
+}
+TRAIN_ARGS = ["--dataset", "17places", "--queries-per-epoch", "8", "--cache-refresh-every", "8",
+              "--epochs", "2", "--criterion", "sare_ind"]
+
+
+def run_train(flags, root: Path, out: Path) -> dict:
+    """``python -m anyloc_tpu_torch train`` on the 17places tree through
+    ``cli.main`` with no device named, launch counts reset just before
+    and read just after, K5's forward launches and backward calls timed
+    inside (``train_checks.k5_step_times``); the loop's returned state
+    and starting parameters kept. Root logging and sys.excepthook, which
+    the CLI sets, are put back."""
+    import logging
+
+    from anyloc_tpu_torch import cli
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.training import train_loop
+
+    argv = ["train", *TRAIN_ARGS, *flags, "--datasets-folder", str(root), "--output-dir", str(out)]
+    kept = {}
+    real = train_loop.train_triplet
+
+    def spy(descriptor_fn, init_params, *a, **kw):
+        kept["start"] = {k: v.detach().clone() for k, v in init_params.items()}
+        kept["state"], _, kept["history"] = result = real(descriptor_fn, init_params, *a, **kw)
+        return result
+
+    root_log = logging.getLogger()
+    handlers, level, hook = list(root_log.handlers), root_log.level, sys.excepthook
+    train_loop.train_triplet = spy
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with train_checks.k5_step_times() as k5:
+            rc = cli.main(argv)
+    finally:
+        train_loop.train_triplet = real
+        for h in root_log.handlers:
+            h.close()
+        root_log.handlers[:] = handlers
+        root_log.setLevel(level)
+        sys.excepthook = hook
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(rc == 0, f"python -m anyloc_tpu_torch {' '.join(argv)} returned {rc}")
+    return dict(counts=counts, seconds=seconds, k5=k5, argv=argv, **kept)
+
+
+def train_phase(root: Path, work: Path, tag: str) -> dict:
+    """Training through what a user calls, no device named: ``python -m
+    anyloc_tpu_torch train`` for dvgl resnet18conv4 + NetVLAD-64 at
+    480x640 (with NetVLAD's k-means init) and the vit backbone + NetVLAD-64
+    at 224 px (K5 in every block of every step, with its gradient, F18),
+    each 2 epochs of 8 queries, then again with --resume (its starting
+    parameters bit-equal to the saved ones); a few CosPlace CosFace steps
+    (ResNet-50, GeM + fc 512, 512x512, batch 32, one group's head); each
+    path's step time, tuples/s and images/s, and K5's forward and backward
+    ms inside the vit step; one step's gradients card vs CPU for both dvgl
+    models, resnet18conv4's convolutions' backward card vs CPU (and with
+    F17b planted, which must fail), K5's gradient against its plain
+    version's at [48, 197, 2304] float32 (F18). Returns the launch counts
+    by path and K5's training launches."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+    from anyloc_tpu_torch.training import cosplace
+    from anyloc_tpu_torch.training.mixvpr import VPRModel
+    from anyloc_tpu_torch.training.network import GeoLocalizationNet
+    from anyloc_tpu_torch.training.triplet import make_triplet_train_step
+    from anyloc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    check(torch.backends.cudnn.allow_tf32, "train phase: cuDNN's TF32 flag is not the default")
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launches, k5_train = {}, {}
+    k5 = "K5_flash_attention_qkv_proj"
+    for label in TRAIN_RUNS:
+        out = work / label.replace(" ", "_")
+        flags = TRAIN_RUNS[label]
+        r = run_train(flags, root, out)
+        losses = [h["loss"] for h in r["history"]]
+        check(len(losses) == 2 and all(np.isfinite(x) for x in losses),
+              f"{label}: losses {losses}")
+        check((out / "best_checkpoint").is_file() and (out / "last_checkpoint").is_file(),
+              f"{label}: checkpoints {sorted(p.name for p in out.iterdir())}")
+        saved = load_checkpoint(str(out / "last_checkpoint"))
+        moved = [k for k, v in saved["params"].items()
+                 if not torch.equal(v, r["start"][k].cpu())]
+        check(any(k.startswith("backbone.") for k in moved)
+              and any(k.startswith("aggregation.") for k in moved),
+              f"{label}: parameters that moved {moved[:5]}")
+        params = r["state"].params
+        grads = {}
+        if "vit" in label:
+            for name in ("backbone.patch_embed.proj.weight", "backbone.blocks.0.attn.qkv.weight"):
+                g = params[name].grad
+                grads[name] = 0.0 if g is None else g.abs().max().item()
+            check(all(v > 0 for v in grads.values()), f"{label}: F18 gradients {grads}")
+            check(r["k5"]["bwd"] > 0 and r["counts"][k5] > r["k5"]["bwd"],
+                  f"{label}: K5 launches {r['counts'][k5]}, backward calls {r['k5']['bwd']}")
+            k5_train[label] = r["k5"]["bwd"]
+        for name in PATH_KERNELS[label]:
+            check(r["counts"][name] > 0, f"{name} never launched in the {label} run")
+        launches[label] = r["counts"]
+        # --resume: the next run starts from the saved parameters, bit for bit
+        # (without --netvlad-init-samples, which would k-means NetVLAD again, F20)
+        resume = list(flags)
+        if "--netvlad-init-samples" in resume:
+            i = resume.index("--netvlad-init-samples")
+            del resume[i:i + 2]
+        r2 = run_train(resume + ["--resume", "--epochs", "1"], root, out)
+        same = r2["start"].keys() == saved["params"].keys() and all(
+            torch.equal(v.cpu(), saved["params"][k]) for k, v in r2["start"].items())
+        check(same, f"{label}: the resumed run did not start from the saved parameters")
+        print(f"train {tag}: python -m anyloc_tpu_torch {' '.join(r['argv'][:-4])} (17places "
+              f"16 db + 8 queries, random init seed 42): rc 0 in {r['seconds']:.1f} s wall "
+              f"(model build, mining, PIL decode and 2 validations included), epoch losses "
+              f"{[round(x, 6) for x in losses]}, recalls (not asserted) "
+              f"{[h['recalls'] for h in r['history']]}, {len(moved)} tensors moved, "
+              f"best_checkpoint written; launch counts {r['counts']}"
+              + (f"; K5 train launches {r['k5']['bwd']} (backward calls), |grad| max at the "
+                 f"patch embedding and block 0 qkv {grads}" if grads else "")
+              + f"; --resume run rc 0 in {r2['seconds']:.1f} s, its starting parameters "
+              f"bit-equal to the saved ones", flush=True)
+    t1 = time.perf_counter()
+
+    # one step's time at full width on tensors already on the card
+    dev = torch.device("cuda")
+    rates = {}
+    for label, (backbone, (h, w)) in {"dvgl resnet18conv4": ("resnet18conv4", (480, 640)),
+                                      "dvgl vit": ("vit", (224, 224))}.items():
+        model = materialize(lambda: GeoLocalizationNet(backbone, "netvlad", 64, img_size=h),
+                            None, "cuda", seed=0)
+        params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+        step = make_triplet_train_step(
+            train_checks.descriptor_fn(model),
+            functools.partial(torch.optim.Adam, lr=1e-5, betas=(0.9, 0.999), eps=1e-8))
+        state = step.init_state(params)
+        tuples = torch.randn(4, 12, h, w, 3, device=dev)
+        holder = [state]
+
+        def one():
+            holder[0], loss = step(holder[0], tuples)
+            return loss
+
+        ms = time_ms(one, iters=3, reps=2, warmup=1)
+        with train_checks.k5_step_times() as k5t:
+            one()
+        loss = one().item()
+        check(np.isfinite(loss), f"train step {label}: loss {loss}")
+        extra = ""
+        if backbone == "vit":
+            extra = (f"; K5 inside the step: {k5t['fwd']} forward launches "
+                     f"{k5t['fwd_ms']:.3f} ms, {k5t['bwd']} backward calls {k5t['bwd_ms']:.3f} ms "
+                     f"(CUDA events around each)")
+            rates["k5"] = k5t
+        rates[label] = ms
+        print(f"train step {tag}: {label} + NetVLAD-64 at {h}x{w}, float32, Adam, batch 4 "
+              f"tuples of 1 + 1 + 10 images: {ms:.2f} ms/step, {4000 / ms:.2f} tuples/s, "
+              f"{48000 / ms:.2f} images/s{extra}", flush=True)
+        del model, params, state, holder, step
+        torch.cuda.empty_cache()
+
+    # CosPlace: a few CosFace steps at full width, one group's classifier
+    rng = np.random.default_rng(0)
+    groups, classes, labels_all = cosplace.assign_classes(rng.uniform(0, 60, 4096),
+                                                          rng.uniform(0, 60, 4096),
+                                                          rng.uniform(0, 360, 4096))
+    g = int(np.argmax([len(x) for x in groups]))
+    idx = groups[g][:32]
+    labels = torch.from_numpy(labels_all[idx]).to(dev)
+    model = materialize(lambda: VPRModel("resnet50", "cosplace", {"in_dim": 2048, "out_dim": 512},
+                                         layers_to_crop=(), input_hw=(512, 512)), None, "cuda",
+                        seed=0)
+    head = materialize(lambda: cosplace.MarginCosineProduct(len(classes[g]), in_dim=512), None,
+                       "cuda", seed=1)
+    step = cosplace.make_cosplace_train_step(
+        train_checks.descriptor_fn(model), head,
+        functools.partial(torch.optim.Adam, lr=1e-5), functools.partial(torch.optim.Adam, lr=1e-2))
+    cstate = [step.init_state({**dict(model.named_parameters()), **dict(model.named_buffers())},
+                              dict(head.named_parameters()))]
+    start = cstate[0].classifier_params["weight"].detach().clone()
+    images = torch.randn(32, 512, 512, 3, device=dev)
+    closses = []
+
+    def cstep():
+        cstate[0], loss = step(cstate[0], images, labels)
+        closses.append(loss)
+
+    cms = time_ms(cstep, iters=3, reps=2, warmup=1)
+    closses = [x.item() for x in closses]
+    check(all(np.isfinite(closses)) and cstate[0].step == len(closses)
+          and not torch.equal(start, cstate[0].classifier_params["weight"].detach()),
+          f"CosPlace steps: losses {closses}")
+    print(f"train step {tag}: CosPlace ResNet-50 + GeM + fc 512 at 512x512, float32, batch 32, "
+          f"one group's CosFace head ({len(classes[g])} classes, s 30, m 0.4), Adam 1e-5 / 1e-2: "
+          f"{cms:.2f} ms/step, {32000 / cms:.2f} images/s; {len(closses)} steps, losses "
+          f"{closses[0]:.4f} -> {closses[-1]:.4f}", flush=True)
+    del model, head, step, cstate, images
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # gradients card vs CPU, and K5's gradient against its plain version's
+    for backbone in ("resnet18conv4", "vit"):
+        r = train_checks.compare_step(backbone)
+        print(train_checks.step_line(r).replace("train step card", f"train step {tag} card"),
+              flush=True)
+        check(r["ok"], f"train step card vs CPU: {backbone}")
+        check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 flag changed during the phase")
+    r = train_checks.compare_convs("resnet18conv4")
+    print(train_checks.convs_line(r).replace("conv backward card", f"conv backward {tag} card"),
+          flush=True)
+    check(r["ok"], "F17b: a convolution's backward on the card disagrees with the CPU's")
+    with train_checks.planted_tf32_backward():
+        planted = train_checks.compare_convs("resnet18conv4")
+    print(f"conv backward {tag}, F17b planted (the backward outside ieee_convolutions): "
+          f"largest max|err| / max|g| {planted['worst']:.3e} ({planted['worst_name']}), "
+          f"{planted['worst'] / max(r['worst'], 1e-30):.1f}x the real one's; must exceed the bound",
+          flush=True)
+    check(not planted["ok"], "the conv check does not see F17b's TF32 backward")
+    r = train_checks.k5_gradient(48, 197, 12, 64, torch.float32)
+    errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
+    print(f"K5 gradient {tag} qkv {list(r['shape'])} float32 (kernel forward, plain-version "
+          f"backward): max|err| / max|g| {errs} (bound {train_checks.BOUND:.0e}); output "
+          f"{r['out_err']:.3e}; grad_fn {r['grad_fn']}", flush=True)
+    check(r["ok"], "K5's gradient disagrees with its plain version's")
+    # K5's backward alone at the step's shape: the plain version's autograd
+    # recompute; its bound is twice the forward's products (the input and
+    # weight gradients), f32, or its bytes
+    b, n, h, hd = 48, 197, 12, 64
+    d, m = h * hd, 48 * 197
+    inputs = train_checks.k5_inputs(b, n, h, hd)
+    wanted = [t for t in inputs.values() if t is not None]
+    out = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+    gout = torch.randn_like(out)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, wanted, gout, retain_graph=True),
+                     iters=5, reps=2)
+    fwd_ms = time_ms(lambda: K.flash_attention_qkv_proj(num_heads=h, **inputs).detach(),
+                     iters=5, reps=2)
+    ops = 2 * (4 * b * h * n * n * hd + 2 * m * d * d)
+    bwd = bound({"f32": ops}, 4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d))
+    print(f"K5 backward {tag} qkv [{b},{n},{3 * d}] float32 (QkvProjGrad: the plain version "
+          f"recomputed under autograd): {bwd_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}), {100 * bwd['bound_ms'] / bwd_ms:.1f} % of the bound; the forward "
+          f"under autograd (kernel + saved inputs) {fwd_ms:.3f} ms", flush=True)
+    del inputs, wanted, out, gout
+    t3 = time.perf_counter()
+    print(f"training, wall seconds: train CLI runs {t1 - t0:.1f}, step times {t2 - t1:.1f}, "
+          f"card vs CPU and K5 gradient {t3 - t2:.1f}, total {t3 - t0:.1f}", flush=True)
+    return dict(launches=launches, k5_train=k5_train, rates=rates,
+                k5_backward=dict(ms=bwd_ms, forward_ms=fwd_ms, **bwd))
 
 
 def eval_model(label: str):

@@ -1342,3 +1342,134 @@ def test_k5_float32_at_the_eval_shapes(b, n, h, hd):
     want = flash_attention_qkv_proj_ref(qkv, w, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **F32)
+
+
+# ---------------------------------------------------------------- training (F18, F17b)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,hd", [(48, 197, 12, 64), (4, 257, 16, 80)],
+                         ids=["dvgl-vit-b16-step", "hd80"])
+def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, dtype):
+    """F18: K5 under autograd launches its kernel once and carries the
+    plain version's gradient for qkv, the weight, the bias and the
+    residual: each within 1e-4 of its largest |value| (the backward is the
+    plain version recomputed on the same inputs, so the bound is the same
+    in bf16); the output keeps the kernel's bound."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    r = train_checks.k5_gradient(b, n, h, hd, dtype)
+    assert r["launched"] == 1 and r["grad_fn"].startswith("QkvProjGrad")
+    assert r["ok"], r["grad_errs"]
+    assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def _no_grad_cases():
+    """Each kernel wrapper without a gradient, at a small shape: (wrapper,
+    args, kwargs); its first float tensor will require a gradient."""
+    from anyloc_tpu_torch.ops import kernels as K
+
+    q = _randn(1, 2, 10, 64)
+    d, hid = 128, 256
+    wqkv, sqkv = _int8_weights(d, 3 * d, 81)
+    wp, sp = _int8_weights(d, d, 82)
+    w12, s12 = _int8_weights(d, 2 * hid, 83)
+    w3, s3 = _int8_weights(hid, d, 84)
+    ln = (1 + _randn(d, seed=85, scale=0.1), _randn(d, seed=86, scale=0.1))
+    attn_p = (wqkv, sqkv, None, wp, sp, None)
+    mlp_p = (w12, s12, None, w3, s3, None)
+    x = _randn(1, 16, d, seed=87)
+    a8, b8 = _int8_operands(64, 64, 64, 88)
+    k7, k8 = _k7_case(True), _k8_case("mlp", 200, True)
+    return {
+        "K1": (K.vlad_aggregate_fused, (_randn(2, 10, 16), _randn(4, 16)), {}),
+        "K2": (K.flash_attention, (q, q, q), {}),
+        "K3": (K.fused_mlp_int8, (x.reshape(16, d), w12, s12, None, w3, s3, None), {}),
+        "K4": (K.fused_attn_half_int8, (x, wqkv, sqkv, None, wp, sp, None),
+               dict(num_heads=2, ln_params=ln)),
+        "K6": (K.attention_proj, (q, q, q, _randn(128, 128)), {}),
+        "K7": (k7[0], k7[2], k7[3]),
+        "K8": (k8[0], k8[2], k8[3]),
+        "K9": (K.fused_block_int8, (x, attn_p, mlp_p), dict(num_heads=2, ln1=ln, ln2=ln)),
+        "T1": (K.matmul, (_randn(64, 64), _randn(64, 64)), {}),
+        "T2": (K.matmul_dequant, (a8, b8, _randn(64, 1).abs(), _randn(1, 64).abs()), {}),
+        "T3": (K.attn_half_variant, _variant_args(1, 77, 128, torch.float32, 89),
+               dict(pre_quant=False, batched_dots=False)),
+    }
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9", "T1", "T2",
+                                  "T3"])
+def test_no_gradient_wrappers_raise_under_grad(name):
+    """F18: a wrapper whose kernel has no gradient raises when grad mode is
+    on and an input requires one (its output would be detached), and
+    launches under no_grad."""
+    fn, args, kw = _no_grad_cases()[name]
+    args = list(args)
+    i = next(j for j, a in enumerate(args)
+             if isinstance(a, torch.Tensor) and a.is_floating_point())
+    args[i] = args[i].detach().requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        fn(*args, **kw)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+def test_train_step_on_the_card_matches_the_cpu_resnet18conv4():
+    """F17b: one triplet step of dvgl's resnet18conv4 + NetVLAD-64 at
+    480x640 (1 + 1 + 2 images) with cuDNN's flags at PyTorch's defaults:
+    each gradient no farther from a CPU float64 run than 10x the CPU's
+    float32 run (a random init's gradients are ill-conditioned), and each
+    of its convolutions at the step's shapes with input and weight
+    gradients within 1e-4 of the CPU's largest |value| (a TF32 backward
+    misses that by ~3x-9x)."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    assert torch.backends.cudnn.allow_tf32   # PyTorch's default, untouched
+    r = train_checks.compare_step("resnet18conv4")
+    assert r["ok"], train_checks.step_line(r)
+    r = train_checks.compare_convs("resnet18conv4")
+    assert r["ok"], train_checks.convs_line(r)
+    assert torch.backends.cudnn.conv.fp32_precision != "ieee"
+
+
+def test_inference_paths_launch_as_before_and_save_nothing():
+    """The vit backbone's forward at 224 px under inference_mode and under
+    no_grad (parameters requiring gradients): K5 launches once a block,
+    as before F18, and nothing is saved for a backward; with grad on the
+    same launches, through the autograd.Function."""
+    from anyloc_tpu_torch.ops import kernels as K
+
+    model = materialize_geo_vit()
+    x = _randn(2, 224, 224, 3)
+    saved = []
+
+    def pack(t):
+        saved.append(t.shape)
+        return t
+
+    for mode in (torch.inference_mode, torch.no_grad):
+        K.reset_launch_counts()
+        with mode(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = model(x)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["K5_flash_attention_qkv_proj"] == 12
+        assert out.grad_fn is None and saved == []
+    K.reset_launch_counts()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = model(x)
+    assert K.launch_counts()["K5_flash_attention_qkv_proj"] == 12
+    assert saved and out.grad_fn is not None
+    out.sum().backward()
+    assert model.backbone.patch_embed.proj.weight.grad.abs().max() > 0
+
+
+def materialize_geo_vit():
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.training.network import GeoLocalizationNet
+
+    return materialize(lambda: GeoLocalizationNet("vit", "netvlad", 64, img_size=224), None,
+                       "cuda", seed=0).requires_grad_(True)

@@ -256,6 +256,34 @@ def test_serve_warms_before_it_accepts_traffic(tmp_path, monkeypatch):
         assert calls == want, kw
 
 
+def test_serve_queues_a_burst_of_connections_before_it_accepts(tmp_path):
+    """64 clients connect while the accept loop is not yet running: each
+    handshake completes into the listen backlog at once (socketserver's
+    default backlog of 5 drops the rest into a 1-s SYN retry, or resets
+    them), and each is answered once the loop starts."""
+    import socket
+
+    server = serve_http.build_server(_args(_vocab(tmp_path, 5), warm=False), device="cpu")
+    port = server.server_address[1]
+    socks, loop = [], threading.Thread(target=server.serve_forever, daemon=True)
+    try:
+        for _ in range(64):
+            s = socket.create_connection(("127.0.0.1", port), timeout=0.5)
+            s.settimeout(60)
+            s.sendall(b"GET /health HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+            socks.append(s)
+        loop.start()
+        for s in socks:
+            with s.makefile("rb") as f:
+                assert f.readline().split()[1] == b"200"
+    finally:
+        for s in socks:
+            s.close()
+        if loop.is_alive():   # shutdown() waits for a loop that runs
+            server.shutdown()
+        server.server_close()
+
+
 def test_serve_mesh_raises_naming_its_queue_item(tmp_path):
     with pytest.raises(NotImplementedError, match='port queue: "parallel/ on torch.distributed"'):
         cli.main(["serve", "--vocab-dir", str(tmp_path), "--mesh", "2"], device="cpu")

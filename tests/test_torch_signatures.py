@@ -30,12 +30,13 @@ DROPPED = {
     ("ops.quant", "quantize_vit_params"): (
         {"params"}, {"state_dict"}, "it quantizes the port's state dict (in the same "
                                     "position), not a Flax tree"),
+    **{("data.augment", name): ({"key"}, {"generator"}, "F2: the draws come from a "
+                                "torch.Generator in the key's position")
+       for name in ("color_jitter", "random_resized_crop", "random_rotation",
+                    "random_perspective")},
 }
 # not ported yet: each raises NotImplementedError naming its port-queue item
-STUBS = {
-    ("pipelines.extras", "ContrastiveMLP"), ("pipelines.extras", "contrastive_loss"),
-    ("pipelines.extras", "make_contrastive_train_step"),
-}
+STUBS = set()
 
 
 def _shared():

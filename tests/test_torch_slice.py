@@ -343,29 +343,10 @@ def _port_queue_titles():
             for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)}
 
 
-def _extras(name):
-    from anyloc_tpu_torch.pipelines import extras
-
-    return getattr(extras, name)()
-
-
-def _training(name):
-    from anyloc_tpu_torch import training
-
-    return getattr(training, name)
-
-
 def _geo(**kw):
     from anyloc_tpu_torch.training.network import GeoLocalizationNet
 
     return GeoLocalizationNet(**kw)
-
-
-def _geo_train():
-    from anyloc_tpu_torch.models.convert import materialize
-
-    net = materialize(lambda: _geo(aggregation="gem"), None, "cpu")
-    return net(torch.zeros(1, 32, 32, 3), train=True)
 
 
 def _training_call(module, name, *args):
@@ -375,29 +356,14 @@ def _training_call(module, name, *args):
 
 
 NOT_PORTED = {
-    **{f"cli {cmd}": (lambda cmd=cmd: port_cli.main([cmd, "--help"]))
-       for cmd in ("train", "viz")},
+    "cli viz": lambda: port_cli.main(["viz", "--help"]),
     "serve --mesh": lambda: port_cli.main(["serve", "--vocab-dir", ".", "--mesh", "2"]),
     "sweep --plot": lambda: port_cli.main(["sweep", "--plot"]),
-    **{f"extras.{name}": (lambda name=name: _extras(name))
-       for name in ("ContrastiveMLP", "contrastive_loss", "make_contrastive_train_step")},
     "GeoLocalizationNet(sync_axis=...)": lambda: _geo(sync_axis="data"),
-    "GeoLocalizationNet(remat=True)": lambda: _geo(backbone="vit", aggregation="cls", remat=True),
-    "GeoLocalizationNet(...)(train=True)": _geo_train,
-    "NetVLAD.init_from_descriptors": lambda: _training_call(
-        "training.aggregators", "NetVLAD").init_from_descriptors({}, None),
-    "make_freeze_te_mask": lambda: _training_call("training.network", "make_freeze_te_mask", 3),
-    "resume_train": lambda: _training_call("utils.checkpoint", "resume_train", "."),
     "load_checkpoint(target=...)": lambda: _training_call("utils.checkpoint", "load_checkpoint",
                                                           ".", object()),
-    **{f"training.{name}": (lambda name=name: _training(name))
-       for name in ("TripletTrainState", "make_triplet_train_step", "triplet_margin_loss",
-                    "sare_ind_loss", "sare_joint_loss", "TripletMiner", "train_triplet",
-                    "train_cli", "assign_classes", "MarginCosineProduct", "cosface_loss_fn",
-                    "CosPlaceTrainState", "make_cosplace_train_step")},
     "DescriptorEngine(mesh=...)": lambda: port.DescriptorEngine(mesh=object(), device="cpu"),
     "ViT(ViTConfig(tp_split=True))": lambda: _trunk(tp_split=True),
-    "ViT(ViTConfig(remat=True))": lambda: _trunk(remat=True),
     "convert_dino_v1(tp_split=True)": lambda: _convert_tp_split(),
 }
 
