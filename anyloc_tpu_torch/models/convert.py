@@ -65,12 +65,14 @@ def strip_prefix(sd: Mapping, prefix: str) -> Dict:
 
 
 def maybe_tp_split(params: Dict, cfg) -> Dict:
-    """The tree unchanged unless ``cfg.tp_split`` asks for the
-    tensor-parallel layouts, which the port has not reached."""
+    """Honour ``ViTConfig.tp_split`` for the converters that emit the fused
+    layouts: ``attn.qkv`` -> ``attn.wq / wk / wv`` and SwiGLU ``mlp.w12``
+    -> ``mlp.w1 / w2`` (``parallel/tp.py::split_fused_params``), so every
+    family's dict loads into a ``tp_split`` trunk."""
     if cfg.tp_split:
-        raise NotImplementedError(
-            'tp_split is not ported yet (ROADMAP.md, port queue: "parallel/ on '
-            'torch.distributed")')
+        from anyloc_tpu_torch.parallel.tp import split_fused_params
+
+        return split_fused_params(params)
     return params
 
 

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from anyloc_tpu_torch.models.convert import from_jax_params  # noqa: F401 (the JAX tree's loader)
+from anyloc_tpu_torch.models.convert import (from_jax_params,  # noqa: F401 (the JAX tree's loader)
+                                             maybe_tp_split)
 from anyloc_tpu_torch.models.hf_convert import ensure_native_naming
 from anyloc_tpu_torch.models.vit import ViT, ViTConfig
 from anyloc_tpu_torch.ops.quant import quantize_vit_params
@@ -136,8 +137,9 @@ def build_vit(cfg: ViTConfig, state_dict: Mapping, n_blocks: Optional[int] = Non
     quantized ``cfg`` in ``quantize_vit_params``' layout). Every tensor
     takes the type its module declares: ``cfg.dtype``, except that a
     quantized trunk keeps int8 codes and f32 scales, biases of int8 layers,
-    LayerNorm parameters and LayerScale gammas."""
-    sd = native_state_dict(state_dict, n_blocks)
+    LayerNorm parameters and LayerScale gammas. A ``tp_split`` cfg splits a
+    fused dict's qkv / w12 (``maybe_tp_split``), as the JAX converter does."""
+    sd = maybe_tp_split(native_state_dict(state_dict, n_blocks), cfg)
     with torch.device("meta"):
         model = ViT(cfg, n_blocks)
     declared = {**dict(model.named_parameters()), **dict(model.named_buffers())}

@@ -103,6 +103,14 @@ class ViTFacetExtractor:
         return self._post(self.model(self._images(imgs), capture_layer=self.layer,
                                      capture_facet=self.facet))
 
+    def _forward(self, params, imgs) -> torch.Tensor:
+        """The JAX extractors' forward hook ``_forward(params, imgs)``, which
+        ``DescriptorEngine(mesh=...)`` runs on each rank's images. The
+        module holds its weights, so ``params`` is None."""
+        if params is not None:
+            raise ValueError("the port's extractor holds its weights: pass params=None")
+        return self(imgs)
+
     @torch.inference_mode()
     def extract_multilayer(self, imgs, layers) -> dict:
         """Facets of several layers from one trunk pass (the reference's

@@ -109,7 +109,9 @@ class ViTConfig:
     # routes by device: the kernels on the card, their plain versions on the CPU)
     quant: Optional[str] = None    # None | "int8" | "int8_mlp" | "int8_fused" | "int8_full"
     attn_pack_pairs: bool = False  # taken, not read: a TPU MXU tiling of int8_full
-    tp_split: bool = False         # split qkv / w12 layouts: the trunk and the converters raise
+    tp_split: bool = False         # wq / wk / wv and SwiGLU w1 / w2 stored apart (tensor
+    # parallelism shards them head- and gate-aligned, parallel/tp.py); the fused facet
+    # layout is their concatenation, and the K4 / K3 halves (fused layouts) do not run
     remat: bool = False            # recompute each block in the backward (activation memory)
 
     def __post_init__(self) -> None:
@@ -126,6 +128,13 @@ class ViTConfig:
                 # the int8 kernels' MLP is exact GELU or SwiGLU, and QLinear
                 # carries a bias: the int8 modes are the DINOv2 family's
                 raise ValueError("the int8 modes need act='gelu' and qkv_bias (DINOv2 trunks)")
+
+        if self.tp_split and self.quant == "int8_fused":
+            # F23: int8_fused quantizes the MLP for its K3 half, which needs the
+            # fused layouts; the JAX tp_split trunk then builds a float MLP that
+            # cannot take its own quantized tree
+            raise ValueError("tp_split cannot run quant='int8_fused' (its int8 MLP half needs "
+                             "the fused w12 / fc layouts); use 'int8_mlp', 'int8' or 'int8_full'")
 
     def quantizes(self, name: str) -> bool:
         """Whether the block Linear ``name`` (qkv, proj, fc1, fc2, w12, w3)
@@ -284,13 +293,25 @@ def _linear(cfg: ViTConfig, name: str, in_f: int, out_f: int, device,
 
 
 class Attention(nn.Module):
-    """Fused-qkv attention (the facet API slices the fused qkv output)."""
+    """Fused-qkv attention (the facet API slices the fused qkv output); with
+    ``tp_split`` three towers wq / wk / wv whose outputs concatenate to the
+    same [B, N, 3D] layout (q|k|v, head-minor)."""
 
     def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
         d = cfg.embed_dim
-        self.qkv = _linear(cfg, "qkv", d, 3 * d, device, bias=cfg.qkv_bias)
+        if cfg.tp_split:
+            for name in ("wq", "wk", "wv"):
+                setattr(self, name, _linear(cfg, name, d, d, device, bias=cfg.qkv_bias))
+        else:
+            self.qkv = _linear(cfg, "qkv", d, 3 * d, device, bias=cfg.qkv_bias)
         self.proj = _linear(cfg, "proj", d, d, device)
+
+    def qkv_out(self, h: torch.Tensor) -> torch.Tensor:
+        """The fused [B, N, 3D] qkv of the normalized tokens ``h``."""
+        if hasattr(self, "qkv"):
+            return self.qkv(h)
+        return torch.cat([self.wq(h), self.wk(h), self.wv(h)], dim=-1)
 
 
 class Mlp(nn.Module):
@@ -308,14 +329,29 @@ class Mlp(nn.Module):
 
 
 class SwiGLUFFNFused(nn.Module):
+    """SwiGLU with the fused [D, 2H] gate pair w12, or with ``tp_split``
+    the gate-aligned towers w1 / w2."""
+
     def __init__(self, cfg: ViTConfig, device=None) -> None:
         super().__init__()
-        self.w12 = _linear(cfg, "w12", cfg.embed_dim, 2 * cfg.mlp_hidden, device)
-        self.w3 = _linear(cfg, "w3", cfg.mlp_hidden, cfg.embed_dim, device)
+        h = cfg.mlp_hidden
+        if cfg.tp_split:
+            self.w1 = _linear(cfg, "w1", cfg.embed_dim, h, device)
+            self.w2 = _linear(cfg, "w2", cfg.embed_dim, h, device)
+        else:
+            self.w12 = _linear(cfg, "w12", cfg.embed_dim, 2 * h, device)
+        self.w3 = _linear(cfg, "w3", h, cfg.embed_dim, device)
+
+    def gates(self, x: torch.Tensor) -> torch.Tensor:
+        """silu(x·W1) * (x·W2): the input of w3."""
+        if hasattr(self, "w12"):
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+        else:
+            x1, x2 = self.w1(x), self.w2(x)
+        return F.silu(x1) * x2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        return self.w3(self.gates(x))
 
     def int8_layers(self):
         return self.w12, self.w3
@@ -340,6 +376,7 @@ class Block(nn.Module):
         if cfg.layerscale_init is not None:
             self.ls1 = LayerScale(d, cfg.layerscale_init, **keep)
             self.ls2 = LayerScale(d, cfg.layerscale_init, **keep)
+        self.tp = None   # (mesh, axis) of a tensor-parallel block (parallel/tp.py::shard_vit_tp)
 
     def gamma(self, i: int) -> Optional[torch.Tensor]:
         """LayerScale ``i``'s gamma, or None without LayerScale."""
@@ -349,16 +386,26 @@ class Block(nn.Module):
         return x if self.cfg.layerscale_init is None else getattr(self, f"ls{i}")(x)
 
     def forward(self, x: torch.Tensor, qkv_only: bool = False, return_qkv: bool = False,
-                return_attn_probs: bool = False):
+                return_attn_probs: bool = False, attn_fn=None):
         """The block; ``qkv_only``: norm1 + qkv only, returns the fused
         [B, N, 3D] qkv; ``return_qkv``: (block output, qkv), the int8_full
         attention half then unfused as in the JAX trunk;
         ``return_attn_probs``: the post-softmax attention [B, H, N, N] f32
-        (plain attention on every device, as in the JAX trunk)."""
+        (plain attention on every device, as in the JAX trunk);
+        ``attn_fn(q, k, v)``: the caller's attention over the head-split
+        [B, H, N, hd] tensors in place of the trunk's (the JAX hook, where
+        the sequence-parallel ring goes, ``parallel/sp.py``)."""
         c = self.cfg
         b, n, d = x.shape
+        if self.tp is not None:
+            from anyloc_tpu_torch.parallel.tp import tp_block_forward
+
+            if return_qkv or return_attn_probs or attn_fn is not None:
+                raise ValueError("a tensor-parallel block returns its output or its qkv only")
+            return tp_block_forward(self, x, qkv_only=qkv_only)
         if (c.quant == "int8_full" and not (qkv_only or return_qkv or return_attn_probs)
-                and n <= MAX_FUSED_TOKENS and attn_geometry_ok(c.num_heads, c.head_dim)):
+                and attn_fn is None and not c.tp_split and n <= MAX_FUSED_TOKENS
+                and attn_geometry_ok(c.num_heads, c.head_dim)):
             # K4: norm1 + int8 qkv + attention + int8 proj + ls1 + residual
             qkv, proj = self.attn.qkv, self.attn.proj
             x = fused_attn_half_int8(
@@ -367,7 +414,7 @@ class Block(nn.Module):
                 ln_params=(self.norm1.weight, self.norm1.bias), ln_eps=c.ln_eps,
                 layerscale=self.gamma(1))
             return self._mlp_half(x)
-        qkv = self.attn.qkv(layer_norm(c, self.norm1, x))   # [B, N, 3D] facet source
+        qkv = self.attn.qkv_out(layer_norm(c, self.norm1, x))   # [B, N, 3D] facet source
         if qkv_only:
             return qkv
         if return_attn_probs:
@@ -376,14 +423,14 @@ class Block(nn.Module):
                     for i in range(2))
             s = (q * hd ** -0.5).float() @ k.float().transpose(-1, -2)
             return torch.softmax(s, dim=-1)
-        x = self._attn_half(x, qkv)
+        x = self._attn_half(x, qkv, attn_fn)
         out = self._mlp_half(x)
         return (out, qkv) if return_qkv else out
 
-    def _attn_half(self, x: torch.Tensor, qkv: torch.Tensor) -> torch.Tensor:
+    def _attn_half(self, x: torch.Tensor, qkv: torch.Tensor, attn_fn=None) -> torch.Tensor:
         c = self.cfg
         b, n, d = x.shape
-        if n <= MAX_FUSED_TOKENS and c.quant not in ("int8", "int8_full"):
+        if n <= MAX_FUSED_TOKENS and c.quant not in ("int8", "int8_full") and attn_fn is None:
             # K5: attention + proj (+ LayerScale) + residual from the raw qkv
             x = flash_attention_qkv_proj(
                 qkv, self.attn.proj.weight.t(), self.attn.proj.bias,
@@ -393,13 +440,13 @@ class Block(nn.Module):
             h, hd = c.num_heads, c.head_dim
             q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2)
                        for i in range(3))
-            o = flash_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+            o = (attn_fn or flash_attention)(q, k, v).transpose(1, 2).reshape(b, n, d)
             x = x + self._scale(1, self.attn.proj(o))
         return x
 
     def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        if c.quant not in ("int8_fused", "int8_full"):
+        if c.quant not in ("int8_fused", "int8_full") or c.tp_split:
             return x + self._scale(2, self.mlp(layer_norm(c, self.norm2, x)))
         ln = (self.norm2.weight, self.norm2.bias)
         if int8_mlp_geometry_ok(c.mlp_type, c.mlp_hidden):
@@ -452,9 +499,6 @@ class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, n_blocks: Optional[int] = None,
                  device=None) -> None:
         super().__init__()
-        if cfg.tp_split:
-            raise NotImplementedError('ViTConfig.tp_split is not ported yet (ROADMAP.md, port '
-                                      'queue: "parallel/ on torch.distributed")')
         factory = dict(device=device, dtype=cfg.dtype)
         # LayerNorms outside the blocks are f32 in a quantized trunk
         ln = dict(eps=cfg.ln_eps, device=device,

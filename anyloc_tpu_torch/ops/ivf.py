@@ -84,9 +84,18 @@ class IVFIndex:
 
 
 def _ivf_search(cells, buckets, bucket_ids, overflow, overflow_ids, qu, *, k: int,
-                n_probe: int, method: str, qb: int):
+                n_probe: int, method: str, qb: int, local_lo: Optional[int] = None,
+                overflow_gate: Optional[bool] = None):
+    """``local_lo`` / ``overflow_gate``: the cell-sharded hooks
+    (``parallel/distributed.py::ivf_search_sharded``). With ``local_lo``,
+    ``buckets`` / ``bucket_ids`` hold only the cell window [local_lo,
+    local_lo + buckets.shape[0]) while the probe stays global over the
+    replicated ``cells``: probed cells outside the window take id -1 (their
+    scores -inf). ``overflow_gate`` False masks the shared overflow pool
+    the same way, so that one shard alone scores it. None / None is the
+    unsharded search."""
     nq, d = qu.shape
-    cap = buckets.shape[1]
+    n_local, cap = buckets.shape[0], buckets.shape[1]
     tops, ids = [], []
     for q0 in range(0, nq, qb):
         q = qu[q0:q0 + qb]
@@ -99,8 +108,15 @@ def _ivf_search(cells, buckets, bucket_ids, overflow, overflow_ids, qu, *, k: in
             cell_scores = -((q * q).sum(-1, keepdim=True) - 2.0 * (q @ cells.T)
                             + (cells * cells).sum(-1))
         _, probe = _topk_stable(cell_scores, n_probe)                 # [b, n_probe]
-        cand = buckets[probe].reshape(b, n_probe * cap, d)             # the IVF working set
-        cand_ids = bucket_ids[probe].reshape(b, n_probe * cap).long()
+        if local_lo is None:
+            cand = buckets[probe].reshape(b, n_probe * cap, d)         # the IVF working set
+            cand_ids = bucket_ids[probe].reshape(b, n_probe * cap).long()
+        else:
+            # the window's cells; another shard's probed cells mask to id -1
+            lp = (probe - local_lo).clamp(0, n_local - 1)
+            own = ((probe >= local_lo) & (probe < local_lo + n_local))[:, :, None]
+            cand = buckets[lp].reshape(b, n_probe * cap, d)
+            cand_ids = torch.where(own, bucket_ids[lp].long(), -1).reshape(b, n_probe * cap)
         dots = torch.bmm(cand, q[:, :, None])[..., 0]
         q_sq = (q * q).sum(-1, keepdim=True)
         s = dots if method == "cosine" else -((cand * cand).sum(-1) - 2.0 * dots + q_sq)
@@ -109,8 +125,11 @@ def _ivf_search(cells, buckets, bucket_ids, overflow, overflow_ids, qu, *, k: in
             so = q @ overflow.T
             if method != "cosine":
                 so = -((overflow * overflow).sum(-1) - 2.0 * so + q_sq)
+            o_ids = overflow_ids.long()[None].expand(b, -1)
+            if overflow_gate is not None and not overflow_gate:
+                so, o_ids = torch.full_like(so, float("-inf")), torch.full_like(o_ids, -1)
             s = torch.cat([s, so], dim=1)
-            cand_ids = torch.cat([cand_ids, overflow_ids.long()[None].expand(b, -1)], dim=1)
+            cand_ids = torch.cat([cand_ids, o_ids], dim=1)
         top, pos = _topk_stable(s, k)
         tops.append(top if method == "cosine" else -top)   # l2: positive squared distances
         ids.append(torch.gather(cand_ids, 1, pos))

@@ -139,7 +139,14 @@ class IVFPQIndex:
 
 def _ivf_pq_search(cells, codebooks, codes, bucket_ids, recon_sq, overflow_codes,
                    overflow_cell, overflow_ids, overflow_recon_sq, qu, *, k: int, n_probe: int,
-                   method: str, qb: int, cand_chunk: int, score_dtype: str):
+                   method: str, qb: int, cand_chunk: int, score_dtype: str,
+                   local_lo: Optional[int] = None, overflow_gate: Optional[bool] = None):
+    """``local_lo`` / ``overflow_gate``: the cell-sharded hooks of
+    ``ops/ivf.py::_ivf_search`` (``parallel/distributed.py::
+    ivf_pq_search_sharded``): ``codes`` / ``bucket_ids`` / ``recon_sq``
+    hold the cell window [local_lo, local_lo + codes.shape[0]), the probe
+    stays global, foreign cells and a gated-off overflow pool mask to id
+    -1. None / None is the unsharded search."""
     if method not in ("cosine", "l2"):
         raise ValueError(f"Unknown method: {method}")
     nq, d = qu.shape
@@ -163,10 +170,17 @@ def _ivf_pq_search(cells, codebooks, codes, bucket_ids, recon_sq, overflow_codes
         # cell-independent ADC tables t[q, m, c] = <q_m, cb[m, c]>
         t = torch.einsum("qmd,mcd->qmc", q.reshape(b, m, d // m), codebooks)
         t = t.reshape(b, m * c).to(tdt)
-        cand_ids = bucket_ids[probe].reshape(b, L).long()
-        cand_rsq = recon_sq[probe].reshape(b, L)
+        if local_lo is None:
+            lp = probe
+            cand_ids = bucket_ids[probe].reshape(b, L).long()
+        else:
+            # the window's cells; another shard's probed cells mask to id -1
+            lp = (probe - local_lo).clamp(0, n_cells - 1)
+            own = ((probe >= local_lo) & (probe < local_lo + n_cells))[:, :, None]
+            cand_ids = torch.where(own, bucket_ids[lp].long(), -1).reshape(b, L)
+        cand_rsq = recon_sq[lp].reshape(b, L)
         bias = torch.gather(cell_dot, 1, probe)[:, :, None].expand(b, n_probe, cap).reshape(b, L)
-        adc = [adc_sums(t, codes[probe[:, p0:p0 + probes_per_chunk]].reshape(b, -1, m).long()
+        adc = [adc_sums(t, codes[lp[:, p0:p0 + probes_per_chunk]].reshape(b, -1, m).long()
                         + offs, m) for p0 in range(0, n_probe, probes_per_chunk)]
         core = torch.cat(adc, dim=1) + bias                                  # <q, x̂>
         q2 = (q * q).sum(-1, keepdim=True)
@@ -178,8 +192,11 @@ def _ivf_pq_search(cells, codebooks, codes, bucket_ids, recon_sq, overflow_codes
             so = so + cell_dot[:, overflow_cell.long()]
             if method == "l2":
                 so = -(q2 - 2.0 * so + overflow_recon_sq[None])
+            o_ids = overflow_ids.long()[None].expand(b, -1)
+            if overflow_gate is not None and not overflow_gate:
+                so, o_ids = torch.full_like(so, float("-inf")), torch.full_like(o_ids, -1)
             s = torch.cat([s, so], dim=1)
-            cand_ids = torch.cat([cand_ids, overflow_ids.long()[None].expand(b, -1)], dim=1)
+            cand_ids = torch.cat([cand_ids, o_ids], dim=1)
         top, pos = _topk_stable(s, k)
         tops.append(-top if method == "l2" else top)   # l2: positive squared distances
         idx.append(torch.gather(cand_ids, 1, pos))

@@ -128,7 +128,12 @@ def adc_sums(tables: torch.Tensor, flat_codes: torch.Tensor, m: int) -> torch.Te
 
 
 def _pq_search_block(codebooks, codes, qu, *, k: int, nb: int, method: str, score_dtype: str,
-                     scan: str):
+                     scan: str, n_valid: Optional[int] = None):
+    """``n_valid`` (the sharded hook, ``parallel/distributed.py::
+    pq_search_sharded``): rows at or past it are the padding of a sharded
+    code matrix and score -inf before the running top-k. A zero code
+    decodes to codeword 0's reconstruction, a real vector that could
+    otherwise evict a true top-k row from the shard's partial."""
     m, c, ds = codebooks.shape
     n, qb, dev = codes.shape[0], qu.shape[0], qu.device
     if method not in ("l2", "cosine"):
@@ -159,6 +164,8 @@ def _pq_search_block(codebooks, codes, qu, *, k: int, nb: int, method: str, scor
                 s = 2.0 * s - (xhat * xhat).sum(-1)[:, None]
             s = s.T
         ids = torch.arange(start, start + cc.shape[0], device=dev)
+        if n_valid is not None:
+            s = torch.where(ids[None] < n_valid, s, float("-inf"))
         best_s, sel = _topk_stable(torch.cat([best_s, s], dim=1), k)
         best_i = torch.gather(torch.cat([best_i, ids[None].expand(qb, -1)], dim=1), 1, sel)
     return best_s, best_i

@@ -1,5 +1,5 @@
 """DescriptorEngine — batched patch-descriptor extraction over a dataset
-(counterpart of ``anyloc_tpu/pipelines/engine.py``, one device).
+(counterpart of ``anyloc_tpu/pipelines/engine.py``).
 
 Static-shape batches from ``dataset.batches()`` (host prefetch thread),
 center-crop to a patch multiple once per batch, one truncated trunk
@@ -8,6 +8,13 @@ device before batch i's result is copied back, so the card is never idle
 on the copy. With ``cache_dir`` the results that come home are kept in a
 sharded ``DescriptorCache`` keyed by the extraction config and the
 dataset's identity (the JAX package's keys and layout).
+
+With ``mesh`` (``parallel/mesh.py``) every rank of the mesh runs the
+engine on the same dataset: each batch's images shard over the ``data``
+axis, each rank runs its block (and, with an aggregation, aggregates it),
+and the outputs are all-gathered (``sharded_extract_fn``), so every rank
+gets the whole result. Rank 0 alone writes the descriptor cache; the
+others wait for it and read what it wrote.
 """
 
 from __future__ import annotations
@@ -46,12 +53,10 @@ class DescriptorEngine:
         card. ``extractor`` replaces the model built from ``model_type``
         (its own device is then used). ``cache_dir`` keeps what
         ``extract_dataset`` and ``extract_aggregated_dataset`` bring home in
-        a ``DescriptorCache`` there. ``mesh`` (the JAX package's sharded
-        extraction) must be None until ``parallel/`` is ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                'DescriptorEngine(mesh=...) is not ported yet (ROADMAP.md, port queue: '
-                '"parallel/ on torch.distributed")')
+        a ``DescriptorCache`` there. ``mesh`` shards the batches' images
+        over its ``data`` axis (module docstring); the extractor must have
+        the ``_forward(params, images)`` hook. Where it has none the engine
+        raises (the JAX engine warns and runs on one device)."""
         if transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype must be 'float32' or 'uint8', got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
@@ -69,6 +74,10 @@ class DescriptorEngine:
                              f"{type(extractor).__name__}; use 'float32'")
         self.extractor = extractor
         self.patch = getattr(extractor.cfg, "patch_size", 14)
+        self.mesh = mesh
+        if mesh is not None and not hasattr(extractor, "_forward"):
+            raise ValueError(f"mesh given but {type(extractor).__name__} has no sharded-"
+                             "forward hook (_forward)")
         # the key names everything that changes the descriptors: the
         # checkpoint (random and real weights never share a cache) and, for
         # a caller's extractor, its class (the arguments do not describe it)
@@ -87,6 +96,50 @@ class DescriptorEngine:
 
     def _crop(self, images: np.ndarray) -> np.ndarray:
         return np.stack([center_crop_multiple(im, self.patch) for im in images])
+
+    def _run(self, images: np.ndarray, aggregate=None) -> torch.Tensor:
+        """One batch of cropped images -> the extractor's output (through
+        ``aggregate`` when given) for every image, queued on the device;
+        under the mesh each rank runs its block and the outputs gather."""
+        if self.mesh is None:
+            res = self.extractor(images)
+            return aggregate(res) if aggregate is not None else res
+        from anyloc_tpu_torch.parallel.distributed import sharded_extract_fn
+
+        def apply(params, imgs):
+            res = self.extractor._forward(params, imgs)
+            return aggregate(res) if aggregate is not None else res
+
+        out, n_valid = sharded_extract_fn(apply, self.mesh, as_numpy=False)(None, images)
+        return out[:n_valid]
+
+    def extract_batch(self, images: np.ndarray) -> np.ndarray:
+        """[B, H, W, 3] -> [B, P, D] float32 (center-cropped to the patch
+        grid); under the mesh the patches of every rank's images gather."""
+        return self._run(self._crop(images)).cpu().numpy()
+
+    def _cached(self, key: str, n_items: int, compute) -> np.ndarray:
+        """``desc_cache.get_or_compute``; under a mesh of several ranks
+        every rank joins the computation (it is collective), rank 0 alone
+        writes, and the others read what it wrote after a barrier."""
+        import torch.distributed as dist
+
+        if self.mesh is None or dist.get_world_size() == 1:
+            return self.desc_cache.get_or_compute(key, n_items, compute)
+        from anyloc_tpu_torch.parallel.mesh import barrier, broadcast_object
+
+        rank0 = dist.get_rank() == 0
+        hit = broadcast_object(self.desc_cache.has(key, n_items) if rank0 else None)
+        out = None
+        if not hit:
+            out = compute()
+            if rank0:
+                if len(out) < n_items:
+                    raise ValueError(f"compute() returned {len(out)} items but {n_items} "
+                                     f"were promised for cache key {key!r}")
+                self.desc_cache.write(key, out)
+        barrier()
+        return out if (rank0 and out is not None) else self.desc_cache.read(key, n_items)
 
     def _empty_shape(self, dataset) -> tuple:
         """(0, P, D) for an empty selection: P from the dataset's load size
@@ -113,7 +166,7 @@ class DescriptorEngine:
             empty = np.zeros(self._empty_shape(dataset), np.float32)
             return torch.from_numpy(empty).to(self.extractor.device) if keep_on_device else empty
         if self.desc_cache is not None and not keep_on_device:
-            return self.desc_cache.get_or_compute(
+            return self._cached(
                 self._cache_key(dataset, which, sub_sample, idx), len(idx),
                 lambda: self._extract_dataset(dataset, which, sub_sample, verbose))
         return self._extract_dataset(dataset, which, sub_sample, verbose,
@@ -141,7 +194,7 @@ class DescriptorEngine:
         names the aggregation in the descriptor cache."""
         if self.desc_cache is not None:
             idx = dataset.indices(which, sub_sample)
-            return self.desc_cache.get_or_compute(
+            return self._cached(
                 f"{agg_key}_{self._cache_key(dataset, which, sub_sample, idx)}", len(idx),
                 lambda: self._extract_dataset(dataset, which, sub_sample, verbose,
                                               aggregate=aggregate))
@@ -166,8 +219,7 @@ class DescriptorEngine:
         parts = []
 
         def dispatch(imgs):
-            res = self.extractor(self._crop(imgs))   # queued on the device
-            return aggregate(res) if aggregate is not None else res
+            return self._run(self._crop(imgs), aggregate)   # queued on the device
 
         def drain(pending):
             nonlocal out, done

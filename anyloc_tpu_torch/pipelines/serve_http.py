@@ -34,8 +34,23 @@ its own size and its largest ``k``, each request keeps its own first
 ``k``. What must be warm is the CUDA kernels' library, which ``nvcc``
 builds at the first launch: the service launches the trunk, VLAD and the
 search once before it accepts traffic (at ``--img-size``, else at 224 px);
-``--no-warm`` only builds the library. ``--mesh`` (a database sharded over
-devices) is not ported.
+``--no-warm`` only builds the library.
+
+``--mesh N`` shards the DATABASE over N ranks, for every engine (exact,
+``--pq``, ``--ivf``), through the sharded engines of ``parallel/``: each
+rank's card holds ~1/N of it and the replies equal the unsharded daemon's.
+The engine name gains ``+meshN``. The exact engine's ranks each read
+their own rows of ``--db``; an index is fit on rank 0 and reaches the
+other ranks as a file in a temporary directory (the ranks share a host),
+so no whole store crosses the group. A failed sharded search stops the
+daemon: the ranks are out of step after it, so rank 0 answers the
+requests in flight with the error, shuts the server down and raises. ``--mesh 1`` runs in a plain process; a
+larger mesh needs a world of N ranks, one per card:
+``torchrun --nproc-per-node N -m anyloc_tpu_torch serve ... --mesh N``.
+Rank 0 serves HTTP and runs the trunk and the dispatcher; for each group
+with searches it broadcasts the query descriptors and ``k``, and the other
+ranks, which only hold their database shards, run a follow loop that
+joins the sharded search.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -111,6 +127,8 @@ class _Batcher:
         self.n_overlapped = 0
         self.stages: dict = {}
         self.closed = False
+        self.failed: Optional[Exception] = None   # a sharded search's error: stopped
+        self.on_fatal = None   # called once ``failed`` is set (the server's shutdown)
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
 
@@ -130,6 +148,9 @@ class _Batcher:
     def submit(self, req: _Request) -> _Request:
         req.t_submit = time.monotonic()
         with self.cv:
+            if self.failed is not None:
+                raise RuntimeError("the daemon stopped after a sharded search failed") \
+                    from self.failed
             self.queue.append(req)
             self.cv.notify_all()
         req.event.wait()
@@ -185,6 +206,12 @@ class _Batcher:
                 except Exception as e:
                     for r in pgroup:
                         r.error = e
+                    if self.svc.mesh is not None:
+                        # the sharded search's collectives failed part-way:
+                        # the other ranks are out of step, so nothing more
+                        # may run on the group
+                        self._fail(e, group)
+                        return
                 finally:
                     for r in pgroup:
                         r.event.set()
@@ -192,6 +219,18 @@ class _Batcher:
                     self.n_pipelined += 1
                     self.n_overlapped += int(not state[1]["event"].query())
             pending = state
+
+    def _fail(self, error: Exception, group: list) -> None:
+        """Stop: answer ``group`` and the queued requests with ``error``,
+        refuse new ones, and call ``on_fatal``."""
+        with self.cv:
+            self.failed = error
+            for r in group + self.queue:
+                r.error = error
+                r.event.set()
+            self.queue.clear()
+        if self.on_fatal is not None:
+            self.on_fatal()
 
     def _rows(self, t: torch.Tensor, rows: list) -> torch.Tensor:
         """The rows ``rows`` of ``t``, selected on its device."""
@@ -220,8 +259,14 @@ class _Batcher:
         if searches:
             kmax = min(max(r.k for _, r in searches), svc.db_rows)
             qu = self._rows(vlads, [i for i, _ in searches])
-            s, idx = svc.search_fn(qu, kmax)
-            state.update(searches=searches, kmax=kmax, s=_to_host(s), idx=_to_host(idx))
+            state.update(searches=searches, kmax=kmax)
+            if svc.mesh is not None:
+                # the sharded search waits for its collectives: it runs in
+                # _finish, so this dispatch stays asynchronous
+                state["search_thunk"] = lambda: svc.mesh_search(qu, kmax)
+            else:
+                s, idx = svc.search_fn(qu, kmax)
+                state.update(s=_to_host(s), idx=_to_host(idx))
         if svc.device.type == "cuda":
             state["event"] = torch.cuda.Event()
             state["event"].record()
@@ -234,8 +279,10 @@ class _Batcher:
         t0 = time.monotonic()
         if state.get("event") is not None:
             state["event"].synchronize()
+        if "search_thunk" in state:
+            state["s"], state["idx"] = state.pop("search_thunk")()
         if "searches" in state:
-            s, idx = state["s"].numpy(), state["idx"].numpy()
+            s, idx = np.asarray(state["s"]), np.asarray(state["idx"])
             for row, (_, r) in enumerate(state["searches"]):
                 kk = min(r.k, state["kmax"])
                 r.result = (s[row, :kk], idx[row, :kk])
@@ -248,19 +295,33 @@ class _Batcher:
 
 class _Service:
     """Extractor + vocabulary (+ database index) on ``device`` (None: the
-    card), shared by the handler threads."""
+    card), shared by the handler threads. Under ``--mesh`` a rank other
+    than 0 holds its database shards only (``follow``)."""
 
     def __init__(self, args, device=None) -> None:
-        if int(getattr(args, "mesh", 0) or 0) >= 1:
-            raise NotImplementedError(
-                "--mesh (a database sharded over devices) is not ported yet (ROADMAP.md, "
-                'port queue: "parallel/ on torch.distributed")')
         from anyloc_tpu_torch.models.extractor import DinoV2ExtractFeatures
         from anyloc_tpu_torch.ops.common import resolve_device
         from anyloc_tpu_torch.ops.vlad import VLAD
 
         self.args = args
+        self.mesh = None
+        self.follower = False
+        self.n_mesh = int(getattr(args, "mesh", 0) or 0)
+        if self.n_mesh >= 1:
+            import torch.distributed as dist
+
+            from anyloc_tpu_torch.parallel.mesh import local_mesh
+
+            host = device is not None and torch.device(device).type == "cpu"
+            self.mesh = local_mesh(self.n_mesh, backend="gloo" if host else "nccl")
         self.device = resolve_device(device)
+        if self.mesh is not None:
+            if dist.get_rank() != 0:
+                self.follower = True
+                self.db_rows = 0
+                if args.db:
+                    self._load_db(args.db)
+                return
         self.extractor = DinoV2ExtractFeatures(
             args.model, args.layer, args.facet, checkpoint=args.checkpoint,
             quant=args.quant, device=self.device)
@@ -274,42 +335,141 @@ class _Service:
         self.decoded = {"native": 0, "PIL": 0}   # decoders of the served images
         self._decoded_lock = threading.Lock()
         if args.db:
-            self._load_db(np.load(args.db).astype(np.float32))
+            self._load_db(args.db)
+        if self.mesh is not None and args.db:
+            self.engine += f"+mesh{self.n_mesh}"
         self.batcher = _Batcher(self, max_batch=getattr(args, "max_batch", 16),
                                 window_s=getattr(args, "batch_window_ms", 5.0) / 1e3)
         self._warm(full=getattr(args, "warm", True))
 
-    def _load_db(self, db: np.ndarray) -> None:
+    def _load_db(self, path: str) -> None:
+        """The database's index and ``search_fn(qu, k)`` from the ``.npy``
+        at ``path``. Under the mesh ``search_fn`` is the sharded engine, a
+        collective of every rank: the exact engine's ranks each read their
+        own rows of the file; an index is fit on rank 0 on the host (the
+        whole store must not go to one card) and reaches the other ranks as
+        a file (``fit``); each rank's card then holds its window alone."""
+        from anyloc_tpu_torch.parallel import distributed as sharded
+
         args = self.args
+        db = np.load(path, mmap_mode="r")   # rows are read where they are used
         self.db_rows = int(db.shape[0])
         ivf, pq = getattr(args, "ivf", False), getattr(args, "pq", False)
         if ivf and pq:
             raise ValueError("--ivf and --pq are mutually exclusive")
-        if ivf:
-            from anyloc_tpu_torch.ops.ivf import ivf_fit
+        mesh, dev = self.mesh, self.device
 
-            self.index = ivf_fit(db, method="cosine", device=self.device)
-            self.search_fn = lambda qu, k: self.index.search(qu, k, n_probe=args.n_probe)
+        def whole():
+            return np.array(db, dtype=np.float32)
+
+        def fit(make, save, load):
+            """``make(host)``'s index. Under the mesh rank 0 fits it on the
+            host and saves it to a temporary directory whose path it
+            broadcasts; every other rank loads it from there on the host."""
+            if mesh is None:
+                return make(False)
+            import shutil
+            import tempfile
+
+            import torch.distributed as dist
+
+            from anyloc_tpu_torch.parallel.mesh import barrier, broadcast_object
+
+            rank0 = dist.get_rank() == 0
+            where = tempfile.mkdtemp(prefix="anyloc_mesh_index_") if rank0 else None
+            try:
+                if rank0:
+                    index = make(True)
+                    save(index, os.path.join(where, "index.npz"))
+                where = broadcast_object(where)   # a path: after rank 0 has saved
+                if not rank0:
+                    index = load(os.path.join(where, "index.npz"), device="cpu")
+                barrier()   # every rank has read the file
+            finally:
+                if rank0:
+                    shutil.rmtree(where, ignore_errors=True)
+            return index
+
+        if ivf:
+            from anyloc_tpu_torch.ops.ivf import ivf_fit, load_ivf, save_ivf
+
+            self.index = fit(lambda host: ivf_fit(whole(), method="cosine", as_numpy=host,
+                                                  device=dev), save_ivf, load_ivf)
+            if mesh is None:
+                self.search_fn = lambda qu, k: self.index.search(qu, k, n_probe=args.n_probe)
+            else:
+                self.search_fn = lambda qu, k: sharded.ivf_search_sharded(
+                    self.index, qu, k, mesh, n_probe=args.n_probe, device=dev)
             self.engine = "ivf"
         elif pq and self.db_rows >= 2:
             # compressed database: pq_m bytes a row on the card instead of
             # 4·dim. A codebook of n_codes words needs as many rows, so a
             # small database takes n_codes = its row count (its codes then
             # reconstruct every row exactly)
-            from anyloc_tpu_torch.ops.pq import pq_fit
+            from anyloc_tpu_torch.ops.pq import load_pq, pq_fit, save_pq
 
-            self.index = pq_fit(db, getattr(args, "pq_m", 64),
-                                n_codes=min(256, self.db_rows), method="cosine",
-                                device=self.device)
-            self.search_fn = lambda qu, k: self.index.search(qu, k)
+            self.index = fit(lambda host: pq_fit(
+                whole(), getattr(args, "pq_m", 64), n_codes=min(256, self.db_rows),
+                method="cosine", as_numpy=host, device=dev), save_pq, load_pq)
+            if mesh is None:
+                self.search_fn = lambda qu, k: self.index.search(qu, k)
+            else:
+                self.search_fn = lambda qu, k: sharded.pq_search_sharded(
+                    self.index, qu, k, mesh, device=dev)
             self.engine = "pq"
-        else:
+        elif mesh is None:
             # exact (and a --pq database of one row, which no codebook of
             # two words can encode): the database stays resident
             from anyloc_tpu_torch.ops.retrieval import top_k_search
 
-            db_dev = torch.from_numpy(db).to(self.device)
+            db_dev = torch.from_numpy(whole()).to(dev)
             self.search_fn = lambda qu, k: top_k_search(db_dev, qu, k)
+        else:
+            # exact over the mesh: this rank's rows (the last rank's padded
+            # with zero rows, which the n_valid mask keeps out) stay resident
+            from anyloc_tpu_torch.ops.common import cdiv
+            from anyloc_tpu_torch.parallel.mesh import axis_index
+
+            local_n = cdiv(self.db_rows, self.n_mesh)
+            lo = axis_index(mesh, "data") * local_n
+            local = torch.zeros((local_n,) + db.shape[1:], dtype=torch.float32)
+            rows = np.array(db[lo:lo + local_n], dtype=np.float32)
+            local[:rows.shape[0]] = torch.from_numpy(rows)
+            local = local.to(dev)
+            self.search_fn = lambda qu, k: sharded.top_k_search_sharded(
+                local, qu, k, mesh, n_valid=self.db_rows)
+
+    def mesh_search(self, qu: torch.Tensor, k: int):
+        """Rank 0's sharded search: the header (1, Q, k, D) and the queries
+        go to every rank, then all join ``search_fn``."""
+        from anyloc_tpu_torch.parallel.mesh import broadcast
+
+        hdr = torch.tensor([1, qu.shape[0], k, qu.shape[1]], dtype=torch.int64,
+                           device=self.device)
+        broadcast(hdr, self.mesh, None)
+        return self.search_fn(broadcast(qu.float().contiguous(), self.mesh, None), k)
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0: join each search rank 0
+        broadcasts, until the header says stop (0)."""
+        from anyloc_tpu_torch.parallel.mesh import broadcast
+
+        while True:
+            hdr = broadcast(torch.zeros(4, dtype=torch.int64, device=self.device), self.mesh, None)
+            op, nq, k, d = (int(v) for v in hdr.tolist())
+            if op == 0:
+                return
+            qu = broadcast(torch.empty((nq, d), dtype=torch.float32, device=self.device),
+                           self.mesh, None)
+            self.search_fn(qu, k)
+
+    def stop_followers(self) -> None:
+        """The stop header to the follower ranks (none after a failed
+        search: the group is out of step, and the ranks' exit ends it)."""
+        from anyloc_tpu_torch.parallel.mesh import broadcast
+
+        if self.mesh is not None and self.batcher.failed is None:
+            broadcast(torch.zeros(4, dtype=torch.int64, device=self.device), self.mesh, None)
 
     def _warm(self, full: bool) -> None:
         """Build the kernels' library before the server accepts traffic:
@@ -327,8 +487,9 @@ class _Service:
         vlads = self.vlad.aggregate(self.extractor(_to_device(
             np.zeros((1, size, size, 3), dt), self.device)))
         if self.search_fn is not None:
-            vlads = self.search_fn(vlads, min(8, self.db_rows))[0]
-        vlads.cpu()
+            search = self.search_fn if self.mesh is None else self.mesh_search
+            vlads = search(vlads, min(8, self.db_rows))[0]
+        np.asarray(vlads.cpu() if isinstance(vlads, torch.Tensor) else vlads)
 
     def _count(self, decoder: str) -> None:
         with self._decoded_lock:
@@ -499,16 +660,38 @@ class _Server(ThreadingHTTPServer):
     def __init__(self, svc: _Service) -> None:
         super().__init__((svc.args.host, svc.args.port), make_handler(svc))
         self.service = svc
+        # a failed sharded search stops serve_forever (from another thread:
+        # shutdown waits for the loop, which runs on the caller's)
+        svc.batcher.on_fatal = lambda: threading.Thread(target=self.shutdown,
+                                                        daemon=True).start()
 
     def server_close(self) -> None:
         super().server_close()
         self.service.batcher.close()
+        self.service.stop_followers()
 
 
-def build_server(args, device=None) -> ThreadingHTTPServer:
+class _Follower:
+    """What a rank other than 0 of a ``--mesh`` daemon runs:
+    ``serve_forever`` joins rank 0's sharded searches until it closes."""
+
+    def __init__(self, svc: _Service) -> None:
+        self.service = svc
+
+    def serve_forever(self) -> None:
+        self.service.follow()
+
+    def server_close(self) -> None:
+        pass
+
+
+def build_server(args, device=None):
     """The daemon's server, its service warm; ``device`` None means the
-    card."""
-    return _Server(_Service(args, device=device))
+    card. Under ``--mesh`` a rank other than 0 gets its ``_Follower``."""
+    svc = _Service(args, device=device)
+    if svc.follower:
+        return _Follower(svc)
+    return _Server(svc)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -543,8 +726,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--pq", action="store_true",
                    help="serve /search through a PQ-compressed database (ops/pq.py)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the database over this many local devices (not ported: "
-                        "raises)")
+                   help="shard the DATABASE over this many ranks (0 = one device): /search "
+                        "routes through the sharded engines (parallel/), equal replies with "
+                        "1/n of the database a rank; N > 1 needs torchrun --nproc-per-node N")
     p.add_argument("--pq-m", type=int, default=64,
                    help="PQ subquantizers = bytes per database row")
     p.add_argument("--host", default="127.0.0.1")
@@ -557,13 +741,21 @@ def main(argv=None, device=None) -> int:
     such as tests, not a flag."""
     args = _parser().parse_args(argv)
     server = build_server(args, device=device)
-    print(f"serving on http://{args.host}:{args.port} (/health /stats /describe /search)")
+    if isinstance(server, _Server):
+        print(f"serving on http://{args.host}:{args.port} (/health /stats /describe /search)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        if server.service.mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    failed = getattr(server.service, "batcher", None) and server.service.batcher.failed
+    if failed:   # a nonzero exit, which ends the other ranks' launch too
+        raise RuntimeError("the daemon stopped after a sharded search failed") from failed
     return 0
 
 

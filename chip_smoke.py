@@ -124,6 +124,15 @@ Phases, each of which must pass or the script exits non-zero:
      resnet18conv4 at the step's shapes card vs CPU within 1e-4 of the
      largest |g| (F17b; a planted TF32 backward must fail it) and K5's
      gradient against its plain version's at [48, 197, 2304] float32;
+     then ``parallel/`` (``mesh_phase``): on a one-rank NCCL group in this
+     process ``DescriptorEngine(mesh=local_mesh(1))`` in bf16 and
+     int8_full (VLADs bit-equal to the engine's, both rates) and ``serve
+     --mesh 1`` (replies equal to the daemon's), then two Gloo ranks on
+     this card (``tools/mesh_checks.py``): sharded extraction, tensor,
+     pipeline, sequence (1022 px) and expert parallelism, sharded k-means
+     and exact search at DINOv2-G width against one rank, K1-K5 launching
+     in the phase; the retrieval phase then runs each sharded engine over
+     the one-rank mesh beside its engine (results equal);
  10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
@@ -226,6 +235,11 @@ PATH_KERNELS = {
     "train dvgl resnet18conv4": (),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
+    # parallel/: DescriptorEngine(mesh=...) in bf16 (K1, K5) and int8_full
+    # (K3, K4), serve --mesh 1, the two ranks' sharded extraction, tensor
+    # parallelism (K2 on each rank's heads), pipeline stages (K5) and EP (K1)
+    "mesh": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
+             "K4_fused_attn_half_int8", "K5_flash_attention_qkv_proj"),
 }
 # the eval phase's runs: label -> the CLI's flags (17places, 16 db + 8
 # queries), the descriptor width
@@ -1540,8 +1554,22 @@ def run(profile_dir) -> dict:
         results["K5_flash_attention_qkv_proj"]["train_launches"] = trained["k5_train"]
         results["K5_flash_attention_qkv_proj"]["train_backward"] = trained["k5_backward"]
 
+        # ------------------------------------------------------------ parallel/: the mesh phase
+        import torch.distributed as dist
+
+        from anyloc_tpu_torch.parallel.mesh import local_mesh
+
+        mesh1 = local_mesh(1, backend="nccl")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "the smoke's mesh is not a one-rank NCCL group")
+        meshed = mesh_phase(ext, vlad, ext8, vlad8, db, qu, mesh1, work / "mesh", tag)
+        for name in PATH_KERNELS["mesh"]:
+            check(meshed[name] > 0, f"{name} never launched in the mesh phase")
+            results[name]["mesh_launches"] = meshed[name]
+
     # ---------------------------------------------------------------- the retrieval engines
-    retrieval_phase(tag)
+    retrieval_phase(tag, mesh1, profile_dir)
+    dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- throughput
@@ -1581,16 +1609,21 @@ def run(profile_dir) -> dict:
 STREAM_RECALL_BOUND = {"bfloat16": 0.95, "int8": 0.70}
 
 
-def retrieval_phase(tag: str) -> None:
+def retrieval_phase(tag: str, mesh, profile_dir=None) -> None:
     """The retrieval engines at the main path's width and at the
     compressed engines' scale, each timed (CUDA events; native: the host
-    clock) and checked against exact search on the card."""
+    clock) and checked against exact search on the card; beside the
+    device, ivf, pq and ivf_pq engines their sharded twins over the
+    one-rank NCCL ``mesh``, whose results must equal theirs. With
+    ``profile_dir``, torch.profiler tables of each compressed engine and
+    its twin go there."""
     import numpy as np
     import torch
 
     from anyloc_tpu_torch import native
     from anyloc_tpu_torch.ops import ivf, ivf_pq, pq
     from anyloc_tpu_torch.ops import retrieval as R
+    from anyloc_tpu_torch.parallel import distributed as sharded
     from anyloc_tpu_torch.tools._timing import time_ms
     from anyloc_tpu_torch.tools.bench_retrieval import index_bytes, make_db, overlap
 
@@ -1618,6 +1651,25 @@ def retrieval_phase(tag: str) -> None:
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{label} disagrees with exact search")
 
+    def same_as_single(label, search, twin, want, rate1):
+        """The sharded twin's (scores, ids) against its engine's, and both
+        rates, timed in the order engine (``rate1``), twin, twin, engine so
+        that neither side gains from its place in the run."""
+        rates = [qps(twin, nq)[0]]
+        rate, got = qps(twin, nq)
+        rates += [rate, qps(search, nq)[0]]
+        gs, gi = (np.asarray(a) for a in got)
+        ws, wi = (a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                  for a in want)
+        ids_ok = bool(np.array_equal(gi, wi))
+        err = float(np.abs(gs - ws).max())
+        ok = ids_ok and err <= 1e-5
+        print(f"  {label} over the mesh of 1 (NCCL): {rates[0]:.1f} and {rates[1]:.1f} "
+              f"queries/s against {rate1:.1f} and {rates[2]:.1f} for the engine (timed engine, "
+              f"twin, twin, engine); ids equal {ids_ok}, max score difference {err:.2e} "
+              f"(bound 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{label}: the sharded engine disagrees with the single-device one")
+
     def qps(fn, nq, reps=3):
         """queries/s of ``fn`` (best of ``reps`` after a warm-up) and its
         last result."""
@@ -1632,10 +1684,16 @@ def retrieval_phase(tag: str) -> None:
     qu_dev = queries(db_dev, nq, 1)
     db, qu = db_dev.cpu().numpy(), qu_dev.cpu().numpy()
     ex_s, ex_i = (t.cpu().numpy() for t in R.top_k_search(db_dev, qu_dev, k + 1))
-    rate, _ = qps(lambda: R.top_k_search(db_dev, qu_dev, k), nq)
+    def search():
+        return R.top_k_search(db_dev, qu_dev, k)
+
+    rate, single = qps(search, nq)
     print(f"retrieval {tag} [{n}x{d} clustered, {nq} queries, k {k}] device: fit 0 s, "
           f"{rate:.1f} queries/s (database resident, {db_dev.numel() * 4 / 2**30:.2f} GiB)",
           flush=True)
+    same_as_single("top_k_search_sharded (the resident shard)", search,
+                   lambda: sharded.top_k_search_sharded(db_dev, qu_dev, k, mesh, n_valid=n),
+                   single, rate)
     for stream in ("float32", "bfloat16", "int8"):
         def blocked():
             return R.top_k_search_blocked(db, qu, k, db_block=2500, stream_dtype=stream,
@@ -1702,12 +1760,18 @@ def retrieval_phase(tag: str) -> None:
         torch.cuda.synchronize()
         return index, time.perf_counter() - t0
 
-    def report(label, index, fit_s, search):
-        rate, (_, ids) = qps(search, nq)
-        rec = overlap(ids.cpu().numpy(), ex_i)
+    def report(label, index, fit_s, search, twin=None):
+        rate, single = qps(search, nq)
+        rec = overlap(single[1].cpu().numpy(), ex_i)
         print(f"retrieval {tag} [{n}x{d} pca_spectrum, {nq} queries, k {k}] {label}: fit "
               f"{fit_s:.2f} s, {rate:.1f} queries/s, top-{k} recall vs exact {rec:.4f}, index "
               f"{index_bytes(index) / 2**20:.1f} MiB", flush=True)
+        if twin is not None:
+            same_as_single(twin.__name__, search, twin, single, rate)
+            if profile_dir is not None:
+                for fn, name in ((search, "engine"), (twin, "twin")):
+                    profile(fn, Path(profile_dir) / f"retrieval_{twin.__name__}_{name}.txt",
+                            f"{label} {name} ({nq} queries)")
 
     def exact_over(rows_dev, method_q, label, got):
         want_s, want_i = R.top_k_search(rows_dev, method_q, k + 1)
@@ -1715,15 +1779,22 @@ def retrieval_phase(tag: str) -> None:
                       want_s.cpu().numpy(), want_i.cpu().numpy())
 
     index, fit_s = fitted("ivf", lambda: ivf.ivf_fit(db, device=dev))
+    def ivf_search_sharded():
+        return sharded.ivf_search_sharded(index, qu, k, mesh, n_probe=n_probe)
+
     report(f"ivf ({index.n_cells} cells) n_probe {n_probe}", index, fit_s,
-           lambda: index.search(qu, k, n_probe=n_probe))
+           lambda: index.search(qu, k, n_probe=n_probe), ivf_search_sharded)
     exact_over(db_dev, qu_dev[:n_chk], "ivf at full probe vs exact",
                index.search(qu[:n_chk], k, n_probe=index.n_cells))
     del index
     index, fit_s = fitted("pq", lambda: pq.pq_fit(db, 64, method="cosine", device=dev))
+    def pq_search_sharded():
+        return sharded.pq_search_sharded(index, qu, k, mesh)
+
     for scan in ("tables", "decode"):
         report(f"pq64 {scan} (f32 scores)", index, fit_s,
-               lambda: index.search(qu, k, scan=scan))
+               lambda: index.search(qu, k, scan=scan),
+               pq_search_sharded if scan == "decode" else None)
     m = index.m
     xhat = index.codebooks[torch.arange(m, device=dev)[None], index.codes.long()].reshape(n, d)
     for scan in ("tables", "decode"):
@@ -1731,8 +1802,11 @@ def retrieval_phase(tag: str) -> None:
                    index.search(qu[:n_chk], k, scan=scan))
     del index, xhat
     index, fit_s = fitted("ivf_pq", lambda: ivf_pq.ivf_pq_fit(db, m=64, device=dev))
+    def ivf_pq_search_sharded():
+        return sharded.ivf_pq_search_sharded(index, qu, k, mesh, n_probe=n_probe)
+
     report(f"ivf_pq64 ({index.n_cells} cells) n_probe {n_probe}", index, fit_s,
-           lambda: index.search(qu, k, n_probe=n_probe))
+           lambda: index.search(qu, k, n_probe=n_probe), ivf_pq_search_sharded)
     recon = torch.from_numpy(index.decode()).to(dev)
     exact_over(recon, qu_dev[:n_chk], "ivf_pq at full probe vs exact over the reconstructions",
                index.search(qu[:n_chk], k, n_probe=index.n_cells))
@@ -2852,6 +2926,215 @@ def ingest_phase(ext, vlad, ext8, vlad8, jpegs, queries, gt, work: Path, tag: st
     return rates
 
 
+def mesh_phase(ext, vlad, ext8, vlad8, db, qu, mesh, work: Path, tag: str) -> dict:
+    """``parallel/`` at DINOv2-G width; returns the kernel launches of the
+    phase's sharded calls alone: the counts are zeroed just before each
+    sharded call of this process and read just after (the unsharded
+    references run outside those windows), and the two ranks count only
+    their sharded calls (``mesh_checks.Rank.sharded``).
+
+    World 1, NCCL, in this process (``mesh``): ``DescriptorEngine(mesh=...)``
+    in bf16 and int8_full with uint8 transfer at 308 px, batch 32, on 64
+    of the fixture's images, VLADs bit-equal to the engine without a mesh,
+    and both rates with the images on the card; ``serve --mesh 1``, each
+    /search reply equal to the unsharded daemon's. World 2, Gloo, both
+    ranks on this card (``tools/mesh_checks.py``, profile "full": G width,
+    4 blocks): sharded extraction in bf16 and int8_full (224 px, batch 8)
+    against one rank, per-image cosine >= 0.999; tensor parallelism over 2
+    ranks (12 heads each) against the fused trunk, rms_rel <= 1e-2, K2 on
+    each rank, a rank's bytes < 0.55 of the replicated trunk's; 2 pipeline
+    stages and 2 sequence shards at 1022 px (5330 tokens) against one
+    rank, rms_rel <= 1e-2; expert-parallel VLAD (4 experts of [32, 1536])
+    against the direct VLAD, cosine >= 0.9999; sharded k-means (50,000 x
+    1536, 32 centers) within 1e-4 of ``kmeans_fit``; sharded exact search
+    (20,000 x 1536) ids equal to ``top_k_search``. The two ranks' times
+    are Gloo through host memory on one card, not multi-GPU figures."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch import DescriptorEngine, VPRDataset
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.parallel import sharded_extract_fn
+    from anyloc_tpu_torch.pipelines import serve_http
+    from anyloc_tpu_torch.tools import mesh_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    work.mkdir(parents=True)
+    counts = {}
+
+    def counted(fn):
+        """``fn()``, its kernel launches added to ``counts``."""
+        K.reset_launch_counts()
+        out = fn()
+        for name, n in K.launch_counts().items():
+            if n:
+                counts[name] = counts.get(name, 0) + n
+        return out
+
+    t_phase = time.perf_counter()
+    paths = (db + qu) * (64 // len(db + qu) + 1)
+    ds = VPRDataset(paths[:64], [], img_size=(308, 308))
+    x = np.random.default_rng(0).integers(0, 256, (32, 308, 308, 3), dtype=np.uint8)
+    dbv = None
+    for label, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):
+        one = DescriptorEngine(extractor=extractor, batch_size=32, transfer_dtype="uint8")
+        sharded = DescriptorEngine(extractor=extractor, batch_size=32, transfer_dtype="uint8",
+                                   mesh=mesh)
+        want = one.extract_vlads_dataset(ds, vl, "db", verbose=False)
+        got = counted(lambda: sharded.extract_vlads_dataset(ds, vl, "db", verbose=False))
+        same = bool(np.array_equal(got, want))
+        run = sharded_extract_fn(lambda p, imgs: vl.aggregate(extractor._forward(p, imgs)), mesh,
+                                 as_numpy=False)
+        ms_one = time_ms(lambda: vl.aggregate(extractor(x)), iters=5, reps=3)
+        ms_mesh = counted(lambda: time_ms(lambda: run(None, x), iters=5, reps=3))
+        print(f"mesh {tag} world 1 (NCCL) DescriptorEngine(mesh=local_mesh(1)) {label}, uint8, "
+              f"308 px, batch 32, 64 images: VLADs bit-equal to the unsharded engine: {same}; "
+              f"extract+VLAD with the images on the host, {32e3 / ms_mesh:.2f} images/s sharded "
+              f"vs {32e3 / ms_one:.2f} unsharded", flush=True)
+        check(same, f"mesh engine {label}: VLADs differ from the unsharded engine's")
+        if label == "int8_full":
+            dbv = want
+
+    # serve --mesh 1 against the daemon without a mesh
+    vdir = work / "vocab"
+    vdir.mkdir()
+    np.savez(vdir / "c_centers.npz", centers=vlad8.c_centers.cpu().numpy())
+    np.save(work / "db.npy", dbv)
+    raw = [Path(p).read_bytes() for p in qu]
+
+    def replies(*extra):
+        args = serve_http._parser().parse_args(
+            ["--model", "dinov2_vitg14", "--layer", "31", "--facet", "value",
+             "--num-clusters", "32", "--vocab-dir", str(vdir), "--quant", "int8_full",
+             "--transfer-dtype", "uint8", "--img-size", "308", "--port", "0",
+             "--db", str(work / "db.npy"), *extra])
+        server = serve_http.build_server(args)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            out = []
+            for data in raw:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{server.server_address[1]}/search?k=5", data=data,
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out.append(json.loads(r.read()))
+            return out, server.service.engine
+        finally:
+            server.shutdown()
+            server.server_close()
+            del server
+            torch.cuda.empty_cache()
+
+    got, engine = counted(lambda: replies("--mesh", "1"))
+    want, _ = replies()
+    same = got == want
+    print(f"mesh {tag} serve --mesh 1 (engine {engine}): {len(raw)} /search replies equal to the "
+          f"unsharded daemon's: {same}", flush=True)
+    check(same and engine == "device+mesh1", "serve --mesh 1 disagrees with the daemon")
+    world1 = dict(counts)
+    t1 = time.perf_counter() - t_phase
+
+    # world 2: Gloo, both ranks on this card
+    t0 = time.perf_counter()
+    report = mesh_checks.launch(work / "world2", 2, "gloo", "cuda", "full", timeout=500)
+    launch_s = time.perf_counter() - t0
+    for name, n in world2_checks(work / "world2", report, tag).items():
+        counts[name] = counts.get(name, 0) + n
+    world2 = {k: n - world1.get(k, 0) for k, n in counts.items()}
+    print(f"mesh {tag}: world 1 {t1:.1f} s, world 2 {launch_s:.1f} s (the ranks' start "
+          f"included); launches of the sharded calls: world 1 {world1}, world 2 (both ranks) "
+          f"{world2}, together {counts}", flush=True)
+    # world 1 at 308 px runs the fused block kernels, not K2 (the world-2
+    # tensor-parallel trunk checks K2 on each rank)
+    for name in ("K1_vlad_aggregate_fused", "K3_fused_mlp_int8", "K4_fused_attn_half_int8",
+                 "K5_flash_attention_qkv_proj"):
+        check(world1.get(name, 0) > 0, f"{name} never launched in world 1's sharded calls")
+    return counts
+
+
+def world2_checks(out: Path, report: dict, tag: str) -> dict:
+    """The two ranks' results (``tools/mesh_checks.py``, profile "full")
+    held to their bounds (``mesh_phase``); returns the launches of the
+    ranks' sharded calls, summed."""
+    import numpy as np
+
+    from anyloc_tpu_torch.tools import mesh_checks
+
+    counts = {}
+    for cases in report.values():
+        for r in cases.values():
+            for name, n in r["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+    res = {c: mesh_checks.results(out, c) for c in mesh_checks.CASES_FULL}
+
+    def secs(case):
+        return "/".join(f"{report[r][case]['seconds']:.2f}" for r in sorted(report))
+
+    def rms(a, b):
+        return float(np.sqrt(((a.astype(np.float64) - b) ** 2).mean() / (b.astype(np.float64) ** 2).mean()))
+
+    ex = res["extract"]
+    for mode in ("bfloat16", "int8_full"):
+        vcos = float(cos_rows(ex[f"{mode}_vlads"], ex[f"{mode}_single_vlads"]).min())
+        dcos = float(cos_rows(ex[f"{mode}_descs"], ex[f"{mode}_single_descs"]).min())
+        diff = float(np.abs(ex[f"{mode}_vlads"] - ex[f"{mode}_single_vlads"]).max())
+        cached = bool(np.array_equal(ex[f"{mode}_cached"], ex[f"{mode}_vlads"]))
+        print(f"mesh {tag} world 2 (Gloo, one card) sharded extraction {mode} G/14 4 blocks, "
+              f"224 px, 8 images: min VLAD cosine {vcos:.6f}, min facet cosine {dcos:.6f} vs one "
+              f"rank (bound >= 0.999), max VLAD difference {diff:.2e}, cache read back equal "
+              f"{cached}; {float(ex[f'{mode}_seconds']):.2f} s sharded vs "
+              f"{float(ex[f'{mode}_single_seconds']):.2f} s one rank (with PIL decode)",
+              flush=True)
+        check(min(vcos, dcos) >= 0.999 and cached, f"sharded extraction {mode} disagrees")
+    tp = res["tp"]
+    rr = rms(tp["tp"], tp["single"])
+    floor = rms(tp["single"], tp["single_f32"])
+    share = float(tp["rank_bytes"]) / float(tp["replicated_bytes"])
+    k2 = [report[r]["tp"]["launches"].get("K2_flash_attention", 0) for r in sorted(report)]
+    print(f"mesh {tag} world 2 tensor parallelism (tp_split, 12 heads a rank) G/14 4 blocks, "
+          f"224 px, 8 images, bf16: rms_rel {rr:.2e} vs the fused trunk (bound <= 1e-2; the "
+          f"fused bf16 trunk itself is {floor:.2e} from float32 weights' float32 run), K2 "
+          f"launches per rank {k2}, a rank holds {share:.3f} of the replicated bytes (bound "
+          f"< 0.55); {secs('tp')} s per rank", flush=True)
+    check(rr <= 1e-2 and min(k2) > 0 and share < 0.55, "tensor parallelism disagrees")
+    pp = res["pp"]
+    rr = rms(pp["3_value"], pp["3_value_single"])
+    stage = float(pp["stage_bytes"]) / float(pp["stacked_bytes"])
+    print(f"mesh {tag} world 2 pipeline (2 stages, blocks 0-2 + capture block 3) G/14, 224 px, "
+          f"8 images, bf16: rms_rel {rr:.2e} vs the blocks in sequence (bound <= 1e-2), a stage "
+          f"holds {stage:.3f} of the stacked blocks; {secs('pp')} s per rank", flush=True)
+    check(rr <= 1e-2 and np.array_equal(pp["staged"], pp["3_value"]), "pipeline disagrees")
+    sp = res["sp"]
+    rr = rms(sp["extractor"], sp["extractor_single"])
+    rr8 = rms(sp["extractor_u8"], sp["extractor_u8_single"])
+    print(f"mesh {tag} world 2 sequence parallelism (2 shards of 2665 tokens, ring attention) "
+          f"G/14 4 blocks, 1022 px, bf16: rms_rel {rr:.2e} (float32 input), {rr8:.2e} (uint8) vs "
+          f"one rank (bound <= 1e-2); {secs('sp')} s per rank", flush=True)
+    check(max(rr, rr8) <= 1e-2, "sequence parallelism disagrees")
+    ep = res["ep"]
+    ecos = float(cos_rows(ep["ample_vlads"], ep["single"]).min())
+    print(f"mesh {tag} world 2 expert-parallel VLAD (4 experts of [32, 1536], 8 images of 256 "
+          f"tokens): min cosine {ecos:.6f} vs the direct VLAD (bound >= 0.9999), all kept "
+          f"{bool(ep['ample_kept'].all())}; {secs('ep')} s per rank", flush=True)
+    check(ecos >= 0.9999 and ep["ample_kept"].all(), "expert-parallel VLAD disagrees")
+    km = res["kmeans"]
+    kerr = float(np.abs(km["cos_sharded"] - km["cos_single"]).max())
+    se = res["search"]
+    ids = {sd: bool(np.array_equal(se[f"{sd}_i"], se[f"{sd}_single_i"]))
+           for sd in ("f32", "bf16")}
+    serr = float(np.abs(se["f32_s"] - se["f32_single_s"]).max())
+    print(f"mesh {tag} world 2 sharded k-means (50,000 x 1536, 32 centers, 10 iterations): max "
+          f"center difference {kerr:.2e} vs kmeans_fit (bound 1e-4), {secs('kmeans')} s per "
+          f"rank; sharded exact search (20,000 x 1536, 256 queries, k 20): ids equal to "
+          f"top_k_search {ids}, max f32 score difference {serr:.2e} (bound 1e-5), "
+          f"{secs('search')} s per rank", flush=True)
+    check(kerr <= 1e-4 and ids["f32"] and serr <= 1e-5, "sharded k-means / search disagrees")
+    return counts
+
+
 def profile(step, out_path: Path, label: str) -> None:
     """torch.profiler over three steps: device time by kernel name."""
     import torch
@@ -2873,7 +3156,8 @@ def profile(step, out_path: Path, label: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also write torch.profiler tables of the throughput shapes to DIR")
+                    help="also write torch.profiler tables of the throughput shapes and of the "
+                         "compressed engines beside their sharded twins to DIR")
     args = ap.parse_args()
     import torch
 

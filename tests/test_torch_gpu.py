@@ -1473,3 +1473,76 @@ def materialize_geo_vit():
 
     return materialize(lambda: GeoLocalizationNet("vit", "netvlad", 64, img_size=224), None,
                        "cuda", seed=0).requires_grad_(True)
+
+
+def test_world_one_mesh_on_the_card_equals_the_unsharded_paths(tmp_path):
+    """``parallel/`` on a one-rank NCCL group in this process:
+    ``DescriptorEngine(mesh=local_mesh(1))`` gives the unsharded engine's
+    VLADs bit for bit, and the sharded exact search the single-device
+    engine's results."""
+    import torch.distributed as dist
+    from PIL import Image
+
+    from anyloc_tpu_torch import DescriptorEngine, VPRDataset, ViTFacetExtractor
+    from anyloc_tpu_torch.ops.retrieval import top_k_search
+    from anyloc_tpu_torch.ops.vlad import VLAD
+    from anyloc_tpu_torch.parallel import local_mesh, top_k_search_sharded
+    from anyloc_tpu_torch.tools import mesh_checks
+
+    if dist.is_initialized():
+        pytest.skip("this process already has a process group")
+    rng = np.random.default_rng(3)
+    paths = []
+    for j in range(6):
+        paths.append(str(tmp_path / f"i{j}.png"))
+        Image.fromarray((rng.random((56, 56, 3)) * 255).astype(np.uint8)).save(paths[-1])
+    ds = VPRDataset(paths, [], img_size=(56, 56))
+    cfg = mesh_checks.vit_config("small")
+    ext = ViTFacetExtractor(cfg, mesh_checks.vit_params(cfg, 0), 5, "value", device="cuda")
+    vlad = VLAD(4)
+    vlad.c_centers = _randn(4, cfg.embed_dim, seed=4)
+    mesh = local_mesh(1, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        kw = dict(extractor=ext, batch_size=4, transfer_dtype="uint8")
+        want = DescriptorEngine(**kw).extract_vlads_dataset(ds, vlad, "db", verbose=False)
+        got = DescriptorEngine(mesh=mesh, **kw).extract_vlads_dataset(ds, vlad, "db",
+                                                                      verbose=False)
+        np.testing.assert_array_equal(got, want)
+        db, qu = _randn(1003, 64, seed=5), _randn(9, 64, seed=6)
+        s, i = top_k_search_sharded(db.cpu().numpy(), qu, 7, mesh, device="cuda")
+        s1, i1 = top_k_search(db, qu, 7)
+        np.testing.assert_array_equal(i, i1.cpu().numpy())
+        np.testing.assert_allclose(s, s1.cpu().numpy(), **F32)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_on_the_card_match_one_rank(tmp_path):
+    """The multi-rank paths on two Gloo ranks that share this card
+    (``tools/mesh_checks.py``, profile "small", float32): sharded k-means
+    and search, the mesh engine, tensor / pipeline / sequence / expert
+    parallelism against rank 0's single-device runs; K2 launches on each
+    rank of the tensor-parallel trunk."""
+    from anyloc_tpu_torch.tools import mesh_checks
+
+    cases = ["kmeans", "search", "extract", "tp", "pp", "sp", "ep"]
+    report = mesh_checks.launch(tmp_path, 2, "gloo", "cuda", "small", cases, timeout=600)
+    res = {c: mesh_checks.results(tmp_path, c) for c in cases}
+    for tag in ("cos", "euc"):
+        np.testing.assert_allclose(res["kmeans"][f"{tag}_sharded"], res["kmeans"][f"{tag}_single"],
+                                   atol=1e-4)
+    for name in ("db509_cosine", "db512_l2", "clamp"):
+        np.testing.assert_array_equal(res["search"][f"{name}_i"], res["search"][f"{name}_single_i"])
+    ex = res["extract"]
+    for name in ("vlads", "descs", "batch"):   # K5 f32 at another batch size: float32 rounding
+        np.testing.assert_allclose(ex[f"float32_{name}"], ex[f"float32_single_{name}"], atol=1e-6)
+    np.testing.assert_allclose(res["tp"]["tp"], res["tp"]["single"], atol=1e-4)
+    assert all(report[r]["tp"]["launches"].get("K2_flash_attention", 0) > 0 for r in report)
+    for name in ("5_value", "3_token", "2_query"):
+        np.testing.assert_allclose(res["pp"][name], res["pp"][f"{name}_single"], atol=1e-4)
+    for name in ("extractor", "extractor_u8"):
+        np.testing.assert_allclose(res["sp"][name], res["sp"][f"{name}_single"], atol=1e-4)
+    kept = res["ep"]["ample_kept"]
+    assert kept.all()
+    np.testing.assert_allclose(res["ep"]["ample_vlads"], res["ep"]["single"], atol=1e-5)

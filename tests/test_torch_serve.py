@@ -285,7 +285,11 @@ def test_serve_queues_a_burst_of_connections_before_it_accepts(tmp_path):
 
 
 def test_serve_mesh_raises_naming_its_queue_item(tmp_path):
-    with pytest.raises(NotImplementedError, match='port queue: "parallel/ on torch.distributed"'):
+    """``--mesh`` is ported (the queue item "parallel/ on torch.distributed"):
+    in a plain process, with no world of 2 ranks, ``--mesh 2`` raises
+    naming the launch it needs (tests/test_torch_parallel.py runs it on 2
+    and 4 ranks)."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         cli.main(["serve", "--vocab-dir", str(tmp_path), "--mesh", "2"], device="cpu")
 
 

@@ -6,7 +6,6 @@ JAX side receives the weights through ``convert_dinov2``, the port loads
 the same DINOv2-named state dict natively. Tolerances are stated per test.
 """
 
-import dataclasses
 import os
 import pathlib
 import re
@@ -357,28 +356,11 @@ def _training_call(module, name, *args):
 
 NOT_PORTED = {
     "cli viz": lambda: port_cli.main(["viz", "--help"]),
-    "serve --mesh": lambda: port_cli.main(["serve", "--vocab-dir", ".", "--mesh", "2"]),
     "sweep --plot": lambda: port_cli.main(["sweep", "--plot"]),
     "GeoLocalizationNet(sync_axis=...)": lambda: _geo(sync_axis="data"),
     "load_checkpoint(target=...)": lambda: _training_call("utils.checkpoint", "load_checkpoint",
                                                           ".", object()),
-    "DescriptorEngine(mesh=...)": lambda: port.DescriptorEngine(mesh=object(), device="cpu"),
-    "ViT(ViTConfig(tp_split=True))": lambda: _trunk(tp_split=True),
-    "convert_dino_v1(tp_split=True)": lambda: _convert_tp_split(),
 }
-
-
-def _trunk(**flags):
-    from anyloc_tpu_torch.models.vit import ViT, ViTConfig
-
-    return ViT(ViTConfig(embed_dim=32, depth=1, num_heads=2, img_size=28, **flags),
-               device="cpu")
-
-
-def _convert_tp_split():
-    from anyloc_tpu_torch.models.dino_v1 import convert_dino_v1, dino_v1_config
-
-    return convert_dino_v1({}, dataclasses.replace(dino_v1_config("dino_vits8"), tp_split=True))
 
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
