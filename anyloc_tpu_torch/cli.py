@@ -22,6 +22,9 @@ flags; it runs on the CUDA card.
   train               dvgl triplet training of a GeoLocalizationNet
                       (dvgl's train.py flags: --backbone, --aggregation,
                       --mining, --epochs, --resume, ...)
+  viz                 cluster overlays, the HTML report, the domain
+                      projection and the paper's radar chart
+                      (viz clusters | report | domain | radar)
 
 Datasets come from the registry under --prog.data-vg-dir (the reference's
 layouts, e.g. 17places as ref/ query/ ground_truth_new.npy); the results
@@ -29,9 +32,6 @@ JSON (no per-query rows) goes to <--prog.cache-dir>/experiments/<--exp-id>/.
 
 Serving fast path flags (vlad / global-vocab-vlad / gem / gp):
   --extractor.quant int8_full --extractor.transfer-dtype uint8
-
-Not ported yet (raises, naming its ROADMAP.md port-queue item):
-viz ("Tooling").
 """
 
 from __future__ import annotations
@@ -42,9 +42,6 @@ import sys
 
 from anyloc_tpu_torch.config import PipelineArgs, parse_args
 
-# subcommands of the JAX package's CLI that the port has not reached, by
-# the title of their ROADMAP.md port-queue item
-NOT_PORTED = {"viz": "Tooling"}
 # subcommands with their own argument parsers
 OWN_PARSERS = {
     "demo": "anyloc_tpu_torch.pipelines.demo",
@@ -52,6 +49,7 @@ OWN_PARSERS = {
     "sweep": "anyloc_tpu_torch.sweeps",
     "eval": "anyloc_tpu_torch.training.eval_cli",
     "train": "anyloc_tpu_torch.training.train_cli",
+    "viz": "anyloc_tpu_torch.pipelines.viz_cli",
 }
 
 
@@ -76,10 +74,6 @@ def main(argv=None, device=None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cmd!r} subcommand is not ported yet (ROADMAP.md, port "
-            f'queue: "{NOT_PORTED[cmd]}")')
     if cmd in OWN_PARSERS:
         import importlib
 

@@ -24,6 +24,12 @@ def load_pil(path: str) -> Image.Image:
     return Image.open(path).convert("RGB")
 
 
+def resize_pil(img: Image.Image, size_hw: Tuple[int, int]) -> Image.Image:
+    """(H, W) PIL bilinear resize (antialiased on downscale)."""
+    h, w = size_hw
+    return img.resize((w, h), Image.BILINEAR)
+
+
 def normalize(img: np.ndarray) -> np.ndarray:
     """[H, W, 3] float in [0,1] -> ImageNet-normalized."""
     return (img - IMAGENET_MEAN) / IMAGENET_STD

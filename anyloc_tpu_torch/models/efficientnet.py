@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from anyloc_tpu_torch.models.convert import t2np, tensors
-from anyloc_tpu_torch.models.resnet import BatchNorm, nchw, nhwc, refuse_sync
+from anyloc_tpu_torch.models.resnet import BatchNorm, nchw, nhwc
 from anyloc_tpu_torch.ops.common import Conv2d
 
 
@@ -90,8 +90,8 @@ class _BN(nn.Module):
 
     def __init__(self, cfg: EfficientNetConfig, features: int) -> None:
         super().__init__()
-        refuse_sync(cfg.sync_axis)
-        self.bn = BatchNorm(features, cfg.bn_eps, cfg.dtype, momentum=0.99)
+        self.bn = BatchNorm(features, cfg.bn_eps, cfg.dtype, momentum=0.99,
+                            sync_axis=cfg.sync_axis)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.bn(x, train)
@@ -147,7 +147,6 @@ class EfficientNet(nn.Module):
 
     def __init__(self, cfg: EfficientNetConfig) -> None:
         super().__init__()
-        refuse_sync(cfg.sync_axis)
         c = self.cfg = cfg
         self.stem_conv = Conv2d(3, c.round_filters(32), 3, 2, 0, bias=False, dtype=c.dtype)
         self.stem_bn = _BN(c, c.round_filters(32))

@@ -8,8 +8,9 @@ h, w, C] out. Inside, the blocks run NCHW on channels-last memory (the
 layout cuDNN prefers), and every convolution goes through
 ``ops.common.Conv2d``: full float32 for float32 inputs (F17, F17b).
 BatchNorm runs over its stored statistics, or with ``train=True`` over
-the batch's, updating the stored ones as Flax does; the JAX package's
-cross-device BatchNorm (``sync_axis``) raises.
+the batch's, updating the stored ones as Flax does; with ``sync_axis``
+(cross-device BatchNorm) the batch is the one spread over that axis of the
+mesh bound around the call (``parallel.mesh.use_mesh``).
 """
 
 from __future__ import annotations
@@ -23,16 +24,6 @@ from torch import nn
 
 from anyloc_tpu_torch.models.convert import t2np, tensors
 from anyloc_tpu_torch.ops.common import Conv2d
-
-_PARALLEL = '(ROADMAP.md, port queue: "parallel/ on torch.distributed")'
-
-
-def refuse_sync(sync_axis: Optional[str]) -> None:
-    """Cross-device BatchNorm statistics are not ported: raise for any axis."""
-    if sync_axis is not None:
-        raise NotImplementedError(
-            f"sync_axis={sync_axis!r} (cross-device BatchNorm) is not ported yet {_PARALLEL}")
-
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
@@ -85,12 +76,22 @@ class BatchNorm(nn.Module):
     ``train=True`` with the batch's mean and biased variance, and moves the
     stored ones to ``momentum * running + (1 - momentum) * batch``, the
     variance biased too (Flax's convention; ``nn.BatchNorm2d`` stores the
-    unbiased variance, with its momentum the other way round)."""
+    unbiased variance, with its momentum the other way round).
+
+    ``sync_axis`` (Flax's ``axis_name``): with ``train=True`` the batch is
+    every rank's along that axis of the mesh bound around the call
+    (``with parallel.mesh.use_mesh(mesh):``): [sum, sum of squares, count]
+    in float32 (float64 for a float64 input, as Flax computes its
+    statistics), reduced in one collective whose backward sums the
+    cotangents over the axis (``sync_reduce``), and the stored statistics
+    take the whole batch's values on every rank. It raises with no mesh
+    bound or without that axis; an axis of one rank is the local
+    computation."""
 
     def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32,
-                 momentum: float = 0.9) -> None:
+                 momentum: float = 0.9, sync_axis: Optional[str] = None) -> None:
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.sync_axis = eps, momentum, sync_axis
         self.weight = nn.Parameter(torch.ones(features, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
         self.register_buffer("running_mean", torch.zeros(features, dtype=dtype))
@@ -100,16 +101,46 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean   # Flax's fast variance
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))   # as Flax: float64 stays
+        mesh = self._mesh()
+        if mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean   # Flax's fast variance
+        else:
+            from anyloc_tpu_torch.parallel.mesh import sync_reduce
+
+            c = xf.shape[1]
+            count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+            sums = sync_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                          count]), mesh, self.sync_axis)
+            mean = sums[:c] / sums[-1]
+            var = sums[c:2 * c] / sums[-1] - mean * mean
         var = torch.clamp_min(var, 0.0)
         with torch.no_grad():
             for buf, batch in ((self.running_mean, mean), (self.running_var, var)):
                 buf.mul_(self.momentum).add_(batch.detach().to(buf.dtype), alpha=1 - self.momentum)
         shape = (1, -1, 1, 1)
         y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
-        return (y * self.weight.float().view(shape) + self.bias.float().view(shape)).to(x.dtype)
+        weight, bias = (t.to(xf.dtype).view(shape) for t in (self.weight, self.bias))
+        return (y * weight + bias).to(x.dtype)
+
+    def _mesh(self):
+        """The mesh to reduce the statistics over: None for local statistics
+        (no ``sync_axis``, or an axis of one rank)."""
+        if self.sync_axis is None:
+            return None
+        from anyloc_tpu_torch.parallel.mesh import axis_size, bound_mesh
+
+        mesh = bound_mesh()
+        if mesh is None:
+            raise RuntimeError(
+                f"BatchNorm(sync_axis={self.sync_axis!r}) in training needs a mesh: call it "
+                "inside parallel.mesh.use_mesh(mesh) (as Flax needs its axis name bound by "
+                "shard_map)")
+        if self.sync_axis not in mesh.mesh_dim_names:
+            raise ValueError(f"sync_axis {self.sync_axis!r} is not an axis of the mesh "
+                             f"{mesh.mesh_dim_names}")
+        return None if axis_size(mesh, self.sync_axis) == 1 else mesh
 
 
 class _BN(nn.Module):
@@ -119,8 +150,7 @@ class _BN(nn.Module):
     def __init__(self, features: int, dtype=torch.float32,
                  sync_axis: Optional[str] = None) -> None:
         super().__init__()
-        refuse_sync(sync_axis)
-        self.bn = BatchNorm(features, 1e-5, dtype)
+        self.bn = BatchNorm(features, 1e-5, dtype, sync_axis=sync_axis)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.bn(x, train)
@@ -188,10 +218,9 @@ class ResNet(nn.Module):
 
     def __init__(self, cfg: ResNetConfig) -> None:
         super().__init__()
-        refuse_sync(cfg.sync_axis)
         c = self.cfg = cfg
         self.conv1 = _conv(3, c.width, 7, 2, 3, dtype=c.dtype)
-        self.bn1 = _BN(c.width, c.dtype)
+        self.bn1 = _BN(c.width, c.dtype, c.sync_axis)
         block = BottleneckBlock if c.bottleneck else BasicBlock
         cin = c.width
         for stage in range(_n_stages(c.truncate)):

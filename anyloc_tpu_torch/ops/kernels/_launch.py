@@ -35,9 +35,10 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """The kernels write through raw pointers into fresh tensors, which
     carry no ``grad_fn``: with grad mode on and an input that requires a
     gradient, a launch would cut the graph without a word, so it raises
-    instead (F18). K5 is the one kernel with a gradient: its wrapper runs
-    the launch inside an ``autograd.Function``, whose forward has grad
-    mode off."""
+    instead (F18). K2 and K5 are the kernels with a gradient: their
+    wrappers run the launch inside an ``autograd.Function``
+    (``FlashAttentionGrad``, ``QkvProjGrad``: the kernel forward, the plain
+    version's gradient backward), whose forward has grad mode off."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires a gradient and this kernel has none (its output "

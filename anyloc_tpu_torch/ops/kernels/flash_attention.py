@@ -10,6 +10,11 @@ The trunk calls it for sequences longer than ``MAX_FUSED_TOKENS`` (the
 Math: ``s = (q·kᵀ with f32 sums) * scale`` in f32, padded/ragged keys
 never contribute, softmax in f32, P rounded to v's dtype before the PV
 product, output in q's dtype.
+
+Under autograd (a tensor-parallel trunk in training) the launch runs
+inside ``FlashAttentionGrad``: the kernel forward, the plain version's
+gradient backward, as K5's ``QkvProjGrad`` (no Pallas kernel has a
+backward, F19).
 """
 
 from __future__ import annotations
@@ -48,10 +53,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"flash_attention: q/k/v must share one [B, H, N, hd] "
                          f"shape, got {q.shape} {k.shape} {v.shape}")
-    b, h, n, hd = q.shape
-    scale = hd ** -0.5 if scale is None else float(scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionGrad.apply(_flash_launch, scale, q, k, v)
+    return _flash_launch(q, k, v, scale=scale)
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """K2 with a gradient: ``forward`` runs ``kernel`` (the launch; the
+    tests fill the slot with the plain version on the CPU) on q, k, v as
+    given; ``backward`` recomputes ``flash_attention_ref`` under autograd
+    on detached copies of them and returns its gradients, the JAX XLA
+    attention route's gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, scale, q, k, v):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return kernel(q, k, v, scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_ref(*inputs, scale=ctx.scale)
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None) + tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  scale: float) -> torch.Tensor:
+    """K2's launch on CUDA tensors (shapes checked by the caller)."""
+    b, h, n, hd = q.shape
     _launch.require_cuda("flash_attention", q, k, v)
     code = _launch.dtype_code(q, "flash_attention")
     if k.dtype != q.dtype or v.dtype != q.dtype:

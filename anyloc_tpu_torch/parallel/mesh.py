@@ -24,10 +24,32 @@ card's memory as it is.
 NCCL refuses two ranks of one communicator on one card, so ranks that
 share a card run a Gloo group (the CPU tests, and a one-card check of the
 multi-rank paths); NCCL needs one card per rank.
+
+Under autograd (F24) a collective's backward depends on where the loss
+lives, which JAX reads from ``shard_map``'s replication types and the port
+names at each call site:
+
+  * tensor parallelism, one loss replicated over ``model`` (Megatron's
+    pair): ``tp_reduce`` ("g", after a row-parallel product: ``all_reduce``
+    forward, identity backward), ``tp_copy`` ("f", where replicated
+    activations enter a column-parallel product: identity forward,
+    ``all_reduce`` backward) and ``tp_gather`` (``all_gather`` forward, the
+    rank's slice of the cotangent backward);
+  * data parallelism, a loss per rank whose mean is the objective:
+    ``sync_reduce`` (the statistics of cross-device BatchNorm:
+    ``all_reduce`` forward and backward).
+
+With grad mode off, or no input that requires a gradient, each runs as
+the plain collective (``tp_copy`` as nothing). The generic
+``all_reduce``, ``all_gather``, ``all_to_all``, ``broadcast`` and ``shift``
+have no backward: given an input that requires a gradient with grad mode
+on, they raise.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import Optional, Sequence
 
@@ -36,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+_BOUND = contextvars.ContextVar("anyloc_tpu_torch_mesh", default=None)   # use_mesh
 
 
 def init_distributed(
@@ -122,6 +145,25 @@ def local_mesh(n: Optional[int] = None, *, backend: Optional[str] = None):
     return get_mesh(n_data=n, n_model=1)
 
 
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Bind ``mesh`` for the calls inside the block: the mesh whose axes a
+    layer that names one (``BatchNorm(sync_axis=...)``) reduces over, as
+    the JAX ``shard_map`` binds its axis names. Blocks nest; leaving one
+    restores the binding before it."""
+    token = _BOUND.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.reset(token)
+
+
+def bound_mesh():
+    """The mesh of the innermost ``use_mesh`` block around this call, or
+    None."""
+    return _BOUND.get()
+
+
 def axis_size(mesh, name: Optional[str]) -> int:
     """The mesh's extent along ``name`` (None: every rank of the mesh)."""
     if name is None:
@@ -184,9 +226,25 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def _refuse_grad(name: str, t: torch.Tensor) -> None:
+    """A collective without a backward given an input that requires a
+    gradient under grad mode raises (F24): its backward would be the
+    identity, or nothing, without a word."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(
+            f"{name}: the input requires a gradient and this collective has no backward; "
+            "use tp_reduce / tp_copy / tp_gather (tensor parallelism, a replicated loss) or "
+            "sync_reduce (data parallelism, a loss per rank), or call it under torch.no_grad()")
+
+
 def all_reduce(t: torch.Tensor, mesh, axis: Optional[str], op: str = "sum") -> torch.Tensor:
     """``psum`` (or ``pmax``) over ``axis``: a new tensor, the same on
-    every rank of the axis."""
+    every rank of the axis. No backward (``tp_reduce``, ``sync_reduce``)."""
+    _refuse_grad("all_reduce", t)
+    return _all_reduce(t, mesh, axis, op)
+
+
+def _all_reduce(t: torch.Tensor, mesh, axis: Optional[str], op: str = "sum") -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return t
     group = _group(mesh, axis)
@@ -196,7 +254,13 @@ def all_reduce(t: torch.Tensor, mesh, axis: Optional[str], op: str = "sum") -> t
 
 
 def all_gather(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0, in axis order."""
+    """Every rank's ``t`` concatenated along dim 0, in axis order. No
+    backward (``tp_gather``)."""
+    _refuse_grad("all_gather", t)
+    return _all_gather(t, mesh, axis)
+
+
+def _all_gather(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     n = axis_size(mesh, axis)
     if n == 1:
         return t
@@ -210,7 +274,9 @@ def all_gather(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
 
 def all_to_all(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     """``all_to_all`` over ``axis`` along dim 0: block j of ``t`` goes to
-    coordinate j; block j of the result came from coordinate j."""
+    coordinate j; block j of the result came from coordinate j. No
+    backward."""
+    _refuse_grad("all_to_all", t)
     if axis_size(mesh, axis) == 1:
         return t
     group = _group(mesh, axis)
@@ -222,7 +288,9 @@ def all_to_all(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
 
 def broadcast(t: torch.Tensor, mesh, axis: Optional[str], src: int = 0) -> torch.Tensor:
     """Coordinate ``src``'s ``t`` on every rank of ``axis`` (the others
-    pass a tensor of the same shape and dtype): the JAX ``replicated``."""
+    pass a tensor of the same shape and dtype): the JAX ``replicated``. No
+    backward."""
+    _refuse_grad("broadcast", t)
     if axis_size(mesh, axis) == 1:
         return t
     group = _group(mesh, axis)
@@ -235,7 +303,8 @@ def shift(t: torch.Tensor, mesh, axis: str, wrap: bool = True) -> Optional[torch
     """``ppermute`` by one along ``axis``: send ``t`` to coordinate i + 1
     and receive coordinate i - 1's, both posted together in one
     ``batch_isend_irecv``. With ``wrap`` False the last coordinate sends
-    nothing and the first receives nothing (None)."""
+    nothing and the first receives nothing (None). No backward."""
+    _refuse_grad("shift", t)
     n = axis_size(mesh, axis)
     if n == 1:
         return t if wrap else None
@@ -251,6 +320,106 @@ def shift(t: torch.Tensor, mesh, axis: str, wrap: bool = True) -> Optional[torch
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return None if out is None else _back(out, t)
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd (F24; module docstring)
+# ---------------------------------------------------------------------------
+
+def _grad_wanted(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _TpReduce(torch.autograd.Function):
+    """"g": the row-parallel partial products summed over ``axis``; the
+    cotangent of the replicated sum is every rank's own."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return _all_reduce(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _TpCopy(torch.autograd.Function):
+    """"f": replicated activations into a column-parallel product; the
+    ranks' cotangents (each from its own columns) summed over ``axis``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _TpGather(torch.autograd.Function):
+    """Every rank's block concatenated along dim 0; the cotangent of the
+    replicated result is the same on every rank, so a rank's block gets its
+    own slice of it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.rows, ctx.index = t.shape[0], axis_index(mesh, axis)
+        return _all_gather(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.index * ctx.rows
+        return grad[lo:lo + ctx.rows], None, None
+
+
+class _SyncReduce(torch.autograd.Function):
+    """Sums over ``axis`` that every rank's own loss reads: the cotangents
+    of all ranks' losses summed back over ``axis`` (PyTorch's
+    ``SyncBatchNorm`` reduces ``sum_dy`` and ``sum_dy_xmu`` so)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+def tp_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Tensor parallelism's "g": ``all_reduce`` over ``axis``, identity
+    backward (the loss is replicated over ``axis``)."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _all_reduce(t, mesh, axis)
+    return _TpReduce.apply(t, mesh, axis)
+
+
+def tp_copy(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Tensor parallelism's "f": ``t`` itself forward, the cotangent
+    all-reduced over ``axis`` backward. With no gradient to build it is
+    ``t`` and runs nothing."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return t
+    return _TpCopy.apply(t, mesh, axis)
+
+
+def tp_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``all_gather`` along dim 0 over ``axis``; backward, the rank's rows of
+    the cotangent (the loss is replicated over ``axis``)."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _all_gather(t, mesh, axis)
+    return _TpGather.apply(t, mesh, axis)
+
+
+def sync_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``all_reduce`` over ``axis`` whose backward all-reduces the
+    cotangent: the data-parallel case, a loss per rank (cross-device
+    BatchNorm's statistics)."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _all_reduce(t, mesh, axis)
+    return _SyncReduce.apply(t, mesh, axis)
 
 
 def broadcast_object(obj, src: int = 0):

@@ -13,7 +13,13 @@ With ``ViTConfig(tp_split=True)`` the trunk stores its big matrices apart
     replicated bias added after it (what GSPMD inserts for the JAX
     package).
 
-Each rank's attention over its own heads is K2 on the card. The fused
+Each rank's attention over its own heads is K2 on the card. Under
+autograd (training, F24) the replicated tokens enter the column-parallel
+products through ``tp_copy`` (their cotangent all-reduced over ``model``)
+and the row-parallel sums leave through ``tp_reduce`` (identity
+backward), Megatron's f and g: every rank then gets the one-process
+gradient of each replicated parameter and of its own shards, and K2
+carries its gradient (the plain version's, ``FlashAttentionGrad``). The fused
 [D, 3D] / [D, 2H] layouts cannot shard head- and gate-aligned, so a
 trunk without ``tp_split`` has no tensor parallelism; a quantized trunk
 stays replicated, as the JAX package's shardings leave its int8 kernels
@@ -29,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from anyloc_tpu_torch.ops.common import bf16_dot
-from anyloc_tpu_torch.parallel.mesh import all_gather, all_reduce, axis_index, axis_size
+from anyloc_tpu_torch.parallel.mesh import axis_index, axis_size, tp_copy, tp_gather, tp_reduce
 
 _SPLITS = {"attn.qkv.": ("attn.wq.", "attn.wk.", "attn.wv."),
            "mlp.w12.": ("mlp.w1.", "mlp.w2.")}
@@ -76,27 +82,30 @@ def shard_vit_tp(model: nn.Module, mesh, axis: str = "model") -> nn.Module:
             for name, lin in parent.named_children():
                 if name in _COLUMN:
                     part = lin.out_features // n
-                    lin.weight = nn.Parameter(lin.weight[r * part:(r + 1) * part].clone(),
-                                              requires_grad=False)
+                    lin.weight = _shard(lin.weight, lin.weight[r * part:(r + 1) * part])
                     if lin.bias is not None:
-                        lin.bias = nn.Parameter(lin.bias[r * part:(r + 1) * part].clone(),
-                                                requires_grad=False)
+                        lin.bias = _shard(lin.bias, lin.bias[r * part:(r + 1) * part])
                     lin.out_features = part
                 elif name in _ROW:
                     part = lin.in_features // n
-                    lin.weight = nn.Parameter(
-                        lin.weight[:, r * part:(r + 1) * part].contiguous(), requires_grad=False)
+                    lin.weight = _shard(lin.weight, lin.weight[:, r * part:(r + 1) * part])
                     lin.in_features = part
         blk.tp = (mesh, axis)
     return model
 
 
+def _shard(param: nn.Parameter, part: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(part.detach().clone(memory_format=torch.contiguous_format),
+                        requires_grad=param.requires_grad)
+
+
 def _row_parallel(lin: nn.Linear, x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The rank's partial product (float32 sums of the trunk-dtype
-    operands) summed over ``axis``, plus the replicated bias: float32."""
+    operands) summed over ``axis`` ("g"), plus the replicated bias:
+    float32."""
     x2 = x.reshape(-1, x.shape[-1])
     part = bf16_dot(x2, lin.weight.T) if x.dtype == torch.bfloat16 else F.linear(x2, lin.weight)
-    y = all_reduce(part.float(), mesh, axis).view(*x.shape[:-1], -1)
+    y = tp_reduce(part.float(), mesh, axis).view(*x.shape[:-1], -1)
     return y + lin.bias.float() if lin.bias is not None else y
 
 
@@ -113,10 +122,10 @@ def tp_block_forward(blk: nn.Module, x: torch.Tensor, qkv_only: bool = False) ->
     n = axis_size(mesh, axis)
     b, t, d = x.shape
     a = blk.attn
-    h = layer_norm(c, blk.norm1, x)
+    h = tp_copy(layer_norm(c, blk.norm1, x), mesh, axis)     # "f"
     q, k, v = a.wq(h), a.wk(h), a.wv(h)              # [B, N, D/n]: the rank's heads
     if qkv_only:
-        parts = all_gather(torch.stack([q, k, v]), mesh, axis)   # [n·3, B, N, D/n]
+        parts = tp_gather(torch.stack([q, k, v]), mesh, axis)   # [n·3, B, N, D/n]
         return parts.view(n, 3, b, t, d // n).permute(2, 3, 1, 0, 4).reshape(b, t, 3 * d)
     hd = c.head_dim
 
@@ -130,7 +139,7 @@ def tp_block_forward(blk: nn.Module, x: torch.Tensor, qkv_only: bool = False) ->
     if blk.gamma(1) is not None:
         y = y * blk.gamma(1).float()
     x = (x.float() + y).to(x.dtype)
-    h = layer_norm(c, blk.norm2, x)
+    h = tp_copy(layer_norm(c, blk.norm2, x), mesh, axis)     # "f"
     mlp = blk.mlp
     if hasattr(mlp, "w1"):
         y = _row_parallel(mlp.w3, mlp.gates(h), mesh, axis)
@@ -139,6 +148,27 @@ def tp_block_forward(blk: nn.Module, x: torch.Tensor, qkv_only: bool = False) ->
     # the MLP's output rounded once (a Linear's bias epilogue), then the
     # fused trunk's LayerScale and residual in the trunk dtype
     return x + blk._scale(2, y.to(x.dtype))
+
+
+def vit_tp_shardings(params: Mapping[str, torch.Tensor], mesh, axis: str = "model") -> dict:
+    """{name: ``fsdp.Sharding``} of the state dict ``params`` of a trunk
+    ``shard_vit_tp`` sharded (any prefix): the column-parallel weights and
+    biases split along dim 0, the row-parallel weights along dim 1 (torch's
+    [out, in]), everything else replicated; the layout of the JAX
+    ``vit_tp_shardings``, which the FSDP checkpoint reads to put the
+    shards back together."""
+    import re
+
+    from anyloc_tpu_torch.parallel.fsdp import Sharding
+
+    col = re.compile(r"(?:^|\.)(?:attn\.(?:wq|wk|wv)|mlp\.(?:w1|w2|fc1))\.(?:weight|bias)$")
+    row = re.compile(r"(?:^|\.)(?:attn\.proj|mlp\.(?:w3|fc2))\.weight$")
+    out = {}
+    for name, t in params.items():
+        dim = 0 if col.search(name) else 1 if row.search(name) else None
+        spec = () if dim is None else tuple(axis if d == dim else None for d in range(t.dim()))
+        out[name] = Sharding(mesh, spec)
+    return out
 
 
 def params_bytes_per_device(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:

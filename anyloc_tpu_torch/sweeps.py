@@ -12,7 +12,8 @@ tidy CSV.
 
 A failing grid point is caught and recorded as a row with ``error`` (the
 reference's try/except pattern), so a sweep runs to its end. ``--plot``
-needs ``viz.py``, which is not ported yet.
+then draws the ablation figure from the CSV (``viz.ablation_plot``,
+matplotlib).
 """
 
 from __future__ import annotations
@@ -155,12 +156,11 @@ def main(argv=None, device=None) -> int:
                    help="start from a published ablation grid; explicit --grid.* values "
                         "override its entries")
     p.add_argument("--plot", nargs="?", const="auto", default=None, metavar="X_COL",
-                   help="an ablation figure from the CSV (needs viz.py: not ported yet)")
+                   help="after the sweep, regenerate a paper_utils-style ablation figure "
+                        "from the CSV (one command: sweep -> CSV -> figure). Value = the "
+                        "swept column for the x-axis; bare --plot picks the grid axis with "
+                        "the most values. Output: <out>.png")
     args, rest = p.parse_known_args(argv)
-    if args.plot:
-        raise NotImplementedError(
-            'sweep --plot needs viz.py, which is not ported yet (ROADMAP.md, port queue: '
-            '"Tooling")')
     from anyloc_tpu_torch.config import parse_args
 
     base = parse_args(PipelineArgs, rest)
@@ -171,6 +171,17 @@ def main(argv=None, device=None) -> int:
         if vals:
             grid[key] = vals
     run_sweep(args.pipeline, grid, base, args.out, device=device)
+    if args.plot:
+        x_col = args.plot
+        if x_col == "auto":
+            multi = [k for k in grid if len(grid[k]) > 1] or list(grid)
+            x_col = max(multi, key=lambda k: len(grid[k]))
+        from anyloc_tpu_torch.viz import ablation_plot
+
+        png = os.path.splitext(args.out)[0] + ".png"
+        ablation_plot({args.pipeline: args.out}, x_col=x_col, output_path=png,
+                      title=f"{args.pipeline} ablation: R@1 vs {x_col}")
+        print(f"figure: {png}")
     return 0
 
 

@@ -254,6 +254,34 @@ def k5_gradient(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int 
                 ok=launched == 1 and max(errs.values()) <= BOUND)
 
 
+def k2_gradient(b: int, h: int, n: int, hd: int, dtype=torch.float32, seed: int = 0) -> dict:
+    """K2 under autograd (``FlashAttentionGrad``) on q, k, v [b, h, n, hd]
+    that require gradients: the output and the q, k, v gradients against
+    the plain version's autograd on the same inputs (the largest error over
+    the largest |value| of each), the kernel's launch and the grad_fn."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, hd), generator=g, device="cuda").to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    before = K.flash_attention.launches
+    out = K.flash_attention(q, k, v)
+    launched = K.flash_attention.launches - before
+    ref = K.flash_attention_ref(q, k, v)
+    grad = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    want = torch.autograd.grad(ref, (q, k, v), grad)
+    torch.cuda.synchronize()
+
+    def rel(a, w):
+        return (a.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(),
+                                                                1e-30)
+
+    errs = {name: rel(a, w) for name, a, w in zip("qkv", got, want)}
+    return dict(shape=(b, h, n, hd), dtype=str(dtype).replace("torch.", ""),
+                out_err=rel(out, ref), grad_errs=errs, worst=max(errs.values()),
+                launched=launched, grad_fn=type(out.grad_fn).__name__,
+                ok=launched == 1 and max(errs.values()) <= BOUND)
+
+
 @contextlib.contextmanager
 def k5_step_times():
     """K5's forward launches and its backward, each between two CUDA

@@ -21,7 +21,7 @@ from torch import nn
 from anyloc_tpu_torch.models.convert import t2np, tensors
 from anyloc_tpu_torch.models.efficientnet import EfficientNet, efficientnet_config
 from anyloc_tpu_torch.models.resnet import (ResNet, VGG16, convert_torchvision_resnet,
-                                            refuse_sync, resnet18_config,
+                                            resnet18_config,
                                             resnet50_config, resnet101_config)
 from anyloc_tpu_torch.models.swin import SwinV2, swinv2_base_config
 from anyloc_tpu_torch.training.aggregators import ConvAP, GeMHead, GeMPool, MixVPRHead
@@ -39,7 +39,6 @@ def get_backbone(backbone_arch: str = "resnet50", layers_to_crop: Tuple[int, ...
     """Backbone by name -> (module, out_channels): resnet* (``layers_to_crop``
     4 drops layer4, 3 drops layer3 too), efficientnet_b* (unknown variants
     fall back to b0), swin*, vgg16 (CosPlace's)."""
-    refuse_sync(sync_axis)
     arch = backbone_arch.lower()
     if "resnet" in arch:
         maker = _RESNET_CONFIGS.get(arch)
@@ -48,12 +47,12 @@ def get_backbone(backbone_arch: str = "resnet50", layers_to_crop: Tuple[int, ...
         if 3 in layers_to_crop and 4 not in layers_to_crop:
             raise ValueError("cropping layer3 requires cropping layer4 too")
         truncate = "conv3" if 3 in layers_to_crop else "conv4" if 4 in layers_to_crop else "conv5"
-        mod = ResNet(maker(truncate=truncate))
+        mod = ResNet(maker(truncate=truncate, sync_axis=sync_axis))
         return mod, mod.out_channels
     if "efficient" in arch:
         variant = arch.split("_b")[-1] if "_b" in arch else None
         variant = f"b{variant}" if variant in tuple("01234567") else "b0"
-        cfg = efficientnet_config(variant)
+        cfg = efficientnet_config(variant, sync_axis=sync_axis)
         return EfficientNet(cfg), cfg.hidden_dim
     if "swin" in arch:
         cfg = swinv2_base_config(img_size=img_size)

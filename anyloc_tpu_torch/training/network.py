@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from anyloc_tpu_torch.models.resnet import (AlexNet, ResNet, VGG16, nchw, nhwc, refuse_sync,
+from anyloc_tpu_torch.models.resnet import (AlexNet, ResNet, VGG16, nchw, nhwc,
                                             resnet18_config, resnet50_config, resnet101_config)
 from anyloc_tpu_torch.ops.common import Conv2d, l2_normalize
 from anyloc_tpu_torch.ops.gem import gem_pool, gem_pool_spatial
@@ -109,7 +109,6 @@ class GeoLocalizationNet(nn.Module):
                  trunc_te: Optional[int] = None, remat: bool = False, *,
                  img_size: int = 224) -> None:
         super().__init__()
-        refuse_sync(sync_axis)
         self.arch, self.agg, self.gem_p = backbone, aggregation, gem_p
         self.tokens = backbone.startswith(("cct", "vit"))
         if self.tokens:
@@ -143,7 +142,7 @@ class GeoLocalizationNet(nn.Module):
         else:
             if backbone in _RESNETS:
                 fac, trunc = _RESNETS[backbone]
-                self.backbone = ResNet(fac(truncate=trunc))
+                self.backbone = ResNet(fac(truncate=trunc, sync_axis=sync_axis))
             elif backbone == "vgg16":
                 self.backbone = VGG16()
             elif backbone == "alexnet":

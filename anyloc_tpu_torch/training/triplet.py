@@ -112,19 +112,26 @@ def make_triplet_train_step(descriptor_fn: Callable, optimizer, neg_num: int = 1
     (params, trainable=None)`` builds the state; ``trainable`` ({name:
     bool}, e.g. ``make_freeze_te_mask(k)(params)``) leaves the names it
     maps to False out of the optimizer: they get no gradient and a zero
-    update (the JAX loop's ``set_to_zero``)."""
+    update (the JAX loop's ``set_to_zero``). ``train_step.backward(state,
+    tuples)`` is the step without its update."""
     loss_fn = _LOSSES[criterion]
 
-    def train_step(state: TripletTrainState, tuples: torch.Tensor):
+    def backward(state: TripletTrainState, tuples: torch.Tensor) -> torch.Tensor:
+        """The step's forward and backward: the loss, each trainable
+        tensor's gradient in its ``.grad`` (``parallel/fsdp.py`` averages
+        them over ranks before its update)."""
         b, t = tuples.shape[:2]
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
+        state.opt_state.zero_grad(set_to_none=True)
         descs = descriptor_fn(state.params, tuples.reshape(b * t, *tuples.shape[2:]))
         descs = descs.reshape(b, t, -1)
         loss = loss_fn(descs[:, 0], descs[:, 1], descs[:, 2:], margin)
         loss.backward()
-        opt.step()
-        return TripletTrainState(state.params, opt, state.step + 1), loss.detach()
+        return loss.detach()
+
+    def train_step(state: TripletTrainState, tuples: torch.Tensor):
+        loss = backward(state, tuples)
+        state.opt_state.step()
+        return TripletTrainState(state.params, state.opt_state, state.step + 1), loss
 
     def init_state(params, trainable: Optional[Dict[str, bool]] = None) -> TripletTrainState:
         leaves = trainable_leaves(params, optimizer, trainable)
@@ -132,4 +139,5 @@ def make_triplet_train_step(descriptor_fn: Callable, optimizer, neg_num: int = 1
         return TripletTrainState(leaves, opt, 0)
 
     train_step.init_state = init_state
+    train_step.backward = backward
     return train_step

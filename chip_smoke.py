@@ -131,8 +131,22 @@ Phases, each of which must pass or the script exits non-zero:
      this card (``tools/mesh_checks.py``): sharded extraction, tensor,
      pipeline, sequence (1022 px) and expert parallelism, sharded k-means
      and exact search at DINOv2-G width against one rank, K1-K5 launching
-     in the phase; the retrieval phase then runs each sharded engine over
-     the one-rank mesh beside its engine (results equal);
+     in the phase; then the training half (``train_mesh_phase``): K2
+     under autograd at a tensor-parallel rank's [48, 6, 197, 64] float32
+     against its plain version's gradient, timed beside its bound; on the
+     one-rank NCCL group an FSDP step of dvgl's vit + NetVLAD-64 against
+     the plain step and sync BatchNorm over an axis of one rank against
+     local BatchNorm; then two Gloo ranks on this card: F24's
+     collectives, FSDP over data 2 (dvgl vit: loss, averaged gradients
+     and updated parameters), the tp_split vit over model 2 (K2 with its
+     gradient), sync BatchNorm (resnet18conv4 at 480x640: outputs and
+     statistics in float32, and gradients too in float64) and the sharded
+     restore, each against one rank; then the tooling
+     (``tooling_phase``): ``python -m anyloc_tpu_torch viz clusters``
+     and ``viz report`` at DINOv2-G l31
+     (K5 launching, the report's labels equal to a direct run); the
+     retrieval phase then runs each sharded engine over the one-rank mesh
+     beside its engine (results equal);
  10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
@@ -240,6 +254,9 @@ PATH_KERNELS = {
     # parallelism (K2 on each rank's heads), pipeline stages (K5) and EP (K1)
     "mesh": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
              "K4_fused_attn_half_int8", "K5_flash_attention_qkv_proj"),
+    # parallel/'s training half: K5 (forward kernel, plain backward) in the
+    # dvgl vit's FSDP steps, K2 with its gradient on each tensor-parallel rank
+    "train mesh": ("K2_flash_attention", "K5_flash_attention_qkv_proj"),
 }
 # the eval phase's runs: label -> the CLI's flags (17places, 16 db + 8
 # queries), the descriptor width
@@ -1566,6 +1583,20 @@ def run(profile_dir) -> dict:
         for name in PATH_KERNELS["mesh"]:
             check(meshed[name] > 0, f"{name} never launched in the mesh phase")
             results[name]["mesh_launches"] = meshed[name]
+
+        # ------------------------------------------------------------ parallel/: training
+        trained_mesh = train_mesh_phase(mesh1, work / "train_mesh", tag)
+        for name in PATH_KERNELS["train mesh"]:
+            check(trained_mesh["counts"].get(name, 0) > 0,
+                  f"{name} never launched in the training-mesh phase")
+        results["K2_flash_attention"]["train_grad"] = dict(
+            launches=trained_mesh["k2_tptrain"], **trained_mesh["k2_grad"])
+        results["K5_flash_attention_qkv_proj"]["fsdp_launches"] = trained_mesh["k5_fsdp"]
+
+        # ------------------------------------------------------------ tooling: viz
+        viz_counts = tooling_phase(vlad, db + qu, work / "viz", tag)
+        results["K5_flash_attention_qkv_proj"]["viz_launches"] = {
+            sub: c.get("K5_flash_attention_qkv_proj", 0) for sub, c in viz_counts.items()}
 
     # ---------------------------------------------------------------- the retrieval engines
     retrieval_phase(tag, mesh1, profile_dir)
@@ -3132,6 +3163,350 @@ def world2_checks(out: Path, report: dict, tag: str) -> dict:
           f"top_k_search {ids}, max f32 score difference {serr:.2e} (bound 1e-5), "
           f"{secs('search')} s per rank", flush=True)
     check(kerr <= 1e-4 and ids["f32"] and serr <= 1e-5, "sharded k-means / search disagrees")
+    return counts
+
+
+def grads_err(got, prefix="grad.", ref="single_grad."):
+    """(the largest error over its tensor's largest |g| among the gradients
+    above 1e-3 of the model's largest, the largest error over the model's
+    largest |g| among the others (they vanish in exact arithmetic, e.g. a
+    key bias's: what is left is rounding noise), the gradients in each
+    group) of the arrays ``got[prefix + name]`` against ``got[ref +
+    name]``."""
+    import numpy as np
+
+    names = [k[len(prefix):] for k in got if k.startswith(prefix)]
+    top = max(float(np.abs(got[ref + k]).max()) for k in names)
+    live, vanishing = [0.0], [0.0]
+    for k in names:
+        mx = float(np.abs(got[ref + k]).max())
+        err = float(np.abs(got[prefix + k] - got[ref + k]).max())
+        (live if mx >= 1e-3 * top else vanishing).append(err / (mx if mx >= 1e-3 * top else top))
+    return max(live), max(vanishing), len(live) - 1, len(vanishing) - 1
+
+
+def dptrain_verdict(dp: dict, k5: list) -> tuple:
+    """(ok, text) of ``mesh_checks``' "full" dptrain results ``dp`` (FSDP over
+    data 2) with K5's launches per rank ``k5``: the loss within 1e-5
+    relative of the one-rank step's; the averaged gradients (the first
+    moments, gathered whole) within 1e-4 of each tensor's max|m| and the
+    vanishing ones within 1e-6 of the largest; the parameters after the
+    step within 0.5 lr of the one-rank step's where the update is lr times
+    the gradient's sign (a slice that missed its update or its gather lies
+    1 lr off); a rank 0.55 or less of the replicated Adam bytes; K5
+    launched on every rank."""
+    loss, single = float(dp["losses"][0]), float(dp["single_loss"])
+    loss_rel = abs(loss - single) / abs(single)
+    adam_share = float(dp["rank_adam_bytes"]) / float(dp["replicated_adam_bytes"])
+    live, vanishing, update = (float(v) for v in dp["fsdp_vs_single"])
+    s_live, s_vanishing, s_update = (float(v) for v in dp["single_spread"])
+    ok = (loss_rel <= 1e-5 and live <= 1e-4 and vanishing <= 1e-6 and update <= 0.5
+          and adam_share < 0.55 and min(k5) > 0)
+    text = (f"dvgl vit + NetVLAD-64, FSDP over data 2, 224 px, 4 tuples of 12 (2 a rank), "
+            f"Adam 1e-5, one step against the one-rank step on the same tuples: loss {loss:.6f} "
+            f"vs {single:.6f} (rel {loss_rel:.2e}, bound 1e-5); the averaged gradients (first "
+            f"moments, gathered) {live:.2e} of each max|m| (bound 1e-4), vanishing ones "
+            f"{vanishing:.2e} of the largest (bound 1e-6); parameters after the step {update:.3f} "
+            f"lr apart where the update is lr x sign(g) (bound 0.5); two one-rank steps: "
+            f"{s_live:.2e} / {s_vanishing:.2e} / {s_update:.3f} lr; a rank holds "
+            f"{adam_share:.3f} of the replicated Adam bytes; step "
+            f"{float(dp['step_seconds']):.2f} s (Gloo) vs {float(dp['single_seconds']):.2f} s one "
+            f"rank (first step, allocation included); K5 launches per rank {k5}")
+    return ok, text
+
+
+def syncbn_verdict(sb: dict) -> tuple:
+    """(ok, text) of ``mesh_checks``' "full" syncbn results ``sb`` (4 images
+    at 480x640 over data 2, against one rank on the whole batch):
+    resnet18conv4 + NetVLAD-64 in float32, its outputs and statistics within
+    1e-4 of their max|value| (its gradients are shown beside the one rank's
+    own spread under a 1e-7 move of the images: a random init's float32
+    gradients are ill-conditioned there); the resnet18conv4 trunk in
+    float64, its outputs, statistics and gradients within 1e-4 (the
+    vanishing gradients 1e-6 of the largest), which tests the backward of
+    the statistics' reduction; the ranks' statistics equal."""
+    import numpy as np
+
+    def rel(prefix, ref):
+        return max(float(np.abs(sb[k] - sb[ref + k[len(prefix):]]).max()
+                         / (np.abs(sb[ref + k[len(prefix):]]).max() + 1e-30))
+                   for k in sb if k.startswith(prefix))
+
+    g32, v32, n32, _ = grads_err(sb)
+    prel, pvan, _, _ = grads_err(sb, prefix="perturbed_grad.")
+    g64, v64, n64, _ = grads_err(sb, prefix="f64_grad.", ref="f64_single_grad.")
+    out32, stat32 = rel("out", "single_out"), rel("stat.", "single_stat.")
+    out64, stat64 = rel("f64_out", "f64_single_out"), rel("f64_stat.", "f64_single_stat.")
+    ok = (max(out32, stat32, out64, stat64, g64) <= 1e-4 and v64 <= 1e-6
+          and float(sb["stat_spread"]) == 0.0)
+    text = (f"sync_axis='data', train=True, 4 images at 480x640 over 2 ranks, vs one rank on the "
+            f"whole batch (largest error / max|value|): resnet18conv4 + NetVLAD-64 in float32: "
+            f"outputs {out32:.2e}, statistics {stat32:.2e} (bound 1e-4), {n32} gradients "
+            f"{g32:.2e} of each max|g| (vanishing ones {v32:.2e}; not bounded: the one rank's "
+            f"own spread when its images move by 1e-7 of themselves is {prel:.2e} ({pvan:.2e})); "
+            f"the resnet18conv4 trunk in float64: outputs {out64:.2e}, statistics {stat64:.2e}, "
+            f"{n64} gradients {g64:.2e} of each max|g| (bound 1e-4), vanishing ones {v64:.2e} "
+            f"of the largest (bound 1e-6); ranks' statistics equal "
+            f"{float(sb['stat_spread']) == 0.0}; {float(sb['seconds']):.2f} s (Gloo, float32)")
+    return ok, text
+
+
+def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
+    """The training half of ``parallel/`` at full width; returns K2's
+    gradient record and the launches of the phase's sharded calls (zeroed
+    just before each, read just after; the ranks count theirs inside
+    ``mesh_checks.Rank.sharded``).
+
+    K2 under autograd (``FlashAttentionGrad``) at a tensor-parallel rank's
+    [48, 6, 197, 64] float32 against its plain version's gradient, timed.
+    World 1, NCCL, in this process (``mesh``): one FSDP step of dvgl's vit
+    + NetVLAD-64 (224 px, 4 tuples of 1 + 1 + 10) against the plain step
+    from the same weights (a second plain step gives the card's own
+    spread), and resnet18conv4 + NetVLAD-64 with ``sync_axis="data"``,
+    ``train=True`` at 480x640 against local BatchNorm. World 2, Gloo, both
+    ranks on this card (``tools/mesh_checks.py``, profile "full"): the F24
+    collectives, ``dptrain`` (dvgl vit FSDP over data 2,
+    ``dptrain_verdict``), ``tptrain`` (the tp_split vit over model 2, K2
+    with its gradient), ``syncbn`` (resnet18conv4, 4 images at 480x640
+    over 2 ranks, ``syncbn_verdict``) and ``restore`` against one
+    rank; seconds per rank are Gloo through host memory."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.parallel.fsdp import fsdp_shardings, fsdp_train_step
+    from anyloc_tpu_torch.parallel.mesh import use_mesh
+    from anyloc_tpu_torch.tools import mesh_checks, train_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+    from anyloc_tpu_torch.training.network import GeoLocalizationNet
+    from anyloc_tpu_torch.training.triplet import make_triplet_train_step
+
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts = {}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in K.launch_counts().items():
+            if n:
+                counts[name] = counts.get(name, 0) + n
+        return out
+
+    # K2's gradient at a TP rank's shape
+    b, h, n, hd = 48, 6, 197, 64
+    r = train_checks.k2_gradient(b, h, n, hd, torch.float32)
+    errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((b, h, n, hd), generator=g, device=dev).requires_grad_(True)
+               for _ in range(3))
+    out = K.flash_attention(q, k, v)
+    gout = torch.randn(out.shape, generator=g, device=dev)
+    fwd_ms = time_ms(lambda: K.flash_attention(q, k, v), iters=5, reps=2)
+    plain_ms = time_ms(lambda: K.flash_attention_ref(q, k, v), iters=5, reps=2)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), gout, retain_graph=True),
+                     iters=5, reps=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), gout, retain_graph=True),
+                         iters=5, reps=2)
+    # the backward's five products (S recomputed, dP, dV, dQ, dK) in f32, or
+    # q, k, v, dO read and dq, dk, dv written
+    bwd = bound({"f32": 10 * b * h * n * n * hd}, 7 * 4 * b * h * n * hd)
+    grad_rec = dict(shape=f"[{b},{h},{n},{hd}] float32", forward_ms=fwd_ms, plain_forward_ms=plain_ms,
+                    backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms, max_grad_err=r["worst"],
+                    **{f"backward_{k_}": v_ for k_, v_ in bwd.items()})
+    print(f"K2 gradient {tag} q/k/v [{b},{h},{n},{hd}] float32 (kernel forward, plain-version "
+          f"backward, FlashAttentionGrad): max|err| / max|g| {errs} (bound "
+          f"{train_checks.BOUND:.0e}); output {r['out_err']:.3e}; grad_fn {r['grad_fn']}; "
+          f"forward under autograd {fwd_ms:.3f} ms (plain {plain_ms:.3f}), backward (the plain "
+          f"version's autograd) {bwd_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}), SDPA's backward {lib_bwd_ms:.3f} ms", flush=True)
+    check(r["ok"], "K2's gradient disagrees with its plain version's")
+    del q, k, v, out, gout, sdpa
+
+    # world 1 (NCCL): an FSDP step against the plain step
+    model = materialize(lambda: GeoLocalizationNet("vit", "netvlad", 64, img_size=224), None,
+                        "cuda", seed=0)
+    params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    step = make_triplet_train_step(train_checks.descriptor_fn(model),
+                                   functools.partial(torch.optim.Adam, lr=1e-5), neg_num=10)
+    tuples = torch.from_numpy(mesh_checks.dvgl_tuples("full")).to(dev)
+    runs = {}
+    fstep = fsdp_train_step(step, fsdp_shardings(params, mesh))
+    for label in ("plain a", "plain b", "fsdp"):
+        run = fstep if label == "fsdp" else step
+        state = run.init_state(params)
+        state, loss = counted(lambda: run(state, tuples)) if label == "fsdp" else run(state, tuples)
+        torch.cuda.synchronize()
+        after = {k_: v_.detach().clone() for k_, v_ in state.params.items()}
+        ms = time_ms(lambda: run(state, tuples), iters=2, reps=2, warmup=0)   # further steps
+        runs[label] = (loss.item(), after, ms)
+        del state, after
+    (la, pa, msa), (lb, pb, _), (lf, pf, msf) = runs["plain a"], runs["plain b"], runs["fsdp"]
+    spread = max(float((pa[k_] - pb[k_]).abs().max()) for k_ in pa)
+    fdiff = max(float((pa[k_] - pf[k_]).abs().max()) for k_ in pa)
+    same = lf == la and fdiff == 0.0
+    print(f"train mesh {tag} world 1 (NCCL) fsdp_train_step over local_mesh(1), dvgl vit + "
+          f"NetVLAD-64, 224 px, 4 tuples of 12, Adam 1e-5: loss {lf:.6f} vs the plain step's "
+          f"{la:.6f}, parameters after the step {fdiff:.3e} apart (two plain steps: "
+          f"{spread:.3e}); bit-equal {same}; step {msf:.2f} ms (FSDP) vs {msa:.2f} ms (plain), "
+          f"best of 2 means over 2 more steps each", flush=True)
+    check(fdiff <= spread and abs(lf - la) <= abs(lb - la) + 0.0,
+          "the world-1 FSDP step falls outside the spread of two plain steps")
+    del runs, pa, pb, pf, model, params, step, fstep
+    torch.cuda.empty_cache()
+
+    # world 1: sync BatchNorm over an axis of one rank against local BatchNorm
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (4, 480, 640, 3)).astype(np.float32)).to(dev)
+    outs = []
+    for sync in ("data", None):
+        net = materialize(lambda: GeoLocalizationNet("resnet18conv4", "netvlad", 64,
+                                                     sync_axis=sync), None, "cuda", seed=0)
+        with torch.no_grad(), use_mesh(mesh):
+            o = net(x, train=True)
+        stats = {k_: v_.clone() for k_, v_ in net.named_buffers()}
+        outs.append((o, stats))
+        del net
+    (oa, sa), (ob, sb) = outs
+    bn_same = torch.equal(oa, ob) and all(torch.equal(sa[k_], sb[k_]) for k_ in sa)
+    print(f"train mesh {tag} world 1 (NCCL) sync BatchNorm over an axis of 1 rank, "
+          f"resnet18conv4 + NetVLAD-64, train=True, 4 images at 480x640: outputs and statistics "
+          f"bit-equal to local BatchNorm: {bn_same}", flush=True)
+    check(bn_same, "sync BatchNorm over one rank differs from local BatchNorm")
+    del outs, oa, ob, x
+    torch.cuda.empty_cache()
+    world1 = dict(counts)
+    t1 = time.perf_counter() - t_phase
+
+    # world 2: Gloo, both ranks on this card
+    cases = ["collectives", "dptrain", "tptrain", "syncbn", "restore"]
+    t0 = time.perf_counter()
+    report = mesh_checks.launch(work / "world2", 2, "gloo", "cuda", "full", cases, timeout=600)
+    launch_s = time.perf_counter() - t0
+    res = {c: mesh_checks.results(work / "world2", c) for c in cases}
+
+    def secs(case):
+        return "/".join(f"{report[r_][case]['seconds']:.2f}" for r_ in sorted(report))
+
+    def launches(case, name):
+        return [report[r_][case]["launches"].get(name, 0) for r_ in sorted(report)]
+
+    co = res["collectives"]
+    print(f"train mesh {tag} world 2 (Gloo, one card) F24 collectives: every generic collective "
+          f"raises under grad {bool(co['raised'].all())}, grad off runs the plain collective "
+          f"{bool(co['grad_off'].all())}", flush=True)
+    check(co["raised"].all() and co["grad_off"].all(), "F24: a collective without a backward")
+    ok, text = dptrain_verdict(res["dptrain"], launches("dptrain", "K5_flash_attention_qkv_proj"))
+    print(f"train mesh {tag} world 2 dptrain: {text}; {secs('dptrain')} s per rank", flush=True)
+    check(ok, "dptrain disagrees")
+    tp = res["tptrain"]
+    trel, tvan, tn, tvn = grads_err(tp)
+    orel = float(np.abs(tp["out"] - tp["single_out"]).max() / np.abs(tp["single_out"]).max())
+    k2 = launches("tptrain", "K2_flash_attention")
+    print(f"train mesh {tag} world 2 tptrain: dvgl vit (tp_split, 6 heads a rank) + NetVLAD-64, "
+          f"48 images at 224 px, float32, vs the unsharded trunk on one rank: {tn} gradients, "
+          f"largest error / their max|g| {trel:.2e} (bound 1e-4); {tvn} that vanish in exact "
+          f"arithmetic (below 1e-3 of the largest |g|: the key biases), largest error / the "
+          f"largest |g| {tvan:.2e} (bound 1e-6); outputs {orel:.2e}, replicated gradients equal "
+          f"on both ranks {float(tp['replicated_spread']) == 0.0}; K2 launches per rank under "
+          f"autograd {k2}; {float(tp['seconds']):.2f} s forward + backward (Gloo); "
+          f"{secs('tptrain')} s per rank", flush=True)
+    check(trel <= 1e-4 and tvan <= 1e-6 and min(k2) > 0, "tptrain disagrees")
+    ok, text = syncbn_verdict(res["syncbn"])
+    print(f"train mesh {tag} world 2 syncbn: {text}; {secs('syncbn')} s per rank", flush=True)
+    check(ok, "syncbn disagrees")
+    rs = res["restore"]
+    rdiff, spread2 = float(rs["restore_resume_diff"][0]), float(rs["spread"])
+    print(f"train mesh {tag} world 2 restore: dvgl vit FSDP state saved (rank 0 writes the whole "
+          f"moments), load_checkpoint(target=) into each rank's slices, the next step "
+          f"{rdiff:.3e} from the uninterrupted one (two uninterrupted runs: {spread2:.3e}), "
+          f"moments {float(rs['restore_resume_diff'][1]):.3e}; {secs('restore')} s per rank",
+          flush=True)
+    check(rdiff <= spread2 and int(rs["restore_layout_mismatches"]) == 0,
+          "the resumed step lies outside the spread of two uninterrupted steps")
+    for rank in report.values():
+        for case in rank.values():
+            for name, n_ in case["launches"].items():
+                counts[name] = counts.get(name, 0) + n_
+    print(f"train mesh {tag}: world 1 {t1:.1f} s, world 2 {launch_s:.1f} s (the ranks' start "
+          f"included); launches of the sharded calls: world 1 {world1}, together {counts}",
+          flush=True)
+    return dict(counts=counts, k2_grad=grad_rec,
+                k2_tptrain=sum(launches("tptrain", "K2_flash_attention")),
+                k5_fsdp=world1.get("K5_flash_attention_qkv_proj", 0)
+                + sum(launches("dptrain", "K5_flash_attention_qkv_proj"))
+                + sum(launches("restore", "K5_flash_attention_qkv_proj")))
+
+
+def tooling_phase(vlad, jpegs, work: Path, tag: str) -> dict:
+    """``python -m anyloc_tpu_torch viz clusters`` and ``viz report`` through
+    ``cli.main`` at DINOv2-G/14 layer 31 value (bf16, random weights from
+    the extractor's default seed, on the card), VLAD-32's vocabulary in
+    the CLI's vocab_dir, 448-px images (K5's token range): an overlay per
+    image, and the report's labels equal to the extractor +
+    ``assign_labels`` run directly; K5 launches counted over each call."""
+    import json as _json
+
+    import numpy as np
+    from PIL import Image
+
+    from anyloc_tpu_torch import DinoV2ExtractFeatures, cli
+    from anyloc_tpu_torch.data.base import natsorted
+    from anyloc_tpu_torch.data.transforms import preprocess_image
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kmeans import assign_labels
+    from anyloc_tpu_torch.pipelines.demo import vocab_dir
+
+    work.mkdir(parents=True)
+    imgs = work / "imgs"
+    imgs.mkdir()
+    for p in jpegs[:8]:
+        shutil.copy(p, imgs / Path(p).name)
+    vdir = vocab_dir(str(work / "cache"), "dinov2_vitg14", 31, "value", 32, "indoor")
+    os.makedirs(vdir)
+    np.savez(os.path.join(vdir, "c_centers.npz"), centers=vlad.c_centers.cpu().numpy())
+    common = ["--in-dir", str(imgs), "--cache-dir", str(work / "cache"), "--domain", "indoor",
+              "--model", "dinov2_vitg14", "--layer", "31", "--facet", "value",
+              "--num-clusters", "32", "--max-img-size", "448"]
+    counts, secs = {}, {}
+    for sub, extra in (("clusters", ["--out-dir", str(work / "clusters")]),
+                       ("report", ["--out", str(work / "report.html")])):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["viz", sub, *common, *extra])
+        secs[sub] = time.perf_counter() - t0
+        counts[sub] = {k: n for k, n in K.launch_counts().items() if n}
+        check(rc == 0, f"viz {sub}: rc {rc}")
+        check(counts[sub].get("K5_flash_attention_qkv_proj", 0) > 0,
+              f"K5 never launched in viz {sub}: {counts[sub]}")
+    overlays = sorted((work / "clusters").glob("*_clusters.png"))
+    check(len(overlays) == len(list(imgs.iterdir())), f"viz clusters wrote {len(overlays)} files")
+    html_text = (work / "report.html").read_text()
+    data = _json.loads(html_text.split('<script type="application/json" id="viz-data">')[1]
+                       .split("</script>")[0])
+    ext = DinoV2ExtractFeatures("dinov2_vitg14", 31, "value")
+    centers = vlad.c_centers.to(ext.device)
+    same = 0
+    paths = natsorted([str(p) for p in imgs.iterdir()])
+    for path, item in zip(paths, data["images"]):
+        arr = preprocess_image(Image.open(path).convert("RGB"), max_edge=448, crop_multiple=14)
+        labels = assign_labels(ext(arr[None])[0], centers).cpu().numpy()
+        same += int(np.array_equal(labels, np.array(item["labels"])))
+    print(f"viz {tag}: python -m anyloc_tpu_torch viz clusters / report (DINOv2-G/14 l31 value "
+          f"bf16, VLAD-32 vocabulary, {len(paths)} fixture JPEGs at 448 px): {len(overlays)} "
+          f"overlays in {secs['clusters']:.1f} s wall, the report ({len(html_text) / 1e6:.2f} MB) "
+          f"in {secs['report']:.1f} s wall (each with the model build); report labels equal to "
+          f"the extractor + assign_labels run directly on {same}/{len(paths)} images; launch "
+          f"counts clusters {counts['clusters']}, report {counts['report']}", flush=True)
+    check(same == len(paths) == len(data["images"]), "viz report's labels differ from a direct run")
+    del ext
     return counts
 
 

@@ -168,11 +168,17 @@ def test_convert_torchvision_alexnet_gives_the_jax_model():
 
 @pytest.mark.parametrize("what", ["sync_axis"])
 def test_resnet_refuses_sync_bn_and_training(what):
-    """Cross-device BatchNorm raises (training mode is ported:
-    tests/test_torch_train_models.py holds it to Flax's)."""
+    """Cross-device BatchNorm (tests/test_torch_parallel_train.py holds it
+    to Flax's over 2 and 4 ranks) refuses to train without a mesh bound to
+    reduce over (``parallel.mesh.use_mesh``), as Flax refuses an unbound
+    axis name; inference reads the stored statistics."""
     cfg = pres.resnet18_config(truncate="conv4")
-    with pytest.raises(NotImplementedError, match="parallel/ on torch.distributed"):
-        pres.ResNet(dataclasses.replace(cfg, sync_axis="data"))
+    model = materialize(lambda: pres.ResNet(dataclasses.replace(cfg, **{what: "data"})), None,
+                        "cpu", seed=0)
+    x = torch.randn(1, 32, 32, 3)
+    model(x)
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        model(x, train=True)
 
 
 # ------------------------------------------------------------------ EfficientNet

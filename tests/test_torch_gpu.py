@@ -1363,6 +1363,43 @@ def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, dtype):
     assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+@pytest.mark.parametrize("b,h,n,hd,dtype", [(48, 6, 197, 64, torch.float32),
+                                             (2, 4, 300, 80, torch.float32),
+                                             (2, 8, 257, 64, torch.bfloat16)])
+def test_k2_gradient_matches_the_plain_versions(b, h, n, hd, dtype):
+    """K2 under autograd (a tensor-parallel rank's heads in training,
+    ``FlashAttentionGrad``) launches its kernel once and carries the plain
+    version's gradient for q, k and v: each within 1e-4 of its largest
+    |value|; the output keeps the kernel's bound."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    r = train_checks.k2_gradient(b, h, n, hd, dtype)
+    assert r["launched"] == 1 and r["grad_fn"].startswith("FlashAttentionGrad")
+    assert r["ok"], r["grad_errs"]
+    assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_requires_grad"])
+def test_k2_without_a_gradient_launches_and_saves_nothing(mode):
+    """K2 with grad mode off, or no input that requires a gradient: the
+    kernel launches directly, the output has no grad_fn and nothing is saved
+    for a backward."""
+    from anyloc_tpu_torch.ops import kernels as K
+
+    q = _randn(2, 4, 197, 64)
+    args = (q.requires_grad_(mode != "no_input_requires_grad"), q, q)
+    saved = []
+    ctx = {"inference_mode": torch.inference_mode, "no_grad": torch.no_grad,
+           "no_input_requires_grad": torch.enable_grad}[mode]
+    before = K.flash_attention.launches
+    with ctx(), torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                         lambda t: t):
+        out = K.flash_attention(*args)
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 1
+    assert out.grad_fn is None and saved == []
+
+
 def _no_grad_cases():
     """Each kernel wrapper without a gradient, at a small shape: (wrapper,
     args, kwargs); its first float tensor will require a gradient."""
@@ -1382,7 +1419,6 @@ def _no_grad_cases():
     k7, k8 = _k7_case(True), _k8_case("mlp", 200, True)
     return {
         "K1": (K.vlad_aggregate_fused, (_randn(2, 10, 16), _randn(4, 16)), {}),
-        "K2": (K.flash_attention, (q, q, q), {}),
         "K3": (K.fused_mlp_int8, (x.reshape(16, d), w12, s12, None, w3, s3, None), {}),
         "K4": (K.fused_attn_half_int8, (x, wqkv, sqkv, None, wp, sp, None),
                dict(num_heads=2, ln_params=ln)),
@@ -1397,8 +1433,7 @@ def _no_grad_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9", "T1", "T2",
-                                  "T3"])
+@pytest.mark.parametrize("name", ["K1", "K3", "K4", "K6", "K7", "K8", "K9", "T1", "T2", "T3"])
 def test_no_gradient_wrappers_raise_under_grad(name):
     """F18: a wrapper whose kernel has no gradient raises when grad mode is
     on and an input requires one (its output would be detached), and

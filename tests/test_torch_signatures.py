@@ -42,7 +42,13 @@ DROPPED = {
 }
 # Not a name difference, so not listed: ``mesh`` is a torch DeviceMesh with the
 # JAX axis names where the JAX package takes a jax Mesh (parallel/mesh.py), and
-# the parallel/ entry points take backend= / device= after the JAX parameters.
+# the parallel/ entry points take backend= / device= after the JAX parameters;
+# the viz subcommands and ``viz.cluster_assignment_map`` / ``pca_projection``
+# take device= after them (the card by default); ``state_shardings`` and the
+# leaves of ``fsdp_shardings`` are ``parallel.fsdp.Sharding`` values (mesh +
+# spec) where the JAX package has NamedShardings; a layer given ``sync_axis``
+# reduces over the mesh of ``parallel.mesh.use_mesh`` where the JAX package's
+# ``shard_map`` binds the axis name.
 # not ported yet: each raises NotImplementedError naming its port-queue item
 STUBS = set()
 
@@ -85,7 +91,12 @@ def test_the_comparison_covers_the_ported_modules():
                  ("ops.common", "l2_normalize"), ("models.sam", "SAMImageEncoder"),
                  ("parallel.mesh", "get_mesh"), ("parallel.distributed", "pq_search_sharded"),
                  ("parallel.tp", "split_fused_params"), ("parallel.pp", "pipeline_facet_extract"),
-                 ("parallel.sp", "SPFacetExtractor"), ("parallel.ep", "ep_vlad_aggregate")]:
+                 ("parallel.sp", "SPFacetExtractor"), ("parallel.ep", "ep_vlad_aggregate"),
+                 ("parallel.fsdp", "fsdp_train_step"), ("parallel.fsdp", "fsdp_shardings"),
+                 ("parallel.tp", "vit_tp_shardings"), ("utils.checkpoint", "load_checkpoint"),
+                 ("viz", "cluster_assignment_map"), ("pipelines.viz_cli", "cmd_report"),
+                 ("utils.profiling", "flops_of"), ("utils.images", "to_pil_list"),
+                 ("data.transforms", "resize_pil")]:
         assert want in names, want
     assert set(DROPPED) | STUBS <= names, (set(DROPPED) | STUBS) - names
 

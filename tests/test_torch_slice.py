@@ -8,7 +8,6 @@ the same DINOv2-named state dict natively. Tolerances are stated per test.
 
 import os
 import pathlib
-import re
 import subprocess
 import sys
 
@@ -33,7 +32,6 @@ from anyloc_tpu.ops.vlad import vlad_aggregate as jax_vlad_aggregate
 from anyloc_tpu.pipelines.engine import DescriptorEngine as JaxEngine
 
 import anyloc_tpu_torch as port
-from anyloc_tpu_torch import cli as port_cli
 from anyloc_tpu_torch.ops import retrieval as port_retrieval
 from anyloc_tpu_torch.models.dinov2 import from_jax_params, native_state_dict
 
@@ -331,47 +329,6 @@ def test_empty_selection_keeps_three_dims():
     ds = port.VPRDataset(db[:2], [], img_size=(112, 112))
     out = eng.extract_dataset(ds, "queries", verbose=False)
     assert out.shape == (0, 64, 64)
-
-
-def _port_queue_titles():
-    """The item titles of ROADMAP.md's port queue ("N. **Title.**"), without
-    backticks and the closing period or colon."""
-    text = (ROOT / "ROADMAP.md").read_text()
-    queue = text[text.index("### 1. Port queue"):text.index("### 2.")]
-    return {t.replace("`", "").rstrip(".:")
-            for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)}
-
-
-def _geo(**kw):
-    from anyloc_tpu_torch.training.network import GeoLocalizationNet
-
-    return GeoLocalizationNet(**kw)
-
-
-def _training_call(module, name, *args):
-    import importlib
-
-    return getattr(importlib.import_module(f"anyloc_tpu_torch.{module}"), name)(*args)
-
-
-NOT_PORTED = {
-    "cli viz": lambda: port_cli.main(["viz", "--help"]),
-    "sweep --plot": lambda: port_cli.main(["sweep", "--plot"]),
-    "GeoLocalizationNet(sync_axis=...)": lambda: _geo(sync_axis="data"),
-    "load_checkpoint(target=...)": lambda: _training_call("utils.checkpoint", "load_checkpoint",
-                                                          ".", object()),
-}
-
-
-@pytest.mark.parametrize("what", sorted(NOT_PORTED))
-def test_not_ported_messages_name_a_port_queue_item(what):
-    """F9: each "not ported yet" message names its ROADMAP.md port-queue
-    item by title, which does not go stale when the queue is renumbered."""
-    with pytest.raises(NotImplementedError) as info:
-        NOT_PORTED[what]()
-    named = re.search(r'port queue: "([^"]+)"', str(info.value))
-    assert named, str(info.value)
-    assert named.group(1) in _port_queue_titles(), (named.group(1), _port_queue_titles())
 
 
 def test_import_pulls_in_no_jax():
