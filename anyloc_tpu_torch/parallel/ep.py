@@ -14,6 +14,15 @@ back: one ``all_to_all`` each way, as the MoE exchange.
 
 ``route_by_domain`` is the single-device router the demo's ``--domain
 auto`` uses.
+
+Descriptors or experts that require a gradient get one (F25), as through
+the JAX package's: the exchanges are ``all_to_all_grad`` (backward, the
+inverse exchange), the final gather ``tp_gather`` (a loss replicated over
+every rank), and ``sum_grads`` sums each rank's part of the inputs'
+gradients (its images, its experts) over the mesh. Dropped images (over
+capacity, or routed outside [0, E)) take zero gradient. The aggregation
+then needs its plain version (``vlad_kw`` ``impl="xla"`` on a card): K1
+has no gradient and refuses one (F18), as the JAX kernel has none (F19).
 """
 
 from __future__ import annotations
@@ -27,7 +36,15 @@ import torch.nn.functional as F
 
 from anyloc_tpu_torch.ops.common import l2_normalize, resolve_device
 from anyloc_tpu_torch.ops.gem import gem_pool
-from anyloc_tpu_torch.parallel.mesh import all_gather, all_to_all, axis_index, axis_size
+from anyloc_tpu_torch.parallel.mesh import (
+    all_to_all,
+    anchor,
+    all_to_all_grad,
+    axis_index,
+    axis_size,
+    sum_grads,
+    tp_gather,
+)
 
 
 def route_by_domain(descs: torch.Tensor, domain_centroids: torch.Tensor,
@@ -77,6 +94,9 @@ def ep_vlad_aggregate(
 
     dev = descs.device if isinstance(descs, torch.Tensor) else resolve_device(None)
     descs, route, experts = (_tensor(a, dev) for a in (descs, route, experts))
+    grad = torch.is_grad_enabled() and (descs.requires_grad or experts.requires_grad)
+    if grad:
+        descs, experts = sum_grads([descs, experts], mesh, None)
     n_exp, n_data = axis_size(mesh, expert_axis), axis_size(mesh, data_axis)
     e_total, n_clusters, d = experts.shape
     if e_total % n_exp:
@@ -104,7 +124,7 @@ def ep_vlad_aggregate(
     slot_e = torch.full((n_exp, capacity), -1, dtype=torch.int64, device=dev)
     buf[target[sel], pos[sel]] = x[sel]
     slot_e[target[sel], pos[sel]] = r[sel] % e_loc
-    got = all_to_all(buf.flatten(0, 1), mesh, expert_axis)      # [n_src · cap, T, D]
+    got = all_to_all_grad(buf.flatten(0, 1), mesh, expert_axis)      # [n_src · cap, T, D]
     got_e = all_to_all(slot_e.flatten(), mesh, expert_axis)
 
     # aggregate what came in against the local experts (empty slots stay 0)
@@ -113,7 +133,12 @@ def ep_vlad_aggregate(
         rows = (got_e == j).nonzero()[:, 0]
         if rows.numel():
             y[rows] = vlad_aggregate(got[rows], mine[j], **vlad_kw).float()
-    back = all_to_all(y, mesh, expert_axis).view(n_exp, capacity, -1)   # at the source
+    if grad:   # every rank builds the return exchange's backward, even with no image here
+        y = y + anchor(got, mine)
+    back = all_to_all_grad(y, mesh, expert_axis).view(n_exp, capacity, -1)   # at the source
     out = torch.zeros((b_loc, n_clusters * d), dtype=torch.float32, device=dev)
     out[sel] = back[target[sel], pos[sel]]
-    return all_gather(out, mesh, None), all_gather(kept.to(torch.uint8), mesh, None).bool()
+    if grad:
+        out = out + anchor(back)
+    return (tp_gather(out, mesh, None),
+            tp_gather(kept.to(torch.uint8), mesh, None).bool())

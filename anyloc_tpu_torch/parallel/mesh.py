@@ -39,11 +39,21 @@ names at each call site:
     ``sync_reduce`` (the statistics of cross-device BatchNorm:
     ``all_reduce`` forward and backward).
 
+  * pipeline, ring and expert exchanges under one loss replicated over
+    every rank (F25): ``shift_grad`` (``ppermute`` by one; backward, the
+    cotangent shifted back), ``broadcast_grad`` (the source keeps the
+    cotangent of the replicated result, once), ``all_to_all_grad``
+    (backward, the inverse exchange), and ``sum_grads`` on the replicated
+    inputs such a layer reads in part on each rank (identity forward; the
+    cotangents summed over the ranks backward, in one ``all_reduce``);
+    ``anchor`` keeps a rank's collectives in its backward where its own
+    loss reads nothing of them.
+
 With grad mode off, or no input that requires a gradient, each runs as
-the plain collective (``tp_copy`` as nothing). The generic
-``all_reduce``, ``all_gather``, ``all_to_all``, ``broadcast`` and ``shift``
-have no backward: given an input that requires a gradient with grad mode
-on, they raise.
+the plain collective (``tp_copy`` and ``sum_grads`` as nothing). The
+generic ``all_reduce``, ``all_gather``, ``all_to_all``, ``broadcast`` and
+``shift`` have no backward: given an input that requires a gradient with
+grad mode on, they raise.
 """
 
 from __future__ import annotations
@@ -233,8 +243,10 @@ def _refuse_grad(name: str, t: torch.Tensor) -> None:
     if torch.is_grad_enabled() and t.requires_grad:
         raise RuntimeError(
             f"{name}: the input requires a gradient and this collective has no backward; "
-            "use tp_reduce / tp_copy / tp_gather (tensor parallelism, a replicated loss) or "
-            "sync_reduce (data parallelism, a loss per rank), or call it under torch.no_grad()")
+            "use tp_reduce / tp_copy / tp_gather (tensor parallelism, a replicated loss), "
+            "sync_reduce (data parallelism, a loss per rank) or shift_grad / broadcast_grad / "
+            "all_to_all_grad (pipeline, ring and expert exchanges, a replicated loss), or call "
+            "it under torch.no_grad()")
 
 
 def all_reduce(t: torch.Tensor, mesh, axis: Optional[str], op: str = "sum") -> torch.Tensor:
@@ -277,6 +289,10 @@ def all_to_all(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     coordinate j; block j of the result came from coordinate j. No
     backward."""
     _refuse_grad("all_to_all", t)
+    return _all_to_all(t, mesh, axis)
+
+
+def _all_to_all(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return t
     group = _group(mesh, axis)
@@ -291,6 +307,10 @@ def broadcast(t: torch.Tensor, mesh, axis: Optional[str], src: int = 0) -> torch
     pass a tensor of the same shape and dtype): the JAX ``replicated``. No
     backward."""
     _refuse_grad("broadcast", t)
+    return _broadcast(t, mesh, axis, src)
+
+
+def _broadcast(t: torch.Tensor, mesh, axis: Optional[str], src: int = 0) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return t
     group = _group(mesh, axis)
@@ -303,23 +323,34 @@ def shift(t: torch.Tensor, mesh, axis: str, wrap: bool = True) -> Optional[torch
     """``ppermute`` by one along ``axis``: send ``t`` to coordinate i + 1
     and receive coordinate i - 1's, both posted together in one
     ``batch_isend_irecv``. With ``wrap`` False the last coordinate sends
-    nothing and the first receives nothing (None). No backward."""
+    nothing and the first receives nothing (None). No backward
+    (``shift_grad``)."""
     _refuse_grad("shift", t)
+    return _shift(t, mesh, axis, wrap)
+
+
+def _shift(t: torch.Tensor, mesh, axis: str, wrap: bool, step: int = 1,
+           zeros: bool = False) -> Optional[torch.Tensor]:
+    """``t`` sent to coordinate i + ``step`` and coordinate i - ``step``'s
+    received; a coordinate that receives nothing (``wrap`` False) gets
+    None, or zeros with ``zeros`` (the JAX ``ppermute``'s fill)."""
     n = axis_size(mesh, axis)
     if n == 1:
-        return t if wrap else None
+        return t if wrap else (torch.zeros_like(t) if zeros else None)
     group = _group(mesh, axis)
     i = axis_index(mesh, axis)
     src = _buffer(group, t)
     ops, out = [], None
-    if wrap or i < n - 1:
-        ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, (i + 1) % n), group))
-    if wrap or i > 0:
+    if wrap or 0 <= i + step < n:
+        ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, (i + step) % n), group))
+    if wrap or 0 <= i - step < n:
         out = torch.empty_like(src)
-        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (i - 1) % n), group))
+        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (i - step) % n), group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return None if out is None else _back(out, t)
+    if out is None:
+        return torch.zeros_like(t) if zeros else None
+    return _back(out, t)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +451,123 @@ def sync_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
         return _all_reduce(t, mesh, axis)
     return _SyncReduce.apply(t, mesh, axis)
+
+
+class _ShiftGrad(torch.autograd.Function):
+    """``ppermute`` by one; the cotangent of what coordinate i received
+    goes back to i - 1, so coordinate i's input gets what i + 1 received's
+    (zeros where nothing was sent)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, wrap):
+        ctx.mesh, ctx.axis, ctx.wrap = mesh, axis, wrap
+        return _shift(t, mesh, axis, wrap, zeros=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad.contiguous(), ctx.mesh, ctx.axis, ctx.wrap, step=-1,
+                      zeros=True), None, None, None
+
+
+class _BroadcastGrad(torch.autograd.Function):
+    """Coordinate ``src``'s tensor on every coordinate; the cotangent of the
+    replicated result is the same on each, so the source takes it once and
+    the others' inputs (which were not read) get zeros."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, src):
+        ctx.mine = axis_index(mesh, axis) == src
+        return _broadcast(t, mesh, axis, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.mine else torch.zeros_like(grad)), None, None, None
+
+
+class _AllToAllGrad(torch.autograd.Function):
+    """The exchange along dim 0; its inverse, the same exchange, carries
+    each block's cotangent back to where the block came from."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """Replicated inputs that each rank reads in part: identity forward;
+    backward, every cotangent (zeros where this rank read nothing) summed
+    over ``axis``, one ``all_reduce`` for each dtype and device."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *ts):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = list(grads)
+        kinds = {}
+        for j, g in enumerate(grads):
+            kinds.setdefault((g.dtype, g.device), []).append(j)
+        for idx in kinds.values():
+            flat = _all_reduce(torch.cat([grads[j].reshape(-1) for j in idx]), ctx.mesh, ctx.axis)
+            for j, part in zip(idx, flat.split([grads[j].numel() for j in idx])):
+                out[j] = part.view_as(grads[j])
+        return (None, None, *out)
+
+
+def shift_grad(t: torch.Tensor, mesh, axis: str, wrap: bool = True) -> torch.Tensor:
+    """``shift`` under autograd (a loss replicated over ``axis``); a
+    coordinate that receives nothing (``wrap`` False) gets zeros, as the
+    JAX ``ppermute`` gives, not None. Every coordinate of ``axis`` must
+    reach its output from the loss, so that all run its backward."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _shift(t, mesh, axis, wrap, zeros=True)
+    return _ShiftGrad.apply(t, mesh, axis, wrap)
+
+
+def broadcast_grad(t: torch.Tensor, mesh, axis: Optional[str], src: int = 0) -> torch.Tensor:
+    """``broadcast`` from coordinate ``src`` under autograd (a loss
+    replicated over ``axis``): backward, the source's cotangent, not a sum
+    over the axis."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _broadcast(t, mesh, axis, src)
+    return _BroadcastGrad.apply(t, mesh, axis, src)
+
+
+def all_to_all_grad(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
+    """``all_to_all`` under autograd: backward, the inverse exchange."""
+    if axis_size(mesh, axis) == 1 or not _grad_wanted(t):
+        return _all_to_all(t, mesh, axis)
+    return _AllToAllGrad.apply(t, mesh, axis)
+
+
+def sum_grads(tensors: Sequence[torch.Tensor], mesh, axis: Optional[str] = None) -> list:
+    """``tensors``, replicated over ``axis`` (None: every rank) and read in
+    part on each rank (a pipeline stage's blocks, a token shard, a data
+    row), as tensors whose cotangents are summed over ``axis`` backward:
+    every rank then holds the gradient one process would compute. One
+    node for them all: a rank that reads none of them still joins the
+    reduction, provided the node is reached from its loss."""
+    tensors = list(tensors)
+    if axis_size(mesh, axis) == 1 or not torch.is_grad_enabled() \
+            or not any(t.requires_grad for t in tensors):
+        return tensors
+    return list(_SumGrads.apply(mesh, axis, *tensors))
+
+
+def anchor(*ts: torch.Tensor) -> torch.Tensor:
+    """0, exactly, with a gradient path to every tensor of ``ts`` (the sum
+    of an empty slice of each). Added to a rank's output it keeps their
+    collectives in that rank's backward: every rank must run the backward
+    of each collective its neighbours run, also where its own loss reads
+    nothing of it."""
+    return sum(t.reshape(-1)[:0].sum() for t in ts)
 
 
 def broadcast_object(obj, src: int = 0):

@@ -15,10 +15,20 @@ Token counts rarely divide the axis (257 at 224 px): shards are
 zero-padded and the ring masks padded KEYS out of every softmax; padded
 query rows compute values that are dropped on unpadding and never read as
 keys. Weights are replicated; images shard over ``data``.
+
+A trunk whose tensors require a gradient trains through it, as through
+the JAX package's (F25): the trunk runs functionally over the caller's
+tensors, the ring passes K / V by ``shift_grad``, the gathers are
+``tp_gather`` (a loss replicated over every rank), and ``sum_grads`` sums
+what each rank computed of the trunk's gradients (its token shard of its
+images) over the mesh. Masked keys get exact zero probabilities, so padded
+keys take zero gradient, not NaN. ``SPFacetExtractor`` stays an
+extractor (inference only).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional, Union
 
 import torch
@@ -26,11 +36,12 @@ import torch
 from anyloc_tpu_torch.models.vit import FACET_OFFSETS, ViTConfig
 from anyloc_tpu_torch.ops.common import l2_normalize, resolve_device
 from anyloc_tpu_torch.parallel.mesh import (
-    all_gather,
     axis_index,
     axis_size,
     shard_rows,
     shift,
+    shift_grad,
+    tp_gather,
 )
 
 _NEG = -1e30
@@ -43,7 +54,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: t
     this rank's token shard [B, H, n_loc, hd], ``kv_mask`` [n_loc] marks its
     real keys (False: padding). ``n_shards`` ring steps of (online-softmax
     update; K / V / mask passed on) give softmax(q·kᵀ·scale)·v over the
-    whole sequence, accumulated in float32."""
+    whole sequence, accumulated in float32. Under autograd the K / V
+    shards go round by ``shift_grad``, so their cotangents come back to
+    the rank that holds them."""
     n_shards = n_shards or axis_size(mesh, axis_name)
     b, h, nq, hd = q.shape
     qf = q.float() * hd ** -0.5
@@ -64,18 +77,17 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: t
         el = el * corr + p.sum(-1, keepdim=True)
         m = m_new
         if step < n_shards - 1:
-            kv = shift(kv, mesh, axis_name)
+            kv = shift_grad(kv, mesh, axis_name)
             msk = shift(msk.to(torch.uint8), mesh, axis_name)
     return (acc / torch.clamp_min(el, 1e-30)).to(q.dtype)
 
 
 def _sp_trunk(model, imgs, mesh, layer: int, facet: str, data_axis: str,
-              sp_axis: str) -> torch.Tensor:
+              sp_axis: str, dev) -> torch.Tensor:
     """The truncated trunk ``model`` (blocks 0..layer) with the images
     sharded over ``data_axis`` and the tokens over ``sp_axis``; returns
     [B, P+N, D] (the facet, or block ``layer``'s output for "token") on
-    every rank."""
-    dev = next(model.parameters()).device
+    every rank, on ``dev``."""
     n_data, n_sp = axis_size(mesh, data_axis), axis_size(mesh, sp_axis)
     imgs = torch.as_tensor(imgs).to(dev)
     n_imgs, pad = imgs.shape[0], (-imgs.shape[0]) % n_data
@@ -98,8 +110,8 @@ def _sp_trunk(model, imgs, mesh, layer: int, facet: str, data_axis: str,
     if facet != "token":
         off = FACET_OFFSETS[facet] * d
         x = model.blocks[layer](x, qkv_only=True)[..., off:off + d]
-    x = all_gather(x.transpose(0, 1).contiguous(), mesh, sp_axis).transpose(0, 1)[:, :t]
-    return all_gather(x.contiguous(), mesh, data_axis)[:n_imgs]
+    x = tp_gather(x.transpose(0, 1).contiguous(), mesh, sp_axis).transpose(0, 1)[:, :t]
+    return tp_gather(x.contiguous(), mesh, data_axis)[:n_imgs]
 
 
 def _check(cfg: ViTConfig, layer: int, facet: str) -> None:
@@ -112,7 +124,6 @@ def _check(cfg: ViTConfig, layer: int, facet: str) -> None:
                          "(the fused int8 kernels are single-device)")
 
 
-@torch.inference_mode()
 def sp_facet_extract(
     cfg: ViTConfig,
     params: Mapping,
@@ -128,12 +139,37 @@ def sp_facet_extract(
     """Facet extraction with the activations token-sharded over
     ``mesh[sp_axis]`` and batch-sharded over ``mesh[data_axis]``: equal to
     ``ViT.forward(imgs, capture_layer=layer, capture_facet=facet)`` on
-    ``params`` (the trunk's state dict), on ``device`` (None: the card)."""
-    from anyloc_tpu_torch.models.dinov2 import build_vit
+    ``params`` (the trunk's state dict), on ``device`` (None: the card).
+    When a tensor of ``params`` (or ``imgs``) requires a gradient under
+    grad mode, the result carries the gradient of a loss replicated over
+    every rank back to them (module docstring)."""
+    from torch.func import functional_call
+
+    from anyloc_tpu_torch.models.convert import maybe_tp_split
+    from anyloc_tpu_torch.models.vit import ViT
+    from anyloc_tpu_torch.parallel.pp import (_cast, _template, _wants_grad, summed_over_mesh,
+                                              trunk_tensors)
 
     _check(cfg, layer, facet)
-    model = build_vit(cfg, params, layer + 1, device=resolve_device(device))
-    return _sp_trunk(model, imgs, mesh, layer, facet, data_axis, sp_axis)
+    dev = resolve_device(device)
+    grad = _wants_grad(params, imgs)
+    sd = trunk_tensors(params, layer, facet)
+    if grad:
+        sd, imgs, _ = summed_over_mesh(sd, imgs, mesh)
+    sd = maybe_tp_split(sd, cfg)
+    vit_t = _template(lambda: ViT(cfg, layer + 1))
+
+    class _Trunk(torch.nn.Module):       # functional_call runs forward: the trunk's own
+        def __init__(self):
+            super().__init__()
+            self.vit = vit_t
+
+        def forward(self, x):
+            return _sp_trunk(self.vit, x, mesh, layer, facet, data_axis, sp_axis, dev)
+
+    with contextlib.nullcontext() if grad else torch.no_grad():
+        tensors = {f"vit.{k}": v for k, v in _cast(vit_t, sd, dev).items()}
+        return functional_call(_Trunk(), tensors, (imgs,))
 
 
 class SPFacetExtractor:
@@ -177,7 +213,7 @@ class SPFacetExtractor:
         if imgs.dtype == torch.uint8:
             imgs = device_normalize(imgs)
         out = _sp_trunk(self.model, imgs, self.mesh, self.layer, self.facet, self.data_axis,
-                        self.sp_axis)
+                        self.sp_axis, self.device)
         skip = self.cfg.num_prefix_tokens
         if self.use_cls:
             if self.cfg.num_register_tokens:

@@ -16,8 +16,10 @@ variance (i+1)^-0.5, what PCA output looks like); rows are unit vectors,
 and the queries are database rows plus ``--query-noise``. Device engines
 are timed with CUDA events (best of 3 after a warm-up), "native" with the
 host clock; every line names the card and its power limit. Recall is the
-mean top-k overlap with exact search over up to 256 queries. It needs a
-card and raises without one.
+mean top-k overlap with exact search over up to 256 queries, in every
+line; ``--recall-vs-exact`` also prints the root script's recall line for
+the ivf, pq and ivf_pq engines (that overlap and the top-1 agreement). It
+needs a card and raises without one.
 """
 
 from __future__ import annotations
@@ -83,9 +85,11 @@ def run(n_db: int = 100_000, n_qu: int = 1_000, dim: int = 4096, k: int = 20,
         n_probe: int = 16, stream_dtype: str = "float32", pq_m: int = 64,
         pq_db_block: int = 8192, pq_score_dtype: str = "bfloat16", pq_scan: str = "auto",
         query_batch: Optional[int] = None, db_dist: str = "uniform", opq_iters: int = 0,
-        query_noise: float = 0.0, seed: int = 0, emit=print) -> Dict[str, dict]:
-    """Fit and time each engine; ``emit`` gets one JSON line per engine.
-    Returns {engine tag: its line}."""
+        query_noise: float = 0.0, seed: int = 0, recall_vs_exact: bool = False,
+        emit=print) -> Dict[str, dict]:
+    """Fit and time each engine; ``emit`` gets one JSON line per engine
+    (and with ``recall_vs_exact`` the root script's recall line after each
+    ivf / pq / ivf_pq line). Returns {engine tag: its line}."""
     from anyloc_tpu_torch import native
     from anyloc_tpu_torch.ops import ivf, ivf_pq, pq
     from anyloc_tpu_torch.ops.retrieval import top_k_search, top_k_search_blocked
@@ -110,12 +114,20 @@ def run(n_db: int = 100_000, n_qu: int = 1_000, dim: int = 4096, k: int = 20,
     exact = top_k_search_blocked(db, qu[:n_chk], k, db_block=65536, device=dev)[1]
     results = {}
 
-    def line(tag, qps, ids, nbytes, fit_s=None, **extra):
-        out = dict(engine=tag, qps=qps, recall_vs_exact=overlap(ids[:n_chk], exact),
+    def line(tag, qps, ids, nbytes, fit_s=None, recall_tag=None, **extra):
+        ov = overlap(ids[:n_chk], exact)
+        out = dict(engine=tag, qps=qps, recall_vs_exact=ov,
                    index_bytes=int(nbytes), fit_s=fit_s, n_db=n_db, dim=dim, k=k,
                    n_qu=n_qu, query_batch=qbatch, db_dist=db_dist, card=card, **extra)
         results[tag] = out
         emit(json.dumps(out))
+        if recall_vs_exact and recall_tag is not None:
+            top1 = float(np.mean(np.asarray(ids)[:n_chk, 0] == np.asarray(exact)[:, 0]))
+            emit(json.dumps({
+                "metric": f"{recall_tag}_recall_at_{k}_vs_exact", "value": round(ov, 4),
+                "unit": f"mean top-{k} overlap with the exact engine over {n_chk} queries "
+                        f"(top-1 agreement: {top1:.4f}; db {db_dist}, query noise "
+                        f"{query_noise})", "vs_baseline": None}))
 
     def timed(search):
         ms = time_ms(search, iters=1, reps=3, warmup=1)
@@ -149,7 +161,7 @@ def run(n_db: int = 100_000, n_qu: int = 1_000, dim: int = 4096, k: int = 20,
         index, fit_s = fit_timed(lambda: ivf.ivf_fit(db, n_cells, device=dev))
         qps = timed(lambda: index.search(qu, k, n_probe=n_probe, query_block=qbatch))
         line(f"ivf_p{n_probe}", qps, index.search(qu, k, n_probe=n_probe)[1].cpu().numpy(),
-             index_bytes(index), fit_s)
+             index_bytes(index), fit_s, recall_tag=f"ivf_p{n_probe}")
     opq = f"_opq{opq_iters}" if opq_iters else ""
     if "pq" in engines:
         index, fit_s = fit_timed(lambda: pq.pq_fit(db, pq_m, method="cosine",
@@ -160,7 +172,7 @@ def run(n_db: int = 100_000, n_qu: int = 1_000, dim: int = 4096, k: int = 20,
                                 score_dtype=pq_score_dtype, scan=pq_scan)
         qps = timed(search)
         line(f"pq{pq_m}{opq}_{pq_scan}", qps, search()[1].cpu().numpy(), index_bytes(index),
-             fit_s, score_dtype=pq_score_dtype)
+             fit_s, recall_tag=f"pq{pq_m}{opq}", score_dtype=pq_score_dtype)
     if "ivf_pq" in engines:
         index, fit_s = fit_timed(lambda: ivf_pq.ivf_pq_fit(db, n_cells, m=pq_m, method="cosine",
                                                            opq_iters=opq_iters, device=dev))
@@ -170,11 +182,13 @@ def run(n_db: int = 100_000, n_qu: int = 1_000, dim: int = 4096, k: int = 20,
                                 score_dtype=pq_score_dtype)
         qps = timed(search)
         line(f"ivf_pq{pq_m}{opq}_p{n_probe}", qps, search()[1].cpu().numpy(),
-             index_bytes(index), fit_s, score_dtype=pq_score_dtype)
+             index_bytes(index), fit_s, recall_tag=f"ivf_pq{pq_m}{opq}_p{n_probe}",
+             score_dtype=pq_score_dtype)
     return results
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The root script's flags (and ``--seed``)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n-db", type=int, default=100_000)
     p.add_argument("--n-qu", type=int, default=1_000)
@@ -193,11 +207,18 @@ def main(argv=None) -> None:
                    choices=["uniform", "clustered", "pca_spectrum"])
     p.add_argument("--opq-iters", type=int, default=0)
     p.add_argument("--query-noise", type=float, default=0.0)
+    p.add_argument("--recall-vs-exact", action="store_true",
+                   help="also print the root script's recall line (mean top-k overlap with "
+                        "exact search and top-1 agreement) for ivf / pq / ivf_pq")
     p.add_argument("--seed", type=int, default=0)
-    a = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    a = parser().parse_args(argv)
     run(a.n_db, a.n_qu, a.dim, a.k, a.engines, a.n_cells, a.n_probe, a.stream_dtype, a.pq_m,
         a.pq_db_block, a.pq_score_dtype, a.pq_scan, a.query_batch, a.db_dist, a.opq_iters,
-        a.query_noise, a.seed)
+        a.query_noise, a.seed, a.recall_vs_exact)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,14 @@ run a Gloo group (``parallel/mesh.py``). The training cases
 training, sync BatchNorm, tensor-parallel training, the sharded restore)
 run when named; "small" holds them against the JAX package on the CPU,
 "full" runs dvgl's vit + NetVLAD-64 and resnet18conv4 at their published
-widths on a card.
+widths on a card. So do the cases of training through the pipeline, the
+ring and the expert exchange (``CASES_GRAD``, F25: the dp x pp step, the
+gradients of sequence-parallel facets and of routed VLAD; ``ppfreeze``,
+the dp x pp step with stage 0 frozen, runs when named) and the JAX
+dryrun's sections that no other case holds (``dryserve``,
+``dryretrieval``; ``tools/dryrun.py``). A case may also be named
+``module:function``, a function of a module on the ranks' path that takes
+the ``Rank`` (a caller's own reference, e.g. a test's).
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
+import re
 import sys
 import time
 import traceback
@@ -652,8 +661,6 @@ def train_inputs(case: str, profile: str) -> dict:
 
 
 def _adam(lr: float):
-    import functools
-
     return functools.partial(torch.optim.Adam, lr=lr)
 
 
@@ -1137,11 +1144,429 @@ def case_restore(r: Rank) -> None:
                                   for k in runs["a"])))
 
 
+# ---------------------------------------------------------------------------
+# training through the pipeline, the ring and the expert exchange (F25)
+# ---------------------------------------------------------------------------
+
+# the dp x pp step per profile: "small" is the JAX dryrun's (ViT-S/14 4
+# blocks, block 3's value facet, NetVLAD-4 on the patch tokens, one tuple of
+# 4 at 28 px per data coordinate, SGD 1e-2); "full" dvgl's vit + NetVLAD-64
+# (``DVGL``: every block pipelined, the token facet of block 11, the final
+# norm and NetVLAD after the pipeline, Adam 1e-5)
+PPTRAIN = {"small": dict(layer=3, facet="value", lr=1e-2),
+           "full": dict(layer=11, facet="token", lr=1e-5)}
+
+
+def pp_descriptor_fn(mesh, cfg, head, layer: int, facet: str, device, *, final_norm: bool,
+                     trunk: str = "trunk.", agg: str = "head."):
+    """``descriptor_fn(params, images)`` with the trunk's blocks pipelined
+    over ``mesh``'s ``model`` axis (``pipeline_facet_extract`` on the
+    ``trunk`` entries of ``params``) and ``head`` (NetVLAD) on its ``agg``
+    entries after it: the JAX dryrun's ``pp_desc`` (the head on the raw
+    patch facets), or with ``final_norm`` a ``GeoLocalizationNet``'s vit
+    route (the final norm, L2 on the patch tokens, NetVLAD)."""
+    import torch.nn.functional as F
+
+    from anyloc_tpu_torch.ops.common import l2_normalize
+    from anyloc_tpu_torch.parallel import pipeline_facet_extract
+
+    def fn(params, images):
+        tp_ = {k[len(trunk):]: v for k, v in params.items() if k.startswith(trunk)}
+        x = pipeline_facet_extract(cfg, tp_, images, mesh, layer, facet, device=device)
+        if final_norm:
+            x = l2_normalize(F.layer_norm(x, (cfg.embed_dim,), tp_["norm.weight"],
+                                          tp_["norm.bias"], cfg.ln_eps).float())
+        hp = {k[len(agg):]: v for k, v in params.items() if k.startswith(agg)}
+        return torch.func.functional_call(head, hp, (x[:, cfg.num_prefix_tokens:],))
+
+    return fn
+
+
+def _pp_small_net(r: Rank):
+    """The JAX dryrun's dp x pp model: DINOv2 ViT-S/14 cut to 4 blocks
+    (``vit_params`` seed 0) + NetVLAD-4 (``train_inputs("dptrain")``), as
+    one module whose forward is the plain trunk."""
+    from torch import nn
+
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.models.dinov2 import build_vit, dinov2_config
+    from anyloc_tpu_torch.training.aggregators import NetVLAD
+
+    cfg = dataclasses.replace(dinov2_config("dinov2_vits14", dtype=torch.float32), depth=4)
+    trunk = build_vit(cfg, vit_params(cfg, 0, r.device), device=r.device)
+    inp = train_inputs("dptrain", r.profile)
+    head = materialize(lambda: NetVLAD(4, 384), {"assign.weight": inp["assign"],
+                                                 "centroids": inp["centroids"]}, r.device)
+
+    class Net(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.trunk, self.head = trunk, head
+
+        def forward(self, images):
+            return self.head(self.trunk(images, capture_layer=3, capture_facet="value")[:, 1:])
+
+    return Net(), cfg
+
+
+def pptrain_tuples(profile: str, n_data: int) -> np.ndarray:
+    """The dp x pp step's tuples: the JAX dryrun's (one tuple of 4 at 28 px
+    per data coordinate, seed 3) or dvgl's (``dvgl_tuples``)."""
+    if profile == "small":
+        return np.random.default_rng(3).standard_normal(
+            (n_data, 4, 28, 28, 3)).astype(np.float32)
+    return dvgl_tuples(profile)
+
+
+def case_pptrain(r: Rank) -> None:
+    """The dp x pp training step (``PPTRAIN``): the tuples' images sharded
+    over ``data``, the trunk's blocks pipelined over ``model`` (world 2:
+    1 x 2, world 4: 2 x 2), one loss replicated over the ranks; its loss,
+    the gradients (every rank holds the whole of each), the parameters
+    after the step and, for Adam, the first moments, against the plain step
+    on one rank from the same weights (rank 0); the spread of the
+    parameters after the step across ranks; seconds."""
+    _pptrain(r, None)
+
+
+def _stage0_frozen(params) -> dict:
+    """dvgl's ``--freeze_te 1`` on the small dp x pp model: the embedding
+    and blocks 0-1 (all of stage 0's, over two stages) frozen, blocks 2-3
+    and the head trainable."""
+    return {k: not k.startswith("trunk.") or re.match(r"trunk\.blocks\.([2-9]|\d\d)", k)
+            is not None for k in params}
+
+
+def case_ppfreeze(r: Rank) -> None:
+    """``pptrain`` ("small") with stage 0's trunk frozen: stage 0's ranks
+    read nothing trainable, and must still run every collective of the
+    backward that the other stage's ranks run."""
+    _pptrain(r, _stage0_frozen)
+
+
+def _pptrain(r: Rank, trainable_mask) -> None:
+    from anyloc_tpu_torch.parallel.mesh import all_gather, axis_size
+    from anyloc_tpu_torch.tools.train_checks import descriptor_fn
+    from anyloc_tpu_torch.training.triplet import make_triplet_train_step
+
+    mesh = _pp_sp_mesh(r)
+    pt = PPTRAIN[r.profile]
+    if r.profile == "small":
+        net, cfg = _pp_small_net(r)
+        neg, opt = 2, functools.partial(torch.optim.SGD, lr=pt["lr"])
+        fn = pp_descriptor_fn(mesh, cfg, net.head, pt["layer"], pt["facet"], r.device,
+                              final_norm=False)
+    else:
+        net = dvgl_vit(r)
+        cfg = net.backbone.cfg
+        neg, opt = DVGL[r.profile]["neg"], _adam(pt["lr"])
+        fn = pp_descriptor_fn(mesh, cfg, net.aggregation, pt["layer"], pt["facet"], r.device,
+                              final_norm=True, trunk="backbone.", agg="aggregation.")
+    tuples = torch.from_numpy(pptrain_tuples(r.profile, axis_size(mesh, "data"))).to(r.device)
+    params = {**dict(net.named_parameters()), **dict(net.named_buffers())}
+
+    def moments(state):
+        if r.profile == "small":
+            return {}
+        return {k: state.opt_state.state[p]["exp_avg"].clone() for k, p in state.params.items()
+                if p.requires_grad}
+
+    trainable = None if trainable_mask is None else trainable_mask(params)
+    step = make_triplet_train_step(fn, opt, neg_num=neg)
+    with r.sharded():
+        state = step.init_state(params, trainable)
+        t0 = time.perf_counter()
+        state, loss = step(state, tuples)
+        _sync(r)
+        r.keep("seconds", np.array(time.perf_counter() - t0))
+    r.keep("loss", np.array(loss.item()))
+    after = {k: p.detach().clone() for k, p in state.params.items() if p.requires_grad}
+    got_m = moments(state)
+    if r.profile == "small":
+        for k, p in state.params.items():
+            if p.grad is not None:
+                r.keep(f"grad.{k}", p.grad)
+        for k, v in after.items():
+            r.keep(f"param.{k}", v)
+    # every rank's parameters after the step: their largest distance from rank 0's
+    with torch.no_grad():
+        flat = torch.cat([v.reshape(-1).double() for v in after.values()])
+        every = all_gather(flat[None].cpu(), mesh, None)
+        r.keep("rank_spread", np.array(float((every - every[:1]).abs().max())))
+        del every, flat
+    del state
+    if r.rank == 0:
+        plain = make_triplet_train_step(descriptor_fn(net), opt, neg_num=neg)
+        runs = []
+        for _ in range(1 if r.profile == "small" else 2):
+            one = plain.init_state(params, trainable)
+            t0 = time.perf_counter()
+            one, loss1 = plain(one, tuples)
+            _sync(r)
+            runs.append(({k: p.detach().clone() for k, p in one.params.items()
+                          if p.requires_grad}, moments(one), loss1.item(),
+                         time.perf_counter() - t0))
+            if r.profile == "small":
+                for k, p in one.params.items():
+                    if p.grad is not None:
+                        r.keep(f"single_grad.{k}", p.grad)
+            del one
+        r.keep("single_loss", np.array(runs[0][2]))
+        r.keep("single_seconds", np.array(runs[0][3]))
+        r.keep("param_diff", np.array(max(float((after[k] - runs[0][0][k]).abs().max())
+                                          for k in after)))
+        if r.profile == "small":
+            for k, v in runs[0][0].items():
+                r.keep(f"single_param.{k}", v)
+        else:
+            r.keep("pp_vs_single", np.array(_step_errors(runs[0][0], runs[0][1], after, got_m,
+                                                         pt["lr"])))
+            r.keep("single_spread", np.array(_step_errors(runs[0][0], runs[0][1], runs[1][0],
+                                                          runs[1][1], pt["lr"])))
+
+
+# sequence-parallel training per profile: the trunk, its pixels and images,
+# the captured facets
+SPTRAIN = {"small": dict(px=56, batch=4, facets=((5, "value"), (3, "token"))),
+           "full": dict(px=224, batch=8, facets=((11, "value"),))}
+
+
+def case_sptrain(r: Rank) -> None:
+    """Gradients of sum(facets * w) through ``sp_facet_extract`` (tokens
+    over ``model``, images over ``data``; "small": ``vit_config``'s trunk at
+    56 px, 17 tokens; "full": dvgl's ViT-B/16 float32 at 224 px, 197
+    tokens in shards of 99), every rank holding the whole of each, against
+    the plain trunk's on rank 0; in "small" also the ring alone: the
+    gradients of sum(out * w) over the real query rows through
+    ``ring_attention`` (16 tokens, the last 5 padded, over ``model`` =
+    world) against dense attention's on the real keys; and each output
+    without a gradient."""
+    from torch.func import functional_call
+
+    from anyloc_tpu_torch.models.dinov2 import native_state_dict
+    from anyloc_tpu_torch.models.vit import ViT
+    from anyloc_tpu_torch.parallel import get_mesh, ring_attention, sp_facet_extract
+    from anyloc_tpu_torch.parallel.mesh import shard_rows, tp_gather
+
+    mesh = _pp_sp_mesh(r)
+    st = SPTRAIN[r.profile]
+    if r.profile == "small":
+        cfg = vit_config(r.profile)
+        sd = vit_params(cfg, 0, r.device)
+    else:
+        bb = dvgl_vit(r).backbone
+        cfg, sd = bb.cfg, {k: v.detach() for k, v in bb.state_dict().items()}
+    img = images(r.profile, st["px"], st["batch"])
+    rng = np.random.default_rng(15)
+    n_tok = cfg.num_prefix_tokens + (st["px"] // cfg.patch_size) ** 2
+    w = torch.from_numpy(rng.standard_normal((st["batch"], n_tok, cfg.embed_dim))
+                         .astype(np.float32)).to(r.device)
+    for layer, facet in st["facets"]:
+        tag = f"{layer}_{facet}"
+        p = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+        with r.sharded():
+            t0 = time.perf_counter()
+            out = sp_facet_extract(cfg, p, img, mesh, layer, facet, device=r.device)
+            (out.float() * w).sum().backward()
+            _sync(r)
+            r.keep(f"{tag}_seconds", np.array(time.perf_counter() - t0))
+        r.keep(f"{tag}_out", out)
+        for k, v in p.items():
+            if v.grad is not None:
+                r.keep(f"{tag}_grad.{k}", v.grad)
+        with r.sharded():
+            r.keep(f"{tag}_nograd", sp_facet_extract(cfg, sd, img, mesh, layer, facet,
+                                                     device=r.device))
+        if r.rank == 0:
+            q = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+            with torch.device("meta"):
+                model = ViT(cfg, layer + 1)
+            t0 = time.perf_counter()
+            want = functional_call(model, native_state_dict(q, layer + 1),
+                                   (torch.from_numpy(img).to(r.device),),
+                {"capture_layer": layer, "capture_facet": facet})
+            (want.float() * w).sum().backward()
+            _sync(r)
+            r.keep(f"{tag}_single_seconds", np.array(time.perf_counter() - t0))
+            r.keep(f"{tag}_single_out", want)
+            for k, v in q.items():
+                if v.grad is not None:
+                    r.keep(f"{tag}_single_grad.{k}", v.grad)
+    if r.profile != "small":
+        return
+    ring_mesh = get_mesh(1, r.world)
+    inp = inputs("sp", "small")
+    wo = torch.from_numpy(rng.standard_normal((2, 3, 16, 4)).astype(np.float32)).to(r.device)
+    wo[:, :, 11:] = 0.0
+    full = {n: torch.from_numpy(a).to(r.device).requires_grad_(True) for n, a in inp.items()}
+    loc = {n: shard_rows(t.transpose(0, 2), ring_mesh, "model").transpose(0, 2)
+           for n, t in full.items()}
+    mask = shard_rows(torch.arange(16) < 11, ring_mesh, "model").to(r.device)
+    with r.sharded():
+        got = ring_attention(loc["q"], loc["k"], loc["v"], mask, axis_name="model",
+                             n_shards=r.world, mesh=ring_mesh)
+        whole = tp_gather(got.transpose(0, 2).contiguous(), ring_mesh, "model").transpose(0, 2)
+        (whole * wo).sum().backward()
+        with torch.no_grad():
+            r.keep("ring_nograd", tp_gather(ring_attention(
+                loc["q"], loc["k"], loc["v"], mask, axis_name="model", n_shards=r.world,
+                mesh=ring_mesh).transpose(0, 2).contiguous(), ring_mesh, "model").transpose(0, 2))
+    r.keep("ring_out", whole)
+    # each rank's q gets its own rows' gradient, k / v every query's: the
+    # sum over ranks is the gradient of the one loss
+    from anyloc_tpu_torch.parallel.mesh import all_reduce
+
+    with torch.no_grad():
+        for n, t in full.items():
+            r.keep(f"ring_grad.{n}", all_reduce(t.grad, ring_mesh, "model"))
+
+
+def case_eptrain(r: Rank) -> None:
+    """Gradients of sum(vlads * w) through ``ep_vlad_aggregate`` (soft VLAD:
+    hard labels have no gradient) with ample and tight capacity (the
+    experts sharded over ``model``), every rank holding the whole gradient
+    of the descriptors and of the experts, and each run's output without a
+    gradient."""
+    from anyloc_tpu_torch.parallel import ep_vlad_aggregate
+
+    mesh = _pp_sp_mesh(r)
+    inp = {k: torch.from_numpy(v).to(r.device) for k, v in inputs("ep", r.profile).items()}
+    e, c, d = inp["experts"].shape
+    w = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (inp["descs"].shape[0], c * d)).astype(np.float32)).to(r.device)
+    for name, cap in (("ample", 8.0), ("tight", 0.7)):
+        descs = inp["descs"].clone().requires_grad_(True)
+        experts = inp["experts"].clone().requires_grad_(True)
+        with r.sharded():
+            v, kept = ep_vlad_aggregate(descs, inp["route"], experts, mesh, capacity_factor=cap,
+                                        vlad_mode="soft", impl="xla")
+            (v * w).sum().backward()
+            r.keep(f"{name}_nograd", ep_vlad_aggregate(inp["descs"], inp["route"], inp["experts"],
+                                                       mesh, capacity_factor=cap,
+                                                       vlad_mode="soft")[0])
+        r.keep(f"{name}_vlads", v)
+        r.keep(f"{name}_kept", kept)
+        r.keep(f"{name}_grad_descs", descs.grad)
+        r.keep(f"{name}_grad_experts", experts.grad)
+
+
+CASES_GRAD = ("pptrain", "sptrain", "eptrain")
+
+
+# ---------------------------------------------------------------------------
+# the JAX dryrun's sections that no case above holds (tools/dryrun.py)
+# ---------------------------------------------------------------------------
+
+def case_dryserve(r: Rank) -> None:
+    """The JAX dryrun's serving section: ``sharded_extract_fn`` over data =
+    world around the int8_full ViT-S/14 trunk (block 3's value facet, the
+    uint8 images normalized on the device) and VLAD-4, 2 images of 28 px a
+    rank; against the same function on one rank."""
+    from anyloc_tpu_torch.models.dinov2 import dinov2_config
+    from anyloc_tpu_torch.ops.vlad import vlad_aggregate
+    from anyloc_tpu_torch.parallel import get_mesh, sharded_extract_fn
+
+    mesh = get_mesh(r.world, 1)
+    qcfg = dataclasses.replace(dinov2_config("dinov2_vits14", dtype=torch.float32),
+                               quant="int8_full")
+    ext = _extractor(qcfg, vit_params(qcfg, 0, r.device), 3, r.device)
+    rng = np.random.default_rng(1)
+    centers = torch.from_numpy(rng.standard_normal((4, 384)).astype(np.float32)).to(r.device)
+
+    def serve(params, images):
+        return vlad_aggregate(ext._forward(params, images), centers)
+
+    u8 = rng.integers(0, 255, (2 * r.world, 28, 28, 3)).astype(np.uint8)
+    with r.sharded():
+        r.keep("vlads", sharded_extract_fn(serve, mesh)(None, u8))
+    if r.rank == 0:
+        r.keep("single", serve(None, u8))
+
+
+def case_dryretrieval(r: Rank) -> None:
+    """The JAX dryrun's retrieval sections over a data mesh of every rank:
+    exact search of a 32768 x 4096 float32 database (512 MB; the bytes of
+    each rank's shard) against ``top_k_search`` on one rank; PQ (m 16),
+    IVF-PQ (27 cells, bucket factor 0.9, so the overflow pool is used,
+    probe 9) and IVF-flat (27 cells, full probe) on 16384 x 128 unit rows,
+    each sharded search against its index's search, and IVF at full probe
+    against exact search. Rank 0 fits the indexes; every rank loads them
+    from its files (a card's k-means need not be bit-reproducible)."""
+    from anyloc_tpu_torch.ops import ivf as I
+    from anyloc_tpu_torch.ops import ivf_pq as IP
+    from anyloc_tpu_torch.ops import pq as PQ
+    from anyloc_tpu_torch.ops.retrieval import top_k_search
+    from anyloc_tpu_torch.parallel import distributed as D
+    from anyloc_tpu_torch.parallel import get_mesh
+    from anyloc_tpu_torch.parallel.mesh import all_gather, barrier, pad_to_multiple, shard_rows
+
+    mesh = get_mesh(r.world, 1)
+    rng = np.random.default_rng(1)
+    n_db, dim = 32768, 4096
+    big = rng.standard_normal((n_db, dim), dtype=np.float32)
+    big /= np.linalg.norm(big, axis=1, keepdims=True)
+    bq = big[rng.choice(n_db, 8, replace=False)]
+    shard = shard_rows(pad_to_multiple(big, r.world)[0], mesh)
+    r.keep("shard_bytes", all_gather(torch.tensor([shard.nbytes]), mesh, None))
+    r.keep("big_bytes", np.array(big.nbytes))
+    with r.sharded():
+        s, i = D.top_k_search_sharded(big, bq, 5, mesh, device=r.device)
+    r.keep("big_s", s)
+    r.keep("big_i", i)
+    if r.rank == 0:
+        s1, i1 = top_k_search(torch.from_numpy(big).to(r.device),
+                              torch.from_numpy(bq).to(r.device), 5)
+        r.keep("big_single_s", s1)
+        r.keep("big_single_i", i1)
+    del big, shard
+    db = rng.standard_normal((16384, 128)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    qu = db[rng.choice(16384, 8, replace=False)]
+    paths = {k: str(r.out / f"dry_{k}.npz") for k in ("pq", "ivf_pq", "ivf")}
+    if r.rank == 0:
+        PQ.save_pq(PQ.pq_fit(db, 16, method="cosine", device=r.device), paths["pq"])
+        IP.save_ivf_pq(IP.ivf_pq_fit(db, 27, m=16, method="cosine", bucket_factor=0.9,
+                                     device=r.device), paths["ivf_pq"])
+        I.save_ivf(I.ivf_fit(db, 27, method="cosine", bucket_factor=0.9, device=r.device),
+                   paths["ivf"])
+    barrier()
+    pq = PQ.load_pq(paths["pq"], device=r.device)
+    ipq = IP.load_ivf_pq(paths["ivf_pq"], device=r.device)
+    ivf = I.load_ivf(paths["ivf"], device=r.device)
+    r.keep("pq_codes_bytes", np.array(pq.codes.numel() * pq.codes.element_size()))
+    r.keep("ipq_overflow", np.array(ipq.overflow_codes.shape[0]))
+    with r.sharded():
+        runs = {"pq": D.pq_search_sharded(pq, qu, 5, mesh, device=r.device),
+                "ivf_pq": D.ivf_pq_search_sharded(ipq, qu, 5, mesh, n_probe=9, device=r.device),
+                "ivf": D.ivf_search_sharded(ivf, qu, 5, mesh, n_probe=27, device=r.device)}
+    singles = {"pq": pq.search(qu, 5), "ivf_pq": ipq.search(qu, 5, n_probe=9),
+               "ivf": ivf.search(qu, 5, n_probe=27)}
+    for name, (s, i) in runs.items():
+        r.keep(f"{name}_s", s)
+        r.keep(f"{name}_i", i)
+        r.keep(f"{name}_single_s", singles[name][0])
+        r.keep(f"{name}_single_i", singles[name][1])
+    dbd = torch.from_numpy(db).to(r.device)
+    r.keep("exact_i", top_k_search(dbd, torch.from_numpy(qu).to(r.device), 5)[1])
+
+
+def _case(name: str):
+    """The case ``name`` of ``CASES``, or ``module:function`` of a module on
+    the ranks' path (a caller's own case, e.g. a test's reference)."""
+    if ":" in name:
+        import importlib
+
+        mod, fn = name.split(":")
+        return getattr(importlib.import_module(mod), fn)
+    return CASES[name]
+
+
 CASES = {"kmeans": case_kmeans, "search": case_search, "compressed": case_compressed,
          "extract": case_extract, "tp": case_tp, "pp": case_pp, "sp": case_sp, "ep": case_ep,
          "serve": case_serve, "collectives": case_collectives, "fsdp": case_fsdp,
          "dptrain": case_dptrain, "syncbn": case_syncbn, "tptrain": case_tptrain,
-         "restore": case_restore}
+         "restore": case_restore, "pptrain": case_pptrain, "ppfreeze": case_ppfreeze,
+         "sptrain": case_sptrain, "eptrain": case_eptrain, "dryserve": case_dryserve, "dryretrieval": case_dryretrieval}
 
 
 def _rank_main(rank: int, world: int, backend: str, device: str, profile: str, cases,
@@ -1159,14 +1584,14 @@ def _rank_main(rank: int, world: int, backend: str, device: str, profile: str, c
         for name in cases:
             r = Rank(rank, world, dev, profile, out_dir)
             t0 = time.perf_counter()
-            CASES[name](r)
+            _case(name)(r)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             report[name] = {"seconds": time.perf_counter() - t0,
                             "launches": r.launches}
             if rank == 0:
                 for key, arr in r.arrays.items():
-                    np.save(out_dir / f"{name}__{key}.npy", arr)
+                    np.save(out_dir / f"{name.replace(':', '.')}__{key}.npy", arr)
             print(f"mesh_checks rank {rank}/{world} [{backend}, {device}] {name}: "
                   f"{report[name]['seconds']:.2f} s, launches {report[name]['launches']}",
                   flush=True)
@@ -1219,7 +1644,7 @@ def launch(out, world: int, backend: str, device: str, profile: str, cases=None,
 
 def results(out, case: str) -> dict:
     """{name: array} that rank 0 wrote for ``case``."""
-    prefix = f"{case}__"
+    prefix = f"{case.replace(':', '.')}__"
     return {p.name[len(prefix):-4]: np.load(p) for p in Path(out).glob(f"{prefix}*.npy")}
 
 

@@ -140,19 +140,30 @@ Phases, each of which must pass or the script exits non-zero:
      collectives, FSDP over data 2 (dvgl vit: loss, averaged gradients
      and updated parameters), the tp_split vit over model 2 (K2 with its
      gradient), sync BatchNorm (resnet18conv4 at 480x640: outputs and
-     statistics in float32, and gradients too in float64) and the sharded
-     restore, each against one rank; then the tooling
+     statistics in float32, and gradients too in float64), the sharded
+     restore, and (F25) the dp x pp step with dvgl vit's 12 blocks
+     pipelined over model 2 (``pptrain``) and sequence-parallel facets'
+     gradients (``sptrain``), each against one rank; then the tooling
      (``tooling_phase``): ``python -m anyloc_tpu_torch viz clusters``
      and ``viz report`` at DINOv2-G l31
      (K5 launching, the report's labels equal to a direct run); the
      retrieval phase then runs each sharded engine over the one-rank mesh
-     beside its engine (results equal);
+     beside its engine (results equal); then the repository's programs
+     (``repo_programs_phase``): K3 beside the library MLP half
+     (``tools/bench_mlp_xla_int8``), the daemon under 16 client processes
+     coalesced and batch 1 (``tools/bench_serving``, G/14 l31 int8_full,
+     replies equal), IVF against exact at 1,000,000 x 512
+     (``tools/bench_ivf``), a ``tools/bench_pq_matrix`` point, the three
+     examples, ``dryrun.entry()`` and ``dryrun_multichip(2)``;
  10. timing: images/s of extract + VLAD at 224 px and 308 px (batch 32)
      and 1022 px (batch 1), bf16 and int8_full, images already on the
      card, then the ingest rates beside them. ``--profile DIR`` also
      writes torch.profiler tables of the shapes to DIR.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+Before them come one ``summary <phase>:`` line per phase (seconds,
+verdict, readings); the line before the last is a JSON object with one
+entry per kernel; the last line is {"ok": true, "device": {...}}. The
+whole output, the ranks' included, also goes to
+chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -257,6 +268,11 @@ PATH_KERNELS = {
     # parallel/'s training half: K5 (forward kernel, plain backward) in the
     # dvgl vit's FSDP steps, K2 with its gradient on each tensor-parallel rank
     "train mesh": ("K2_flash_attention", "K5_flash_attention_qkv_proj"),
+    # the repository's programs in this process: bench_mlp_xla_int8 (K3), the
+    # quickstart (bf16: K1, K5) and serving (int8_full: K1, K3, K4) examples,
+    # entry() (K1, K5)
+    "programs": ("K1_vlad_aggregate_fused", "K3_fused_mlp_int8", "K4_fused_attn_half_int8",
+                 "K5_flash_attention_qkv_proj"),
 }
 # the eval phase's runs: label -> the CLI's flags (17places, 16 db + 8
 # queries), the descriptor width
@@ -307,6 +323,85 @@ PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "hbm": 3.35e12}
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# the phases in order: name, start, readings noted, seconds; one summary line
+# each is printed before the kernels line (the log file holds every line)
+PHASES: list = []
+LOG = ROOT / "chiprun_out" / "chip_smoke.log"
+
+
+def mark(name: str) -> None:
+    """Close the phase that runs and open ``name``."""
+    now = time.perf_counter()
+    if PHASES and PHASES[-1]["seconds"] is None:
+        PHASES[-1]["seconds"] = now - PHASES[-1]["t0"]
+    PHASES.append(dict(name=name, t0=now, notes=[], seconds=None))
+
+
+def note(text: str) -> None:
+    """A reading for the summary line of the phase that runs."""
+    if PHASES:
+        PHASES[-1]["notes"].append(text)
+
+
+def summary_lines(failed: bool = False) -> list:
+    """One line per phase: its seconds, verdict and readings (a failure
+    ends the phase it happened in)."""
+    mark("end")
+    PHASES.pop()
+    out = []
+    for i, ph in enumerate(PHASES):
+        verdict = "FAILED" if failed and i == len(PHASES) - 1 else "ok"
+        text = "; ".join(ph["notes"])
+        out.append(f"summary {ph['name']}: {verdict}, {ph['seconds']:.1f} s"
+                   + (f"; {text}" if text else ""))
+    return out
+
+
+@contextlib.contextmanager
+def tee_output(path: Path):
+    """Everything written to this process's stdout and stderr, and to its
+    children's (they inherit the descriptors), also goes to ``path``."""
+    import threading
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log = open(path, "wb")
+    pumps, saved = [], []
+    for fd in (1, 2):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        keep = os.dup(fd)
+        r, w = os.pipe()
+
+        def pump(r=r, keep=keep):
+            while True:
+                chunk = os.read(r, 1 << 16)
+                if not chunk:
+                    break
+                os.write(keep, chunk)
+                log.write(chunk)
+                log.flush()
+
+        t = threading.Thread(target=pump, daemon=True)
+        t.start()
+        os.dup2(w, fd)
+        os.close(w)
+        pumps.append((t, r))
+        saved.append((fd, keep))
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, keep in saved:
+            os.dup2(keep, fd)      # the pipe's last write end closes: its pump ends
+        for t, r in pumps:
+            t.join(timeout=30)
+            os.close(r)
+        for _, keep in saved:
+            os.close(keep)
+        log.close()
 
 
 def check(cond: bool, what: str) -> None:
@@ -364,8 +459,10 @@ def run(profile_dir) -> dict:
     from anyloc_tpu_torch.tools._timing import card_line, time_ms
 
     dev = torch.device("cuda")
+    mark("device and build")
     card = card_line()
     print(f"card: {card}", flush=True)
+    note(card)
     tag = f"[{card}]"
 
     # float32 products that decide rankings must not run in TF32
@@ -415,6 +512,7 @@ def run(profile_dir) -> dict:
                  bound_share=r["bound_ms"] / r["ms"])
 
     # ---------------------------------------------------------------- K2
+    mark("K2")
     # At N 5330 the outputs of unit-normal q/k/v are about sqrt(e/N) ~ 0.02,
     # under an atol of 2e-2: there the bound is scaled to the output, the
     # largest error within 1e-2 of the largest |value| (one bf16 rounding is
@@ -489,6 +587,7 @@ def run(profile_dir) -> dict:
             timing_line("K2_flash_attention", "[1,24,5330,64] bf16")
 
     # ---------------------------------------------------------------- K5
+    mark("K5")
     def k5_inputs(b, n):
         d = 1536
         qkv = randn(b, n, 3 * d, dtype=torch.bfloat16)
@@ -520,6 +619,7 @@ def run(profile_dir) -> dict:
             timing_line("K5_flash_attention_qkv_proj", "qkv [32,485,4608] bf16")
 
     # ---------------------------------------------------------------- F10: head dim 80
+    mark("F10: head dim 80")
     # MAE-H / ImageBind-H width (D 1280, 16 heads of 80): K2 at the 1022-px
     # sequence (the scaled bound, planted faults beyond it) and K5 at the
     # 224-px batch at K5's bound, each against its plain version
@@ -568,6 +668,7 @@ def run(profile_dir) -> dict:
     del qkv, w, kw, got, want
 
     # ---------------------------------------------------------------- the other model families' shapes
+    mark("the other model families' shapes")
     # K5 with a bias and a residual but no LayerScale (no family but DINOv2
     # has one): CLIP-L/14@336px in float32 (the CLIP pipelines' type) and
     # MAE-H/14 / ImageBind-H/14 at 224 px in bf16, each against its plain
@@ -642,6 +743,7 @@ def run(profile_dir) -> dict:
         del qkv, q, k, v, got, want
 
     # ---------------------------------------------------------------- K1
+    mark("K1")
     # the main path's three shapes (224-px and 308-px database batches, the
     # 1022-px query, whose tokens the kernel splits over clusters) and the
     # family phase's two at D 768 (DINO v1 ViT-B/8's 224-px key facets, 3025
@@ -720,6 +822,7 @@ def run(profile_dir) -> dict:
     del x, centers, got, want, again
 
     # ---------------------------------------------------------------- K4
+    mark("K4")
     # int8 codes are held in nn.Linear's [out, in] storage and passed as
     # .t() views, as the trunk does. An int8 code flips where the kernel's
     # online softmax rounds P (unnormalized) to bf16 at another point than
@@ -767,6 +870,7 @@ def run(profile_dir) -> dict:
             timing_line("K4_fused_attn_half_int8", "x [32,485,1536] bf16")
 
     # ---------------------------------------------------------------- K3
+    mark("K3")
     def k3_inputs(m, d, hid, dtype, mlp_type):
         two = 2 if mlp_type == "swiglu_fused" else 1
         w12, s12 = int8_weight(d, two * hid)
@@ -805,6 +909,7 @@ def run(profile_dir) -> dict:
             timing_line("K3_fused_mlp_int8", "x [15520,1536] bf16")
 
     # ---------------------------------------------------------------- K9
+    mark("K9")
     # the whole int8 block: K4's and K3's arithmetic with x2 kept in f32,
     # so K4's form of bound; the wired route is K4 then K3 (bf16 x2). The
     # output's bound cannot tell an f32 x2 from a bf16 one (flipped codes
@@ -874,6 +979,7 @@ def run(profile_dir) -> dict:
             timing_line("K9_fused_block_int8", "x [32,485,1536] bf16")
 
     # ---------------------------------------------------------------- K7
+    mark("K7")
     # bf16 attention half: the kernel rounds at the plain version's points
     # (its online softmax rounds the unnormalized P, as K5's does), so K5's
     # bound; the wired route is LN + the cuBLAS qkv product + K5
@@ -923,6 +1029,7 @@ def run(profile_dir) -> dict:
             timing_line("K7_fused_attn_half_bf16", "x [32,257,1536] bf16")
 
     # ---------------------------------------------------------------- K8
+    mark("K8")
     # bf16 MLP half: the same rounding points as the plain version; the
     # wired route is the bf16 trunk's plain MLP half (LayerNorm, cuBLAS
     # w12, SiLU, cuBLAS w3, LayerScale and residual, each in bf16)
@@ -971,6 +1078,7 @@ def run(profile_dir) -> dict:
             timing_line("K8_fused_mlp_bf16", f"x [{m},1536] bf16")
 
     # ---------------------------------------------------------------- K6
+    mark("K6")
     # attention + projection over head-split q/k/v: K5's rounding and
     # bound; the wired route is K2 then a cuBLAS projection
     for label, b, h, n, dtype, tol in [("224px", 32, 24, 257, torch.bfloat16, k2_bound),
@@ -1008,6 +1116,7 @@ def run(profile_dir) -> dict:
                       f"{line['bound_ms']:.4f} ms ({line['bound_by']})", flush=True)
 
     # ---------------------------------------------------------------- T1, T2
+    mark("T1, T2")
     # the int8 micro-benchmark's products at its w12 shape (M 8704: 8224
     # rows padded to 512; K 1536, N 8192; the tool's bk 512) and a ragged
     # one (M 200, so the TPU tile is M itself; K 160, N 1000 against the
@@ -1122,6 +1231,7 @@ def run(profile_dir) -> dict:
     del a8, b8, exact
 
     # ---------------------------------------------------------------- T3
+    mark("T3")
     # K4 with zero biases and the tool's two knobs, K4's bound; its base
     # must be bit-equal to the K4 kernel on the same inputs with no biases
     # (the two share K4's stages, csrc/attn_half_int8.cuh). batched_dots
@@ -1200,6 +1310,7 @@ def run(profile_dir) -> dict:
             timing_line("T3_attn_half_variant", "x [32,485,1536] bf16, base (wired: K4)")
 
     # ---------------------------------------------------------------- F10: the block kernels at head dim 80
+    mark("F10: the block kernels at head dim 80")
     # K4, K6, K7, K9 and T3 at the 224-px batch of a ViT-H trunk (D 1280, 16
     # heads of 80; the int8 head chunk is 8 or 16 heads, so the projection's
     # K groups are 640 or 1280 wide), each against its plain version within
@@ -1260,6 +1371,7 @@ def run(profile_dir) -> dict:
     del x, qkv, q, k, v, a4, a7, x9, attn9, mlp9, a3, cases
 
     # ---------------------------------------------------------------- small-input reference checks
+    mark("small-input reference checks")
     # the card's path (kernels) against the plain path (CPU) on small
     # float32 trunks: d=128, 2 heads of 64, 2 blocks; 224 px -> K5 (bf16
     # path) or K4 + K3 (int8_full, SwiGLU 1024 in two 512 chunks); 504 px -> K2
@@ -1301,6 +1413,7 @@ def run(profile_dir) -> dict:
                       f"int8_full card and plain path disagree at {px} px")
 
     # ---------------------------------------------------------------- the bf16 path
+    mark("the bf16 path")
     db = listdir_abs(str(FIXTURE), "db")
     qu = listdir_abs(str(FIXTURE), "queries")
     gt = list(np.load(FIXTURE / "gt.npy", allow_pickle=True))
@@ -1344,6 +1457,8 @@ def run(profile_dir) -> dict:
         counts = K.launch_counts()
         print(f"e2e {path} 1022 px: facets {tuple(f1022.shape)}, VLAD {tuple(v1022.shape)}; "
               f"launch counts over the {path} path {counts}", flush=True)
+        note(f"{path}: recall {recalls}, launches "
+             + ", ".join(f"{n.split('_')[0]} {c}" for n, c in counts.items() if c))
         for name in PATH_KERNELS[path]:
             check(counts[name] > 0, f"{name} never launched on the {path} path")
         return vlad, counts
@@ -1386,8 +1501,10 @@ def run(profile_dir) -> dict:
     print(f"G bf16 224 px, kernels vs plain versions on the card: min facet cosine {fcos:.6f} "
           f"(bound >= 0.999), min VLAD cosine {vcos:.6f} (bound >= 0.99)", flush=True)
     check(fcos >= 0.999 and vcos >= 0.99, "bf16 path disagrees with its plain version")
+    note(f"G kernels vs plain: facet cos {fcos:.6f}, VLAD cos {vcos:.6f}")
 
     # ---------------------------------------------------------------- the int8_full path
+    mark("the int8_full path")
     t0 = time.perf_counter()
     engine8 = DescriptorEngine("dinov2_vitg14", 31, "value", batch_size=16, quant="int8_full",
                                transfer_dtype="uint8")   # no device named: the card
@@ -1414,8 +1531,10 @@ def run(profile_dir) -> dict:
           f"on the same weights: facet cosine min {qcos.min().item():.6f} mean "
           f"{qcos.mean().item():.6f} (not asserted)", flush=True)
     check(fcos8 >= 0.99, "int8_full path disagrees with its plain version")
+    note(f"G kernels vs plain: facet cos {fcos8:.6f}, VLAD cos {vcos8:.6f}")
 
     # ---------------------------------------------------------------- block variants
+    mark("block variants")
     # Block 0 of each G trunk with LayerScale 0.5 (from 1e-5, so that both
     # residual branches matter), restored afterwards.
     @contextlib.contextmanager
@@ -1510,6 +1629,7 @@ def run(profile_dir) -> dict:
         results[name]["launches"] = counts_v[name]
 
     # ---------------------------------------------------------------- the T1-T3 tools
+    mark("the T1-T3 tools")
     K.reset_launch_counts()
     mm = bench_int8_matmul.run(iters=3)
     for name, r in mm["shapes"].items():
@@ -1534,6 +1654,7 @@ def run(profile_dir) -> dict:
         results[name]["launches"] = counts_t[name]
 
     # ---------------------------------------------------------------- the entry point
+    mark("the entry point")
     with tempfile.TemporaryDirectory(prefix="anyloc_smoke_") as work:
         work = Path(work)
         root = work / "datasets"
@@ -1550,21 +1671,25 @@ def run(profile_dir) -> dict:
         ingest = ingest_phase(ext, vlad, ext8, vlad8, db + qu, qu, gt, work / "ingest", tag)
 
         # ------------------------------------------------------------ the other entry points
+        mark("the other entry points")
         other_entry_points_phase(ext, vlad, ext8, vlad8, db, qu, gt, root, work / "other", tag)
 
         # ------------------------------------------------------------ the other model families
+        mark("the other model families")
         families = other_families_phase(db, qu, root, work / "families", tag)
         for path in ("dino_v1 entry", "clip-top-k", "patch-clip"):
             for name in PATH_KERNELS[path]:
                 results[name].setdefault("family_launches", {})[path] = families[path][name]
 
         # ------------------------------------------------------------ the trained baselines' eval
+        mark("the trained baselines' eval")
         evals = eval_phase(root, work / "eval", tag)
         for path, counts in evals.items():
             for name in PATH_KERNELS.get(path, ()):
                 results[name].setdefault("eval_launches", {})[path] = counts[name]
 
         # ------------------------------------------------------------ training
+        mark("training")
         # K5's launches under autograd in the train CLI's steps (each has one
         # backward call); its mining and validation launches are inference
         trained = train_phase(root, work / "train", tag)
@@ -1572,6 +1697,7 @@ def run(profile_dir) -> dict:
         results["K5_flash_attention_qkv_proj"]["train_backward"] = trained["k5_backward"]
 
         # ------------------------------------------------------------ parallel/: the mesh phase
+        mark("parallel/: the mesh phase")
         import torch.distributed as dist
 
         from anyloc_tpu_torch.parallel.mesh import local_mesh
@@ -1583,8 +1709,11 @@ def run(profile_dir) -> dict:
         for name in PATH_KERNELS["mesh"]:
             check(meshed[name] > 0, f"{name} never launched in the mesh phase")
             results[name]["mesh_launches"] = meshed[name]
+        note("launches " + ", ".join(f"{n.split('_')[0]} {meshed[n]}"
+                                     for n in PATH_KERNELS["mesh"]))
 
         # ------------------------------------------------------------ parallel/: training
+        mark("parallel/: training")
         trained_mesh = train_mesh_phase(mesh1, work / "train_mesh", tag)
         for name in PATH_KERNELS["train mesh"]:
             check(trained_mesh["counts"].get(name, 0) > 0,
@@ -1592,18 +1721,38 @@ def run(profile_dir) -> dict:
         results["K2_flash_attention"]["train_grad"] = dict(
             launches=trained_mesh["k2_tptrain"], **trained_mesh["k2_grad"])
         results["K5_flash_attention_qkv_proj"]["fsdp_launches"] = trained_mesh["k5_fsdp"]
+        results["K5_flash_attention_qkv_proj"]["pptrain_launches"] = trained_mesh["k5_pptrain"]
 
         # ------------------------------------------------------------ tooling: viz
+        mark("tooling: viz")
         viz_counts = tooling_phase(vlad, db + qu, work / "viz", tag)
         results["K5_flash_attention_qkv_proj"]["viz_launches"] = {
             sub: c.get("K5_flash_attention_qkv_proj", 0) for sub, c in viz_counts.items()}
+        note(f"K5 launches {results['K5_flash_attention_qkv_proj']['viz_launches']}")
+
+        # ------------------------------------------------------------ the repository's programs
+        mark("the repository's programs")
+        programs = repo_programs_phase(work / "programs", tag)
+        k3 = results["K3_fused_mlp_int8"]
+        k3["library_ms"] = programs["mlp"][485]["library_ms"]
+        k3["library_route"] = ("LN, per-row quantize, torch._int_mm (w12), dequantize + SwiGLU + "
+                               "requantize, torch._int_mm (w3), LayerScale + residual: a "
+                               "composition of library calls (tools/bench_mlp_xla_int8.py, "
+                               "[32,485,1536], its own weights)")
+        for name in PATH_KERNELS["programs"]:
+            check(programs["launches"].get(name, 0) > 0,
+                  f"{name} never launched in the programs phase")
+        for name, n in programs["launches"].items():
+            results[name]["programs_launches"] = n
 
     # ---------------------------------------------------------------- the retrieval engines
+    mark("the retrieval engines")
     retrieval_phase(tag, mesh1, profile_dir)
     dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- throughput
+    mark("throughput")
     device_rate = {}
     for path, extractor, vl in (("bf16", ext, vlad), ("int8_full", ext8, vlad8)):
         for px, bsz in [(224, 32), (308, 32), (1022, 1)]:
@@ -1617,6 +1766,7 @@ def run(profile_dir) -> dict:
             print(f"throughput {tag}: {path} extract+VLAD {px} px ({n_tok} tokens) batch {bsz}: "
                   f"{ms:.2f} ms/batch, {bsz * 1000 / ms:.2f} images/s", flush=True)
             device_rate[path, px] = bsz * 1000 / ms
+            note(f"{path} {px} px {bsz * 1000 / ms:.2f} im/s")
             if profile_dir is not None:
                 profile(step, Path(profile_dir) / f"profile_{path}_{px}px_b{bsz}.txt",
                         f"{path} {px} px batch {bsz} {tag}")
@@ -1627,6 +1777,12 @@ def run(profile_dir) -> dict:
               f"{dev_rate:.2f} images/s with the images already on the card (throughput {path} "
               f"308 px above): {rate / dev_rate:.3f} of it", flush=True)
     print(f"card: {card}", flush=True)
+    for ph in PHASES:   # each kernel's readings on its phase's summary line
+        for name, r in results.items():
+            if name.split("_")[0] in ph["name"].replace(",", "").split() and "ms" in r:
+                ph["notes"].append(f"{name.split('_')[0]} {r['ms']:.3f} ms (plain "
+                                   f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f}), max err "
+                                   f"{r['max_abs_err']:.1e}")
     return {name: {"name": name, "route": "cuda", **KERNEL_INFO[name], **r}
             for name, r in results.items()}
 
@@ -3251,6 +3407,56 @@ def syncbn_verdict(sb: dict) -> tuple:
     return ok, text
 
 
+def pptrain_verdict(pt: dict, k5: list) -> tuple:
+    """(ok, text) of ``mesh_checks``' "full" pptrain results ``pt`` (dvgl's
+    vit + NetVLAD-64, its 12 blocks pipelined over model 2, 4 tuples of 12
+    at 224 px, Adam 1e-5) with K5's launches per rank ``k5``: the loss
+    within 1e-5 relative of the one-rank step's; the first moments (every
+    rank holds the whole gradient) within 1e-4 of each max|m|, the
+    vanishing ones within 1e-6 of the largest; the parameters after the
+    step within 0.5 lr where the update is lr times the gradient's sign
+    (a stage whose gradient went missing, or counted twice, lies 1 lr
+    off); both ranks' parameters equal; K5 launched on each stage for its
+    blocks alone."""
+    loss, single = float(pt["loss"]), float(pt["single_loss"])
+    loss_rel = abs(loss - single) / abs(single)
+    live, vanishing, update = (float(v) for v in pt["pp_vs_single"])
+    s_live, s_vanishing, s_update = (float(v) for v in pt["single_spread"])
+    spread = float(pt["rank_spread"])
+    ok = (loss_rel <= 1e-5 and live <= 1e-4 and vanishing <= 1e-6 and update <= 0.5
+          and spread == 0.0 and min(k5) > 0)
+    text = (f"dvgl vit + NetVLAD-64, 12 blocks pipelined over model 2 (6 a stage), 224 px, 4 "
+            f"tuples of 12, Adam 1e-5, one step against the one-rank step: loss {loss:.6f} vs "
+            f"{single:.6f} (loss rel {loss_rel:.2e} (bound 1e-5)); first moments {live:.2e} of "
+            f"each max|m| (bound 1e-4), vanishing ones {vanishing:.2e} (bound 1e-6); parameters "
+            f"after the step {update:.3f} lr apart (bound 0.5); two one-rank steps: "
+            f"{s_live:.2e} / {s_vanishing:.2e} / {s_update:.3f} lr; the ranks' parameters "
+            f"{spread:.1e} apart; step {float(pt['seconds']):.2f} s (Gloo) vs "
+            f"{float(pt['single_seconds']):.2f} s one rank; K5 launches per rank {k5}")
+    return ok, text
+
+
+def sptrain_verdict(sp: dict) -> tuple:
+    """(ok, text) of ``mesh_checks``' "full" sptrain results ``sp`` (dvgl's
+    ViT-B/16 float32, 8 images at 224 px, 197 tokens in 2 shards, block
+    11's value facet): the gradients of sum(facets * w) within 1e-4 of
+    their tensor's max|g| of the trunk's on one rank (the vanishing ones
+    1e-6 of the largest), the facets within 1e-5 of their largest."""
+    import numpy as np
+
+    tag = "11_value"
+    got = {k[len(tag) + 1:]: v for k, v in sp.items() if k.startswith(tag + "_")}
+    rel, van, n, nv = grads_err(got)
+    orel = float(np.abs(got["out"] - got["single_out"]).max() / np.abs(got["single_out"]).max())
+    ok = rel <= 1e-4 and van <= 1e-6 and orel <= 1e-5
+    text = (f"dvgl ViT-B/16 float32, 8 images at 224 px, 197 tokens in 2 ring shards, sum(value "
+            f"facet of block 11 * w) against the trunk on one rank: {n} gradients {rel:.2e} of "
+            f"their max|g| (bound 1e-4), {nv} vanishing {van:.2e} of the largest (bound 1e-6), "
+            f"facets {orel:.2e} (bound 1e-5); forward + backward {float(got['seconds']):.2f} s "
+            f"(Gloo) vs {float(got['single_seconds']):.2f} s one rank")
+    return ok, text
+
+
 def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     """The training half of ``parallel/`` at full width; returns K2's
     gradient record and the launches of the phase's sharded calls (zeroed
@@ -3385,7 +3591,7 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     t1 = time.perf_counter() - t_phase
 
     # world 2: Gloo, both ranks on this card
-    cases = ["collectives", "dptrain", "tptrain", "syncbn", "restore"]
+    cases = ["collectives", "dptrain", "tptrain", "syncbn", "restore", "pptrain", "sptrain"]
     t0 = time.perf_counter()
     report = mesh_checks.launch(work / "world2", 2, "gloo", "cuda", "full", cases, timeout=600)
     launch_s = time.perf_counter() - t0
@@ -3430,6 +3636,17 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
           flush=True)
     check(rdiff <= spread2 and int(rs["restore_layout_mismatches"]) == 0,
           "the resumed step lies outside the spread of two uninterrupted steps")
+    ok, text = pptrain_verdict(res["pptrain"], launches("pptrain", "K5_flash_attention_qkv_proj"))
+    print(f"train mesh {tag} world 2 pptrain (F25): {text}; {secs('pptrain')} s per rank",
+          flush=True)
+    note(f"pptrain {text[text.index('loss rel'):text.index(' (bound 1e-5)')]}, "
+         f"K5/rank {launches('pptrain', 'K5_flash_attention_qkv_proj')}, ok {ok}")
+    check(ok, "pptrain disagrees")
+    ok, text = sptrain_verdict(res["sptrain"])
+    print(f"train mesh {tag} world 2 sptrain (F25): {text}; {secs('sptrain')} s per rank",
+          flush=True)
+    check(ok, "sptrain disagrees")
+    note(f"sptrain ok {ok}; dptrain, tptrain, syncbn, restore ok")
     for rank in report.values():
         for case in rank.values():
             for name, n_ in case["launches"].items():
@@ -3441,7 +3658,8 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
                 k2_tptrain=sum(launches("tptrain", "K2_flash_attention")),
                 k5_fsdp=world1.get("K5_flash_attention_qkv_proj", 0)
                 + sum(launches("dptrain", "K5_flash_attention_qkv_proj"))
-                + sum(launches("restore", "K5_flash_attention_qkv_proj")))
+                + sum(launches("restore", "K5_flash_attention_qkv_proj")),
+                k5_pptrain=launches("pptrain", "K5_flash_attention_qkv_proj"))
 
 
 def tooling_phase(vlad, jpegs, work: Path, tag: str) -> dict:
@@ -3510,6 +3728,170 @@ def tooling_phase(vlad, jpegs, work: Path, tag: str) -> dict:
     return counts
 
 
+def repo_programs_phase(work: Path, tag: str) -> dict:
+    """The port's counterparts of the repository's JAX programs, on the card:
+    ``tools/bench_mlp_xla_int8`` (K3 beside the library MLP half at the JAX
+    default token counts), ``tools/bench_serving`` (DINOv2-G l31, 224 px,
+    int8_full, 64 requests from 16 client processes, coalesced and batch
+    1, every coalesced reply equal to its batch-1 reply),
+    ``tools/bench_ivf`` (1,000,000 x 512 clustered, 1024 cells, n_probe
+    16), one ``tools/bench_pq_matrix`` grid point, the three examples at
+    small sizes (each checked on its printed result), ``dryrun.entry()`` and
+    ``dryrun_multichip(2)`` (two Gloo ranks on this card). Returns the
+    phase's kernel launches in this process and the library MLP half's
+    times."""
+    from anyloc_tpu_torch.examples import multichip_retrieval, quickstart, serving
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import (bench_ivf, bench_mlp_xla_int8, bench_pq_matrix,
+                                        bench_serving, dryrun)
+
+    import numpy as np
+    import torch
+
+    work.mkdir(parents=True)
+    out = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            res = fn()
+        text = buf.getvalue()
+        (work / f"{label}.log").write_text(text)
+        return res, text, time.perf_counter() - t0
+
+    # K3 beside the MLP half built from library calls
+    K.reset_launch_counts()   # read at the end: the phase's launches in this process
+    mlp = bench_mlp_xla_int8.run(iters=20)
+    torch.cuda.synchronize()
+    check(K.launch_counts()["K3_fused_mlp_int8"] > 0, "K3 never launched in bench_mlp_xla_int8")
+    for n, r in mlp["shapes"].items():
+        print(f"programs {tag} bench_mlp_xla_int8 N={n} (B 32, D 1536, SwiGLU 4096): library "
+              f"MLP half (LN, per-row quantize, torch._int_mm x2, SwiGLU, requantize: a "
+              f"composition of library calls) {r['library_ms']:.3f} ms ({r['library_tops']:.1f} "
+              f"TOPS) | K3 {r['k3_ms']:.3f} ms ({r['k3_tops']:.1f} TOPS); cosine "
+              f"{r['cosine']:.6f} (bound >= 0.999: K3 requantizes per 512 chunk, F1)", flush=True)
+        check(r["cosine"] >= 0.999, f"bench_mlp_xla_int8 N={n}: cosine {r['cosine']}")
+    out["mlp"] = mlp["shapes"]
+    note("mlp " + ", ".join(f"N{n} lib {r['library_ms']:.3f} / K3 {r['k3_ms']:.3f} ms cos "
+                            f"{r['cosine']:.5f}" for n, r in mlp["shapes"].items()))
+
+    # the daemon under 16 client processes, coalesced against batch 1
+    args = bench_serving.parser().parse_args(
+        ["--model", "dinov2_vitg14", "--layer", "31", "--img-size", "224", "--quant",
+         "int8_full", "--requests", "64", "--clients", "16"])
+    srv, text, sec = timed("bench_serving", lambda: bench_serving.run(args))
+    c1, c16 = srv["configs"][1], srv["configs"][16]
+    eq = srv["equal"]
+    print(f"programs {tag} bench_serving (G/14 l31, 224 px, int8_full, uint8, 64 requests from "
+          f"16 client processes, 10,000-row database): batch 1 {c1['qps']:.2f} requests/s, p50 "
+          f"{c1['p50_ms']:.1f} / p99 {c1['p99_ms']:.1f} ms; coalesced (max 16) "
+          f"{c16['qps']:.2f} requests/s, p50 {c16['p50_ms']:.1f} / p99 {c16['p99_ms']:.1f} ms, "
+          f"mean batch {c16['mean_batch']:.2f}; speedup {srv['speedup']:.2f}x; every coalesced "
+          f"reply equal to its batch-1 reply: scores within {eq['max_score_diff']:.2e} (bound "
+          f"{bench_serving.SCORE_TOL}), ids on {eq['ids_compared']}/{eq['ranks']} separated "
+          f"ranks; {sec:.1f} s", flush=True)
+    for line in text.splitlines():
+        if line.startswith("    "):
+            print(f"programs {tag} bench_serving stage{line}", flush=True)
+    # the check's reach: the closest two images' batch-1 top-5 scores, and
+    # a planted swap of two coalesced replies, which must fail the check
+    b1 = srv["replies"][1]
+    top5 = np.array([b1[i]["scores"] for i in sorted(b1)], np.float64)
+    near = min(float(np.abs(top5[i] - top5[j]).max()) for i in range(len(top5))
+               for j in range(i + 1, len(top5)))
+    swapped = dict(srv["replies"][16])
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    try:
+        bench_serving.compare(swapped, b1)
+        caught = False
+    except RuntimeError:
+        caught = True
+    print(f"programs {tag} bench_serving check: top-5 scores {top5.min():.5f}..{top5.max():.5f}, "
+          f"closest two images' top-5 apart by {near:.2e} (bound {bench_serving.SCORE_TOL}); "
+          f"the replies of images 0 and 1 swapped: {'raised' if caught else 'PASSED'}",
+          flush=True)
+    check(caught and near > bench_serving.SCORE_TOL,
+          f"bench_serving: a swapped reply passed the check (closest images {near:.2e})")
+    note(f"serving b1 {c1['qps']:.2f} r/s p99 {c1['p99_ms']:.0f} ms, b16 {c16['qps']:.2f} r/s "
+         f"p99 {c16['p99_ms']:.0f} ms, replies equal (scores {eq['max_score_diff']:.1e} <= "
+         f"{bench_serving.SCORE_TOL}), swap caught (closest images {near:.1e})")
+    out["serving"] = dict(b1=c1["qps"], b16=c16["qps"], p99_1=c1["p99_ms"], p99_16=c16["p99_ms"])
+
+    # IVF against exact search
+    ivf, text, sec = timed("bench_ivf", lambda: bench_ivf.run(n_db=1_000_000, dim=512,
+                                                             n_cells=1024, n_probe=16))
+    p16 = ivf["probes"][16]
+    print(f"programs {tag} bench_ivf (1,000,000 x 512 clustered, 1024 cells, fit "
+          f"{ivf['fit_s']:.1f} s, bucket cap {ivf['cap']}, overflow {ivf['overflow']}): exact "
+          f"{ivf['exact_qps']:.0f} queries/s; ivf n_probe 16 {p16['qps']:.0f} queries/s "
+          f"({p16['qps'] / ivf['exact_qps']:.2f}x), R1 {p16['r1']:.3f}, recall@20 "
+          f"{p16['recall']:.3f} against exact; {sec:.1f} s", flush=True)
+    check(0.0 < p16["recall"] <= 1.0 and p16["qps"] > 0, "bench_ivf gave no reading")
+    note(f"ivf 1M: exact {ivf['exact_qps']:.0f} q/s, p16 {p16['qps']:.0f} q/s R@20 "
+         f"{p16['recall']:.3f}, fit {ivf['fit_s']:.1f} s")
+
+    # one point of the PQ / IVF / IVF-PQ grid
+    tag_pq, argv = next((t, a) for t, a in bench_pq_matrix.RUNS if t == "1M_pq_tables_bf16")
+    lines, _, sec = timed("bench_pq_matrix", lambda: bench_pq_matrix.run(
+        tag_pq, bench_pq_matrix.BASE + argv, str(work / "pq_matrix.jsonl")))
+    eng = [json.loads(x) for x in lines if '"engine"' in x]
+    check(len(eng) == 1 and eng[0]["qps"] > 0, f"bench_pq_matrix {tag_pq}: {lines}")
+    print(f"programs {tag} bench_pq_matrix {tag_pq}: {eng[0]['engine']} {eng[0]['qps']:.0f} "
+          f"queries/s, recall@20 vs exact {eng[0]['recall_vs_exact']:.4f}, fit "
+          f"{eng[0]['fit_s']:.1f} s, index {eng[0]['index_bytes'] / 2**20:.1f} MB; {sec:.1f} s",
+          flush=True)
+    note(f"pq_matrix {tag_pq} {eng[0]['qps']:.0f} q/s R {eng[0]['recall_vs_exact']:.3f}")
+
+    # the examples, small
+    res, text, sec = timed("quickstart", lambda: quickstart.main([]))
+    rec = {k: v for k, v in res.items() if k.startswith("R@")}
+    check(set(rec) == {"R@1", "R@5", "R@10"} and all(0 <= v <= 1 for v in rec.values())
+          and str(rec) in text, f"quickstart printed {text[-300:]}")
+    print(f"programs {tag} examples.quickstart (synthetic gardens, ViT-S/14 l5, VLAD-8, on the "
+          f"card): printed {rec}; {sec:.1f} s", flush=True)
+    res, text, sec = timed("serving", lambda: serving.main(["--n-images", "32", "--batch", "16"]))
+    check("self-retrieval R@1=1.00" in text and ("PIL fallback" in text or "decode=yes" in text),
+          f"serving example printed {text[-400:]}")
+    stages = [ln for ln in text.splitlines() if ln.startswith("[")]
+    print(f"programs {tag} examples.serving (32 JPEGs, ViT-S/14 l11 int8_full, uint8, 224 px): "
+          + " | ".join(stages) + f"; {sec:.1f} s", flush=True)
+    res, text, sec = timed("multichip", lambda: multichip_retrieval.main(["--devices", "2"]))
+    check("exact self-match rate 1.00" in text and "(4, 8192)" in text and "kept=4" in text
+          and "(2, 16, 96)" in text, f"multichip example printed {text[-600:]}")
+    print(f"programs {tag} examples.multichip_retrieval (2 Gloo ranks on this card, the JAX "
+          f"example's sizes): " + " | ".join(text.strip().splitlines()[1:]) + f"; {sec:.1f} s",
+          flush=True)
+    note(f"examples ok: quickstart {rec}, serving R@1 1.00, multichip equalities")
+
+    # __graft_entry__'s counterparts
+    fn, ex_args = dryrun.entry()
+    t0 = time.perf_counter()
+    v = fn(*ex_args)
+    torch.cuda.synchronize()
+    check(tuple(v.shape) == (4, 32 * 1536) and bool(torch.isfinite(v).all()),
+          f"entry(): {tuple(v.shape)}")
+    print(f"programs {tag} dryrun.entry(): G/14 bf16 l31 value + VLAD-32 on 4 zero images of "
+          f"224 px -> {tuple(v.shape)}, finite; {time.perf_counter() - t0:.2f} s", flush=True)
+    del fn, ex_args, v
+    torch.cuda.empty_cache()
+    lines = []
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(2, emit=lines.append)
+    oks = [ln for ln in lines if " ok" in ln]
+    for ln in lines:
+        print(f"programs {tag} dryrun_multichip(2): {ln}", flush=True)
+    check(len(oks) == 9, f"dryrun_multichip(2) printed {len(oks)} ok lines")
+    print(f"programs {tag} dryrun_multichip(2): {len(oks)} ok lines (the JAX dryrun's at 2 "
+          f"devices), {time.perf_counter() - t0:.1f} s", flush=True)
+    out["launches"] = {n: c for n, c in K.launch_counts().items() if c}
+    print(f"programs {tag}: launches in this process (bench_mlp_xla_int8, the quickstart and "
+          f"serving examples, entry(); the daemons and ranks count in their own) "
+          f"{out['launches']}", flush=True)
+    note(f"entry ok; dryrun_multichip(2) {len(oks)}/9 ok lines; launches "
+         + ", ".join(f"{n.split('_')[0]} {c}" for n, c in out["launches"].items()))
+    return out
+
+
 def profile(step, out_path: Path, label: str) -> None:
     """torch.profiler over three steps: device time by kernel name."""
     import torch
@@ -3540,15 +3922,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path needs one card",
               file=sys.stderr)
         return 2
-    try:
-        kernels = run(args.profile)
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        return 1
-    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    with tee_output(LOG):
+        print(f"chip_smoke: the whole output also goes to {LOG}", flush=True)
+        try:
+            kernels = run(args.profile)
+        except BaseException as e:
+            for line in summary_lines(failed=True):
+                print(line, flush=True)
+            if isinstance(e, SmokeFailure):
+                print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+                return 1
+            raise
+        for line in summary_lines():
+            print(line, flush=True)
+        print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -12,8 +12,11 @@ not take. Every other exception is named below with its reason.
 """
 
 import importlib
+import importlib.util
 import inspect
+import pathlib
 import pkgutil
+import sys
 
 import flax.linen as fnn
 import pytest
@@ -117,3 +120,67 @@ def test_jax_parameters_open_the_ports_signature(module, name):
     want = [p for p in want if p not in dropped]
     got = [p for p in _params(obj) if p not in replaced]
     assert got[:len(want)] == want, (got, want, reason)
+
+
+# The port's counterparts of the repository's JAX programs outside the
+# package (tools/, examples/, __graft_entry__.py): port module -> JAX file.
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PROGRAMS = {
+    "tools.dryrun": "__graft_entry__.py",
+    "tools.bench_serving": "tools/bench_serving.py",
+    "tools.bench_ivf": "tools/bench_ivf.py",
+    "tools.bench_pq_matrix": "tools/bench_pq_matrix.py",
+    "tools.bench_mlp_xla_int8": "tools/bench_mlp_xla_int8.py",
+    "tools.bench_retrieval": "bench_retrieval.py",
+    "examples.quickstart": "examples/quickstart.py",
+    "examples.serving": "examples/serving.py",
+    "examples.multichip_retrieval": "examples/multichip_retrieval.py",
+}
+# The device= differences of these programs: each port callable below takes
+# ``device`` after the JAX parameters (None: the card), where the JAX
+# program runs on whatever backend JAX was given; every ``main`` takes
+# ``argv`` (its flags; the examples' ``--cpu``), where the JAX ``main``
+# reads sys.argv.
+DEVICE_KW = {("tools.dryrun", "entry"), ("tools.dryrun", "dryrun_multichip")}
+
+
+def _program_pairs():
+    sys.path.insert(0, str(ROOT))
+    out = []
+    for suffix, rel in sorted(PROGRAMS.items()):
+        spec = importlib.util.spec_from_file_location(f"jax_program_{suffix}", ROOT / rel)
+        jmod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(jmod)
+        pmod = importlib.import_module(f"anyloc_tpu_torch.{suffix}")
+        for name, obj in vars(pmod).items():
+            if (name.startswith("_") or getattr(obj, "__module__", None) != pmod.__name__
+                    or not inspect.isfunction(obj)):
+                continue
+            jobj = getattr(jmod, name, None)
+            if inspect.isfunction(jobj) and jobj.__module__ == jmod.__name__:
+                out.append((suffix, name, obj, jobj))
+    return out
+
+
+PROGRAM_PAIRS = _program_pairs()
+
+
+def test_the_programs_share_their_entry_points():
+    """``entry`` and ``dryrun_multichip``, and each tool's and example's
+    ``main``, are shared by name (``__graft_entry__.py`` has no ``main``:
+    its ``__main__`` block is the port's ``dryrun.main``)."""
+    names = {(m, n) for m, n, _, _ in PROGRAM_PAIRS}
+    assert {("tools.dryrun", "entry"), ("tools.dryrun", "dryrun_multichip")} <= names
+    mains = {(m, "main") for m in PROGRAMS if m != "tools.dryrun"}
+    assert mains <= names, mains - names
+    assert DEVICE_KW <= names
+
+
+@pytest.mark.parametrize("module,name", sorted((m, n) for m, n, _, _ in PROGRAM_PAIRS))
+def test_jax_programs_parameters_open_the_ports_signature(module, name):
+    """The JAX program's parameters open the port's; ``device`` comes after
+    them where ``DEVICE_KW`` names it, and only there."""
+    _, _, obj, jobj = next(s for s in PROGRAM_PAIRS if s[:2] == (module, name))
+    want, got = _params(jobj), _params(obj)
+    assert got[:len(want)] == want, (got, want)
+    assert ("device" in got[len(want):]) == ((module, name) in DEVICE_KW), got
