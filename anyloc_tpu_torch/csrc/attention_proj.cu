@@ -17,8 +17,8 @@
 //      the kernel, writing o [B, N, H * hd]; the Pallas kernel pads N to 16
 //      rows and masks the padded keys, here ragged key tiles are masked in
 //      the kernel, so no padded copy exists;
-//   2. the projection GEMM (bf16_gemm.cuh: wgmma fed by TMA for bf16, FMA
-//      for f32; EPI_RESID with no bias, gamma or residual) o @ W_O ->
+//   2. the projection GEMM (bf16_gemm.cuh: wgmma fed by TMA, bf16 or
+//      3xTF32 for f32; EPI_RESID with no bias, gamma or residual) o @ W_O ->
 //      [B, N, D_out].
 // The TPU kernel keeps o in VMEM; here it makes one round trip through
 // device memory, which a later version removes by fusing the projection

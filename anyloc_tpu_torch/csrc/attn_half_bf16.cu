@@ -14,8 +14,8 @@
 // against ~0.1 GB of activations and weights: tensor-core bound. The design
 // is four launches:
 //   (a) LN1 rows -> xn [M, D] in x's dtype (bf16_gemm.cuh);
-//   (b) the qkv GEMM (bf16_gemm.cuh, EPI_QKV: wgmma fed by TMA for bf16,
-//       FMA for f32) -> q | k | v [M, 3D];
+//   (b) the qkv GEMM (bf16_gemm.cuh, EPI_QKV: wgmma fed by TMA, bf16 or
+//       3xTF32 for f32) -> q | k | v [M, 3D];
 //   (c) flash attention (flash_attention.cuh) over strided column views of
 //       that tensor, q taken as already scaled (scale 1, no second
 //       rounding, as K4 does; K5's route would round q twice);

@@ -16,7 +16,7 @@
 //      v at 2D + h·hd, row stride 3D) — no head-split copy — writing each
 //      head's output, rounded to qkv's dtype, into o [B, N, D];
 //   2. the projection GEMM of bf16_gemm.cuh (EPI_RESID, shared with K6-K8
-//      and T1; wgmma fed by TMA for bf16, FMA for f32) o[M, D] @ W_O with
+//      and T1; wgmma fed by TMA, bf16 or 3xTF32 for f32) o[M, D] @ W_O with
 //      the epilogue (+ bias) * gamma + residual in f32, cast to qkv's
 //      dtype.
 // The TPU kernel keeps o in VMEM; here o makes one round trip through

@@ -16,9 +16,19 @@
 //     int8 GEMM runs the same pipeline; EPI_SWIGLU loads B as two boxes,
 //     128 W1 rows and the same 128 rows of W2, so g1 and g2 of one hidden
 //     column sit in one thread (accumulator entries e and e + 64);
-//   * f32 operands: gemm_f32_kernel, the same function and epilogues by FMA
-//     on 64x64 tiles (K5's gemm_scalar_epilogue_kernel, attn_qkv_proj.cu;
-//     wgmma on f32 is TF32, which the f32 bounds would not hold);
+//   * f32 operands: the same pipeline with OpTF32x3 — each f32 product as
+//     three tf32 wgmma products (m64n128k8 .f32.tf32.tf32, both operands
+//     K-major, 32 f32 of K a stage row), lo·hi + hi·lo + hi·hi of the split
+//     x = hi + lo (hopper.cuh's tf32_split: hi rounded to tf32, lo exact).
+//     One tf32 product alone errs by ~3e-3 at K5's f32 projections,
+//     far beyond its 2e-5 f32 bound; the three keep the error at f32
+//     FMA's level (tests/test_torch_tf32_split.py), at a third of the
+//     495 TFLOP/s dense tf32 rate, ~2.5x the 67 TFLOP/s of f32 FMA. The
+//     producer warpgroup's warps 1-3 write the split (GemmTile<ONE,
+//     true>: 128 x 128 block tiles, three 64 KB stages of hi and lo);
+//     the epilogues are the bf16 ones. It ignores
+//     torch.backends.cuda.matmul.allow_tf32: the split is f32-accurate by
+//     construction;
 //   * ln_rows_kernel: LayerNorm in f32 (int8_common.cuh's ln_row), written
 //     in the activations' dtype.
 // Both operands are K-contiguous: A the activations, B the nn.Linear weight
@@ -103,9 +113,10 @@ struct OpBF16 {
   using Elem = bf16;
   using Acc = float;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr bool SPLIT = false;
 
-  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
-                                             int scale_d) {
+  __device__ static __forceinline__ void mma(float (&d)[128], float (&)[128], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d, uint32_t) {
     wgmma_bf16_ss(d, desc_a, desc_b, scale_d);
   }
 
@@ -131,73 +142,32 @@ struct OpBF16 {
   }
 };
 
-// The B row that tile row r (0..63) of column block bn reads in the FMA
-// GEMM, or -1. EPI_SWIGLU: rows 0..31 are 32 hidden columns of W1, rows
-// 32..63 the same 32 of W2, so a thread's column pairs (2tx, 2tx + 1) and
-// (32 + 2tx, 33 + 2tx) hold g1 and g2 of the same hidden columns.
-template <int EPI>
-__device__ __forceinline__ int fma_b_row(int N, int hid, int bn, int r) {
-  if (EPI == EPI_SWIGLU) {
-    const int hcol = bn * 32 + (r & 31);
-    if (hcol >= N) return -1;
-    return r < 32 ? hcol : hid + hcol;
-  }
-  const int c = bn * 64 + r;
-  return c < N ? c : -1;
-}
+// The f32 operands: split stages (hi in place, lo `lo` descriptor steps
+// on), three tf32 products a K step, hi·hi summed in d and the small ones
+// in e (wgmma's f32 sums are not rounded to nearest: a sum's error scales
+// with the accumulator's size, so the small products get their own, and
+// hi·hi one update a step, not three); OpBF16's epilogue on d + e.
+struct OpTF32x3 : OpBF16 {
+  using Elem = float;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr bool SPLIT = true;
 
-// f32 operands: 64x64 tile, 16x16 threads of 4 rows x 2 column pairs, FMA.
-template <int EPI, typename OutT>
-__global__ void __launch_bounds__(256)
-    gemm_f32_kernel(GemmArgs p) {
-  __shared__ float As[16][65];
-  __shared__ float Bs[16][65];
-  const float* A = static_cast<const float*>(p.A);
-  const float* B = static_cast<const float*>(p.B);
-  const int bn = blockIdx.x, m0 = blockIdx.y * 64;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int tc[4] = {2 * tx, 2 * tx + 1, 32 + 2 * tx, 33 + 2 * tx};  // tile columns
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.K; k0 += 16) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 64 * 16; i += 256) {
-      const int r = i / 16, kk = i % 16;
-      const bool kin = k0 + kk < p.K;
-      const int br = fma_b_row<EPI>(p.N, p.hid, bn, r);
-      As[kk][r] = (kin && m0 + r < p.M) ? A[(long long)(m0 + r) * p.K + k0 + kk] : 0.f;
-      Bs[kk][r] = (kin && br >= 0) ? B[(long long)br * p.K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[kk][ty + 16 * i];
-        w[i] = Bs[kk][tc[i]];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
+  __device__ static __forceinline__ void mma(float (&d)[64], float (&e)[64], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d, uint32_t lo) {
+    wgmma_tf32_ss(e, desc_a + lo, desc_b, scale_d);
+    wgmma_tf32_ss(e, desc_a, desc_b + lo, 1);
+    wgmma_tf32_ss(d, desc_a, desc_b, scale_d);
   }
+
+  template <int EPI, typename OutT, typename ResT, bool ONE, int NACC>
+  __device__ static __forceinline__ void epilogue(const GemmArgs& p, float (&acc)[NACC],
+                                                  const float (&small)[NACC], int row0,
+                                                  long long src0, long long src1, int c0, int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= p.M) continue;
-    // SwiGLU: one pair of hidden columns, g1 in acc[i][0..1], g2 in [2..3]
-#pragma unroll
-    for (int q = 0; q < (EPI == EPI_SWIGLU ? 1 : 2); ++q) {
-      const int col = fma_b_row<EPI>(p.N, p.hid, bn, tc[2 * q]);
-      if (col < 0) continue;
-      if (EPI == EPI_SWIGLU)
-        epi_store<EPI, OutT>(p, row, col, acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      else
-        epi_store<EPI, OutT>(p, row, col, acc[i][2 * q], acc[i][2 * q + 1], 0.f, 0.f);
-    }
+    for (int i = 0; i < NACC; ++i) acc[i] = __fadd_rn(acc[i], small[i]);
+    OpBF16::epilogue<EPI, OutT, ResT, ONE>(p, acc, small, row0, src0, src1, c0, t);
   }
-}
+};
 
 // Launch the GEMM for the operand dtype code (DT_BF16 or DT_F32); the output
 // and the residual have the operands' dtype, or OutT when it is given.
@@ -210,9 +180,7 @@ cudaError_t launch_gemm(const GemmArgs& p, int dtype, cudaStream_t st) {
   }
   if (dtype == DT_F32) {
     using O = std::conditional_t<std::is_void_v<OutT>, float, OutT>;
-    const dim3 grid(cdiv(p.N, EPI == EPI_SWIGLU ? 32 : 64), cdiv(p.M, 64));
-    gemm_f32_kernel<EPI, O><<<grid, 256, 0, st>>>(p);
-    return cudaGetLastError();
+    return launch_gemm_tiles<OpTF32x3, EPI, O, O, false, true>(p, st);
   }
   return cudaErrorInvalidValue;
 }

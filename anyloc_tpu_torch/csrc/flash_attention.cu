@@ -15,7 +15,8 @@
 // ring; one consumer warpgroup of 64 query rows (two at hd 128) keeps Q in
 // registers and runs both products on wgmma, with the online softmax
 // (running max, denominator, f32 accumulator) in registers between them;
-// three blocks share an SM. The f32 path is plain FMA.
+// three blocks share an SM. f32 operands take the same dataflow with each
+// product as three tf32 wgmmas (3xTF32: f32-accurate on the tensor cores).
 //
 // Rounding follows the TPU kernel: scores = (q k^T with f32 sums) * scale
 // in f32; P is rounded to v's dtype before the PV product; out = acc / l.

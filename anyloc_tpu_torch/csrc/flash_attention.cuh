@@ -44,7 +44,19 @@
 //     0.115 / 0.239 / 0.544; a variant that issued the next tile's scores
 //     before the current PV product, to overlap the softmax with it, took
 //     0.657 ms at N 5330; none of these was kept (PERF.md).
-// f32 operands (the ragged f32 checks only) take the scalar kernel below.
+// The f32 design (flash_attn_tf32x3_kernel), the route of every f32 model
+// (CLIP-L/14@336px, dvgl ViT-B/16 in eval and training, ImageBind-H's f32
+// towers, tensor-parallel training through K2): the same producer, ring
+// and online softmax, each product as three tf32 wgmmas of the split
+// x = hi + lo (hopper.cuh; lo·hi + hi·lo + hi·hi, f32-accurate, at a
+// third of the 495 TFLOP/s dense tf32 rate). tf32 wgmma has no transpose
+// bit, so V's tile cannot be read MN-major: a split warpgroup writes each
+// landed stage's K lo (K's hi in place) and V^T's hi and lo; Q's hi and
+// lo sit in shared memory (A from shared memory: in registers they would
+// cost HD registers a thread), P is split in registers. 32-key tiles, two
+// consumers (one at hd 128), 3 stages up to hd 64 and 2 above: at most
+// 224 KB of shared memory, one block per SM. Every head dim the wrappers
+// take (16, 32, 64, 80, 128) runs it; there is no other f32 kernel.
 #pragma once
 
 #include <type_traits>
@@ -306,90 +318,324 @@ __global__ void __launch_bounds__(FaTile<HD>::THREADS, FaTile<HD>::BLOCKS_PER_SM
   }
 }
 
-constexpr int FS_ROWS = 128;  // query rows per block, one per thread
-constexpr int FS_TK = 32;     // keys per shared-memory tile
+// The f32 kernel's tiles at head dim HD: NWG consumer warpgroups of 64
+// query rows (two; one at hd 128, whose Q, stages and accumulator would
+// not fit twice), a split warpgroup, then the producer warp. Keys go in
+// tiles of BK = 32. Shared memory: Q's hi and lo per consumer (64 rows x
+// HD, K-major, panels of SW bytes as the K tiles), then STAGES stages of
+// five tiles of BK x HD f32: K as TMA lands it (swizzled panels as the
+// bf16 kernel's, rounded to its tf32 hi in place), K's lo, V as TMA lands
+// it (rows of HD, no swizzle; then V^T's rest in its place), and V^T's
+// hi and lo ([HD rows x BK keys], one 128-byte swizzled panel: tf32 wgmma
+// has no transpose bit, so PV's B operand must be K-major, keys along the
+// rows).
+template <int HD>
+struct Fa32Tile {
+  static constexpr int NWG = HD == 128 ? 1 : 2;
+  static constexpr int THREADS = 128 * NWG + 128 + 32;
+  static constexpr int SW = (HD * 4) % 128 == 0 ? 128 : 64;  // hd 16, 80: 64-byte panels
+  static constexpr int BOX = SW / 4;                          // head-dim columns per panel
+  static constexpr int PANELS = HD / BOX;
+  static constexpr int BK = 32;
+  static constexpr int TILE = BK * HD * 4;  // one tile's bytes; V^T's rows are BK * 4 = 128
+  static constexpr int STAGES = HD <= 64 ? 3 : 2;
+  static constexpr int STAGE = 5 * TILE;
+  static constexpr int QBYTES = 64 * HD * 4;
+  static constexpr int SMEM = STAGES * STAGE + NWG * 2 * QBYTES + 3 * STAGES * 8 + 1024;
+};
 
-// Any dtype (f32 on the main path's test shapes): one query row per thread,
-// FMA products in f32, P rounded to v's dtype before PV.
-template <typename T, int HD>
-__global__ void __launch_bounds__(FS_ROWS)
-    flash_attn_scalar_kernel(AttnArgs p, int n_qt) {
-  __shared__ float Ks[FS_TK][HD];
-  __shared__ float Vs[FS_TK][HD];
+// f32 operands (every f32 model: CLIP-L/14@336px, dvgl ViT-B/16, the f32
+// towers of ImageBind-H): the bf16 kernel's dataflow with each product as
+// three tf32 wgmmas of the split x = hi + lo (hopper.cuh's tf32_split,
+// hi rounded): S = Q K^T from Q's and K's hi and lo in shared memory, P
+// split in registers for O += P V^T, V in three pieces (four products: P
+// V is then exact where P is exact, as at one key, where O = V). The
+// split warpgroup writes each stage's K lo, rounds K in place and writes
+// V^T, then arrives on `ready`;
+// the consumers free a stage on `empty` once its products are done.
+// P's A fragment takes key 2t of each 8-key step as its column t and key
+// 2t + 1 as column t + 4 (the S accumulator holds keys 2t, 2t + 1 of each
+// 8), so V^T stores each 8 keys of a step in the order 0 2 4 6 1 3 5 7.
+// Scores in f32 with f32 sums (~f32 FMA's error), P in f32, O in f32.
+template <int HD>
+__global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
+    flash_attn_tf32x3_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, AttnArgs p, int n_qt) {
+  using T = Fa32Tile<HD>;
+  constexpr int NWG = T::NWG;
+  constexpr int BK = T::BK;
+  extern __shared__ uint8_t fa_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fa_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem + T::STAGES * T::STAGE;  // consumer w: hi at w * 2 QBYTES, lo QBYTES on
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + NWG * 2 * T::QBYTES);
+  uint64_t* ready = full + T::STAGES;
+  uint64_t* empty = ready + T::STAGES;
+
   const int qt = blockIdx.x % n_qt;
   const int bh = blockIdx.x / n_qt;
   const int b = bh / p.H, h = bh % p.H;
   const int N = p.N;
-  const int row = qt * FS_ROWS + threadIdx.x;
-  const bool valid = row < N;
+  const int nk = cdiv(N, BK);
+  const int wg = threadIdx.x / 128;  // NWG: the split warpgroup; NWG + 1: the producer warp
 
-  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* O = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 128);      // every split thread
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float q[HD], acc[HD];
+  if (wg == NWG + 1) {  // ---------------------------------------- producer
+    if (threadIdx.x == 128 * NWG + 128) {
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % T::STAGES;
+        if (j >= T::STAGES) mbar_wait(&empty[s], (j / T::STAGES - 1) & 1);
+        uint8_t* kt = smem + s * T::STAGE;
+        mbar_arrive_expect_tx(&full[s], 2 * T::TILE);
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    float x = valid ? to_float(Q[row * p.q_sn + d]) : 0.f;
-    if (p.prescale_q) x = to_float(from_float<T>(x * p.scale));
-    q[d] = x;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < N; k0 += FS_TK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FS_TK * HD; i += FS_ROWS) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < N;
-      Ks[r][d] = in ? to_float(K[(k0 + r) * p.k_sn + d]) : 0.f;
-      Vs[r][d] = in ? to_float(V[(k0 + r) * p.v_sn + d]) : 0.f;
+        for (int pn = 0; pn < T::PANELS; ++pn)
+          tma_load_4d(kt + pn * BK * T::SW, &kmap, &full[s], pn * T::BOX, j * BK, h, b);
+        tma_load_4d(kt + 2 * T::TILE, &vmap, &full[s], 0, j * BK, h, b);
+      }
     }
-    __syncthreads();
-    const int kn = min(FS_TK, N - k0);
-    for (int j = 0; j < kn; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(q[d], Ks[j][d], s);
-      if (!p.prescale_q) s *= p.scale;
-      const float mn = fmaxf(m, s);
-      const float al = expf(m - mn);
-      const float pj = expf(s - mn);
-      l = l * al + pj;
-      const float pc = to_float(from_float<T>(pj));
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(pc, Vs[j][d], acc[d] * al);
-      m = mn;
-    }
+    return;
   }
-  if (valid) {
+  if (wg == NWG) {  // ---------------------------------------- split
+    const int tid = threadIdx.x - 128 * NWG;
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % T::STAGES;
+      mbar_wait(&full[s], (j / T::STAGES) & 1);
+      uint8_t* kt = smem + s * T::STAGE;
+      for (int i = tid; i < T::TILE / 16; i += 128) {  // K: hi in place, lo a tile on
+        uint4* x = reinterpret_cast<uint4*>(kt + 16 * i);
+        const float4 v = *reinterpret_cast<const float4*>(x);
+        uint4 hi, lo;
+        tf32_split(v.x, hi.x, lo.x);
+        tf32_split(v.y, hi.y, lo.y);
+        tf32_split(v.z, hi.z, lo.z);
+        tf32_split(v.w, hi.w, lo.w);
+        *x = hi;
+        *reinterpret_cast<uint4*>(kt + T::TILE + 16 * i) = lo;
+      }
+      // V^T in three tf32 pieces, hi, lo and the rest (2 bits), so that P V
+      // is exact where P is (one key: O = V): item (c, d) is head-dim row
+      // d, key slots 4c..4c+3 of V^T's row, keys 8(c / 2) + c % 2 +
+      // {0, 2, 4, 6} of the tile; the rest overwrites V's tile once every
+      // split thread has read it
+      const float* vr = reinterpret_cast<const float*>(kt + 2 * T::TILE);
+      uint4 rest[HD / 16];  // BK / 4 * HD items over 128 threads
 #pragma unroll
-    for (int d = 0; d < HD; ++d) O[row * p.o_sn + d] = from_float<T>(acc[d] / l);
+      for (int m = 0; m < HD / 16; ++m) {
+        const int i = tid + 128 * m;
+        const int d = i % HD, c = i / HD;
+        const int k0 = 8 * (c >> 1) + (c & 1);
+        uint4 hi, lo;
+        tf32_split3(vr[(k0 + 0) * HD + d], hi.x, lo.x, rest[m].x);
+        tf32_split3(vr[(k0 + 2) * HD + d], hi.y, lo.y, rest[m].y);
+        tf32_split3(vr[(k0 + 4) * HD + d], hi.z, lo.z, rest[m].z);
+        tf32_split3(vr[(k0 + 6) * HD + d], hi.w, lo.w, rest[m].w);
+        const int off = swizzle<128>(d * 128 + c * 16);
+        *reinterpret_cast<uint4*>(kt + 3 * T::TILE + off) = hi;
+        *reinterpret_cast<uint4*>(kt + 4 * T::TILE + off) = lo;
+      }
+      bar_sync(15, 128);  // V's tile is read
+#pragma unroll
+      for (int m = 0; m < HD / 16; ++m) {
+        const int i = tid + 128 * m;
+        const int d = i % HD, c = i / HD;
+        *reinterpret_cast<uint4*>(kt + 2 * T::TILE + swizzle<128>(d * 128 + c * 16)) = rest[m];
+      }
+      fence_proxy_async();  // the writes, visible to the consumers' wgmma
+      mbar_arrive(&ready[s]);
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (qt * NWG + wg) * 64;
+  const int r0 = q0 + warp * 16 + g;
+  const int r1 = r0 + 8;
+
+  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // Q's 64 rows of this warpgroup, split into hi and lo, K-major panels
+  uint8_t* qh = qs + wg * 2 * T::QBYTES;
+  for (int i = tid; i < 64 * HD / 4; i += 128) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < N) {
+      v = *reinterpret_cast<const float4*>(Q + (q0 + r) * p.q_sn + c);
+      if (p.prescale_q) {  // q * scale in f32, rounded to f32 (the input dtype)
+        v.x = __fmul_rn(v.x, p.scale);
+        v.y = __fmul_rn(v.y, p.scale);
+        v.z = __fmul_rn(v.z, p.scale);
+        v.w = __fmul_rn(v.w, p.scale);
+      }
+    }
+    uint4 hi, lo;
+    tf32_split(v.x, hi.x, lo.x);
+    tf32_split(v.y, hi.y, lo.y);
+    tf32_split(v.z, hi.z, lo.z);
+    tf32_split(v.w, hi.w, lo.w);
+    const int off = (c / T::BOX) * (64 * T::SW) + swizzle<T::SW>(r * T::SW + (c % T::BOX) * 4);
+    *reinterpret_cast<uint4*>(qh + off) = hi;
+    *reinterpret_cast<uint4*>(qh + T::QBYTES + off) = lo;
+  }
+  fence_proxy_async();
+  bar_sync(1 + wg, 128);
+
+  const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;
+  constexpr uint32_t QLO = T::QBYTES >> 4, TLO = T::TILE >> 4;  // descriptor steps hi -> lo
+
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+  float o[HD / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % T::STAGES;
+    mbar_wait(&ready[st], (j / T::STAGES) & 1);
+    const uint8_t* kt = smem + st * T::STAGE;
+    const uint8_t* vt = kt + 3 * T::TILE;
+
+    // S = Q K^T: 64 rows x BK keys, HD / 8 k8 steps of three products
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int off = kk * 32;  // bytes along hd
+      const uint64_t dq =
+          smem_desc<T::SW>(qh + (off / T::SW) * (64 * T::SW) + off % T::SW, 16, 8 * T::SW);
+      const uint64_t dk =
+          smem_desc<T::SW>(kt + (off / T::SW) * (BK * T::SW) + off % T::SW, 16, 8 * T::SW);
+      wgmma_tf32_ss(s, dq + QLO, dk, kk);
+      wgmma_tf32_ss(s, dq, dk + TLO, 1);
+      wgmma_tf32_ss(s, dq, dk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool tail = (j + 1) * BK > N;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * jj + e] * c;
+        if (tail && j * BK + jj * 8 + t * 2 + (e & 1) >= N) x = -INFINITY;
+        s[4 * jj + e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * jj], s[4 * jj + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+    // key 0 is valid in the first tile, so the running max is finite
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float al0 = exp2_approx(m0 - mn0);
+    const float al1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      s[4 * jj] = exp2_approx(s[4 * jj] - mn0);
+      s[4 * jj + 1] = exp2_approx(s[4 * jj + 1] - mn0);
+      s[4 * jj + 2] = exp2_approx(s[4 * jj + 2] - mn1);
+      s[4 * jj + 3] = exp2_approx(s[4 * jj + 3] - mn1);
+      ls0 += s[4 * jj] + s[4 * jj + 1];
+      ls1 += s[4 * jj + 2] + s[4 * jj + 3];
+    }
+    l0 = l0 * al0 + ls0;  // per-thread partial; quad-summed at the end
+    l1 = l1 * al1 + ls1;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      o[4 * jj] *= al0;
+      o[4 * jj + 1] *= al0;
+      o[4 * jj + 2] *= al1;
+      o[4 * jj + 3] *= al1;
+    }
+    // O += P V with P in f32 (v's dtype), split; step kt2's A fragment is
+    // (row g key 2t, row g + 8 key 2t, row g key 2t + 1, row g + 8 key 2t + 1)
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int kt2 = 0; kt2 < BK / 8; ++kt2) {
+      tf32_split(s[4 * kt2], ph[kt2][0], pl[kt2][0]);
+      tf32_split(s[4 * kt2 + 2], ph[kt2][1], pl[kt2][1]);
+      tf32_split(s[4 * kt2 + 1], ph[kt2][2], pl[kt2][2]);
+      tf32_split(s[4 * kt2 + 3], ph[kt2][3], pl[kt2][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kt2 = 0; kt2 < BK / 8; ++kt2) {
+      const uint64_t dv = smem_desc<128>(vt + kt2 * 32, 16, 1024);  // V^T's hi
+      wgmma_tf32_rs(o, pl[kt2], dv, 1);
+      wgmma_tf32_rs(o, ph[kt2], dv - TLO, 1);  // V^T's rest, a tile before
+      wgmma_tf32_rs(o, ph[kt2], dv + TLO, 1);  // V^T's lo
+      wgmma_tf32_rs(o, ph[kt2], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kt2 = 0; kt2 < BK / 8; ++kt2) {  // P lives until the wait
+      fence_regs(ph[kt2]);
+      fence_regs(pl[kt2]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+  const float d0 = quad_sum(l0);
+  const float d1 = quad_sum(l1);
+#pragma unroll
+  for (int jj = 0; jj < HD / 8; ++jj) {
+    const int col = jj * 8 + t * 2;
+    if (r0 < N) store2(O + r0 * p.o_sn + col, o[4 * jj] / d0, o[4 * jj + 1] / d0);
+    if (r1 < N) store2(O + r1 * p.o_sn + col, o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
   }
 }
 
-// The 4-D map (hd, N, H, B) of one bf16 operand; a dimension of extent 1
-// may carry any stride (the wrappers do not check it), so it gets one that
-// TMA takes (a multiple of 16 bytes).
+// The 4-D map (hd, N, H, B) of one operand of `esz` bytes, boxes of `box`
+// head-dim columns by `rows` tokens swizzled by `sw` bytes (0: none); a
+// dimension of extent 1 may carry any stride (the wrappers do not check
+// it), so it gets one that TMA takes (a multiple of 16 bytes). The other
+// strides are whole 16 bytes: the wrappers take strides of whole 8
+// elements, and K5's qkv rows of 3D with D a multiple of 16.
 template <int HD>
 cudaError_t attention_map(CUtensorMap* map, const void* base, const AttnArgs& p, long long sb,
-                          long long sh, long long sn) {
-  using T = FaTile<HD>;
-  const cuuint64_t bn = p.N == 1 ? HD * 2 : sn * 2;
-  const cuuint64_t bhs = p.H == 1 ? bn * p.N : sh * 2;
-  const cuuint64_t bbs = p.B == 1 ? bhs * p.H : sb * 2;
+                          long long sh, long long sn, CUtensorMapDataType type, int esz,
+                          int box, int rows, int sw) {
+  const cuuint64_t bn = p.N == 1 ? HD * esz : sn * esz;
+  const cuuint64_t bhs = p.H == 1 ? bn * p.N : sh * esz;
+  const cuuint64_t bbs = p.B == 1 ? bhs * p.H : sb * esz;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)p.N, (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint64_t strides[3] = {bn, bhs, bbs};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BOX, (cuuint32_t)T::BK, 1, 1};
-  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box, T::SW);
+  const cuuint32_t boxd[4] = {(cuuint32_t)box, (cuuint32_t)rows, 1, 1};
+  return make_tma_map(map, type, 4, base, dims, strides, boxd, sw);
 }
 
 template <int HD, bool O_F32>
 cudaError_t launch_attention_wgmma(const AttnArgs& p, cudaStream_t st) {
   using T = FaTile<HD>;
+  constexpr auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap kmap, vmap;
-  cudaError_t e = attention_map<HD>(&kmap, p.k, p, p.k_sb, p.k_sh, p.k_sn);
-  if (e == cudaSuccess) e = attention_map<HD>(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn);
+  cudaError_t e = attention_map<HD>(&kmap, p.k, p, p.k_sb, p.k_sh, p.k_sn, BF, 2, T::BOX, T::BK,
+                                    T::SW);
+  if (e == cudaSuccess)
+    e = attention_map<HD>(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn, BF, 2, T::BOX, T::BK, T::SW);
   if (e != cudaSuccess) return e;
   auto kernel = flash_attn_wgmma_kernel<HD, O_F32>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -399,13 +645,29 @@ cudaError_t launch_attention_wgmma(const AttnArgs& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// f32 operands: K in swizzled panels as the bf16 kernel's, V in plain rows
+// of HD (the split warpgroup reads it by columns)
+template <int HD>
+cudaError_t launch_attention_tf32x3(const AttnArgs& p, cudaStream_t st) {
+  using T = Fa32Tile<HD>;
+  constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap kmap, vmap;
+  cudaError_t e = attention_map<HD>(&kmap, p.k, p, p.k_sb, p.k_sh, p.k_sn, F32, 4, T::BOX, T::BK,
+                                    T::SW);
+  if (e == cudaSuccess)
+    e = attention_map<HD>(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn, F32, 4, HD, T::BK, 0);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_attn_tf32x3_kernel<HD>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return e;
+  const int n_qt = cdiv(p.N, 64 * T::NWG);
+  kernel<<<p.B * p.H * n_qt, T::THREADS, T::SMEM, st>>>(kmap, vmap, p, n_qt);
+  return cudaGetLastError();
+}
+
 template <int HD, bool O_F32>
 cudaError_t launch_attention_hd(const AttnArgs& p, int dtype, cudaStream_t st) {
-  if (dtype == DT_F32) {
-    const int n_qt = cdiv(p.N, FS_ROWS);
-    flash_attn_scalar_kernel<float, HD><<<p.B * p.H * n_qt, FS_ROWS, 0, st>>>(p, n_qt);
-    return cudaGetLastError();
-  }
+  if (dtype == DT_F32) return launch_attention_tf32x3<HD>(p, st);
   if (dtype != DT_BF16) return cudaErrorInvalidValue;
   return launch_attention_wgmma<HD, O_F32>(p, st);
 }

@@ -13,9 +13,9 @@
 // (0.314 ms at 989 TFLOP/s) against ~0.1 GB of activations and weights:
 // tensor-core bound. The design is three launches:
 //   (a) LN rows -> xn [M, D] in x's dtype, when there is a LayerNorm;
-//   (b) the w12 GEMM (bf16_gemm.cuh: wgmma fed by TMA for bf16, FMA for
+//   (b) the w12 GEMM (bf16_gemm.cuh: wgmma fed by TMA, bf16 or 3xTF32 for
 //       f32); for SwiGLU one block owns 128 hidden columns of W1 and the
-//       same 128 of W2 (K3's pairing: two TMA boxes; 32 in the FMA GEMM),
+//       same 128 of W2 (K3's pairing: two TMA boxes; 64 for f32 operands),
 //       so g is formed in registers and written once, in x's dtype
 //       [M, HID];
 //   (c) the w3 GEMM (EPI_RESID) with + b3, * gamma, + x.

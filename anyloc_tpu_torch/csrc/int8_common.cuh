@@ -33,11 +33,13 @@
 // producer's registers to the consumers (40 / 232; nvcc -Xptxas -v reports
 // the 168 of the launch, no spills), which is why the producer is a whole
 // warpgroup. The pipeline is one template over the operand type (Op:
-// OpS8 below, OpBF16 in bf16_gemm.cuh): the ring, the boxes and the
-// descriptors count bytes (a stage holds one 128-byte swizzled row of K,
-// 128 int8 or 64 bf16 elements; a wgmma step is 32 bytes), and Op names
-// the element, the accumulator, the tensor-map type, the wgmma and the
-// epilogue. Two instances of the tiles (GemmTile, below):
+// OpS8 below, OpBF16 and OpTF32x3 in bf16_gemm.cuh): the ring, the boxes
+// and the descriptors count bytes (a stage holds one 128-byte swizzled row
+// of K, 128 int8, 64 bf16 or 32 f32 elements; a wgmma step is 32 bytes),
+// and Op names the element, the accumulator, the tensor-map type, the
+// wgmma and the epilogue. f32 stages are split (SPLIT: the producer
+// warpgroup's other three warps write each landed tile's tf32 hi and lo).
+// Two instances of the int8 tiles (GemmTile, below):
 //   * one K group (w12, qkv, T1, T2): int32 sums only, folded once in the
 //     epilogue; 128 x 256 block tiles, four 48 KB stages; EPI_SWIGLU loads
 //     its B tile as two TMA boxes, 128 W1 rows and the same 128 rows of W2,
@@ -266,22 +268,55 @@ __device__ __forceinline__ float gelu_poly(float x) {
   return 0.5f * x * (1.f + erf_poly(x * 0.70710677f));
 }
 
-// Tiles of the two GEMM instances. ONE: the product has one K group
-// (group == K: K3's w12, K4's qkv, T2; EPI_I32, which never folds; every
-// bf16 product): only the wgmma's accumulators live in the K loop, folded
+// Tiles of the GEMM instances. ONE: the product has one K group (group ==
+// K: K3's w12, K4's qkv, T2; EPI_I32, which never folds; every float
+// product): only the wgmma's accumulators live in the K loop, folded
 // (int8) once in the epilogue, so a consumer warpgroup holds a 64 x 256
 // tile (128 registers of sums). Otherwise (K3's w3, K4's projection: one
 // group per hidden or head chunk) f32 accumulators sit beside the int32
-// ones and the tile is 64 x 128 per consumer.
-template <bool ONE>
+// ones and the tile is 64 x 128 per consumer. SPLIT (f32 operands,
+// bf16_gemm.cuh's OpTF32x3): a stage holds the tiles as TMA lands them
+// (RAW bytes, each element then replaced by its tf32 hi) and their lo
+// parts right after, so a stage is twice as large: 64 x 128 per consumer
+// and three stages of 64 KB.
+template <bool ONE, bool SPLIT = false>
 struct GemmTile {
-  static constexpr int BN = ONE ? 256 : 128;     // columns per block (B rows)
-  static constexpr int STAGES = ONE ? 4 : 6;
+  static constexpr int BN = ONE && !SPLIT ? 256 : 128;  // columns per block (B rows)
+  static constexpr int STAGES = SPLIT ? 3 : (ONE ? 4 : 6);
   static constexpr int A_BYTES = QBM * QBK;       // 16 KB
   static constexpr int B_BYTES = BN * QBK;        // 32 or 16 KB
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;  // + barriers, alignment
+  static constexpr int RAW = A_BYTES + B_BYTES;   // what TMA loads into a stage
+  static constexpr int STAGE = SPLIT ? 2 * RAW : RAW;
+  static constexpr int BARRIERS = SPLIT ? 3 : 2;  // full, empty (, ready) per stage
+  static constexpr int SMEM = STAGES * STAGE + BARRIERS * STAGES * 8 + 1024;  // + alignment
 };
+
+// SPLIT: the producer warpgroup's warps 1-3 replace each landed stage's
+// elements by their tf32 hi in place and write their lo RAW bytes on, then
+// arrive on `ready` (96 arrivals) for the consumers; warp 0 keeps issuing
+// the loads meanwhile.
+template <class T>
+__device__ __forceinline__ void split_stages(uint8_t* smem, uint64_t* full, uint64_t* ready,
+                                             int nk, int tid) {
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % T::STAGES;
+    mbar_wait(&full[s], (kt / T::STAGES) & 1);
+    uint8_t* st = smem + s * T::STAGE;
+    for (int i = tid; i < T::RAW / 16; i += 96) {
+      float4* x = reinterpret_cast<float4*>(st + 16 * i);
+      const float4 v = *x;
+      uint4 hi, lo;
+      tf32_split(v.x, hi.x, lo.x);
+      tf32_split(v.y, hi.y, lo.y);
+      tf32_split(v.z, hi.z, lo.z);
+      tf32_split(v.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(x) = hi;
+      *reinterpret_cast<uint4*>(st + T::RAW + 16 * i) = lo;
+    }
+    fence_proxy_async();  // the writes, visible to the consumers' wgmma
+    mbar_arrive(&ready[s]);
+  }
+}
 
 // (partial * row_scale) * col_scale, the JAX order
 __device__ __forceinline__ float dequant(int partial, float rs, float cs) {
@@ -391,16 +426,19 @@ __device__ __forceinline__ void epilogue2(const I8GemmArgs& p, const int (&acc)[
 }
 
 // The int8 operands of the TMA GEMM. An operand type names the element,
-// the accumulator, the tensor-map type, the wgmma of one 32-byte K step
-// and the epilogue of a consumer's tile (OpBF16: bf16_gemm.cuh).
+// the accumulator, the tensor-map type, whether a stage is split (SPLIT,
+// GemmTile), the wgmma of one 32-byte K step (lo: the descriptor step from
+// a split stage's hi to its lo) and the epilogue of a consumer's tile
+// (OpBF16, OpTF32x3: bf16_gemm.cuh).
 struct OpS8 {
   using Elem = int8_t;
   using Acc = int;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr bool SPLIT = false;
 
   template <int N>
-  __device__ static __forceinline__ void mma(int (&d)[N], uint64_t desc_a, uint64_t desc_b,
-                                             int scale_d) {
+  __device__ static __forceinline__ void mma(int (&d)[N], float (&)[N], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d, uint32_t) {
     wgmma_s8(d, desc_a, desc_b, scale_d);
   }
 
@@ -447,7 +485,7 @@ template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE,
 __global__ void __launch_bounds__(QTHREADS, 1)
     gemm_tma_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap bmap, Args p) {
-  using T = GemmTile<ONE>;
+  using T = GemmTile<ONE, Op::SPLIT>;
   constexpr int BN = T::BN;
   constexpr int NACC = BN / 2;                           // sums per thread
   constexpr int KE = QBK / sizeof(typename Op::Elem);    // K elements per stage
@@ -458,6 +496,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       (reinterpret_cast<uintptr_t>(q_smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
   uint64_t* empty = full + T::STAGES;
+  uint64_t* ready = empty + T::STAGES;  // SPLIT: the stage's hi and lo are written
 
   const int m0 = blockIdx.y * QBM;
   // first output column; EPI_SWIGLU: the B tile is BN / 2 W1 rows (hidden
@@ -471,6 +510,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], A_MAP ? 33 : 1);  // + the producer warp's cp.async
       mbar_init(&empty[s], 8);              // one arrival per consumer warp
+      if (Op::SPLIT) mbar_init(&ready[s], 96);
     }
     mbar_fence_init();
   }
@@ -479,6 +519,9 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   if (wg == 2) {  // ---------------------------------------- producer
     regs_shrink<40>();
     const int lane = threadIdx.x - 256;
+    if constexpr (Op::SPLIT) {
+      if (lane >= 32) split_stages<T>(smem, full, ready, nk, lane - 32);
+    }
     if (lane >= (A_MAP ? 32 : 1)) return;
     if (!A_MAP) tma_prefetch_map(&amap);
     tma_prefetch_map(&bmap);
@@ -497,7 +540,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       uint8_t* Bs = As + T::A_BYTES;
       const int k0 = kt * KE;
       if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], A_MAP ? T::B_BYTES : T::STAGE);
+        mbar_arrive_expect_tx(&full[s], A_MAP ? T::B_BYTES : T::RAW);
         if (!A_MAP) tma_load_2d(As, &amap, &full[s], k0, m0);
         if (EPI == EPI_SWIGLU) {
           tma_load_2d(Bs, &bmap, &full[s], k0, c0);
@@ -539,7 +582,10 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   }
 
   typename Op::Acc acc[NACC];
-  float facc[NACC];  // the folded f32 sums (unused, so not kept, with one group)
+  // the folded f32 sums (unused, so not kept, with one group); SPLIT: the
+  // sums of the small products lo·hi + hi·lo, which wgmma adds apart from
+  // hi·hi's so that its rounding of each sum is relative to their size
+  float facc[NACC];
   if constexpr (!ONE) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) facc[i] = 0.f;
@@ -550,7 +596,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   int pending = -1;  // the stage of the last tile whose wgmmas may still read it
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % T::STAGES;
-    mbar_wait(&full[s], (kt / T::STAGES) & 1);
+    mbar_wait(Op::SPLIT ? &ready[s] : &full[s], (kt / T::STAGES) & 1);
     if (A_MAP) fence_proxy_async();  // cp.async wrote A through the generic proxy
     const uint8_t* As = smem + s * T::STAGE + cw * 64 * QBK;
     const uint8_t* Bs = smem + s * T::STAGE + T::A_BYTES;
@@ -564,9 +610,9 @@ __global__ void __launch_bounds__(QTHREADS, 1)
         const uint64_t da = smem_desc<128>(As + ks * 32, 16, 1024);
         const uint64_t db = smem_desc<128>(Bs + ks * 32, 16, 1024);
         if constexpr (ONE) {
-          Op::mma(acc, da, db, kg);  // 0: the first step, D = A * B
+          Op::mma(acc, facc, da, db, kg, T::RAW >> 4);  // 0: the first step, D = A * B
         } else {
-          Op::mma(acc, da, db, kg % p.group);  // 0: a group starts
+          Op::mma(acc, facc, da, db, kg % p.group, T::RAW >> 4);  // 0: a group starts
           if ((kg + KS) % p.group == 0) {      // the group ends: fold it into f32
             wgmma_commit();
             wgmma_wait<0>();
@@ -599,6 +645,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   }
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (Op::SPLIT) fence_regs(facc);
   Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
 }
 
@@ -607,7 +654,7 @@ __global__ void __launch_bounds__(QTHREADS, 1)
 // EPI_SWIGLU) and launch one block per 128 x BN output tile.
 template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, class Args>
 cudaError_t launch_gemm_tiles(const Args& p, cudaStream_t st) {
-  using T = GemmTile<ONE>;
+  using T = GemmTile<ONE, Op::SPLIT>;
   constexpr cuuint32_t KE = QBK / sizeof(typename Op::Elem);  // K elements of a box row
   CUtensorMap amap = {}, bmap;
   cudaError_t e = cudaSuccess;

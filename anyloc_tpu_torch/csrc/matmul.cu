@@ -25,7 +25,8 @@
 //     (__fmul_rn(__fmul_rn(float(acc), sa), sb)), then one rounding;
 //   * bf16: wgmma m64n256k16 .f32.bf16.bf16 (bf16_gemm.cuh), f32 sums with
 //     an output type of their own and the plain EPI_RESID epilogue;
-//   * f32: bf16_gemm.cuh's FMA GEMM (wgmma would be TF32), the same way.
+//   * f32: the same pipeline with bf16_gemm.cuh's OpTF32x3 (three tf32
+//     wgmmas a product, f32-accurate), the same way.
 #include "bf16_gemm.cuh"
 
 // a [M, K] and b [N, K], both of dtype (DT_I8, DT_BF16 or DT_F32), row-major

@@ -62,12 +62,11 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_gemm_rows(m: int, dtype: torch.dtype, name: str) -> None:
+def check_gemm_rows(m: int, name: str) -> None:
     """The GEMMs put their row tiles on the grid's y axis, at most 65535 of
-    them: 128 rows for int8 and bf16 operands (both run the TMA GEMM of
-    csrc/int8_common.cuh), 64 for the f32 FMA GEMM (csrc/bf16_gemm.cuh).
-    ``dtype`` is the GEMM's operand type."""
-    tile = 64 if dtype == torch.float32 else 128
+    them: 128 rows for every operand type (int8, bf16 and f32 all run the
+    TMA GEMM of csrc/int8_common.cuh)."""
+    tile = 128
     if -(-m // tile) > 65535:
         raise ValueError(f"{name}: {m} rows > {tile * 65535}; split the batch")
 

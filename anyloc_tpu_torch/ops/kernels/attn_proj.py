@@ -276,7 +276,7 @@ def _qkv_proj_launch(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, sc
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("flash_attention_qkv_proj: qkv must be contiguous "
                          "and 16-byte aligned")
-    _launch.check_gemm_rows(b * n, qkv.dtype, "flash_attention_qkv_proj")
+    _launch.check_gemm_rows(b * n, "flash_attention_qkv_proj")
     if residual is not None and not residual.is_contiguous():
         raise ValueError("flash_attention_qkv_proj: residual must be contiguous")
     w_nk = _launch.nk_weight(w_proj, "flash_attention_qkv_proj")
@@ -407,7 +407,7 @@ def fused_attn_half_int8(
         if vec is not None and tuple(vec.shape) != (want,):
             raise ValueError(f"fused_attn_half_int8: {name} must be [{want}], "
                              f"got {tuple(vec.shape)}")
-    _launch.check_gemm_rows(b * n, torch.int8, "fused_attn_half_int8")
+    _launch.check_gemm_rows(b * n, "fused_attn_half_int8")
     wqkv_nk = _launch.nk_weight(wqkv_q, "fused_attn_half_int8")
     wp_nk = _launch.nk_weight(wp_q, "fused_attn_half_int8")
     f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
@@ -547,7 +547,7 @@ def attn_half_variant(x, xq_in, xs_in, wqkv_q, wqkv_scale, wp_q, wp_scale, ln, g
         if vec is not None and vec.numel() != widths.get(name, d):
             raise ValueError(f"attn_half_variant: {name} must hold {widths.get(name, d)} "
                              f"values, got {tuple(vec.shape)}")
-    _launch.check_gemm_rows(b * n, torch.int8, "attn_half_variant")
+    _launch.check_gemm_rows(b * n, "attn_half_variant")
     wqkv_nk = _launch.nk_weight(wqkv_q, "attn_half_variant")
     wp_nk = _launch.nk_weight(wp_q, "attn_half_variant")
     f32 = {k: None if v is None else v.reshape(-1).float().contiguous() for k, v in vecs.items()}
@@ -655,7 +655,7 @@ def fused_attn_half_bf16(
         if vec is not None and tuple(vec.shape) != (want,):
             raise ValueError(f"fused_attn_half_bf16: {name} must be [{want}], "
                              f"got {tuple(vec.shape)}")
-    _launch.check_gemm_rows(b * n, x.dtype, "fused_attn_half_bf16")
+    _launch.check_gemm_rows(b * n, "fused_attn_half_bf16")
     wqkv_nk = _launch.nk_weight(wqkv, "fused_attn_half_bf16")
     wp_nk = _launch.nk_weight(wp, "fused_attn_half_bf16")
     f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
@@ -729,7 +729,7 @@ def attention_proj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"base and strides that are multiples of 8 (strides {t.stride()})")
     if d_out % 2:
         raise ValueError(f"attention_proj: D_out={d_out} must be even")
-    _launch.check_gemm_rows(b * n, q.dtype, "attention_proj")
+    _launch.check_gemm_rows(b * n, "attention_proj")
     w_nk = _launch.nk_weight(w_proj, "attention_proj")
     o = torch.empty((b, n, h * hd), dtype=q.dtype, device=q.device)
     out = torch.empty((b, n, d_out), dtype=q.dtype, device=q.device)

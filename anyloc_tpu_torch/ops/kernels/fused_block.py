@@ -124,7 +124,7 @@ def fused_block_int8(
             raise ValueError(f"fused_block_int8: {name} must be [{want}], "
                              f"got {tuple(vec.shape)}")
     m = b * n
-    _launch.check_gemm_rows(m, torch.int8, "fused_block_int8")
+    _launch.check_gemm_rows(m, "fused_block_int8")
     w_nk = [_launch.nk_weight(w, "fused_block_int8") for w in (wqkv_q, wp_q, w12_q, w3_q)]
     f32 = {k: None if v is None else v.float().contiguous() for k, (v, _) in vecs.items()}
     x = x.contiguous()

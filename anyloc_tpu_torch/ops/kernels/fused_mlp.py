@@ -212,7 +212,7 @@ def fused_mlp_int8(
     f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
     x2 = x.reshape(-1, d).contiguous()
     m = x2.shape[0]
-    _launch.check_gemm_rows(m, torch.int8, "fused_mlp_int8")
+    _launch.check_gemm_rows(m, "fused_mlp_int8")
     scratch = (row_quant_scratch(m, d, x.device)
                + mlp_int8_scratch(m, hid, hid // hc, x.device))
     out = torch.empty_like(x2)
@@ -304,7 +304,7 @@ def fused_mlp_bf16(
     f32 = {k: None if v is None else v.float().contiguous() for k, v in vecs.items()}
     x2 = x.reshape(-1, d).contiguous()
     m = x2.shape[0]
-    _launch.check_gemm_rows(m, x.dtype, "fused_mlp_bf16")
+    _launch.check_gemm_rows(m, "fused_mlp_bf16")
     xn = torch.empty_like(x2) if ln_params is not None else None
     g = torch.empty((m, hid), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x2)

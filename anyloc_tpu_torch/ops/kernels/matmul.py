@@ -83,7 +83,7 @@ def _gemm_operands(a: torch.Tensor, b: torch.Tensor, k: int, n: int, name: str):
     a = a.contiguous()
     if a.data_ptr() % 16:
         raise ValueError(f"{name}: a must be 16-byte aligned")
-    _launch.check_gemm_rows(a.shape[0], a.dtype, name)
+    _launch.check_gemm_rows(a.shape[0], name)
     return a, _launch.nk_weight(b, name)
 
 

@@ -35,7 +35,9 @@ Phases, each of which must pass or the script exits non-zero:
      (library_ms: SDPA for K2, torch._int_mm / cuBLAS for T1), for
      K6-K9, T2 and T3 the route the port wires instead (wired_ms), and for
      K2, K3, K5-K8, T1 on bf16 and T2 the rate their products reach
-     (TFLOP/s or TOPS) and their share of the bound (bound_ms / ms);
+     (TFLOP/s or TOPS) and their share of the bound (bound_ms / ms); a
+     float32 route's bound counts its 3xTF32 products (three tf32 products
+     an f32 one) at the tf32 peak, with the FMA-peak bound beside it;
   4. the bf16 path: DINOv2-G/14 (random weights from a seed, blocks 0..31)
      value facet of layer 31 -> VLAD-32 fitted on the fixture's database
      -> exact top-k -> Recall@1/5/10 on tests/fixtures/e2e at 308 px, then
@@ -317,8 +319,13 @@ ENTRY_ARGS = ["--prog.vg-dataset-name", "17places", "--db-samples", "17places=1"
               "--extractor.desc-facet", "value", "--bd-args.resize", "320", "320",
               "--top-k-vals", "1", "5", "10"]
 # One H100 SXM's published dense peaks at its 700 W limit (NVIDIA's data
-# sheet; f32 outside the tensor cores): operations/s by type, bytes/s.
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "hbm": 3.35e12}
+# sheet; f32 outside the tensor cores): operations/s by type, bytes/s. The
+# f32 routes of K2, K5-K8 and T1 run three tf32 products for each f32 one
+# (3xTF32): their bound counts each f32 operation three times at "tf32"
+# (TF32X3, below); "f32" is the FMA peak of the kernels without a tensor
+# core route (K1, the plain backwards).
+PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 494.7e12, "f32": 67e12, "hbm": 3.35e12}
+TF32X3 = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -700,15 +707,20 @@ def run(profile_dir) -> dict:
         ok = torch.allclose(got.float(), want.float(), **tol)
         m, size = b * n, 4 if f32 else 2
         ops = 4 * b * h * n * n * hd + 2 * m * d * d
+        nbytes = m * 3 * d * size + d * d * size + 2 * m * d * size + d * 4
         line = dict(shape=f"qkv [{b},{n},{3 * d}] {str(dtype)[6:]}, {h} heads of {hd}",
                     ms=time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw)),
                     plain_ms=time_ms(lambda: K.flash_attention_qkv_proj_ref(qkv, w, **kw), iters=3),
-                    **bound({"f32" if f32 else "bf16": ops},
-                            m * 3 * d * size + d * d * size + 2 * m * d * size + d * 4))
+                    **bound({"tf32": TF32X3 * ops} if f32 else {"bf16": ops}, nbytes))
+        fma_txt = ""
+        if f32:   # the FMA-peak bound of the routes before 3xTF32, to read rows across PRs
+            line["fma_bound_ms"] = bound({"f32": ops}, nbytes)["bound_ms"]
+            fma_txt = f", FMA bound {line['fma_bound_ms']:.4f} ms"
         print(f"K5 flash_attention_qkv_proj without LayerScale, {label} {line['shape']} (bias + "
               f"residual): max_abs_err {err:.3e} (bound atol {tol['atol']} rtol {tol['rtol']}) "
               f"{'ok' if ok else 'FAIL'}; time {tag}: kernel {line['ms']:.3f} ms, plain "
-              f"{line['plain_ms']:.3f} ms; bound {line['bound_ms']:.4f} ms ({line['bound_by']}), "
+              f"{line['plain_ms']:.3f} ms; bound {line['bound_ms']:.4f} ms ({line['bound_by']}"
+              f"{', 3xTF32' if f32 else ''}){fma_txt}, "
               f"{ops / (line['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
               f"{100 * line['bound_ms'] / line['ms']:.1f} % of the bound", flush=True)
         check(ok, f"K5 without LayerScale at {label} width disagrees with its plain version")
@@ -993,7 +1005,7 @@ def run(profile_dir) -> dict:
                   layerscale=randn(d, scale=0.5))
         return args, kw
 
-    f32_tol = dict(atol=1e-4, rtol=1e-5)   # f32 FMA sums over K = 1536-4096 in another order
+    f32_tol = dict(atol=1e-4, rtol=1e-5)   # f32 sums (3xTF32) over K = 1536-4096 in another order
     for label, b, n, dtype, tol in [("224px", 32, 257, torch.bfloat16, k2_bound),
                                     ("ragged-f32", 2, 77, torch.float32, f32_tol)]:
         args, kw = k7_inputs(b, n, dtype)
@@ -1188,6 +1200,31 @@ def run(profile_dir) -> dict:
                   f"({lib_name}); bound {bf_line['bound_ms']:.4f} ms ({bf_line['bound_by']}); "
                   f"{2 * m * k * n / (bf_line['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
                   f"{100 * bf_line['bound_ms'] / bf_line['ms']:.1f} % of the bound", flush=True)
+            # f32 operands (the 3xTF32 route K5-K8 share) with a Linear's
+            # weight scale, so the bound is the ragged case's; drawn from a
+            # generator of their own, so the later phases' draws stay as they were
+            g32 = torch.Generator(device=dev).manual_seed(17)
+            a32 = torch.randn((m, k), generator=g32, device=dev)
+            b32 = (torch.randn((n, k), generator=g32, device=dev) * k ** -0.5).t()
+            got32 = K.matmul(a32, b32, bk=512)
+            want32 = K.matmul_ref(a32, b32, bk=512)
+            torch.cuda.synchronize()
+            err32 = (got32 - want32).abs().max().item()
+            ok32 = torch.allclose(got32, want32, **float_tol[torch.float32])
+            f32_line = dict(ms=time_ms(lambda: K.matmul(a32, b32, bk=512)),
+                            library_ms=time_ms(lambda: torch.mm(a32, b32)),
+                            **bound({"tf32": TF32X3 * 2 * m * k * n}, 4 * (m * k + k * n + m * n)))
+            f32_fma = bound({"f32": 2 * m * k * n}, 4 * (m * k + k * n + m * n))["bound_ms"]
+            print(f"T1_matmul {label} {shape} float32 -> float32: max_abs_err {err32:.3e} (bound "
+                  f"atol 1e-4 rtol 1e-5) {'ok' if ok32 else 'FAIL'}; time {tag}: kernel "
+                  f"{f32_line['ms']:.3f} ms, library (torch.mm, f32, the plain version's call) "
+                  f"{f32_line['library_ms']:.3f} ms; bound {f32_line['bound_ms']:.4f} ms "
+                  f"({f32_line['bound_by']}, 3xTF32), FMA bound {f32_fma:.4f} ms; "
+                  f"{2 * m * k * n / (f32_line['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{100 * f32_line['bound_ms'] / f32_line['ms']:.1f} % of the bound", flush=True)
+            check(ok32, f"T1 {label} float32 disagrees with its plain version")
+            record("T1_matmul", err32)
+            del a32, b32, got32, want32
             sbn = sb.reshape(n)
             record("T2_matmul_dequant", 0.0,
                    ms=time_ms(lambda: K.matmul_dequant(a8, b8, sa, sb, bk=512)),
@@ -3515,6 +3552,13 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     gout = torch.randn(out.shape, generator=g, device=dev)
     fwd_ms = time_ms(lambda: K.flash_attention(q, k, v), iters=5, reps=2)
     plain_ms = time_ms(lambda: K.flash_attention_ref(q, k, v), iters=5, reps=2)
+    with torch.no_grad():   # the kernel alone, and the library's f32 forward
+        kernel_ms = time_ms(lambda: K.flash_attention(q, k, v), iters=5, reps=2)
+        lib_fwd_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                             iters=5, reps=2)
+    fwd_ops, fwd_bytes = 4 * b * h * n * n * hd, 4 * 4 * b * h * n * hd
+    fwd = bound({"tf32": TF32X3 * fwd_ops}, fwd_bytes)
+    fwd_fma = bound({"f32": fwd_ops}, fwd_bytes)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), gout, retain_graph=True),
                      iters=5, reps=2)
     sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
@@ -3524,12 +3568,17 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     # q, k, v, dO read and dq, dk, dv written
     bwd = bound({"f32": 10 * b * h * n * n * hd}, 7 * 4 * b * h * n * hd)
     grad_rec = dict(shape=f"[{b},{h},{n},{hd}] float32", forward_ms=fwd_ms, plain_forward_ms=plain_ms,
+                    kernel_ms=kernel_ms, library_forward_ms=lib_fwd_ms, forward_bound_ms=fwd["bound_ms"],
+                    forward_bound_by=fwd["bound_by"], forward_fma_bound_ms=fwd_fma["bound_ms"],
                     backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms, max_grad_err=r["worst"],
                     **{f"backward_{k_}": v_ for k_, v_ in bwd.items()})
     print(f"K2 gradient {tag} q/k/v [{b},{h},{n},{hd}] float32 (kernel forward, plain-version "
           f"backward, FlashAttentionGrad): max|err| / max|g| {errs} (bound "
           f"{train_checks.BOUND:.0e}); output {r['out_err']:.3e}; grad_fn {r['grad_fn']}; "
-          f"forward under autograd {fwd_ms:.3f} ms (plain {plain_ms:.3f}), backward (the plain "
+          f"forward under autograd {fwd_ms:.3f} ms (without autograd {kernel_ms:.3f}; plain "
+          f"{plain_ms:.3f}, SDPA's forward "
+          f"{lib_fwd_ms:.3f}, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}, 3xTF32), FMA "
+          f"bound {fwd_fma['bound_ms']:.4f}), backward (the plain "
           f"version's autograd) {bwd_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
           f"({bwd['bound_by']}), SDPA's backward {lib_bwd_ms:.3f} ms", flush=True)
     check(r["ok"], "K2's gradient disagrees with its plain version's")

@@ -8,7 +8,9 @@ suite's conftest:
 
 Tolerances: bfloat16 2e-2 absolute + 1e-2 relative (kernel and plain
 version round to bf16 at the same points; the sums differ in order);
-float32 2e-5 absolute (FMA order and the exp implementation).
+float32 2e-5 absolute (the kernels' 3xTF32 products on the tensor cores
+sum in another order than the plain versions' f32 GEMMs, and the exp
+implementation differs).
 """
 
 import numpy as np
@@ -81,18 +83,41 @@ def test_flash_attention_kernel_single_token(dtype):
     torch.testing.assert_close(flash_attention(q, k, v).float(), v.float(), atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("n", [1, 65, 129, 300, 485])
-def test_flash_attention_kernel_takes_qkv_views(n, hd):
+def test_flash_attention_kernel_takes_qkv_views(n, hd, dtype):
     """Strided column views of a fused [B, N, 3D] tensor (K5's case): the
-    kernel's tensor maps read them in place."""
+    kernel's tensor maps read them in place, bf16 and f32 (rows of 3D
+    elements, whole 16 bytes in both)."""
     b, h = 2, 4
     d = h * hd
-    qkv = _randn(b, n, 3 * d, dtype=torch.bfloat16)
+    qkv = _randn(b, n, 3 * d, dtype=dtype)
     views = [qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2) for i in range(3)]
     got = flash_attention(*views)
     want = flash_attention_ref(*views)
-    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    torch.testing.assert_close(got.float(), want.float(), **(BF16 if dtype == torch.bfloat16 else F32))
+
+
+@pytest.mark.parametrize("n,h,hd", [(577, 16, 64), (257, 16, 80), (197, 12, 64), (1, 12, 64),
+                                    (65, 12, 64)])
+def test_flash_attention_f32_at_the_f32_models_geometries(n, h, hd):
+    """The f32 route (3xTF32) at the f32 models' sequences and heads:
+    CLIP-L/14@336px (577 tokens, 16 heads of 64), ImageBind-H/14 (257, 16
+    of 80), dvgl ViT-B/16 (197, 12 of 64), one token and a ragged 65; K2
+    on qkv views and K5 with its full epilogue."""
+    b = 2
+    d = h * hd
+    qkv = _randn(b, n, 3 * d, seed=20)
+    views = [qkv[..., i * d:(i + 1) * d].view(b, n, h, hd).transpose(1, 2) for i in range(3)]
+    torch.testing.assert_close(flash_attention(*views), flash_attention_ref(*views), **F32)
+    w = _randn(d, d, seed=21, scale=d ** -0.5).t()
+    kw = dict(b_proj=_randn(d, seed=22, scale=0.1), layerscale=_randn(d, seed=23, scale=0.5),
+              residual=_randn(b, n, d, seed=24), num_heads=h)
+    got = flash_attention_qkv_proj(qkv, w, **kw)
+    want = flash_attention_qkv_proj_ref(qkv, w, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **F32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -592,8 +617,17 @@ def test_matmul_float_kernel_matches_ref(dtype, out_dtype):
     assert got.dtype == (out_dtype or torch.float32)
     if out_dtype is None:   # f32 sums of exact products over K 160 in another order
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
-    else:                   # one bf16 ulp where such a sum sits on a rounding boundary
+    elif dtype == torch.bfloat16:   # one bf16 ulp where such a sum sits on a rounding boundary
         assert ((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()).all()
+    else:
+        # f32 operands: the kernel's f32 sums (3xTF32) and the plain
+        # version's (cuBLAS SGEMM) each carry rounding errors of their own
+        # order, so near zero their bf16 roundings can lie ulps apart: the
+        # output is the kernel's own f32 sums rounded once, and those hold
+        # the f32 bound above
+        own = matmul(a, b)
+        assert torch.equal(got, own.to(torch.bfloat16))
+        torch.testing.assert_close(own, matmul_ref(a, b), atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("out_dtype,ulp", [(torch.bfloat16, 2.0 ** -7), (torch.float32, 2.0 ** -22)])

@@ -1,0 +1,144 @@
+"""The numerics of the port's float32 routes on the tensor cores (3xTF32).
+
+The f32 GEMM (``csrc/bf16_gemm.cuh``'s ``OpTF32x3``) and the f32 flash
+attention (``csrc/flash_attention.cuh``'s ``flash_attn_tf32x3_kernel``)
+split each f32 operand x into hi = x rounded to tf32 (``cvt.rna.tf32.f32``:
+10 explicit mantissa bits, nearest, ties away from zero) and lo = x - hi,
+exact in f32, and sum lo·hi + hi·lo + hi·hi; the tensor core reads each
+32-bit word as tf32, so lo loses its last 2 significant bits. V takes a
+third piece (the rest) so that P V is exact where P is. This file emulates
+those products in float64 on the CPU at K5's float32 geometries and holds
+them to the port's float32 bound of 2e-5 absolute (``tests/test_torch_gpu.py``'s
+``F32``), and shows that one tf32 product does not hold it, so a dropped
+term would be caught. The tensor core's own f32 sums are not emulated: the
+kernels keep them apart by size (hi·hi and the small products in separate
+accumulators in the GEMM), and the card tests bound the whole.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+F32_BOUND = 2e-5
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 value (an f32 with the low 13 mantissa bits zero),
+    rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core takes from an f32 word: its tf32 part."""
+    return (x.float().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, x.float() - hi
+
+
+def split3(x: torch.Tensor):
+    hi = tf32_rna(x)
+    r = x.float() - hi
+    lo = tf32_rna(r)
+    return hi, lo, r - lo
+
+
+def mm64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a.double() @ b.double()
+
+
+def tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it, the sums in float64."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return mm64(tf32_read(al), bh) + mm64(ah, tf32_read(bl)) + mm64(ah, bh)
+
+
+def tf32x3_v(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P V as the attention kernel computes it: P in two pieces, V in three."""
+    ph, pl = split(p)
+    vh, vl, vr = split3(v)
+    return mm64(tf32_read(pl), vh) + mm64(ph, vr) + mm64(ph, vl) + mm64(ph, vh)
+
+
+def tf32x1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One tf32 product of the raw words (the dropped terms' route)."""
+    return mm64(tf32_read(a), tf32_read(b))
+
+
+def _randn(*shape, seed, scale=1.0):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy((g.standard_normal(shape) * scale).astype(np.float32))
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got - want).abs().max().item()
+
+
+def test_rna_rounds_to_nearest_ties_away():
+    one = torch.tensor([1.0])
+    ulp = 2.0 ** -10                                   # tf32's ulp at 1
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, -(1 + ulp / 2), 1 + 3 * ulp / 2])
+    assert tf32_rna(x).tolist() == [1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp]
+    assert tf32_read(one + ulp * 0.99).item() == 1.0   # the raw word: truncated
+
+
+# scales that keep every piece a normal f32: a library loaded earlier in
+# the same test process may flush subnormals on the CPU (the card keeps them)
+@pytest.mark.parametrize("scale", [1e-20, 1.0, 1e20])
+def test_split_is_exact_and_in_tf32(scale):
+    x = _randn(4096, seed=0, scale=scale)
+    hi, lo = split(x)
+    assert torch.equal(hi + lo, x)                     # x - hi is exact in f32
+    assert torch.equal(tf32_read(hi), hi)
+    h3, l3, r3 = split3(x)
+    assert torch.equal(h3 + l3 + r3, x)
+    for piece in (h3, l3, r3):
+        assert torch.equal(tf32_read(piece), piece)    # three tf32 pieces, nothing lost
+
+
+@pytest.mark.parametrize("k", [768, 1024, 1280])
+def test_projection_within_the_f32_bound(k):
+    """K5's projection o @ W_O at dvgl ViT-B/16 (768), CLIP-L (1024) and
+    ImageBind-H (1280) widths: randn activations, weights of scale K^-0.5."""
+    a = _randn(256, k, seed=1)
+    w = _randn(k, 256, seed=2, scale=k ** -0.5)
+    exact = mm64(a, w)
+    assert _err(tf32x3(a, w), exact) <= F32_BOUND / 4
+    assert _err(tf32x1(a, w), exact) > F32_BOUND
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_scores_within_the_f32_bound(hd):
+    """S = (q hd^-0.5) k^T over 577 keys (CLIP-L/14@336px's sequence)."""
+    q = (_randn(64, hd, seed=3) * hd ** -0.5).float()
+    k = _randn(577, hd, seed=4)
+    exact = mm64(q, k.t())
+    assert _err(tf32x3(q, k.t()), exact) <= F32_BOUND / 4
+    assert _err(tf32x1(q, k.t()), exact) > F32_BOUND
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_pv_within_the_f32_bound(hd):
+    """O = P V over 577 keys, P a softmax row of scores of unit scale."""
+    s = mm64(_randn(64, hd, seed=5) * hd ** -0.5, _randn(577, hd, seed=6).t())
+    p = torch.softmax(s, dim=-1).float()
+    v = _randn(577, hd, seed=7)
+    exact = mm64(p, v)
+    assert _err(tf32x3_v(p, v), exact) <= F32_BOUND / 4
+    assert _err(tf32x1(p, v), exact) > F32_BOUND
+
+
+def test_pv_is_exact_at_one_key():
+    """One key: P = 1 and O must be V itself (the card test of a single
+    token holds the kernel to exact equality); V's third piece gives it."""
+    v = _randn(1, 128, seed=8)
+    p = torch.ones(1, 1)
+    assert torch.equal(tf32x3_v(p, v).float(), v)
+    ph, pl = split(p)
+    vh, vl = split(v)
+    two = mm64(tf32_read(pl), vh) + mm64(ph, tf32_read(vl)) + mm64(ph, vh)
+    assert not torch.equal(two.float(), v)               # two pieces of V lose its last bits
