@@ -26,15 +26,26 @@
 // Rounding follows the TPU kernel: q * scale in f32 rounded to the input
 // dtype before the score product (attn_proj.py:307), f32 scores, P in v's
 // dtype, each head's output rounded to v's dtype (:152), f32 projection.
+//
+// Under autograd (QkvProjGrad) the launch keeps what the backward
+// (attn_qkv_proj_bwd.cu, flash_attention_bwd.cu) reads: o, the heads'
+// outputs, stays as a saved tensor instead of scratch; lse receives each
+// query row's log-sum-exp of the scores ([B, H, N] f32, from the attention
+// kernel); pre receives o·W_O + bias before LayerScale ([B, N, d_out] f32,
+// from the GEMM's epilogue), which d LayerScale sums against the output
+// gradient. Both are null outside autograd, and the output's stores are
+// the same either way.
 #include "bf16_gemm.cuh"
 #include "flash_attention.cuh"
 
 // qkv [B, N, 3D] contiguous, w_nk [d_out, D] contiguous (W_O transposed),
 // bias / gamma [d_out] f32 or null, res [B, N, d_out] or null,
-// o [B, N, D] scratch, out [B, N, d_out].
+// o [B, N, D] scratch, out [B, N, d_out], lse [B, H, N] / pre [B, N, d_out]
+// f32 or null.
 extern "C" int anyloc_attn_qkv_proj(const void* qkv, const void* w_nk,
                                     const void* bias, const void* gamma,
                                     const void* res, void* o, void* out,
+                                    float* lse, float* pre,
                                     int dtype, int B, int N, int H, int hd,
                                     int d_out, float scale, void* stream) {
   using namespace anyloc;
@@ -59,6 +70,7 @@ extern "C" int anyloc_attn_qkv_proj(const void* qkv, const void* w_nk,
   p.o_sn = D;
   p.scale = scale;
   p.prescale_q = 1;
+  p.lse = lse;
   cudaError_t e = launch_attention(p, dtype, hd, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -69,6 +81,7 @@ extern "C" int anyloc_attn_qkv_proj(const void* qkv, const void* w_nk,
   g.gamma = static_cast<const float*>(gamma);
   g.res = res;
   g.out = out;
+  g.pre = pre;
   g.M = B * N;
   g.N = d_out;
   g.K = D;

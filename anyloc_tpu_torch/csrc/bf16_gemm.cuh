@@ -66,6 +66,8 @@ struct GemmArgs {
   int hid;             // EPI_SWIGLU: first B row of W2
   int q_cols;          // EPI_QKV
   float q_scale;       // EPI_QKV
+  float* pre;          // EPI_RESID: [M, N] f32, the value before LayerScale, or null
+  GemmBatch batch;     // products in one launch of a BATCH instance (int8_common.cuh)
 };
 
 // Output columns col, col + 1 of row `row` from their f32 sums (v0, v1) and,
@@ -94,6 +96,7 @@ __device__ __forceinline__ void epi_store(const GemmArgs& p, int row, int col, f
     v0 = gelu_poly(v0);
     v1 = gelu_poly(v1);
   } else {  // EPI_RESID
+    if (p.pre) store_pair(p.pre + off, v0, v1);  // K5 under autograd: d LayerScale reads it
     if (p.gamma) {
       v0 = __fmul_rn(v0, p.gamma[col]);
       v1 = __fmul_rn(v1, p.gamma[col + 1]);
@@ -170,17 +173,18 @@ struct OpTF32x3 : OpBF16 {
 };
 
 // Launch the GEMM for the operand dtype code (DT_BF16 or DT_F32); the output
-// and the residual have the operands' dtype, or OutT when it is given.
-template <int EPI, typename OutT = void>
+// and the residual have the operands' dtype, or OutT when it is given;
+// BATCH: p.batch.count products in one launch (GemmBatch).
+template <int EPI, typename OutT = void, bool BATCH = false>
 cudaError_t launch_gemm(const GemmArgs& p, int dtype, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
   if (dtype == DT_BF16) {
     using O = std::conditional_t<std::is_void_v<OutT>, bf16, OutT>;
-    return launch_gemm_tiles<OpBF16, EPI, O, O, false, true>(p, st);
+    return launch_gemm_tiles<OpBF16, EPI, O, O, false, true, BATCH>(p, st);
   }
   if (dtype == DT_F32) {
     using O = std::conditional_t<std::is_void_v<OutT>, float, OutT>;
-    return launch_gemm_tiles<OpTF32x3, EPI, O, O, false, true>(p, st);
+    return launch_gemm_tiles<OpTF32x3, EPI, O, O, false, true, BATCH>(p, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -20,10 +20,12 @@
 //
 // Rounding follows the TPU kernel: scores = (q k^T with f32 sums) * scale
 // in f32; P is rounded to v's dtype before the PV product; out = acc / l.
+// lse (null outside autograd): each row's log-sum-exp of the scaled
+// scores, [B, H, N] f32, saved for the backward (flash_attention_bwd.cu).
 #include "flash_attention.cuh"
 
 extern "C" int anyloc_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
     int H, int N, int hd, long long q_sb, long long q_sh, long long q_sn,
     long long k_sb, long long k_sh, long long k_sn, long long v_sb,
     long long v_sh, long long v_sn, long long o_sb, long long o_sh,
@@ -42,6 +44,7 @@ extern "C" int anyloc_flash_attention(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
   p.scale = scale;
   p.prescale_q = 0;
+  p.lse = lse;
   return static_cast<int>(anyloc::launch_attention(
       p, dtype, hd, static_cast<cudaStream_t>(stream)));
 }

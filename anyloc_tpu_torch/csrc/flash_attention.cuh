@@ -57,6 +57,11 @@
 // consumers (one at hd 128), 3 stages up to hd 64 and 2 above: at most
 // 224 KB of shared memory, one block per SM. Every head dim the wrappers
 // take (16, 32, 64, 80, 128) runs it; there is no other f32 kernel.
+// Under autograd (K2's FlashAttentionGrad, K5's QkvProjGrad) both kernels
+// also write each query row's log-sum-exp of the scaled scores (natural
+// log, [B, H, N] f32) through AttnArgs::lse, which the backward
+// (flash_attention_bwd.cuh) recomputes P from; K4, K6, K7, K9 and T3 leave
+// it null, and the output's stores are the same either way.
 #pragma once
 
 #include <type_traits>
@@ -81,6 +86,8 @@ struct AttnArgs {
   // 0 (K2): scores = (q k^T) * scale in f32.
   // 1 (K5): q * scale in f32, rounded to the input dtype, then q k^T.
   int prescale_q;
+  // [B, H, N] f32: each row's log-sum-exp of the scaled scores, or null
+  float* lse = nullptr;
 };
 
 namespace {
@@ -133,6 +140,14 @@ struct FaTile {
 };
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Row r's log-sum-exp of the scaled scores from the running max m (log2
+// domain) and the row's denominator l: (m + log2 l) · ln 2, natural log.
+__device__ __forceinline__ void store_lse(const AttnArgs& p, int b, int h, int r, float m,
+                                          float l) {
+  if (r < p.N) p.lse[(long long)(b * p.H + h) * p.N + r] = (m + log2f(l)) * LN2;
+}
 
 // bf16 operands: wgmma products with f32 sums, P rounded to bf16 before
 // PV; the output in bf16, or in f32 with O_F32. Warpgroups 0..NWG-1 are
@@ -315,6 +330,10 @@ __global__ void __launch_bounds__(FaTile<HD>::THREADS, FaTile<HD>::BLOCKS_PER_SM
     const int col = jj * 8 + t * 2;
     if (r0 < N) store2(O + r0 * p.o_sn + col, o[4 * jj] / d0, o[4 * jj + 1] / d0);
     if (r1 < N) store2(O + r1 * p.o_sn + col, o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
+  }
+  if (p.lse != nullptr && t == 0) {
+    store_lse(p, b, h, r0, m0, d0);
+    store_lse(p, b, h, r1, m1, d1);
   }
 }
 
@@ -605,6 +624,10 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
     const int col = jj * 8 + t * 2;
     if (r0 < N) store2(O + r0 * p.o_sn + col, o[4 * jj] / d0, o[4 * jj + 1] / d0);
     if (r1 < N) store2(O + r1 * p.o_sn + col, o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
+  }
+  if (p.lse != nullptr && t == 0) {
+    store_lse(p, b, h, r0, m0, d0);
+    store_lse(p, b, h, r1, m1, d1);
   }
 }
 

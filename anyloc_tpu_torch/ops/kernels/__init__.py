@@ -12,6 +12,8 @@ from anyloc_tpu_torch.ops.kernels.attn_proj import (
     attn_half_variant_proj_ref,
     attn_half_variant_ref,
     flash_attention_qkv_proj,
+    flash_attention_qkv_proj_bwd,
+    flash_attention_qkv_proj_bwd_ref,
     flash_attention_qkv_proj_ref,
     fused_attn_half_bf16,
     fused_attn_half_bf16_ref,
@@ -24,6 +26,8 @@ from anyloc_tpu_torch.ops.kernels.fused_block import (
 )
 from anyloc_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
     flash_attention_ref,
 )
 from anyloc_tpu_torch.ops.kernels.fused_mlp import (
@@ -59,6 +63,9 @@ KERNELS = {
     "T1_matmul": matmul,
     "T2_matmul_dequant": matmul_dequant,
     "T3_attn_half_variant": attn_half_variant,
+    # the backward kernels of K2 and K5 (their gradients under autograd)
+    "K2b_flash_attention_bwd": flash_attention_bwd,
+    "K5b_flash_attention_qkv_proj_bwd": flash_attention_qkv_proj_bwd,
 }
 
 
@@ -74,9 +81,10 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS", "MAX_FUSED_TOKENS", "attention_proj", "attention_proj_ref",
     "attn_geometry_ok", "attn_half_variant", "attn_half_variant_proj_ref", "attn_half_variant_ref",
-    "flash_attention",
+    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
     "flash_attention_ref",
-    "flash_attention_qkv_proj", "flash_attention_qkv_proj_ref",
+    "flash_attention_qkv_proj", "flash_attention_qkv_proj_bwd",
+    "flash_attention_qkv_proj_bwd_ref", "flash_attention_qkv_proj_ref",
     "fused_attn_half_bf16", "fused_attn_half_bf16_ref", "fused_attn_half_int8",
     "fused_attn_half_int8_ref", "fused_block_int8", "fused_block_int8_ref",
     "fused_mlp_bf16", "fused_mlp_bf16_ref", "fused_mlp_int8",

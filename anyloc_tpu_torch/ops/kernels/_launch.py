@@ -37,8 +37,12 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     gradient, a launch would cut the graph without a word, so it raises
     instead (F18). K2 and K5 are the kernels with a gradient: their
     wrappers run the launch inside an ``autograd.Function``
-    (``FlashAttentionGrad``, ``QkvProjGrad``: the kernel forward, the plain
-    version's gradient backward), whose forward has grad mode off."""
+    (``FlashAttentionGrad``, ``QkvProjGrad``), whose forward and backward
+    have grad mode off: the forward kernel keeps what the backward reads,
+    and the backward launches the backward kernels, the attention backward
+    (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd``) and, for K5,
+    the projection backward before it (``csrc/attn_qkv_proj_bwd.cu``,
+    ``flash_attention_qkv_proj_bwd``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires a gradient and this kernel has none (its output "

@@ -62,7 +62,8 @@ import torch
 from anyloc_tpu_torch import _build
 from anyloc_tpu_torch.ops.common import round_up
 from anyloc_tpu_torch.ops.kernels import _launch
-from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+from anyloc_tpu_torch.ops.kernels.flash_attention import (
+    SUPPORTED_HEAD_DIMS, attention_bwd_launch, attention_bwd_math)
 from anyloc_tpu_torch.ops.kernels.fused_mlp import ln_rows, row_quant_scratch
 from anyloc_tpu_torch.ops.quant import _int_mm, quantize_rows
 
@@ -229,21 +230,38 @@ def flash_attention_qkv_proj(
 class QkvProjGrad(torch.autograd.Function):
     """K5 with a gradient (F18): ``forward`` runs ``kernel`` (the launch;
     the tests fill the slot with the plain version on the CPU) on the
-    inputs as given; ``backward`` recomputes the plain version under
-    autograd on detached copies of them and returns its gradients for qkv,
-    w_proj, b_proj, layerscale and residual. That is the gradient of the
-    JAX package's XLA attention route: no Pallas kernel there has a
-    backward, so none is written here."""
+    inputs as given. On CUDA tensors the launch also keeps the heads'
+    outputs o, each query row's log-sum-exp and (with LayerScale) the
+    projection before LayerScale, and ``backward`` launches K5's backward
+    kernels (``flash_attention_qkv_proj_bwd``); on CPU tensors it
+    recomputes the plain version under autograd on detached copies of the
+    inputs. Both return the gradients for qkv, w_proj, b_proj, layerscale
+    and residual of the JAX package's XLA attention route: no Pallas kernel
+    there has a backward (F19)."""
 
     @staticmethod
     def forward(ctx, kernel, num_heads, scale, qkv, w_proj, b_proj, layerscale, residual):
         ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.on_card = qkv.device.type == "cuda"
+        if ctx.on_card:
+            keep = {}
+            out = kernel(qkv, w_proj, b_proj, num_heads=num_heads, layerscale=layerscale,
+                         residual=residual, scale=scale, keep=keep)
+            ctx.save_for_backward(qkv, w_proj, b_proj, layerscale, keep["o"], keep["lse"],
+                                  keep["pre"])
+            return out
         ctx.save_for_backward(qkv, w_proj, b_proj, layerscale, residual)
         return kernel(qkv, w_proj, b_proj, num_heads=num_heads, layerscale=layerscale,
                       residual=residual, scale=scale)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.on_card:
+            qkv, w_proj, b_proj, layerscale, o, lse, pre = ctx.saved_tensors
+            grads = flash_attention_qkv_proj_bwd(
+                grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, num_heads=ctx.num_heads,
+                scale=ctx.scale, needs=ctx.needs_input_grad[3:])
+            return (None, None, None) + grads
         inputs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[3:])]
         wanted = [t for t in inputs if t is not None and t.requires_grad]
@@ -256,8 +274,12 @@ class QkvProjGrad(torch.autograd.Function):
             next(grads) if t is not None and t.requires_grad else None for t in inputs)
 
 
-def _qkv_proj_launch(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, scale):
-    """K5's launch on CUDA tensors (shapes checked by the caller)."""
+def _qkv_proj_launch(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, scale,
+                     keep=None):
+    """K5's launch on CUDA tensors (shapes checked by the caller). A dict
+    ``keep`` receives what the backward reads: ``o`` (the heads' outputs
+    [B, N, D]), ``lse`` ([B, H, N] f32) and ``pre`` (o·W + b before
+    LayerScale, [B, N, D_out] f32; None without LayerScale)."""
     tensors = [t for t in (qkv, w_proj, b_proj, layerscale, residual) if t is not None]
     b, n, three_d = qkv.shape
     d = three_d // 3
@@ -284,16 +306,148 @@ def _qkv_proj_launch(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, sc
     gamma = None if layerscale is None else layerscale.float().contiguous()
     o = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     out = torch.empty((b, n, d_out), dtype=qkv.dtype, device=qkv.device)
+    lse = pre = None
+    if keep is not None:
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+        if layerscale is not None:
+            pre = torch.empty((b, n, d_out), dtype=torch.float32, device=qkv.device)
+        keep.update(o=o, lse=lse, pre=pre)
     rc = _build.load_library().anyloc_attn_qkv_proj(
         qkv.data_ptr(), w_nk.data_ptr(), _launch.ptr(bias), _launch.ptr(gamma),
-        _launch.ptr(residual), o.data_ptr(), out.data_ptr(), code,
-        b, n, num_heads, hd, d_out, scale, _launch.stream(qkv))
+        _launch.ptr(residual), o.data_ptr(), out.data_ptr(), _launch.ptr(lse), _launch.ptr(pre),
+        code, b, n, num_heads, hd, d_out, scale, _launch.stream(qkv))
     _build.check(rc, "flash_attention_qkv_proj")
     flash_attention_qkv_proj.launches += 1
     return out
 
 
 flash_attention_qkv_proj.launches = 0
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, N, H·hd] -> its [B, H, N, hd] view."""
+    b, n, d = x.shape
+    return x.view(b, n, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _dw_chunks(m: int, d: int, d_out: int, sms: int) -> tuple:
+    """d_W = oᵀ·G' reduces over the m rows into only ceil(d / 128) ·
+    ceil(d_out / 128) output tiles: cut the reduction into chunks so that
+    the tiles of all chunks give about two blocks per SM, each chunk at
+    least 512 rows. Returns (chunks, rows per chunk, a multiple of 4)."""
+    tiles = -(-d // 128) * -(-d_out // 128)
+    chunks = max(1, min(-(-2 * sms // tiles), -(-m // 512)))
+    return chunks, round_up(-(-m // chunks), 4)
+
+
+def flash_attention_qkv_proj_bwd_ref(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, *,
+                                     num_heads: int, scale: Optional[float] = None):
+    """Plain PyTorch version of K5's backward kernels, with their
+    arguments: the output gradient, the inputs, and what the forward kept
+    (o, the heads' outputs [B, N, D]; lse [B, H, N]; pre = o·W + b before
+    LayerScale [B, N, D_out] f32, or None) -> (d_qkv, d_w_proj, d_b_proj,
+    d_layerscale, d_residual), None for an input that is None. Rounding
+    as the plain version's autograd: G' = G · LayerScale in f32, d_o =
+    G'·Wᵀ rounded to qkv's dtype, then the attention backward
+    (``attention_bwd_math`` with K5's pre-scaled q)."""
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
+    scale = hd ** -0.5 if scale is None else float(scale)
+    g = _f32(grad)
+    gp = g * _f32(layerscale) if layerscale is not None else g
+    d_b = None if b_proj is None else gp.sum((0, 1)).to(b_proj.dtype)
+    d_ls = None if layerscale is None else (g * pre).sum((0, 1)).to(layerscale.dtype)
+    d_w = (_f32(o).reshape(-1, d).t() @ gp.reshape(-1, gp.shape[-1])).to(w_proj.dtype)
+    d_o = (gp @ _f32(w_proj).t()).to(qkv.dtype)
+    q, k, v = _split_heads(qkv, num_heads)
+    grads = attention_bwd_math(q, k, v, _heads(o, num_heads), lse, _heads(d_o, num_heads),
+                               scale=scale, prescale_q=True)
+    d_qkv = torch.cat([t.transpose(1, 2).reshape(b, n, d) for t in grads], dim=-1)
+    return d_qkv, d_w, d_b, d_ls, grad
+
+
+def flash_attention_qkv_proj_bwd(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, *,
+                                 num_heads: int, scale: Optional[float] = None,
+                                 needs=(True,) * 5):
+    """K5's backward: the gradients of ``flash_attention_qkv_proj`` for
+    qkv, w_proj, b_proj, layerscale and residual (``needs``: which are
+    wanted; None for the others and for inputs that are None) from the
+    output gradient and what the forward kept (see
+    ``flash_attention_qkv_proj_bwd_ref``). CPU tensors take the ``_ref``;
+    CUDA tensors launch the projection backward (``csrc/
+    attn_qkv_proj_bwd.cu``: d_o, d_w, d_b, d_layerscale) and the attention
+    backward (``csrc/flash_attention_bwd.cu``: d_qkv) or raise."""
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
+    d_out = w_proj.shape[1]
+    scale = hd ** -0.5 if scale is None else float(scale)
+    want_qkv, want_w, want_b, want_ls, want_res = needs
+    want_b = want_b and b_proj is not None
+    want_ls = want_ls and layerscale is not None
+    tensors = [t for t in (grad, qkv, w_proj, b_proj, layerscale, o, lse, pre) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        r = flash_attention_qkv_proj_bwd_ref(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre,
+                                             num_heads=num_heads, scale=scale)
+        return tuple(x if w else None for x, w in
+                     zip(r, (want_qkv, want_w, want_b, want_ls, want_res)))
+    name = "flash_attention_qkv_proj_bwd"
+    _launch.require_cuda(name, *tensors)
+    code = _launch.dtype_code(qkv, name)
+    if grad.dtype != qkv.dtype or o.dtype != qkv.dtype:
+        raise TypeError(f"{name}: the output gradient and o must have qkv's dtype")
+    if tuple(grad.shape) != (b, n, d_out) or tuple(o.shape) != (b, n, d):
+        raise ValueError(f"{name}: grad must be [{b}, {n}, {d_out}] and o [{b}, {n}, {d}], got "
+                         f"{tuple(grad.shape)} {tuple(o.shape)}")
+    if layerscale is not None and (pre is None or tuple(pre.shape) != (b, n, d_out)
+                                   or pre.dtype != torch.float32 or not pre.is_contiguous()):
+        raise ValueError(f"{name}: with LayerScale, pre must be a contiguous float32 "
+                         f"[{b}, {n}, {d_out}]")
+    if not qkv.is_contiguous() or not o.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv and o must be contiguous and 16-byte aligned")
+    if d_out % 8 or hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: D_out={d_out} must be a multiple of 8 and the head dim one "
+                         f"of {SUPPORTED_HEAD_DIMS}")
+    m = b * n
+    _launch.check_gemm_rows(m, name)
+    grad = grad.contiguous()
+    dev = qkv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    gp = torch.empty((m, d_out), **f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks, rows = _dw_chunks(m, d, d_out, sms)
+    row_blocks = -(-(chunks * rows if want_w else m) // 32)   # the column sums' row blocks
+    colsum = torch.empty((2, row_blocks, d_out), **f32)
+    gpt = torch.empty((chunks, d_out, rows), **f32) if want_w else None
+    ot = torch.empty((chunks, d, rows), **f32) if want_w else None
+    part = torch.empty((chunks, d, d_out), **f32) if want_w else None
+    d_o = torch.empty((b, n, d), dtype=qkv.dtype, device=dev) if want_qkv else None
+    d_w = torch.empty((d, d_out), dtype=w_proj.dtype, device=dev) if want_w else None
+    d_b = torch.empty(d_out, **f32) if want_b else None
+    d_ls = torch.empty(d_out, **f32) if want_ls else None
+    w32 = w_proj.float().contiguous()      # W_O [D, D_out]: d_o's B operand rows
+    gamma = None if layerscale is None else layerscale.float().contiguous()
+    rc = _build.load_library().anyloc_qkv_proj_bwd(
+        grad.data_ptr(), _launch.ptr(pre), _launch.ptr(gamma), w32.data_ptr(), o.data_ptr(),
+        gp.data_ptr(), colsum.data_ptr(), _launch.ptr(gpt), _launch.ptr(ot), _launch.ptr(part),
+        _launch.ptr(d_o), _launch.ptr(d_w), _launch.ptr(d_b), _launch.ptr(d_ls), code,
+        _launch.dtype_code(w_proj, name), m, d, d_out, chunks, rows, row_blocks,
+        _launch.stream(qkv))
+    _build.check(rc, name)
+    d_qkv = None
+    if want_qkv:
+        d_qkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=dev)
+        q, k, v = _split_heads(qkv, num_heads)
+        dq, dk, dv = _split_heads(d_qkv, num_heads)
+        attention_bwd_launch(q, k, v, _heads(o, num_heads), lse, _heads(d_o, num_heads),
+                             dq, dk, dv, scale=scale, prescale_q=True, name=name)
+    flash_attention_qkv_proj_bwd.launches += 1
+    return (d_qkv, d_w, None if d_b is None else d_b.to(b_proj.dtype),
+            None if d_ls is None else d_ls.to(layerscale.dtype), grad if want_res else None)
+
+
+flash_attention_qkv_proj_bwd.launches = 0
 
 
 def _check_attn_half(x, wqkv_q, wp_q, num_heads):

@@ -12,13 +12,18 @@ never contribute, softmax in f32, P rounded to v's dtype before the PV
 product, output in q's dtype.
 
 Under autograd (a tensor-parallel trunk in training) the launch runs
-inside ``FlashAttentionGrad``: the kernel forward, the plain version's
-gradient backward, as K5's ``QkvProjGrad`` (no Pallas kernel has a
-backward, F19).
+inside ``FlashAttentionGrad``: the kernel forward, which also saves each
+query row's log-sum-exp, and the attention backward kernel
+(``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd``) on CUDA tensors;
+on CPU tensors the plain version's autograd. No Pallas kernel has a
+backward (F19): the gradient is that of the JAX package's XLA attention
+route, which ``flash_attention_bwd_ref`` writes out with the kernel's
+arguments.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -29,6 +34,10 @@ from anyloc_tpu_torch.ops.kernels import _launch
 # every kernel on the shared attention core (K2, K4-K7, K9, T3) takes these;
 # hd 80 is MAE-H, ImageBind-H and SAM-H
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
+# keys per block of the attention backward, and the grid it should give
+# the card at least (csrc/flash_attention_bwd.cuh)
+BWD_KEYS = 64
+BWD_MIN_GRID = 512
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,20 +73,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 class FlashAttentionGrad(torch.autograd.Function):
     """K2 with a gradient: ``forward`` runs ``kernel`` (the launch; the
     tests fill the slot with the plain version on the CPU) on q, k, v as
-    given; ``backward`` recomputes ``flash_attention_ref`` under autograd
-    on detached copies of them and returns its gradients, the JAX XLA
-    attention route's gradient."""
+    given. On CUDA tensors the launch also writes each query row's
+    log-sum-exp, and ``backward`` launches the attention backward kernel
+    (``flash_attention_bwd``) on q, k, v, the output and the log-sum-exp;
+    on CPU tensors it recomputes ``flash_attention_ref`` under autograd on
+    detached copies of q, k, v. Both give the JAX XLA attention route's
+    gradient."""
 
     @staticmethod
     def forward(ctx, kernel, scale, q, k, v):
         ctx.scale = scale
+        ctx.on_card = q.device.type == "cuda"
+        if ctx.on_card:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+            out = kernel(q, k, v, scale=scale, lse=lse)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
         ctx.save_for_backward(q, k, v)
         return kernel(q, k, v, scale=scale)
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        need = ctx.needs_input_grad[2:]
+        if ctx.on_card:
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = flash_attention_bwd(q, k, v, out, lse, grad, scale=ctx.scale)
+            return (None, None) + tuple(g if n else None for g, n in zip(grads, need))
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
             out = flash_attention_ref(*inputs, scale=ctx.scale)
@@ -85,9 +107,123 @@ class FlashAttentionGrad(torch.autograd.Function):
         return (None, None) + tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
+def attention_bwd_math(q, k, v, o, lse, do, *, scale: float, prescale_q: bool):
+    """The attention backward's plain math with the kernel's arguments and
+    rounding points (``csrc/flash_attention_bwd.cuh``): P from the saved
+    log-sum-exp, D = rowsum(dO ∘ O) in f32; in bf16 dP rounded to bf16, D =
+    rowsum(P ∘ dP) on the f32 P, dV from P rounded to bf16; ``prescale_q``
+    (K5): q · scale rounded to q's dtype before the scores, dq =
+    round(dS K) · scale. Returns (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    narrow = dt not in (torch.float32, torch.float64)
+    wide = torch.float64 if dt == torch.float64 else torch.float32
+    qf, kf, vf, dof = (t.to(wide) for t in (q, k, v, do))
+    if prescale_q:
+        qf = (qf * scale).to(dt).to(wide)
+        s = qf @ kf.transpose(-1, -2)
+    else:
+        s = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.to(wide)[..., None])
+    dp = dof @ vf.transpose(-1, -2)
+    if narrow:
+        dp = dp.to(dt).to(wide)
+        delta = (p * dp).sum(-1)
+        pv = p.to(dt).to(wide)
+    else:
+        delta = (dof * o.to(wide)).sum(-1)
+        pv = p
+    ds = p * (dp - delta[..., None])
+    dv = pv.transpose(-1, -2) @ dof
+    dk = ds.transpose(-1, -2) @ qf
+    dq = ds @ kf
+    if prescale_q:
+        dq = dq.to(dt).to(wide) * scale
+    else:
+        dq, dk = dq * scale, dk * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, scale: Optional[float] = None):
+    """Plain PyTorch version of K2's backward kernel, with its arguments:
+    q, k, v, the output o, each query row's log-sum-exp ``lse`` [B, H, N]
+    of the scaled scores and the output gradient ``do`` -> (dq, dk, dv)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return attention_bwd_math(q, k, v, o, lse, do, scale=scale, prescale_q=False)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: Optional[float] = None):
+    """K2's backward: (dq, dk, dv) of ``flash_attention`` from q, k, v
+    [B, H, N, hd], its output o, the saved log-sum-exp ``lse`` [B, H, N]
+    f32 and the output gradient ``do``. CPU tensors take
+    ``flash_attention_bwd_ref``; CUDA tensors launch the kernel or raise."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
+    if do.stride(-1) != 1 or not _launch.aligned(do, 8):
+        do = do.contiguous()   # a gradient of any layout: the kernel reads rows of hd
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=False,
+                         name="flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def attention_bwd_slices(b: int, h: int, n: int) -> int:
+    """The backward's scratch slices (``attention_bwd_slices`` of
+    ``csrc/flash_attention_bwd.cuh``): one per key block of ``BWD_KEYS`` up
+    to four, then one per group of key blocks, four groups, unless b·h
+    blocks alone would give the card a grid under ``BWD_MIN_GRID``."""
+    blocks = -(-n // BWD_KEYS)
+    slices = min(max(4, -(-BWD_MIN_GRID // max(b * h, 1))), blocks)
+    if slices <= 0:
+        return 0
+    per = -(-blocks // slices)
+    return -(-blocks // per)
+
+
+def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
+                         name: str) -> None:
+    """The attention backward kernel on CUDA tensors (K2's and K5's): every
+    operand a [B, H, N, hd] view with a contiguous head dim, the outputs
+    dq, dk, dv written in place. Its f32 scratch holds ``attention_bwd_slices``
+    slices (each group of key blocks' share of dq, and of D in bf16): dq's
+    size times at most four beyond small B·H, so the memory grows as N,
+    summed in a fixed order: the gradients are reproducible bit for bit."""
+    b, h, n, hd = q.shape
+    ops = (q, k, v, o, do, dq, dk, dv)
+    _launch.require_cuda(name, *ops, lse)
+    code = _launch.dtype_code(q, name)
+    if any(t.dtype != q.dtype for t in ops) or lse.dtype != torch.float32:
+        raise TypeError(f"{name}: q, k, v, o, the gradients and their outputs must share one "
+                        f"dtype, and lse must be float32")
+    if any(tuple(t.shape) != (b, h, n, hd) for t in ops) or tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"{name}: operands must be [B, H, N, hd] = {(b, h, n, hd)} and lse "
+                         f"[B, H, N], got {[tuple(t.shape) for t in ops]} {tuple(lse.shape)}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not supported (kernel takes "
+                         f"{SUPPORTED_HEAD_DIMS})")
+    for label, t in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"), ops):
+        if t.stride(-1) != 1 or not _launch.aligned(t, 8):
+            raise ValueError(f"{name}: {label} needs a contiguous head dim, a 16-byte aligned "
+                             f"base and strides that are multiples of 8 (strides {t.stride()})")
+    if not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be contiguous")
+    slices = attention_bwd_slices(b, h, n)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((slices if q.dtype == torch.bfloat16 else 1, b, h, n), **f32)
+    dq_part = torch.empty((slices, b, h, n, hd), **f32)
+    strides = (ctypes.c_longlong * 24)(*[s for t in ops for s in t.stride()[:3]])
+    rc = _build.load_library().anyloc_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+        code, b, h, n, hd, int(prescale_q), slices, strides, scale, _launch.stream(q))
+    _build.check(rc, name)
+
+
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  scale: float) -> torch.Tensor:
-    """K2's launch on CUDA tensors (shapes checked by the caller)."""
+                  scale: float, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's launch on CUDA tensors (shapes checked by the caller); ``lse``
+    ([B, H, N] f32, contiguous) receives each query row's log-sum-exp."""
     b, h, n, hd = q.shape
     _launch.require_cuda("flash_attention", q, k, v)
     code = _launch.dtype_code(q, "flash_attention")
@@ -105,7 +241,7 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # [B, N, H, hd] storage: the caller's merge back to [B, N, H*hd] is free
     out = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     rc = _build.load_library().anyloc_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _launch.ptr(lse), code,
         b, h, n, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -118,4 +254,5 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 

@@ -20,8 +20,31 @@ under float32's own error there; ``compare_convs`` can: each
 convolution of the CNN at the input shape the step gives it, its input
 and weight gradients for a random output gradient on the card within
 ``BOUND`` of the CPU's largest |value|.
-``k5_gradient``: K5's gradient (the kernel forward,
-the plain version's backward, F18) against the plain version's autograd.
+``k5_gradient`` / ``k2_gradient``: K5's and K2's gradients (the forward
+kernel, then the backward kernels) against the plain version's autograd on
+the same inputs, which shares nothing with the kernels. float32: each
+gradient within ``BOUND`` of its largest |value|. bfloat16
+(``bf16_errors``): each gradient within ``BF16_BOUND`` of the plain
+version's beyond one bf16 rounding step of it, and its L2 distance from the
+float64 gradient of the same inputs at most ``BF16_RATIO`` times the plain
+version's own; or within ``BOUND`` of the plain version's outright (an f32
+gradient of the bf16 run, K5's bias, that sums the same f32 values in
+another order: both then err at float32's level, where the ratio of two
+distances is noise). K5's d_W and d LayerScale read the heads' outputs o
+that the forward kernel keeps, which differ from the plain forward's
+within the forward's bound, so their difference is taken from the plain
+backward on that o (``flash_attention_qkv_proj_bwd_ref``), and what the
+forward keeps is held to values from the inputs (``saved_errors``: o within
+``BF16_BOUND`` of the plain forward's beyond one step, the log-sum-exp
+within ``LSE_BOUND`` of float64's, the projection before LayerScale within
+``BOUND`` of o·W + b); their distance from float64 is still over the plain
+autograd's. The one-step allowance: the backward kernels mirror
+the plain version's rounding points but sum in another order, and both
+round each gradient to bfloat16 once at the end, so where the two f32 sums
+straddle a rounding midpoint they land one step apart, 2^-8 to 2^-7 of the
+value; ``bf16_readings`` records what a sound implementation in another
+order (the plain autograd on the CPU) and a lower-precision one (the
+library's bf16 attention backward) read on each measure.
 ``k5_step_times``: K5's forward launches and its backward, timed with CUDA
 events inside whatever runs under it. Without a card it raises.
 """
@@ -45,6 +68,10 @@ from anyloc_tpu_torch.training.network import GeoLocalizationNet
 from anyloc_tpu_torch.training.triplet import make_triplet_train_step
 
 BOUND = 1e-4   # of the largest |g| of each tensor
+BF16_BOUND = 2.5e-3   # bfloat16 gradients: of the largest |g|, beyond one rounding step
+BF16_RATIO = 1.25     # bfloat16: L2 distance from float64 over the plain version's
+LSE_BOUND = 1e-5      # K5's kept log-sum-exp: largest |difference| (natural log)
+READ_O = ("w_proj", "layerscale")   # K5's gradients that read the forward's o
 SHARE = 1e-3   # of a tensor's elements that may lie beyond BOUND
 CNN_RATIO = 10.0   # card's distance from float64 / the CPU float32 run's
 STEPS = {"resnet18conv4": (480, 640), "vit": (224, 224)}
@@ -210,15 +237,15 @@ def step_line(r: dict) -> str:
 
 
 def k5_inputs(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int = 0,
-              layerscale: bool = False) -> dict:
+              layerscale: bool = False, device: str = "cuda") -> dict:
     """K5's inputs as the vit backbone gives them (qkv, the projection's
     ``.t()`` weight, its bias, the residual; LayerScale optional), each
     requiring a gradient."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     d = h * hd
 
     def r(*shape, scale=1.0, dt=dtype):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dt)
+        return (torch.randn(*shape, generator=g, device=device) * scale).to(dt)
 
     out = dict(qkv=r(b, n, 3 * d), w_proj=r(d, d, scale=d ** -0.5).t(),
                b_proj=r(d, scale=0.1, dt=torch.float32),
@@ -227,59 +254,285 @@ def k5_inputs(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int = 
     return {k: None if v is None else v.detach().requires_grad_(True) for k, v in out.items()}
 
 
-def k5_gradient(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int = 0) -> dict:
-    """K5's output and gradients for every input against the plain
-    version's autograd on the same inputs: the largest error over the
-    largest |value| of each, and the kernel's launch."""
-    inputs = k5_inputs(b, n, h, hd, dtype, seed)
+def rel_err(a: torch.Tensor, w: torch.Tensor, scale: float = None) -> float:
+    """max|a - w| over ``scale`` (default max|w|)."""
+    scale = w.double().abs().max().item() if scale is None else scale
+    return (a.double() - w.double()).abs().max().item() / max(scale, 1e-30)
+
+
+def bf16_step(w: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of each bfloat16 value of ``w`` (0 at 0)."""
+    w = w.double()
+    _, e = torch.frexp(w)   # |w| = m · 2^e, m in [0.5, 1): 8 significant bits step 2^(e - 8)
+    return torch.where(w == 0, torch.zeros_like(w), torch.ldexp(torch.ones_like(w), e - 8))
+
+
+def bf16_errors(got: torch.Tensor, want: torch.Tensor, exact: torch.Tensor,
+                top: float = None, near: torch.Tensor = None) -> dict:
+    """A gradient ``got`` of a bfloat16 run against the plain version's
+    autograd ``want`` and the float64 gradient ``exact`` of the same inputs
+    (module docstring), each difference over max|want| (or ``top`` where
+    given: a vanishing gradient's scale): ``raw``, the largest difference
+    from ``want`` (or from ``near``, K5's plain backward on the forward
+    kernel's o for the gradients that read it); ``err``, the same beyond
+    one bf16 rounding step (a bf16 gradient; an f32 one has no step);
+    ``ratio``, got's L2 distance from ``exact`` over want's, and
+    ``ratio_max`` the same of the largest differences."""
+    a, w, x = got.double(), want.double(), exact.double()
+    if near is not None:
+        w = near.double()
+    step = bf16_step(w) if got.dtype == torch.bfloat16 else torch.zeros_like(w)
+    top = max(w.abs().max().item() if top is None else top, 1e-30)
+    diff = (a - w).abs()
+    raw = diff.max().item() / top
+    err = (diff - step).clamp_min(0).max().item() / top
+
+    def over(num, den):
+        return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+    w = want.double()
+    ratio = over((a - x).norm().item(), (w - x).norm().item())
+    ratio_max = over((a - x).abs().max().item(), (w - x).abs().max().item())
+    return dict(raw=raw, err=err, ratio=ratio, ratio_max=ratio_max,
+                ok=raw <= BOUND or (err <= BF16_BOUND and ratio <= BF16_RATIO))
+
+
+def _scales(wants) -> list:
+    """Each gradient's largest |value|, or, for one that vanishes in exact
+    arithmetic (below 1e-3 of the largest of the others: q's and k's at one
+    key), the largest of the others."""
+    tops = [w.double().abs().max().item() for w in wants]
+    return [t if t >= 1e-3 * max(tops) else max(tops) for t in tops]
+
+
+def _grad_report(names, got, want, exact=None, near=None) -> dict:
+    """Per gradient against the plain version's autograd ``want``, over
+    its ``_scales``: float32 (exact None) the largest error; bfloat16
+    ``bf16_errors`` with the float64 gradient ``exact`` (and ``near``, a
+    dict of the gradients held to another plain value)."""
+    if exact is None:
+        errs = {k: rel_err(a, w, top)
+                for k, a, w, top in zip(names, got, want, _scales(want))}
+        return dict(grad_errs=errs, worst=max(errs.values()),
+                    grads_ok=max(errs.values()) <= BOUND)
+    near = near or {}
+    r = {k: bf16_errors(a, w, x, top, near.get(k)) for k, a, w, x, top in
+         zip(names, got, want, exact, _scales(want))}
+    return dict(grad_errs={k: v["err"] for k, v in r.items()},
+                raws={k: v["raw"] for k, v in r.items()},
+                ratios={k: v["ratio"] for k, v in r.items()},
+                worst=max(v["err"] for v in r.values()),
+                grads_ok=all(v["ok"] for v in r.values()))
+
+
+def attention64(q, k, v, *, scale=None):
+    """softmax(q kᵀ · scale) v without a rounding (float64 inputs)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1) @ v
+
+
+def saved_errors(inputs: dict, keep: dict, h: int) -> dict:
+    """What K5's forward kernel keeps under autograd (``keep``: o, lse,
+    pre) against values computed from the inputs alone (float64 where the
+    plain version has no rounding): ``lse``, the largest |difference| from
+    the log-sum-exp of the pre-scaled scores (natural log); ``o``, the
+    heads' outputs against the plain forward's, beyond one bf16 step, over
+    max|o|; ``pre``, against o·W + b from the kept o, over max|pre|."""
+    qkv, w, bias = inputs["qkv"], inputs["w_proj"], inputs["b_proj"]
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    scale = (d // h) ** -0.5
+    q, k, v = attn_proj._split_heads(qkv, h)
+    qs = (q.float() * scale).to(qkv.dtype)
+    s = qs.double() @ k.double().transpose(-1, -2)
+    plain = attn_proj._attention_ref(qs, k, v).transpose(1, 2).reshape(b, n, d)
+    out = dict(lse=(keep["lse"].double() - torch.logsumexp(s, dim=-1)).abs().max().item(),
+               o=bf16_errors(keep["o"], plain, plain)["err"])
+    if keep["pre"] is not None:
+        pre = keep["o"].double() @ w.double() + bias.double()
+        out["pre"] = rel_err(keep["pre"], pre)
+    return out
+
+
+def saved_ok(errs: dict) -> bool:
+    return (errs["lse"] <= LSE_BOUND and errs["o"] <= BF16_BOUND
+            and errs.get("pre", 0.0) <= BOUND)
+
+
+def k5_gradient(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int = 0,
+                layerscale: bool = False) -> dict:
+    """K5's output and gradients for every input (the backward kernels)
+    against the plain version's autograd on the same inputs (module
+    docstring for the bounds; bfloat16's d_W and d LayerScale, which read
+    the forward kernel's o, against the plain backward on that o once o,
+    lse and pre pass ``saved_errors``), the forward's and the backward's
+    launches, the grad_fn and whether the output is bit-equal to a launch
+    without autograd."""
+    inputs = k5_inputs(b, n, h, hd, dtype, seed, layerscale)
     names = [k for k, v in inputs.items() if v is not None]
     before = K.flash_attention_qkv_proj.launches
     out = K.flash_attention_qkv_proj(num_heads=h, **inputs)
     launched = K.flash_attention_qkv_proj.launches - before
+    with torch.no_grad():
+        bit_equal = torch.equal(out, K.flash_attention_qkv_proj(num_heads=h, **inputs))
     ref = K.flash_attention_qkv_proj_ref(num_heads=h, **inputs)
     grad = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
                        device="cuda").to(dtype)
+    before_bwd = K.flash_attention_qkv_proj_bwd.launches
     got = torch.autograd.grad(out, [inputs[k] for k in names], grad)
+    bwd_launched = K.flash_attention_qkv_proj_bwd.launches - before_bwd
     want = torch.autograd.grad(ref, [inputs[k] for k in names], grad)
+    exact = near = None
+    saved = {}
+    if dtype != torch.float32:
+        wide = {k: None if v is None else v.detach().double().requires_grad_(True)
+                for k, v in inputs.items()}
+        exact = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **wide),
+                                    [wide[k] for k in names], grad.double())
+        with torch.no_grad():
+            x, keep = {k: None if v is None else v.detach() for k, v in inputs.items()}, {}
+            attn_proj._qkv_proj_launch(x["qkv"], x["w_proj"], x["b_proj"], num_heads=h,
+                                       layerscale=x["layerscale"], residual=x["residual"],
+                                       scale=hd ** -0.5, keep=keep)
+            saved = saved_errors(x, keep, h)
+            on_o = dict(zip(["qkv", "w_proj", "b_proj", "layerscale", "residual"],
+                            K.flash_attention_qkv_proj_bwd_ref(
+                                grad, x["qkv"], x["w_proj"], x["b_proj"], x["layerscale"],
+                                keep["o"], keep["lse"], keep["pre"], num_heads=h)))
+            near = {k: on_o[k] for k in READ_O if on_o[k] is not None}
     torch.cuda.synchronize()
-
-    def rel(a, w):
-        return (a.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(),
-                                                                1e-30)
-
-    errs = {k: rel(a, w) for k, a, w in zip(names, got, want)}
+    r = _grad_report(names, got, want, exact, near)
+    if saved:
+        r.update(saved=saved, grads_ok=r["grads_ok"] and saved_ok(saved))
     return dict(shape=(b, n, 3 * h * hd), dtype=str(dtype).replace("torch.", ""),
-                out_err=rel(out, ref), grad_errs=errs, worst=max(errs.values()),
-                launched=launched, grad_fn=type(out.grad_fn).__name__,
-                ok=launched == 1 and max(errs.values()) <= BOUND)
+                out_err=rel_err(out, ref), launched=launched, bwd_launched=bwd_launched,
+                bit_equal=bit_equal, grad_fn=type(out.grad_fn).__name__, **r,
+                ok=launched == 1 and bwd_launched == 1 and bit_equal and r["grads_ok"])
 
 
 def k2_gradient(b: int, h: int, n: int, hd: int, dtype=torch.float32, seed: int = 0) -> dict:
     """K2 under autograd (``FlashAttentionGrad``) on q, k, v [b, h, n, hd]
-    that require gradients: the output and the q, k, v gradients against
-    the plain version's autograd on the same inputs (the largest error over
-    the largest |value| of each), the kernel's launch and the grad_fn."""
+    that require gradients: the output and the q, k, v gradients (the
+    backward kernel) against the plain version's autograd on the same
+    inputs (module docstring for the bounds), the forward's and the
+    backward's launches, the grad_fn and whether the output is bit-equal to
+    a launch without autograd."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, h, n, hd), generator=g, device="cuda").to(dtype)
                .requires_grad_(True) for _ in range(3))
     before = K.flash_attention.launches
     out = K.flash_attention(q, k, v)
     launched = K.flash_attention.launches - before
+    with torch.no_grad():
+        bit_equal = torch.equal(out, K.flash_attention(q, k, v))
     ref = K.flash_attention_ref(q, k, v)
     grad = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    before_bwd = K.flash_attention_bwd.launches
     got = torch.autograd.grad(out, (q, k, v), grad)
+    bwd_launched = K.flash_attention_bwd.launches - before_bwd
     want = torch.autograd.grad(ref, (q, k, v), grad)
+    exact = None
+    if dtype != torch.float32:
+        wide = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+        exact = torch.autograd.grad(attention64(*wide), wide, grad.double())
     torch.cuda.synchronize()
-
-    def rel(a, w):
-        return (a.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(),
-                                                                1e-30)
-
-    errs = {name: rel(a, w) for name, a, w in zip("qkv", got, want)}
+    r = _grad_report("qkv", got, want, exact)
     return dict(shape=(b, h, n, hd), dtype=str(dtype).replace("torch.", ""),
-                out_err=rel(out, ref), grad_errs=errs, worst=max(errs.values()),
-                launched=launched, grad_fn=type(out.grad_fn).__name__,
-                ok=launched == 1 and max(errs.values()) <= BOUND)
+                out_err=rel_err(out, ref), launched=launched, bwd_launched=bwd_launched,
+                bit_equal=bit_equal, grad_fn=type(out.grad_fn).__name__, **r,
+                ok=launched == 1 and bwd_launched == 1 and bit_equal and r["grads_ok"])
+
+
+# bfloat16 cases of the card tests (test_torch_gpu.py) and the smoke's step
+READING_CASES = (
+    ("K5", 48, 197, 12, 64, True), ("K5", 4, 257, 16, 80, False), ("K5", 2, 65, 4, 16, True),
+    ("K5", 2, 65, 2, 32, True), ("K5", 2, 65, 2, 128, False), ("K5", 2, 1, 4, 64, True),
+    ("K5", 2, 130, 2, 128, True), ("K2", 2, 8, 257, 64, None), ("K2", 2, 3, 65, 32, None),
+    ("K2", 2, 2, 65, 128, None), ("K2", 2, 4, 1, 16, None), ("K2", 48, 6, 197, 64, None))
+
+
+def _k5_library(qkv, w_proj, b_proj, *, num_heads, layerscale, residual, scale=None):
+    """K5's function from library calls in bfloat16: the attention by
+    ``scaled_dot_product_attention`` (whose backward rounds P and dS to
+    bf16 for its products) and the projection as a bf16 matmul, rounded
+    before the bias; the lower-precision control of ``bf16_readings``."""
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    scale = (d // num_heads) ** -0.5 if scale is None else scale
+    q, k, v = attn_proj._split_heads(qkv, num_heads)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        (q.float() * scale).to(qkv.dtype), k, v, scale=1.0)
+    out = (o.transpose(1, 2).reshape(b, n, d) @ w_proj).float() + b_proj
+    if layerscale is not None:
+        out = out * layerscale
+    return (out + residual.float()).to(qkv.dtype)
+
+
+def bf16_readings(cases=READING_CASES, seed: int = 0, device: str = "cuda") -> list:
+    """What ``bf16_errors`` reads, per gradient of each bfloat16 case
+    (kernel, sizes, LayerScale), for three implementations held against the
+    plain version's autograd on the card: the kernels; the plain version's
+    autograd on the CPU (the same rounding points, sums in another order:
+    a sound implementation); and the library's bf16 calls (K2: the
+    attention by ``scaled_dot_product_attention``, K5: ``_k5_library``: a
+    lower-precision one). ``device`` is where the kernels run (another
+    than cuda only to try the function: CPU tensors take the plain
+    versions)."""
+    rows = []
+    for kernel, *dims, ls in cases:
+        g = torch.Generator(device=device).manual_seed(seed)
+        if kernel == "K5":
+            b, n, h, hd = dims
+            inputs = k5_inputs(b, n, h, hd, torch.bfloat16, seed, ls, device)
+            names = [k for k, v in inputs.items() if v is not None]
+
+            def run(fn, device, inputs=inputs, names=names, h=h):
+                x = {k: None if v is None else v.detach().to(device).requires_grad_(True)
+                     for k, v in inputs.items()}
+                return [t.to(grad.device) for t in torch.autograd.grad(
+                    fn(num_heads=h, **x), [x[k] for k in names], grad.to(device))]
+
+            grad = torch.randn((b, n, h * hd), generator=g, device=device).to(torch.bfloat16)
+            impls = dict(kernel=(K.flash_attention_qkv_proj, device),
+                         cpu_plain=(K.flash_attention_qkv_proj_ref, "cpu"),
+                         library=(_k5_library, device))
+            want = run(K.flash_attention_qkv_proj_ref, device)
+            wide = {k: None if v is None else v.detach().double().requires_grad_(True)
+                    for k, v in inputs.items()}
+            exact = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **wide),
+                                        [wide[k] for k in names], grad.double())
+            shape = [b, n, 3 * h * hd]
+        else:
+            b, h, n, hd = dims
+            qkv = [torch.randn((b, h, n, hd), generator=g, device=device).to(torch.bfloat16)
+                   for _ in range(3)]
+            grad = torch.randn((b, h, n, hd), generator=g, device=device).to(torch.bfloat16)
+            names = list("qkv")
+
+            def run(fn, device, qkv=qkv):
+                x = [t.detach().to(device).requires_grad_(True) for t in qkv]
+                return [t.to(grad.device) for t in torch.autograd.grad(fn(*x), x, grad.to(device))]
+
+            impls = dict(kernel=(K.flash_attention, device),
+                         cpu_plain=(K.flash_attention_ref, "cpu"),
+                         library=(torch.nn.functional.scaled_dot_product_attention, device))
+            want = run(K.flash_attention_ref, device)
+            wide = [t.detach().double().requires_grad_(True) for t in qkv]
+            exact = torch.autograd.grad(attention64(*wide), wide, grad.double())
+            shape = [b, h, n, hd]
+        for impl, (fn, device) in impls.items():
+            got = run(fn, device)
+            for name, a, w, x, top in zip(names, got, want, exact, _scales(want)):
+                rows.append(dict(kernel=kernel, shape=shape, layerscale=bool(ls), impl=impl,
+                                 grad=name, **bf16_errors(a, w, x, top)))
+    return rows
+
+
+def readings_line(r: dict) -> str:
+    return (f"{r['kernel']} {r['shape']}{' LayerScale' if r['layerscale'] else ''} "
+            f"{r['impl']:9s} d{r['grad']:10s}: max|diff| / max|g| {r['raw']:.3e}, beyond one "
+            f"bf16 step {r['err']:.3e}; distance from float64 over the plain autograd's: L2 "
+            f"{r['ratio']:.4f}, max {r['ratio_max']:.4f}; {'ok' if r['ok'] else 'refused'}")
 
 
 @contextlib.contextmanager
@@ -320,16 +573,31 @@ def main(argv=None) -> int:
     from anyloc_tpu_torch.tools._timing import card_line
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("backbones", nargs="*", default=sorted(STEPS), choices=sorted(STEPS))
+    ap.add_argument("backbones", nargs="*", choices=sorted(STEPS),
+                    help=f"default: {' '.join(sorted(STEPS))}")
+    ap.add_argument("--bf16-readings", metavar="JSON",
+                    help="print bf16_readings (and write them to JSON), then stop")
     args = ap.parse_args(argv)
     print(f"card: {card_line()}", flush=True)
+    if args.bf16_readings:
+        import json
+        import pathlib
+
+        rows = bf16_readings()
+        for r in rows:
+            print(readings_line(r), flush=True)
+        path = pathlib.Path(args.bf16_readings)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(dict(card=card_line(), rows=rows), indent=1))
+        return 0
     ok = True
     for dtype in (torch.float32, torch.bfloat16):
         r = k5_gradient(48, 197, 12, 64, dtype)
+        bound = BOUND if dtype == torch.float32 else BF16_BOUND
         print(f"K5 gradient {r['dtype']} qkv {list(r['shape'])}: worst {r['worst']:.3e} "
-              f"(bound {BOUND:.0e}), output {r['out_err']:.3e}", flush=True)
+              f"(bound {bound:.1e}), output {r['out_err']:.3e}", flush=True)
         ok &= r["ok"]
-    for name in args.backbones:
+    for name in args.backbones or sorted(STEPS):
         r = compare_step(name)
         print(step_line(r), flush=True)
         ok &= r["ok"]

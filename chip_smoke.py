@@ -116,8 +116,9 @@ Phases, each of which must pass or the script exits non-zero:
      partial mining), 2 epochs of 8 queries, NetVLAD's k-means init, then
      again with --resume (its starting parameters bit-equal to the saved
      ones); the same for the vit backbone at 224 px (K5 in every block of
-     every step with its gradient, F18: the patch embedding and block 0's
-     qkv get non-zero gradients); a few CosPlace CosFace steps (ResNet-50,
+     every step with its gradient, F18, through K5's backward kernels: the
+     patch embedding and block 0's qkv get non-zero gradients); a few
+     CosPlace CosFace steps (ResNet-50,
      GeM + fc 512, 512x512, batch 32); each path's step time, tuples/s and
      images/s, K5's forward and backward ms inside the vit step; one step's
      gradients card vs CPU for both dvgl models (vit: within 1e-4 of the
@@ -125,7 +126,11 @@ Phases, each of which must pass or the script exits non-zero:
      float64 run than 10x the CPU's float32 run), each convolution of
      resnet18conv4 at the step's shapes card vs CPU within 1e-4 of the
      largest |g| (F17b; a planted TF32 backward must fail it) and K5's
-     gradient against its plain version's at [48, 197, 2304] float32;
+     gradient (its backward kernels) against its plain version's at
+     [48, 197, 2304] float32 and bfloat16 with LayerScale
+     (``train_checks.bf16_errors``), the backward timed beside the plain
+     version's autograd and its 3xTF32 and FMA bounds, and two backward
+     calls bit-equal;
      then ``parallel/`` (``mesh_phase``): on a one-rank NCCL group in this
      process ``DescriptorEngine(mesh=local_mesh(1))`` in bf16 and
      int8_full (VLADs bit-equal to the engine's, both rates) and ``serve
@@ -135,7 +140,9 @@ Phases, each of which must pass or the script exits non-zero:
      and exact search at DINOv2-G width against one rank, K1-K5 launching
      in the phase; then the training half (``train_mesh_phase``): K2
      under autograd at a tensor-parallel rank's [48, 6, 197, 64] float32
-     against its plain version's gradient, timed beside its bound; on the
+     (and bfloat16 at [2, 8, 257, 64]) against its plain version's
+     gradient, its backward kernel timed beside the plain version's
+     autograd, SDPA's backward and its bounds; on the
      one-rank NCCL group an FSDP step of dvgl's vit + NetVLAD-64 against
      the plain step and sync BatchNorm over an axis of one rank against
      local BatchNorm; then two Gloo ranks on this card: F24's
@@ -222,6 +229,14 @@ KERNEL_INFO = {
     "T3_attn_half_variant": dict(
         source="anyloc_tpu_torch/csrc/attn_half_variant.cu",
         replaces="tools/bench_xlayer.py:150"),
+    # the gradients of K2 and K5 (no Pallas kernel has a backward, F19: the
+    # function is the XLA route's gradient of the kernel named)
+    "K2b_flash_attention_bwd": dict(
+        source="anyloc_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
+    "K5b_flash_attention_qkv_proj_bwd": dict(
+        source="anyloc_tpu_torch/csrc/attn_qkv_proj_bwd.cu",
+        replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
 }
 # kernels each path must launch
 PATH_KERNELS = {
@@ -256,9 +271,9 @@ PATH_KERNELS = {
     "eval mixvpr": (),
     "eval cosplace": (),
     # python -m anyloc_tpu_torch train: the vit backbone's K5 in every block of
-    # every step (forward kernel, plain-version backward) and in mining and
+    # every step (forward kernel, backward kernels) and in mining and
     # validation; resnet18conv4 + NetVLAD launches no kernel
-    "train dvgl vit": ("K5_flash_attention_qkv_proj",),
+    "train dvgl vit": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd"),
     "train dvgl resnet18conv4": (),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
@@ -267,9 +282,10 @@ PATH_KERNELS = {
     # parallelism (K2 on each rank's heads), pipeline stages (K5) and EP (K1)
     "mesh": ("K1_vlad_aggregate_fused", "K2_flash_attention", "K3_fused_mlp_int8",
              "K4_fused_attn_half_int8", "K5_flash_attention_qkv_proj"),
-    # parallel/'s training half: K5 (forward kernel, plain backward) in the
-    # dvgl vit's FSDP steps, K2 with its gradient on each tensor-parallel rank
-    "train mesh": ("K2_flash_attention", "K5_flash_attention_qkv_proj"),
+    # parallel/'s training half: K5 and its backward kernels in the dvgl
+    # vit's FSDP steps, K2 and its backward on each tensor-parallel rank
+    "train mesh": ("K2_flash_attention", "K5_flash_attention_qkv_proj",
+                   "K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd"),
     # the repository's programs in this process: bench_mlp_xla_int8 (K3), the
     # quickstart (bf16: K1, K5) and serving (int8_full: K1, K3, K4) examples,
     # entry() (K1, K5)
@@ -323,7 +339,7 @@ ENTRY_ARGS = ["--prog.vg-dataset-name", "17places", "--db-samples", "17places=1"
 # f32 routes of K2, K5-K8 and T1 run three tf32 products for each f32 one
 # (3xTF32): their bound counts each f32 operation three times at "tf32"
 # (TF32X3, below); "f32" is the FMA peak of the kernels without a tensor
-# core route (K1, the plain backwards).
+# core route (K1), printed beside the f32 routes' 3xTF32 bounds.
 PEAK = {"bf16": 989e12, "int8": 1979e12, "tf32": 494.7e12, "f32": 67e12, "hbm": 3.35e12}
 TF32X3 = 3
 
@@ -424,6 +440,19 @@ def bound(ops: dict, nbytes: float) -> dict:
     t_bytes = nbytes / PEAK["hbm"]
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def turns(kernel, plain) -> tuple:
+    """(kernel ms, plain ms): each the best of two ``time_ms`` runs taken
+    in turns (plain, kernel, kernel, plain), so a drift of the card's clock
+    during the measurement falls on both."""
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    p1 = time_ms(plain, iters=10, reps=2)
+    k1 = time_ms(kernel, iters=10, reps=2)
+    k2 = time_ms(kernel, iters=10, reps=2, warmup=0)
+    p2 = time_ms(plain, iters=10, reps=2, warmup=0)
+    return min(k1, k2), min(p1, p2)
 
 
 def rms_rel(got, want) -> float:
@@ -1731,7 +1760,15 @@ def run(profile_dir) -> dict:
         # backward call); its mining and validation launches are inference
         trained = train_phase(root, work / "train", tag)
         results["K5_flash_attention_qkv_proj"]["train_launches"] = trained["k5_train"]
-        results["K5_flash_attention_qkv_proj"]["train_backward"] = trained["k5_backward"]
+        k5b = trained["k5_backward"]
+        results["K5_flash_attention_qkv_proj"]["train_backward"] = dict(
+            ms=k5b["ms"], forward_ms=k5b["forward_ms"], bound_ms=k5b["bound_ms"],
+            bound_by=k5b["bound_by"])
+        results["K5b_flash_attention_qkv_proj_bwd"].update(
+            launches=trained["launches"]["train dvgl vit"]["K5b_flash_attention_qkv_proj_bwd"],
+            **{k_: v_ for k_, v_ in k5b.items() if k_ != "forward_ms"})
+        note(f"K5b {k5b['ms']:.3f} ms (plain {k5b['plain_ms']:.3f}, bound "
+             f"{k5b['bound_ms']:.4f}), max err {k5b['max_abs_err']:.1e}")
 
         # ------------------------------------------------------------ parallel/: the mesh phase
         mark("parallel/: the mesh phase")
@@ -1757,6 +1794,17 @@ def run(profile_dir) -> dict:
                   f"{name} never launched in the training-mesh phase")
         results["K2_flash_attention"]["train_grad"] = dict(
             launches=trained_mesh["k2_tptrain"], **trained_mesh["k2_grad"])
+        g2 = trained_mesh["k2_grad"]
+        results["K2b_flash_attention_bwd"].update(
+            launches=trained_mesh["counts"]["K2b_flash_attention_bwd"], shape=g2["shape"],
+            ms=g2["backward_ms"], plain_ms=g2["plain_backward_ms"],
+            library_ms=g2["library_backward_ms"], bound_ms=g2["backward_bound_ms"],
+            bound_by=g2["backward_bound_by"], fma_bound_ms=g2["backward_fma_bound_ms"],
+            max_abs_err=g2["max_abs_err"], spread=g2["backward_spread"],
+            max_grad_err=dict(float32=g2["max_grad_err"]), memory=g2["memory"],
+            library_route="torch.nn.functional.scaled_dot_product_attention's backward")
+        note(f"K2b {g2['backward_ms']:.3f} ms (plain {g2['plain_backward_ms']:.3f}, SDPA "
+             f"{g2['library_backward_ms']:.3f}, bound {g2['backward_bound_ms']:.4f})")
         results["K5_flash_attention_qkv_proj"]["fsdp_launches"] = trained_mesh["k5_fsdp"]
         results["K5_flash_attention_qkv_proj"]["pptrain_launches"] = trained_mesh["k5_pptrain"]
 
@@ -2492,7 +2540,8 @@ def train_phase(root: Path, work: Path, tag: str) -> dict:
     """Training through what a user calls, no device named: ``python -m
     anyloc_tpu_torch train`` for dvgl resnet18conv4 + NetVLAD-64 at
     480x640 (with NetVLAD's k-means init) and the vit backbone + NetVLAD-64
-    at 224 px (K5 in every block of every step, with its gradient, F18),
+    at 224 px (K5 in every block of every step, with its gradient through
+    its backward kernels, F18),
     each 2 epochs of 8 queries, then again with --resume (its starting
     parameters bit-equal to the saved ones); a few CosPlace CosFace steps
     (ResNet-50, GeM + fc 512, 512x512, batch 32, one group's head); each
@@ -2500,8 +2549,9 @@ def train_phase(root: Path, work: Path, tag: str) -> dict:
     ms inside the vit step; one step's gradients card vs CPU for both dvgl
     models, resnet18conv4's convolutions' backward card vs CPU (and with
     F17b planted, which must fail), K5's gradient against its plain
-    version's at [48, 197, 2304] float32 (F18). Returns the launch counts
-    by path and K5's training launches."""
+    version's at [48, 197, 2304] float32 and bfloat16 (F18) and its
+    backward kernels timed. Returns the launch counts by path, K5's
+    training launches and its backward's record."""
     import functools
 
     import numpy as np
@@ -2666,37 +2716,70 @@ def train_phase(root: Path, work: Path, tag: str) -> dict:
           f"{planted['worst'] / max(r['worst'], 1e-30):.1f}x the real one's; must exceed the bound",
           flush=True)
     check(not planted["ok"], "the conv check does not see F17b's TF32 backward")
-    r = train_checks.k5_gradient(48, 197, 12, 64, torch.float32)
-    errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
-    print(f"K5 gradient {tag} qkv {list(r['shape'])} float32 (kernel forward, plain-version "
-          f"backward): max|err| / max|g| {errs} (bound {train_checks.BOUND:.0e}); output "
-          f"{r['out_err']:.3e}; grad_fn {r['grad_fn']}", flush=True)
-    check(r["ok"], "K5's gradient disagrees with its plain version's")
-    # K5's backward alone at the step's shape: the plain version's autograd
-    # recompute; its bound is twice the forward's products (the input and
-    # weight gradients), f32, or its bytes
+    grad_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = train_checks.k5_gradient(48, 197, 12, 64, dtype, layerscale=dtype == torch.bfloat16)
+        errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
+        held = (f"bound {train_checks.BOUND:.0e}" if dtype == torch.float32 else
+                f"beyond one bf16 step, bound {train_checks.BF16_BOUND:.1e} (without the step "
+                + ", ".join(f"{k} {v:.3e}" for k, v in r["raws"].items())
+                + "); L2 distance from float64 over the plain autograd's "
+                + ", ".join(f"{k} {v:.3f}" for k, v in r["ratios"].items())
+                + f", bound {train_checks.BF16_RATIO}; {' and '.join(train_checks.READ_O)} "
+                "against the plain backward on the kept o, which with lse and pre is held to "
+                "values from the inputs: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                       r["saved"].items())
+                + f" (bounds lse {train_checks.LSE_BOUND:.0e}, o {train_checks.BF16_BOUND:.1e}, "
+                f"pre {train_checks.BOUND:.0e})")
+        print(f"K5 gradient {tag} qkv {list(r['shape'])} {r['dtype']} (forward kernel, backward "
+              f"kernels{', LayerScale' if dtype == torch.bfloat16 else ''}): max|err| / max|g| "
+              f"{errs} ({held}); output {r['out_err']:.3e}, bit-equal without autograd "
+              f"{r['bit_equal']}; launches forward {r['launched']}, backward "
+              f"{r['bwd_launched']}; grad_fn {r['grad_fn']}", flush=True)
+        check(r["ok"], f"K5's {r['dtype']} gradient disagrees with its plain version's")
+        grad_errs[r["dtype"]] = r["worst"]
+    # K5's backward alone at the step's shape, the kernels beside the plain
+    # version's autograd; bounds: five attention products (S, dP, dV, dK,
+    # dQ) and two projection GEMMs (d_o, d_W), f32, as three tf32 products
+    # each or at the FMA peak, or the bytes
     b, n, h, hd = 48, 197, 12, 64
     d, m = h * hd, 48 * 197
     inputs = train_checks.k5_inputs(b, n, h, hd)
     wanted = [t for t in inputs.values() if t is not None]
     out = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+    ref = K.flash_attention_qkv_proj_ref(num_heads=h, **inputs)
     gout = torch.randn_like(out)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out, wanted, gout, retain_graph=True),
-                     iters=5, reps=2)
+    first = torch.autograd.grad(out, wanted, gout, retain_graph=True)
+    again = torch.autograd.grad(out, wanted, gout, retain_graph=True)
+    spread = max((a - c).abs().max().item() for a, c in zip(first, again))
+    max_abs = max((a - w).abs().max().item() for a, w in zip(
+        first, torch.autograd.grad(ref, wanted, gout, retain_graph=True)))
+    bwd_ms, plain_ms = turns(
+        lambda: torch.autograd.grad(out, wanted, gout, retain_graph=True),
+        lambda: torch.autograd.grad(ref, wanted, gout, retain_graph=True))
     fwd_ms = time_ms(lambda: K.flash_attention_qkv_proj(num_heads=h, **inputs).detach(),
                      iters=5, reps=2)
-    ops = 2 * (4 * b * h * n * n * hd + 2 * m * d * d)
-    bwd = bound({"f32": ops}, 4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d))
-    print(f"K5 backward {tag} qkv [{b},{n},{3 * d}] float32 (QkvProjGrad: the plain version "
-          f"recomputed under autograd): {bwd_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
-          f"({bwd['bound_by']}), {100 * bwd['bound_ms'] / bwd_ms:.1f} % of the bound; the forward "
-          f"under autograd (kernel + saved inputs) {fwd_ms:.3f} ms", flush=True)
-    del inputs, wanted, out, gout
+    ops = 10 * b * h * n * n * hd + 4 * m * d * d
+    nbytes = 4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d)   # qkv, G, o in; dqkv, d_W out
+    bwd = bound({"tf32": TF32X3 * ops}, nbytes)
+    bwd_fma = bound({"f32": ops}, nbytes)
+    print(f"K5 backward {tag} qkv [{b},{n},{3 * d}] float32 (QkvProjGrad: the projection "
+          f"backward and the attention backward kernels): {bwd_ms:.3f} ms, the plain version's "
+          f"autograd {plain_ms:.3f} ms ({plain_ms / bwd_ms:.2f}x); bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}, 3xTF32), {100 * bwd['bound_ms'] / bwd_ms:.1f} % of it; FMA bound "
+          f"{bwd_fma['bound_ms']:.4f} ms; largest difference between two backward calls "
+          f"{spread:.3e} (bound 0: no atomics); the forward under autograd (kernel + saved "
+          f"tensors) {fwd_ms:.3f} ms", flush=True)
+    check(spread == 0.0, "K5's backward differs between two calls on the same inputs")
+    del inputs, wanted, out, ref, gout, first, again
     t3 = time.perf_counter()
     print(f"training, wall seconds: train CLI runs {t1 - t0:.1f}, step times {t2 - t1:.1f}, "
           f"card vs CPU and K5 gradient {t3 - t2:.1f}, total {t3 - t0:.1f}", flush=True)
     return dict(launches=launches, k5_train=k5_train, rates=rates,
-                k5_backward=dict(ms=bwd_ms, forward_ms=fwd_ms, **bwd))
+                k5_backward=dict(ms=bwd_ms, plain_ms=plain_ms, forward_ms=fwd_ms,
+                                 fma_bound_ms=bwd_fma["bound_ms"], spread=spread,
+                                 max_abs_err=max_abs, max_grad_err=grad_errs,
+                                 shape=f"qkv [{b},{n},{3 * d}] float32", **bwd))
 
 
 def eval_model(label: str):
@@ -3545,10 +3628,12 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     b, h, n, hd = 48, 6, 197, 64
     r = train_checks.k2_gradient(b, h, n, hd, torch.float32)
     errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
+    check(r["ok"], "K2's gradient disagrees with its plain version's")
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v = (torch.randn((b, h, n, hd), generator=g, device=dev).requires_grad_(True)
                for _ in range(3))
     out = K.flash_attention(q, k, v)
+    ref = K.flash_attention_ref(q, k, v)
     gout = torch.randn(out.shape, generator=g, device=dev)
     fwd_ms = time_ms(lambda: K.flash_attention(q, k, v), iters=5, reps=2)
     plain_ms = time_ms(lambda: K.flash_attention_ref(q, k, v), iters=5, reps=2)
@@ -3559,30 +3644,73 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     fwd_ops, fwd_bytes = 4 * b * h * n * n * hd, 4 * 4 * b * h * n * hd
     fwd = bound({"tf32": TF32X3 * fwd_ops}, fwd_bytes)
     fwd_fma = bound({"f32": fwd_ops}, fwd_bytes)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), gout, retain_graph=True),
-                     iters=5, reps=2)
+    first = torch.autograd.grad(out, (q, k, v), gout, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), gout, retain_graph=True)
+    spread = max((a - c).abs().max().item() for a, c in zip(first, again))
+    bwd_ms, plain_bwd_ms = turns(
+        lambda: torch.autograd.grad(out, (q, k, v), gout, retain_graph=True),
+        lambda: torch.autograd.grad(ref, (q, k, v), gout, retain_graph=True))
     sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), gout, retain_graph=True),
                          iters=5, reps=2)
-    # the backward's five products (S recomputed, dP, dV, dQ, dK) in f32, or
-    # q, k, v, dO read and dq, dk, dv written
-    bwd = bound({"f32": 10 * b * h * n * n * hd}, 7 * 4 * b * h * n * hd)
+    # the backward's five products (S recomputed, dP, dV, dQ, dK) in f32 as
+    # three tf32 products each, or at the FMA peak, or q, k, v, O, dO read and
+    # dq, dk, dv written
+    bwd_ops, bwd_bytes = 10 * b * h * n * n * hd, 8 * 4 * b * h * n * hd
+    bwd = bound({"tf32": TF32X3 * bwd_ops}, bwd_bytes)
+    bwd_fma = bound({"f32": bwd_ops}, bwd_bytes)
     grad_rec = dict(shape=f"[{b},{h},{n},{hd}] float32", forward_ms=fwd_ms, plain_forward_ms=plain_ms,
                     kernel_ms=kernel_ms, library_forward_ms=lib_fwd_ms, forward_bound_ms=fwd["bound_ms"],
                     forward_bound_by=fwd["bound_by"], forward_fma_bound_ms=fwd_fma["bound_ms"],
-                    backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms, max_grad_err=r["worst"],
+                    backward_ms=bwd_ms, plain_backward_ms=plain_bwd_ms,
+                    library_backward_ms=lib_bwd_ms, max_grad_err=r["worst"],
+                    backward_spread=spread,
+                    max_abs_err=max((a - w).abs().max().item() for a, w in zip(
+                        first, torch.autograd.grad(ref, (q, k, v), gout, retain_graph=True))),
+                    backward_fma_bound_ms=bwd_fma["bound_ms"],
                     **{f"backward_{k_}": v_ for k_, v_ in bwd.items()})
-    print(f"K2 gradient {tag} q/k/v [{b},{h},{n},{hd}] float32 (kernel forward, plain-version "
-          f"backward, FlashAttentionGrad): max|err| / max|g| {errs} (bound "
-          f"{train_checks.BOUND:.0e}); output {r['out_err']:.3e}; grad_fn {r['grad_fn']}; "
-          f"forward under autograd {fwd_ms:.3f} ms (without autograd {kernel_ms:.3f}; plain "
-          f"{plain_ms:.3f}, SDPA's forward "
-          f"{lib_fwd_ms:.3f}, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}, 3xTF32), FMA "
-          f"bound {fwd_fma['bound_ms']:.4f}), backward (the plain "
-          f"version's autograd) {bwd_ms:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
-          f"({bwd['bound_by']}), SDPA's backward {lib_bwd_ms:.3f} ms", flush=True)
-    check(r["ok"], "K2's gradient disagrees with its plain version's")
-    del q, k, v, out, gout, sdpa
+    print(f"K2 gradient {tag} q/k/v [{b},{h},{n},{hd}] float32 (forward kernel, attention "
+          f"backward kernel, FlashAttentionGrad): max|err| / max|g| {errs} (bound "
+          f"{train_checks.BOUND:.0e}); output {r['out_err']:.3e}, bit-equal without autograd "
+          f"{r['bit_equal']}; grad_fn {r['grad_fn']}; forward under autograd "
+          f"{fwd_ms:.3f} ms (without autograd {kernel_ms:.3f}; plain {plain_ms:.3f}, SDPA's "
+          f"forward {lib_fwd_ms:.3f}, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}, 3xTF32), "
+          f"FMA bound {fwd_fma['bound_ms']:.4f}), backward {bwd_ms:.3f} ms (the plain version's "
+          f"autograd {plain_bwd_ms:.3f}, SDPA's backward {lib_bwd_ms:.3f}; bound "
+          f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}, 3xTF32), FMA bound "
+          f"{bwd_fma['bound_ms']:.4f}); largest difference between two backward calls "
+          f"{spread:.3e} (bound 0: no atomics)", flush=True)
+    check(spread == 0.0, "K2's backward differs between two calls on the same inputs")
+    del q, k, v, out, ref, gout, sdpa, first, again
+    # the backward's memory at N 1370 (ViT-B/14 at 518 px, which the vit
+    # trunk sends to K2 under grad): its peak above its inputs against its
+    # outputs and its f32 scratch of attention_bwd_slices dq slices
+    from anyloc_tpu_torch.ops.kernels.flash_attention import BWD_KEYS, attention_bwd_slices
+
+    mb, mh, mn = 48, 12, 1370
+    q, k, v = (torch.randn((mb, mh, mn, hd), generator=g, device=dev).requires_grad_(True)
+               for _ in range(3))
+    out = K.flash_attention(q, k, v)
+    gout = torch.randn(out.shape, generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.autograd.grad(out, (q, k, v), gout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    size = mb * mh * mn * hd * 4
+    slices = attention_bwd_slices(mb, mh, mn)
+    memory = dict(shape=f"[{mb},{mh},{mn},{hd}] float32", peak_mb=peak / 2 ** 20,
+                  outputs_mb=3 * size / 2 ** 20, scratch_mb=slices * size / 2 ** 20,
+                  slices=slices, per_key_block_mb=-(-mn // BWD_KEYS) * size / 2 ** 20)
+    print(f"K2 backward memory {tag} q/k/v {memory['shape']}: peak above its inputs "
+          f"{memory['peak_mb']:.1f} MB (outputs {memory['outputs_mb']:.1f} MB, dq scratch "
+          f"{memory['scratch_mb']:.1f} MB in {slices} slices; a slice per key block would take "
+          f"{memory['per_key_block_mb']:.1f} MB)", flush=True)
+    check(peak <= 1.05 * (memory["outputs_mb"] + memory["scratch_mb"]) * 2 ** 20 + 2 ** 26,
+          "K2's backward takes more memory than its outputs and its bounded scratch")
+    grad_rec["memory"] = memory
+    del q, k, v, out, gout
 
     # world 1 (NCCL): an FSDP step against the plain step
     model = materialize(lambda: GeoLocalizationNet("vit", "netvlad", 64, img_size=224), None,

@@ -1,0 +1,250 @@
+"""The plain versions of K2's and K5's backward kernels
+(``flash_attention_bwd_ref``, ``flash_attention_qkv_proj_bwd_ref``, with
+the kernels' arguments: the saved output, each query row's log-sum-exp and,
+for K5, the projection before LayerScale) on the CPU:
+
+  * against ``jax.vjp`` of the JAX package's XLA attention route
+    (``anyloc_tpu/ops/pallas/flash_attention.py::xla_attention``), for K5
+    composed with the projection, bias, LayerScale and residual in jnp, in
+    float32: within 1e-5 of each gradient's largest |value|;
+  * against the port's plain versions' autograd (what ``FlashAttentionGrad``
+    and ``QkvProjGrad`` run on CPU tensors): float32 within 1e-5 of the
+    largest |g|; bfloat16 by ``train_checks.bf16_errors``, the bound the card
+    tests hold the kernels to: within 2.5e-3 of the largest |g| beyond one
+    bf16 rounding step (the backward mirrors the plain version's rounding
+    points but sums in another order, so a final rounding may land one step
+    apart), and an L2 distance from the float64 gradient of the same inputs
+    no more than 1.25x the plain version's own.
+
+Inputs are made from numpy seeds; N 1, 9 and 65 cover one key, fewer keys
+than one block and ragged key blocks (the kernels mask the keys past N of
+their last 64-key block).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from anyloc_tpu.ops.pallas.flash_attention import xla_attention
+
+from anyloc_tpu_torch.ops import kernels as K
+from anyloc_tpu_torch.ops.kernels.attn_proj import _split_heads
+from anyloc_tpu_torch.tools.train_checks import BF16_BOUND, BF16_RATIO, attention64, bf16_errors
+
+torch.set_num_threads(2)
+
+F32_BOUND = 1e-5
+SHAPES = [(2, 2, 1, 8), (2, 4, 9, 16), (2, 3, 65, 16), (2, 2, 65, 80)]
+
+
+def _arrays(shape, n, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * scale).astype(np.float32) for _ in range(n)]
+
+
+def _rel(got, want, scale=None):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    s = np.abs(want).max() if scale is None else scale
+    return np.abs(got - want).max() / max(s, 1e-30)
+
+
+def _scales(wants):
+    """Each gradient's largest |value|; a gradient that is zero (one key:
+    q and k have none) takes the largest of the others."""
+    top = max(np.abs(np.asarray(w, np.float64)).max() for w in wants)
+    return [np.abs(np.asarray(w, np.float64)).max() or top for w in wants]
+
+
+def _lse(q, k, scale, prescale):
+    qf, kf = q.float(), k.float()
+    if prescale:
+        s = (qf * scale).to(q.dtype).float() @ kf.transpose(-1, -2)
+    else:
+        s = (qf @ kf.transpose(-1, -2)) * scale
+    return torch.logsumexp(s, dim=-1)
+
+
+def _k2_inputs(shape, seed, dtype):
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in _arrays(shape, 4, seed))
+    return q, k, v, g
+
+
+def _k2_ref_grads(q, k, v, g, scale):
+    """The plain backward with O and the log-sum-exp of the plain forward."""
+    with torch.no_grad():
+        o = K.flash_attention_ref(q, k, v, scale=scale)
+        return K.flash_attention_bwd_ref(q, k, v, o, _lse(q, k, scale, False), g, scale=scale)
+
+
+def _k2_autograd(q, k, v, g, scale, fn=K.flash_attention_ref):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves, scale=scale), leaves, g)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_backward_ref_matches_jax_vjp(shape):
+    hd = shape[-1]
+    scale = hd ** -0.5
+    arrs = _arrays(shape, 4, seed=1)
+    _, vjp = jax.vjp(lambda q, k, v: xla_attention(q, k, v, scale=scale),
+                     *map(jnp.asarray, arrs[:3]))
+    want = vjp(jnp.asarray(arrs[3]))
+    got = _k2_ref_grads(*(torch.from_numpy(a) for a in arrs), scale)
+    for name, a, w, s in zip("qkv", got, want, _scales(want)):
+        assert _rel(a.numpy(), w, s) <= F32_BOUND, name
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_backward_ref_matches_the_plain_autograd_f32(shape):
+    scale = 0.3
+    q, k, v, g = _k2_inputs(shape, 2, torch.float32)
+    got = _k2_ref_grads(q, k, v, g, scale)
+    want = _k2_autograd(q, k, v, g, scale)
+    for name, a, w, s in zip("qkv", got, want, _scales([w.numpy() for w in want])):
+        assert _rel(a.numpy(), w.numpy(), s) <= F32_BOUND, name
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_backward_ref_bf16_mirrors_the_plain_rounding(shape):
+    scale = shape[-1] ** -0.5
+    q, k, v, g = _k2_inputs(shape, 3, torch.bfloat16)
+    got = _k2_ref_grads(q, k, v, g, scale)
+    want = _k2_autograd(q, k, v, g, scale)
+    exact = _k2_autograd(q.double(), k.double(), v.double(), g.double(), scale, attention64)
+    for name, a, w, x in zip("qkv", got, want, exact):
+        r = bf16_errors(a, w, x)
+        assert r["err"] <= BF16_BOUND and r["ratio"] <= BF16_RATIO, (name, r)
+
+
+def _k5_inputs(b, n, h, hd, seed, dtype, ls=True):
+    d = h * hd
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    return dict(qkv=r(b, n, 3 * d).to(dtype), w_proj=r(d, d, scale=d ** -0.5).to(dtype),
+                b_proj=r(d, scale=0.1), layerscale=r(d, scale=0.5) if ls else None,
+                residual=r(b, n, d).to(dtype)), r(b, n, d).to(dtype)
+
+
+def _k5_saved(inputs, h, scale):
+    """What the forward kernel keeps under autograd, from plain ops: the
+    heads' outputs o, each row's log-sum-exp, the projection before
+    LayerScale."""
+    qkv, w, bias = inputs["qkv"], inputs["w_proj"], inputs["b_proj"]
+    b, n, three_d = qkv.shape
+    d = three_d // 3
+    q, k, v = _split_heads(qkv, h)
+    wide = torch.float64 if qkv.dtype == torch.float64 else torch.float32
+    with torch.no_grad():
+        qe = (q.to(wide) * scale).to(qkv.dtype).to(wide)
+        s = qe @ k.to(wide).transpose(-1, -2)
+        p = torch.softmax(s, dim=-1)
+        o = (p.to(qkv.dtype).to(wide) @ v.to(wide)).to(qkv.dtype)
+        o = o.transpose(1, 2).reshape(b, n, d)
+        pre = o.to(wide) @ w.to(wide) + bias if inputs["layerscale"] is not None else None
+        return o, torch.logsumexp(s, dim=-1).float(), pre
+
+
+def _k5_ref_grads(inputs, grad, h, scale):
+    o, lse, pre = _k5_saved(inputs, h, scale)
+    with torch.no_grad():
+        return K.flash_attention_qkv_proj_bwd_ref(
+            grad, inputs["qkv"], inputs["w_proj"], inputs["b_proj"], inputs["layerscale"], o,
+            lse, pre, num_heads=h, scale=scale)
+
+
+def _k5_autograd(inputs, grad, h, scale):
+    leaves = {k: None if v is None else v.detach().requires_grad_(True)
+              for k, v in inputs.items()}
+    out = K.flash_attention_qkv_proj_ref(num_heads=h, scale=scale, **leaves)
+    names = [k for k, v in leaves.items() if v is not None]
+    return names, torch.autograd.grad(out, [leaves[k] for k in names], grad)
+
+
+K5_SHAPES = [(2, 1, 2, 8, True), (2, 9, 4, 16, False), (2, 65, 2, 16, True),
+             (2, 65, 2, 80, True)]
+
+
+@pytest.mark.parametrize("b,n,h,hd,ls", K5_SHAPES,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else ("ls" if v else "-"))
+def test_k5_backward_ref_matches_jax_vjp(b, n, h, hd, ls):
+    d = h * hd
+    scale = hd ** -0.5
+    inputs, grad = _k5_inputs(b, n, h, hd, 4, torch.float32, ls)
+
+    def route(qkv, w, bias, gamma, res):
+        q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, n, h, hd).transpose(0, 2, 1, 3)
+                   for i in range(3))
+        o = xla_attention(q, k, v, scale=scale).transpose(0, 2, 1, 3).reshape(b, n, d)
+        out = o @ w + bias
+        return (out * gamma if ls else out) + res
+
+    names = ["qkv", "w_proj", "b_proj", "layerscale", "residual"]
+    args = [jnp.asarray(inputs[k].numpy()) if inputs[k] is not None else jnp.ones(d)
+            for k in names]
+    _, vjp = jax.vjp(route, *args)
+    want = vjp(jnp.asarray(grad.numpy()))
+    got = _k5_ref_grads(inputs, grad, h, scale)
+    for name, a, w in zip(names, got, want):
+        if inputs[name] is None:
+            assert a is None, name
+            continue
+        assert _rel(a.numpy(), w) <= F32_BOUND, name
+
+
+@pytest.mark.parametrize("b,n,h,hd,ls", K5_SHAPES,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else ("ls" if v else "-"))
+def test_k5_backward_ref_matches_the_plain_autograd_f32(b, n, h, hd, ls):
+    scale = hd ** -0.5
+    inputs, grad = _k5_inputs(b, n, h, hd, 5, torch.float32, ls)
+    got = dict(zip(["qkv", "w_proj", "b_proj", "layerscale", "residual"],
+                   _k5_ref_grads(inputs, grad, h, scale)))
+    names, want = _k5_autograd(inputs, grad, h, scale)
+    assert {k for k, v in got.items() if v is not None} == set(names)
+    for name, w in zip(names, want):
+        assert _rel(got[name].numpy(), w.numpy()) <= F32_BOUND, name
+
+
+@pytest.mark.parametrize("b,n,h,hd,ls", K5_SHAPES,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else ("ls" if v else "-"))
+def test_k5_backward_ref_bf16_mirrors_the_plain_rounding(b, n, h, hd, ls):
+    scale = hd ** -0.5
+    inputs, grad = _k5_inputs(b, n, h, hd, 6, torch.bfloat16, ls)
+    got = dict(zip(["qkv", "w_proj", "b_proj", "layerscale", "residual"],
+                   _k5_ref_grads(inputs, grad, h, scale)))
+    names, want = _k5_autograd(inputs, grad, h, scale)
+    wide = {k: None if v is None else v.double() for k, v in inputs.items()}
+    _, exact = _k5_autograd(wide, grad.double(), h, scale)
+    for name, w, x in zip(names, want, exact):
+        r = bf16_errors(got[name], w, x)
+        bound = BF16_BOUND if w.dtype == torch.bfloat16 else F32_BOUND
+        assert r["err"] <= bound and r["ratio"] <= BF16_RATIO, (name, r)
+
+
+def test_backward_wrappers_on_cpu_tensors_take_their_plain_versions():
+    """On CPU tensors the backward wrappers return their plain versions'
+    results (``needs`` masks K5's), and no launch is counted."""
+    before = K.launch_counts()
+    q, k, v, g = _k2_inputs((2, 2, 9, 16), 7, torch.float32)
+    o = K.flash_attention_ref(q, k, v)
+    lse = _lse(q, k, 0.25, False)
+    for a, w in zip(K.flash_attention_bwd(q, k, v, o, lse, g, scale=0.25),
+                    K.flash_attention_bwd_ref(q, k, v, o, lse, g, scale=0.25)):
+        assert torch.equal(a, w)
+    inputs, grad = _k5_inputs(2, 9, 2, 16, 8, torch.float32)
+    o, lse, pre = _k5_saved(inputs, 2, 0.25)
+    args = (grad, inputs["qkv"], inputs["w_proj"], inputs["b_proj"], inputs["layerscale"], o,
+            lse, pre)
+    want = K.flash_attention_qkv_proj_bwd_ref(*args, num_heads=2, scale=0.25)
+    got = K.flash_attention_qkv_proj_bwd(*args, num_heads=2, scale=0.25,
+                                         needs=(True, False, True, False, True))
+    assert got[1] is None and got[3] is None
+    for i in (0, 2, 4):
+        assert torch.equal(got[i], want[i])
+    assert K.launch_counts() == before
+    assert {"K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd"} <= set(before)

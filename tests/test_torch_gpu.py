@@ -1380,37 +1380,93 @@ def test_k5_float32_at_the_eval_shapes(b, n, h, hd):
 
 # ---------------------------------------------------------------- training (F18, F17b)
 
+K5_GRAD_CASES = [(48, 197, 12, 64, False), (4, 257, 16, 80, False), (2, 65, 4, 16, True),
+                 (2, 65, 2, 32, True), (2, 65, 2, 128, False), (2, 1, 4, 64, True),
+                 (2, 130, 2, 128, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,h,hd", [(48, 197, 12, 64), (4, 257, 16, 80)],
-                         ids=["dvgl-vit-b16-step", "hd80"])
-def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, dtype):
-    """F18: K5 under autograd launches its kernel once and carries the
-    plain version's gradient for qkv, the weight, the bias and the
-    residual: each within 1e-4 of its largest |value| (the backward is the
-    plain version recomputed on the same inputs, so the bound is the same
-    in bf16); the output keeps the kernel's bound."""
+@pytest.mark.parametrize("b,n,h,hd,ls", K5_GRAD_CASES,
+                         ids=["dvgl-vit-b16-step", "hd80", "hd16-n65", "hd32-n65", "hd128-n65",
+                              "n1", "hd128-n130"])
+def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, ls, dtype):
+    """K5 under autograd launches its forward kernel once and its backward
+    kernels once (``flash_attention_qkv_proj_bwd``: the projection backward,
+    then the attention backward on strided views of qkv), and carries the
+    plain version's gradient for qkv, the weight, the bias, LayerScale and
+    the residual: float32 within 1e-4 of each gradient's largest |value|
+    from the plain version's autograd; bfloat16 against the same autograd,
+    within 2.5e-3 of it beyond one bf16 rounding step, and an L2 distance
+    from the float64 gradient no more than 1.25x the plain version's, or
+    within 1e-4 of it outright (``train_checks.bf16_errors``); the weight's
+    and LayerScale's gradients, which read the forward's o, against the
+    plain backward on that o, itself checked (``train_checks.saved_errors``).
+    The output keeps the kernel's bound and is bit-equal to the launch
+    without autograd."""
     from anyloc_tpu_torch.tools import train_checks
 
-    r = train_checks.k5_gradient(b, n, h, hd, dtype)
+    r = train_checks.k5_gradient(b, n, h, hd, dtype, layerscale=ls)
     assert r["launched"] == 1 and r["grad_fn"].startswith("QkvProjGrad")
-    assert r["ok"], r["grad_errs"]
+    assert r["bwd_launched"] == 1 and r["bit_equal"]
+    assert r["ok"], (r["grad_errs"], r.get("ratios"))
     assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.parametrize("b,h,n,hd,dtype", [(48, 6, 197, 64, torch.float32),
-                                             (2, 4, 300, 80, torch.float32),
-                                             (2, 8, 257, 64, torch.bfloat16)])
+K2_GRAD_CASES = [(48, 6, 197, 64, torch.float32), (2, 4, 300, 80, torch.float32),
+                 (2, 8, 257, 64, torch.bfloat16), (2, 3, 65, 16, torch.float32),
+                 (2, 3, 65, 32, torch.bfloat16), (2, 2, 130, 128, torch.float32),
+                 (2, 2, 65, 128, torch.bfloat16), (2, 4, 1, 64, torch.float32),
+                 (2, 4, 1, 16, torch.bfloat16),
+                 # blocks of the backward that take 2 (f32) and 4 (bf16, its D
+                 # pass too) key blocks in turn (attention_bwd_slices)
+                 (8, 16, 300, 64, torch.float32), (8, 12, 1370, 32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,h,n,hd,dtype", K2_GRAD_CASES)
 def test_k2_gradient_matches_the_plain_versions(b, h, n, hd, dtype):
     """K2 under autograd (a tensor-parallel rank's heads in training,
-    ``FlashAttentionGrad``) launches its kernel once and carries the plain
-    version's gradient for q, k and v: each within 1e-4 of its largest
-    |value|; the output keeps the kernel's bound."""
+    ``FlashAttentionGrad``) launches its kernel once and the attention
+    backward kernel once, and carries the plain version's gradient for q, k
+    and v (the bounds of ``test_k5_gradient_matches_the_plain_versions``);
+    the output keeps the kernel's bound and is bit-equal to the launch
+    without autograd."""
     from anyloc_tpu_torch.tools import train_checks
 
     r = train_checks.k2_gradient(b, h, n, hd, dtype)
     assert r["launched"] == 1 and r["grad_fn"].startswith("FlashAttentionGrad")
-    assert r["ok"], r["grad_errs"]
+    assert r["bwd_launched"] == 1 and r["bit_equal"]
+    assert r["ok"], (r["grad_errs"], r.get("ratios"))
     assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_gradient_on_strided_views_of_a_fused_qkv(dtype):
+    """K2's forward and backward kernels on K5's layout: q, k and v as
+    strided head views of one [B, N, 3D] tensor (row stride 3D), its
+    gradient gathered through the views, against the plain version's."""
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    b, n, h, hd = 2, 197, 4, 64
+    d = h * hd
+    qkv = _randn(b, n, 3 * d, dtype=dtype, seed=30).requires_grad_(True)
+    grad = _randn(b, h, n, hd, dtype=dtype, seed=31)
+
+    def views(x):
+        return [x[..., i * d:(i + 1) * d].reshape(b, n, h, hd).transpose(1, 2) for i in range(3)]
+
+    before = K.flash_attention_bwd.launches
+    (got,) = torch.autograd.grad(K.flash_attention(*views(qkv)), qkv, grad)
+    assert K.flash_attention_bwd.launches == before + 1
+    (want,) = torch.autograd.grad(K.flash_attention_ref(*views(qkv)), qkv, grad)
+    if dtype == torch.float32:
+        assert train_checks.rel_err(got, want) <= train_checks.BOUND
+    else:
+        wide = qkv.detach().double().requires_grad_(True)
+        (exact,) = torch.autograd.grad(train_checks.attention64(*views(wide)), wide,
+                                       grad.double())
+        r = train_checks.bf16_errors(got, want, exact)
+        assert r["ok"], r
 
 
 @pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_requires_grad"])
