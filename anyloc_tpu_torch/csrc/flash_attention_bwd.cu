@@ -10,12 +10,14 @@
 // strides: 8 tensors x (batch, head, token) element strides, in the order
 // q, k, v, o, dout, dq, dk, dv; lse [B, H, N] f32; f32 scratch of
 // slices = attention_bwd_slices(B, H, N) (the entry refuses another count):
-// delta [slices (bf16) or 1 (f32), B, H, N], dq_part [slices, B, H, N, hd].
+// delta [slices (bf16) or 1 (f32), B, H, N], dq_part [slices, B, H, N, hd];
+// route: the kernel the caller counts (BWD_MMA_SYNC 0, BWD_WGMMA 1), which
+// must be the route table's for (hd, dtype).
 extern "C" int anyloc_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* o, const void* dout, void* dq, void* dk,
                                     void* dv, const float* lse, float* delta, float* dq_part,
                                     int dtype, int B, int H, int N, int hd, int prescale_q,
-                                    int slices, const long long* strides, float scale,
+                                    int slices, int route, const long long* strides, float scale,
                                     void* stream) {
   if (slices != anyloc::attention_bwd_slices(B, H, N))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -39,5 +41,5 @@ extern "C" int anyloc_attention_bwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.prescale_q = prescale_q;
   return static_cast<int>(
-      anyloc::launch_attention_bwd(p, dtype, hd, static_cast<cudaStream_t>(stream)));
+      anyloc::launch_attention_bwd(p, dtype, hd, route, static_cast<cudaStream_t>(stream)));
 }

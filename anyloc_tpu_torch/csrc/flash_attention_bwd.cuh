@@ -17,18 +17,15 @@
 // it; bf16 needs one tf32 product where both operands are inputs (bf16 is
 // exact in tf32) and two where one is the f32 dS.
 //
-// The design is FlashAttention-2's: a block of four warps per (key group,
+// Both kernels follow FlashAttention-2's dataflow: a block per (key group,
 // head, batch) takes the group's key blocks of 64 in turn; for each it holds
-// K_j and V_j in shared memory and dK_j, dV_j in registers (each warp 16
-// keys; a warp whose keys all lie past N idles), and walks the query blocks
-// of 32 rows: it loads Q_i, dO_i, LSE_i and
-// D_i, recomputes S^T = K_j Q_i^T and P^T = exp(S^T − LSE) in registers,
-// dP^T = V_j dO_i^T, dS^T = P^T ∘ (dP^T − D), adds P^T dO_i to dV and
-// dS^T Q_i to dK (A from the S^T accumulators, rows = keys), writes dS^T
-// to shared memory, and adds dS K_j, this key block's share of dQ_i, to
-// its group's f32 slice (each thread to the same elements, in key order);
-// a last pass sums the slices in a fixed order, scales and rounds dq to
-// q's dtype. No atomics: every gradient is reproducible bit for bit
+// K_j and V_j in shared memory and dK_j, dV_j in registers, and walks the
+// query steps of 32 rows: it recomputes S^T = K_j Q_i^T and P^T =
+// exp(S^T − LSE), dP^T = V_j dO_i^T, dS^T = P^T ∘ (dP^T − D), adds P^T dO_i
+// to dV and dS^T Q_i to dK, and this key block's share of dQ_i, dS K_j, to
+// its group's f32 slice (each thread to the same elements, in key order); a
+// last pass sums the slices in a fixed order, scales and rounds dq to q's
+// dtype. No atomics: every gradient is reproducible bit for bit
 // (chip_smoke.py prints two calls' largest difference), which the training
 // checks that hold one step against two others rely on. The slices cost
 // 4·S·B·H·N·hd bytes with S = attention_bwd_slices: one slice per key
@@ -36,21 +33,45 @@
 // (0.81 GB at [48, 12, 1370, 64], where one slice per key block would
 // take 4.4 GB): O(N), as flash attention's memory should be. Only a B·H
 // under BWD_MIN_GRID / 4 keeps more slices, to fill the card.
-// The products are warp-level mma.sync m16n8k8 tf32, not wgmma: tf32
-// wgmma has no transpose bit, and three of the five products read an
-// operand transposed (dO^T, Q^T, K^T), so a wgmma design must store split
-// (hi, lo) transposed copies of seven tiles, 224 KB at hd 64 and more than
-// a block's 227 KB above it; mma.sync reads its fragments from one copy of
-// each tile in any orientation (S^T's and dP^T's by ldmatrix), so every
-// head dim (16, 32, 64, 80, 128) runs, in 33-140 KB of shared memory.
-// f32 splits (hopper.cuh's tf32_split) Q and dO once a step into hi and lo
-// tiles, which all four warps read for two products each; K, V and dS are
-// split in registers where read. Tiles are f32 rows of a multiple of 32
-// floats, columns XOR-swizzled per row (swz) so that every fragment read
-// below is free of bank conflicts. In development runs on the H100, 64-query
-// steps and volatile mma were no faster, and removing any one of the three
-// product phases saved only 15-25 % of the kernel: it is bound by fragment
-// reads and splits, not by the tensor cores (PERF.md, open questions).
+//
+// Two kernels, chosen per (head dim, dtype) by a table fixed at build time
+// (attention_bwd_route; ops/kernels/flash_attention.py mirrors it, and the
+// entry refuses a caller whose mirror disagrees):
+//   * attn_bwd_wgmma_kernel (hd 64, f32 and bf16: the dvgl ViT-B/16 step,
+//     tensor-parallel training, DINOv2): every product a warpgroup wgmma
+//     (hopper.cuh), 3xTF32 for f32. A producer thread lands each step's Q
+//     and dO by TMA (4-D maps over the strided views, two stages,
+//     mbarriers); a split warpgroup splits every tile into
+//     tf32 hi and lo once (K, V, K^T once per key block; Q, dO, Q^T, dO^T
+//     once per step) into 128-byte swizzled K-major tiles that the
+//     descriptors name. tf32 wgmma has no transpose bit, so the three
+//     products that reduce over tokens read K-major copies: dV += P^T dO
+//     and dK += dS^T Q take P^T and dS^T from the S^T / dP^T accumulators
+//     in registers (RS) against dO^T and Q^T (each 8 queries stored 0 2 4 6
+//     1 3 5 7, the order of the accumulator's columns in an A fragment, as
+//     the forward's V^T), and dQ is computed as dQ^T = K^T dS^T (M = hd,
+//     N = 32 queries) from K^T and dS, which the consumer warpgroup writes
+//     to shared memory split once. A step's tiles go over in two halves
+//     (Q, dO, LSE, D for S^T and dP^T; Q^T, dO^T for dV and dK), so that
+//     the split warpgroup writes the next step's first half while the
+//     consumers run this one's last products. setmaxnreg gives the
+//     consumers 240 registers. Shared memory at hd 64: 214,352 bytes (f32:
+//     hi and lo of nine tiles, two landing stages), 116,048 (bf16: no lo
+//     but dS's); one block per SM. bf16's D
+//     pass (attn_bwd_delta_kernel) needs only S^T and dP^T, whose operands
+//     are all bf16 inputs: bf16 wgmma on the tiles as TMA lands them, no
+//     split, 51 KB, three blocks per SM.
+//   * attn_bwd_kernel (hd 16, 32, 80, 128): warp-level mma.sync m16n8k8
+//     tf32, four warps of 16 keys, fragments read from one copy of each tile
+//     in any orientation (S^T's and dP^T's by ldmatrix), in 33-140 KB. A
+//     wgmma design needs a K-major copy of seven tiles in hi and lo: at hd
+//     128 f32 the resident K, V and K^T alone take 192 KB, and at hd 16 / 32
+//     / 80 dQ^T's M (= hd) is not a multiple of 64 (ROADMAP: open items). In
+//     development runs on the H100, removing any one of its three product
+//     phases saved only 15-25 %: it is bound by fragment reads and splits,
+//     not by the tensor cores (PERF.md).
+// f32 splits (hopper.cuh's tf32_split) every operand into hi and lo, x = hi
+// + lo, and sums lo·hi + hi·lo + hi·hi (f32-accurate).
 //
 // D = rowsum(P ∘ dP), the softmax backward's row term. f32: D =
 // rowsum(dO ∘ O) (equal in exact arithmetic; attn_bwd_dot_kernel). bf16
@@ -59,8 +80,9 @@
 //   * dP = dO V^T in f32, rounded to bf16 (the backward of .float() on
 //     the bf16 P);
 //   * D = rowsum(P ∘ dP) on the f32 P and that rounded dP, in a first pass
-//     of the same kernel (DELTA: each key block's share in its slice,
-//     summed in order by the second), since O came from the rounded P;
+//     (the mma.sync kernel's DELTA instance, or attn_bwd_delta_kernel
+//     before the wgmma kernel: each key block's share in its slice, summed
+//     in order by the second), since O came from the rounded P;
 //   * dS = P ∘ (dP − D) in f32;
 //   * dV = P_bf16^T dO with P rounded to bf16 (the forward's PV operand);
 //   * dK, dV, dq rounded to bf16 once at the end; K5's dq as its plain
@@ -127,6 +149,15 @@ static inline int attention_bwd_slices(int B, int H, int N) {
   const int n_kb = (N + BWD_KEYS - 1) / BWD_KEYS;
   const int per = attention_bwd_group(B, H, N);
   return (n_kb + per - 1) / per;
+}
+
+// The route table: which kernel the backward runs at head dim hd and dtype
+// (DT_F32, DT_BF16). The wgmma kernel where its tiles fit a block's shared
+// memory and dQ^T's M (= hd) is a warpgroup's 64 rows; the mma.sync kernel
+// elsewhere. Fixed at build time, never a fallback.
+enum { BWD_MMA_SYNC = 0, BWD_WGMMA = 1 };
+constexpr int attention_bwd_route(int hd, int dtype) {
+  return hd == 64 && (dtype == DT_F32 || dtype == DT_BF16) ? BWD_WGMMA : BWD_MMA_SYNC;
 }
 
 namespace {
@@ -633,8 +664,656 @@ __global__ void __launch_bounds__(256) attn_bwd_dq_kernel(AttnBwdArgs p, int hd,
   store2(dq + col, __fmul_rn(a.x, p.scale), __fmul_rn(a.y, p.scale));
 }
 
+// ---------------------------------------------------------------- the wgmma kernel
+
+// The wgmma kernel's tiles at head dim HD (64): a block of one consumer
+// warpgroup (the products; keys 16w..16w+15 of the key block in warp w),
+// one split warpgroup and the producer's warpgroup. Every operand tile is f32 in
+// 128-byte swizzled K-major panels of 32 columns (kmaj), hi then, with LO
+// (f32 operands), lo a tile on: K, V [64 keys x HD] and K^T [HD x 64 keys]
+// for the key block; Q, dO [32 x HD] and Q^T, dO^T [HD x 32 queries, each
+// 8 as 0 2 4 6 1 3 5 7] for the step; dS [32 queries x 64 keys] hi and lo
+// in both dtypes (dS is f32); two landing stages of Q and dO as TMA writes
+// them (rows of HD in the input dtype); LSE · log2 e and D of the
+// step's queries.
+template <int HD, bool LO>
+struct BwgTile {
+  static constexpr int BKV = 64, BQ = 32, STAGES = 2;
+  // three warpgroups (the producer's, of which one thread issues the TMA
+  // loads): setmaxnreg works on whole warpgroups, and moves its registers
+  // to the consumers, whose accumulators would not fit the even share
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int REGS_CONSUMER = 240, REGS_SPLIT = 168, REGS_PRODUCER = 40;
+  static_assert(128 * (REGS_CONSUMER + REGS_SPLIT + REGS_PRODUCER) <= 65536, "the register file");
+  static constexpr int COPIES = LO ? 2 : 1;
+  static constexpr int KTILE = BKV * HD * 4;            // K, V, K^T
+  static constexpr int QTILE = BQ * HD * 4;             // Q, dO, Q^T, dO^T
+  static constexpr int STILE = BQ * BKV * 4;            // dS
+  static constexpr int LAND = BQ * HD * (LO ? 4 : 2);   // one landed Q or dO tile
+  static constexpr int K_ = 0;
+  static constexpr int V_ = K_ + COPIES * KTILE;
+  static constexpr int KT_ = V_ + COPIES * KTILE;
+  static constexpr int Q_ = KT_ + COPIES * KTILE;
+  static constexpr int G_ = Q_ + COPIES * QTILE;
+  static constexpr int QT_ = G_ + COPIES * QTILE;
+  static constexpr int GT_ = QT_ + COPIES * QTILE;
+  static constexpr int S_ = GT_ + COPIES * QTILE;
+  static constexpr int LAND_ = S_ + 2 * STILE;
+  static constexpr int L_ = LAND_ + STAGES * 2 * LAND;  // Ls [BQ], Ds [BQ]
+  static constexpr int BAR_ = L_ + 2 * BQ * 4;
+  static constexpr int NBAR = 2 * STAGES + 6;
+  static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;   // + alignment of the base to 1024
+  static_assert(HD == 64, "dQ^T's M is the head dim: one warpgroup's 64 rows");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+// Byte offset of element (r, c) of an f32 K-major tile of R rows: panels of
+// 32 columns (128 bytes) of R rows, each row swizzled as TMA's 128-byte
+// swizzle, the layout smem_desc<128> names (c % 4 == 0 keeps a float4
+// together)
+template <int R>
+__device__ __forceinline__ int kmaj(int r, int c) {
+  return (c >> 5) * (R * 128) + swizzle<128>(r * 128 + (c & 31) * 4);
+}
+
+// The descriptor of k8 step kk (32 bytes along K) of such a tile
+template <int R>
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* tile, int kk) {
+  const int off = kk * 32;
+  return smem_desc<128>(tile + (off >> 7) * (R * 128) + (off & 127), 16, 1024);
+}
+
+// Four values into a tile at byte offset `off`: with LO their tf32 hi, and
+// their lo `lo` bytes on; else as they are (bf16 data, exact in tf32)
+template <bool LO>
+__device__ __forceinline__ void put4(uint8_t* tile, int lo, int off, float4 x) {
+  if (LO) {
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(tile + off) = h;
+    *reinterpret_cast<uint4*>(tile + lo + off) = l;
+  } else {
+    *reinterpret_cast<float4*>(tile + off) = x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float4 prescale4(float4 x, float scale) {
+  return make_float4(prescale<T>(x.x, scale), prescale<T>(x.y, scale), prescale<T>(x.z, scale),
+                     prescale<T>(x.w, scale));
+}
+
+// Four accumulator values of one 8-query step of a 64 x 32 product, (row g,
+// query 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), as an A fragment of
+// hi and lo (hopper.cuh's wgmma_tf32_rs): columns t and t + 4 are queries
+// 2t and 2t + 1, the order Q^T and dO^T store. EXACT: one piece.
+template <bool EXACT>
+__device__ __forceinline__ void frag_of(const float* acc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float x[4] = {acc[0], acc[2], acc[1], acc[3]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (EXACT) {
+      hi[e] = __float_as_uint(x[e]);
+      lo[e] = 0u;
+    } else {
+      tf32_split(x[e], hi[e], lo[e]);
+    }
+  }
+}
+
+// One block per (group of `per` consecutive key blocks, head, batch), which
+// takes its key blocks in turn (bf16's D comes from attn_bwd_delta_kernel
+// before it). Warpgroup 0 runs the products, warpgroup 1 splits, thread
+// 256 issues the TMA loads.
+// dS goes to shared memory before dV and dK are issued, and dQ^T after
+// they are done, so that no two groups' operands and accumulators hold
+// registers at once.
 template <int HD, typename T>
-cudaError_t launch_attention_bwd_hd(const AttnBwdArgs& p, cudaStream_t st) {
+__global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS, 1)
+    attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap gmap, AttnBwdArgs p, int n_kb,
+                          int per, int n_slices) {
+  constexpr bool LO = std::is_same_v<T, float>;  // bf16 is exact in tf32: no lo
+  using TL = BwgTile<HD, LO>;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ;
+  constexpr uint32_t KLO = TL::KTILE >> 4, QLO = TL::QTILE >> 4, SLO = TL::STILE >> 4;
+  extern __shared__ uint8_t bw_smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(bw_smem_raw) + 1023) & ~uintptr_t(1023));
+  float* Ls = reinterpret_cast<float*>(sm + TL::L_);  // LSE · log2 e per query row
+  float* Ds = Ls + BQ;                                 // D per query row
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + TL::BAR_);  // a stage landed
+  uint64_t* empty = full + TL::STAGES;                 // a stage read by the split warpgroup
+  uint64_t* kv_ready = empty + TL::STAGES;             // K, V, K^T split
+  uint64_t* kv_free = kv_ready + 1;                    // the key block's products are done
+  // a step's tiles go over in two halves, each with its pair of barriers:
+  // (a) Q, dO, LSE, D, read by S^T, dP^T and dS^T; (b) Q^T, dO^T, read by
+  // dV and dK. The split warpgroup writes the next step's half (a) while
+  // the consumers run this step's dV, dK and dQ^T products.
+  uint64_t* ready_b = kv_free + 1;
+  uint64_t* done_b = ready_b + 1;
+  uint64_t* ready_a = done_b + 1;
+  uint64_t* done_a = ready_a + 1;
+
+  const int kg = blockIdx.x % n_slices;  // the key group: its scratch slice
+  const int bh = blockIdx.x / n_slices;
+  const int b = bh / p.H, h = bh % p.H;
+  const int N = p.N;
+  const int nq = cdiv(N, BQ);
+  const int kb0 = kg * per, kb_end = min(kb0 + per, n_kb);
+  const long long rows = (long long)bh * N;  // this (batch, head)'s first row of LSE, D, dq
+  const long long slice = (long long)p.B * p.H * N;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < TL::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(kv_ready, 128);
+    mbar_init(kv_free, 4);
+    mbar_init(ready_a, 128);
+    mbar_init(done_a, 4);
+    mbar_init(ready_b, 128);
+    mbar_init(done_b, 4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // ---------------------------------------- producer
+    regs_shrink<TL::REGS_PRODUCER>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&gmap);
+      const int steps = (kb_end - kb0) * nq;
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % TL::STAGES;
+        if (it >= TL::STAGES) mbar_wait(&empty[s], (it / TL::STAGES - 1) & 1);
+        uint8_t* land = sm + TL::LAND_ + s * 2 * TL::LAND;
+        const int q0 = (it % nq) * BQ;
+        mbar_arrive_expect_tx(&full[s], 2 * TL::LAND);
+        tma_load_4d(land, &qmap, &full[s], 0, q0, h, b);
+        tma_load_4d(land + TL::LAND, &gmap, &full[s], 0, q0, h, b);
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 128) {  // ---------------------------------------- split
+    const int tid = threadIdx.x - 128;
+    const bool pre = p.prescale_q != 0;
+    const T* Kg = static_cast<const T*>(p.k) + b * p.st[BW_K][0] + h * p.st[BW_K][1];
+    const T* Vg = static_cast<const T*>(p.v) + b * p.st[BW_V][0] + h * p.st[BW_V][1];
+    const long long skn = p.st[BW_K][2], svn = p.st[BW_V][2];
+    constexpr int KV_ITEMS = BKV * HD / 4 / 128;  // float4 items of K (and V) per thread
+    int it = 0;
+    for (int kb = kb0; kb < kb_end; ++kb) {
+      const int k0 = kb * BKV;
+      // K, V rows of keys (zeros past N): every load issued before a store
+      float4 kx[KV_ITEMS], vx[KV_ITEMS];
+#pragma unroll
+      for (int m = 0; m < KV_ITEMS; ++m) {
+        const int i = tid + 128 * m, r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+        kx[m] = vx[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < N) {
+          kx[m] = load4(Kg + (k0 + r) * skn + c);
+          vx[m] = load4(Vg + (k0 + r) * svn + c);
+        }
+      }
+      if (kb > kb0) mbar_wait(kv_free, (kb - kb0 - 1) & 1);
+#pragma unroll
+      for (int m = 0; m < KV_ITEMS; ++m) {
+        const int i = tid + 128 * m, r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+        put4<LO>(sm + TL::K_, TL::KTILE, kmaj<BKV>(r, c), kx[m]);
+        put4<LO>(sm + TL::V_, TL::KTILE, kmaj<BKV>(r, c), vx[m]);
+      }
+      // K^T from K's tiles (hi and lo as they are): item (c, d) is head-dim
+      // row d, keys 4c..4c+3 (panels of 32 keys)
+      bar_sync(2, 128);
+#pragma unroll
+      for (int cp = 0; cp < TL::COPIES; ++cp) {
+        const uint8_t* kt = sm + TL::K_ + cp * TL::KTILE;
+        for (int i = tid; i < HD * BKV / 4; i += 128) {
+          const int d = i % HD, c = i / HD;
+          uint4 x;
+          x.x = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c, d));
+          x.y = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 1, d));
+          x.z = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 2, d));
+          x.w = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 3, d));
+          *reinterpret_cast<uint4*>(sm + TL::KT_ + cp * TL::KTILE + (c >> 3) * (HD * 128) +
+                                    swizzle<128>(d * 128 + (c & 7) * 16)) = x;
+        }
+      }
+      fence_proxy_async();  // the writes, visible to the consumers' wgmma
+      mbar_arrive(kv_ready);
+
+      for (int qb = 0; qb < nq; ++qb, ++it) {
+        const int s = it % TL::STAGES, q0 = qb * BQ;
+        // the step's LSE and D, loaded before the waits
+        float lse = INFINITY, dsum = 0.f;  // rows past N: LSE +inf, so P = 0
+        if (tid < BQ && q0 + tid < N) {
+          lse = p.lse[rows + q0 + tid] * LOG2E;
+          // D: f32 one slice; bf16 the key groups' shares, summed in order
+          for (int z = 0; z < (LO ? 1 : n_slices); ++z)
+            dsum += p.delta[z * slice + rows + q0 + tid];
+        }
+        mbar_wait(&full[s], (it / TL::STAGES) & 1);
+        const T* lq = reinterpret_cast<const T*>(sm + TL::LAND_ + s * 2 * TL::LAND);
+        const T* lg = reinterpret_cast<const T*>(sm + TL::LAND_ + s * 2 * TL::LAND + TL::LAND);
+        // half (a): Q (K5: pre-scaled), dO, LSE, D
+        if (it > 0) mbar_wait(done_a, (it - 1) & 1);
+        for (int i = tid; i < BQ * HD / 4; i += 128) {
+          const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+          float4 x = load4(lq + r * HD + c);
+          if (pre) x = prescale4<T>(x, p.scale);
+          put4<LO>(sm + TL::Q_, TL::QTILE, kmaj<BQ>(r, c), x);
+          put4<LO>(sm + TL::G_, TL::QTILE, kmaj<BQ>(r, c), load4(lg + r * HD + c));
+        }
+        if (tid < BQ) {
+          Ls[tid] = lse;
+          Ds[tid] = dsum;
+        }
+        fence_proxy_async();
+        mbar_arrive(ready_a);
+        // half (b): Q^T, dO^T; item (c, d) is head-dim row d, slots 4c..4c+3,
+        // queries 8(c / 2) + c % 2 + {0, 2, 4, 6}
+        if (it > 0) mbar_wait(done_b, (it - 1) & 1);
+        for (int i = tid; i < HD * BQ / 4; i += 128) {
+          const int d = i % HD, c = i / HD;
+          const int r = 8 * (c >> 1) + (c & 1);
+          float4 x = make_float4(to_float(lq[r * HD + d]), to_float(lq[(r + 2) * HD + d]),
+                                 to_float(lq[(r + 4) * HD + d]), to_float(lq[(r + 6) * HD + d]));
+          if (pre) x = prescale4<T>(x, p.scale);
+          const float4 y =
+              make_float4(to_float(lg[r * HD + d]), to_float(lg[(r + 2) * HD + d]),
+                          to_float(lg[(r + 4) * HD + d]), to_float(lg[(r + 6) * HD + d]));
+          const int off = swizzle<128>(d * 128 + c * 16);
+          put4<LO>(sm + TL::QT_, TL::QTILE, off, x);
+          put4<LO>(sm + TL::GT_, TL::QTILE, off, y);
+        }
+        mbar_arrive(&empty[s]);  // the landed stage is read
+        fence_proxy_async();
+        mbar_arrive(ready_b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  regs_grow<TL::REGS_CONSUMER>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = warp * 16 + g;  // this thread's key rows kr, kr + 8 of the block
+  const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
+  int it = 0;
+  for (int kb = kb0; kb < kb_end; ++kb) {
+    const bool first = kb == kb0;
+    const int k0 = kb * BKV;
+    const bool kin0 = k0 + kr < N, kin1 = k0 + kr + 8 < N;  // keys past N: P = 0
+    mbar_wait(kv_ready, (kb - kb0) & 1);
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int qb = 0; qb < nq; ++qb, ++it) {
+      const int q0 = qb * BQ;
+      mbar_wait(ready_a, it & 1);
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 queries, HD / 8 k8 steps.
+      // The accumulators live in this scope only and are copied out: with
+      // the products' registers free once they are done, ptxas keeps the
+      // later groups' wgmmas in flight (otherwise it serializes the bf16
+      // instance's for want of registers, nvcc -Xptxas -v, C7511)
+      float s[BQ / 2], dp[BQ / 2];
+      {
+        float sa[BQ / 2], da[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 8; ++kk) {
+          const uint64_t ak = kdesc<BKV>(sm + TL::K_, kk), bq = kdesc<BQ>(sm + TL::Q_, kk);
+          const uint64_t av = kdesc<BKV>(sm + TL::V_, kk), bg = kdesc<BQ>(sm + TL::G_, kk);
+          if (LO) {
+            wgmma_tf32_ss(sa, ak + KLO, bq, kk);
+            wgmma_tf32_ss(da, av + KLO, bg, kk);
+            wgmma_tf32_ss(sa, ak, bq + QLO, 1);
+            wgmma_tf32_ss(da, av, bg + QLO, 1);
+            wgmma_tf32_ss(sa, ak, bq, 1);
+            wgmma_tf32_ss(da, av, bg, 1);
+          } else {
+            wgmma_tf32_ss(sa, ak, bq, kk);
+            wgmma_tf32_ss(da, av, bg, kk);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sa);
+        fence_regs(da);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          s[i] = sa[i];
+          dp[i] = da[i];
+        }
+      }
+
+      // P^T = exp(S^T − LSE) (log2 domain); bf16: dP rounded to bf16
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool kin = e < 2 ? kin0 : kin1;
+          s[4 * j + e] = kin ? exp2_approx(s[4 * j + e] * c - Ls[8 * j + 2 * t + (e & 1)]) : 0.f;
+          if (!LO) dp[4 * j + e] = round_to<T>(dp[4 * j + e]);
+        }
+
+      // dS^T = P^T ∘ (dP^T − D), in dp
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - Ds[8 * j + 2 * t + (e & 1)]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(done_a);  // Q, dO, LSE, D are read
+
+      // dS to shared memory, [32 queries x 64 keys] split once, for dQ^T
+      bar_sync(1, 128);  // the last step's dQ^T products are done with dS
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = kmaj<BQ>(8 * j + 2 * t + (e & 1), kr + (e & 2) * 4);
+          uint32_t hi, lo;
+          tf32_split(dp[4 * j + e], hi, lo);
+          *reinterpret_cast<uint32_t*>(sm + TL::S_ + off) = hi;
+          *reinterpret_cast<uint32_t*>(sm + TL::S_ + TL::STILE + off) = lo;
+        }
+      fence_proxy_async();
+
+      // dV += P^T dO (bf16: P rounded to bf16, the forward's PV operand) and
+      // dK += dS^T Q: A from the accumulators, B the K-major dO^T and Q^T
+      {
+        uint32_t ph[BQ / 8][4], pl[BQ / 8][4], sh[BQ / 8][4], sl[BQ / 8][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          if (!LO) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[4 * j + e] = round_to<T>(s[4 * j + e]);
+          }
+          frag_of<!LO>(s + 4 * j, ph[j], pl[j]);
+          frag_of<false>(dp + 4 * j, sh[j], sl[j]);
+        }
+        mbar_wait(ready_b, it & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const uint64_t bgt = smem_desc<128>(sm + TL::GT_ + j * 32, 16, 1024);
+          const uint64_t bqt = smem_desc<128>(sm + TL::QT_ + j * 32, 16, 1024);
+          if (LO) {
+            wgmma_tf32_rs(dv, pl[j], bgt, 1);
+            wgmma_tf32_rs(dk, sl[j], bqt, 1);
+            wgmma_tf32_rs(dv, ph[j], bgt + QLO, 1);
+            wgmma_tf32_rs(dk, sh[j], bqt + QLO, 1);
+            wgmma_tf32_rs(dv, ph[j], bgt, 1);
+            wgmma_tf32_rs(dk, sh[j], bqt, 1);
+          } else {
+            wgmma_tf32_rs(dv, ph[j], bgt, 1);
+            wgmma_tf32_rs(dk, sl[j], bqt, 1);
+            wgmma_tf32_rs(dk, sh[j], bqt, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {  // the A fragments live until the wait
+          fence_regs(ph[j]);
+          if (LO) fence_regs(pl[j]);
+          fence_regs(sh[j]);
+          fence_regs(sl[j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(done_b);  // Q^T, dO^T are read
+      bar_sync(1, 128);                    // every warp's dS is in shared memory
+
+      // dQ^T = K^T dS^T: hd x 32 queries over the block's 64 keys (the
+      // accumulator scoped as S^T's)
+      float dq[BQ / 2];
+      {
+        float qa[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 8; ++kk) {
+          const uint64_t a = kdesc<HD>(sm + TL::KT_, kk), bs = kdesc<BQ>(sm + TL::S_, kk);
+          if (LO) wgmma_tf32_ss(qa, a + KLO, bs, kk);
+          wgmma_tf32_ss(qa, a, bs + SLO, LO || kk > 0);
+          wgmma_tf32_ss(qa, a, bs, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(qa);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) dq[i] = qa[i];
+      }
+
+      // this key block's share of dQ into its group's slice: rows (queries)
+      // q0 + 8j + 2t (+1), columns (head dim) kr (+8)
+      float* part = p.dq_part + (kg * slice + rows) * HD;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * t + (e & 1);
+          if (q < N) {
+            float* at = part + (long long)q * HD + kr + (e & 2) * 4;
+            *at = first ? dq[4 * j + e] : *at + dq[4 * j + e];
+          }
+        }
+    }
+
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_free);  // the key block's tiles are read
+    {
+      // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
+      const float ks = p.prescale_q ? 1.f : p.scale;
+      T* DK = static_cast<T*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
+      T* DV = static_cast<T*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
+      const int r0 = k0 + kr, r1 = r0 + 8;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (r0 < N) {
+          store2(DK + r0 * p.st[BW_DK][2] + col, dk[4 * n] * ks, dk[4 * n + 1] * ks);
+          store2(DV + r0 * p.st[BW_DV][2] + col, dv[4 * n], dv[4 * n + 1]);
+        }
+        if (r1 < N) {
+          store2(DK + r1 * p.st[BW_DK][2] + col, dk[4 * n + 2] * ks, dk[4 * n + 3] * ks);
+          store2(DV + r1 * p.st[BW_DV][2] + col, dv[4 * n + 2], dv[4 * n + 3]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- bf16's D pass
+
+// bf16's D pass on wgmma: D = rowsum(P ∘ round(dP)) needs only S^T and
+// dP^T, whose operands are all bf16 inputs, so it multiplies them as they
+// land: bf16 wgmma (exact products, f32 sums, as the tf32 products of the
+// same values) on K, V, Q and dO tiles that TMA writes with the 128-byte
+// swizzle the descriptors name (rows of 64 bf16), no split warpgroup. K5's
+// q is pre-scaled and rounded in place in its landed tile. One consumer
+// warpgroup and a producer warp; 52 KB of shared memory, so that several
+// blocks share an SM.
+template <int HD>
+struct DeltaTile {
+  static constexpr int BKV = 64, BQ = 32, STAGES = 4;
+  static constexpr int THREADS = 128 + 32;
+  static constexpr int KTILE = BKV * HD * 2, QTILE = BQ * HD * 2;
+  static constexpr int K_ = 0, V_ = KTILE, LAND_ = 2 * KTILE;
+  static constexpr int W_ = LAND_ + STAGES * 2 * QTILE;  // the warps' shares [2][4][BQ]
+  static constexpr int BAR_ = W_ + 8 * BQ * 4;
+  static constexpr int SMEM = BAR_ + (2 * STAGES + 2) * 8 + 1024;
+  static_assert(HD * 2 == 128, "rows of one 128-byte swizzle panel");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(DeltaTile<HD>::THREADS, 3)
+    attn_bwd_delta_kernel(const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap gmap, AttnBwdArgs p, int n_kb,
+                          int per, int n_slices) {
+  using TL = DeltaTile<HD>;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ;
+  extern __shared__ uint8_t dl_smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dl_smem_raw) + 1023) & ~uintptr_t(1023));
+  float* Dw = reinterpret_cast<float*>(sm + TL::W_);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + TL::BAR_);  // a stage landed
+  uint64_t* empty = full + TL::STAGES;                          // a stage read
+  uint64_t* kv_full = empty + TL::STAGES;                       // K and V landed
+  uint64_t* kv_free = kv_full + 1;                              // K and V read
+
+  const int kg = blockIdx.x % n_slices;  // the key group: its scratch slice
+  const int bh = blockIdx.x / n_slices;
+  const int b = bh / p.H, h = bh % p.H;
+  const int N = p.N;
+  const int nq = cdiv(N, BQ);
+  const int kb0 = kg * per, kb_end = min(kb0 + per, n_kb);
+  const long long rows = (long long)bh * N;
+  const long long slice = (long long)p.B * p.H * N;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < TL::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_free, 4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---------------------------------------- producer
+    if (threadIdx.x == 128) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&gmap);
+      int it = 0;
+      for (int kb = kb0; kb < kb_end; ++kb) {
+        if (kb > kb0) mbar_wait(kv_free, (kb - kb0 - 1) & 1);
+        mbar_arrive_expect_tx(kv_full, 2 * TL::KTILE);
+        tma_load_4d(sm + TL::K_, &kmap, kv_full, 0, kb * BKV, h, b);
+        tma_load_4d(sm + TL::V_, &vmap, kv_full, 0, kb * BKV, h, b);
+        for (int qb = 0; qb < nq; ++qb, ++it) {
+          const int s = it % TL::STAGES;
+          if (it >= TL::STAGES) mbar_wait(&empty[s], (it / TL::STAGES - 1) & 1);
+          uint8_t* land = sm + TL::LAND_ + s * 2 * TL::QTILE;
+          mbar_arrive_expect_tx(&full[s], 2 * TL::QTILE);
+          tma_load_4d(land, &qmap, &full[s], 0, qb * BQ, h, b);
+          tma_load_4d(land + TL::QTILE, &gmap, &full[s], 0, qb * BQ, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = warp * 16 + g;  // this thread's key rows kr, kr + 8 of the block
+  const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
+  int it = 0;
+  for (int kb = kb0; kb < kb_end; ++kb) {
+    const bool first = kb == kb0;
+    const int k0 = kb * BKV;
+    const bool kin0 = k0 + kr < N, kin1 = k0 + kr + 8 < N;  // keys past N: P = 0
+    mbar_wait(kv_full, (kb - kb0) & 1);
+    for (int qb = 0; qb < nq; ++qb, ++it) {
+      const int s = it % TL::STAGES, q0 = qb * BQ;
+      // LSE · log2 e of this thread's queries 8j + 2t (+1); rows past N +inf
+      float ls[BQ / 4];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + 8 * j + 2 * t + e;
+          ls[2 * j + e] = q < N ? p.lse[rows + q] * LOG2E : INFINITY;
+        }
+      mbar_wait(&full[s], (it / TL::STAGES) & 1);
+      uint8_t* lq = sm + TL::LAND_ + s * 2 * TL::QTILE;
+      if (p.prescale_q) {  // K5: q · scale in f32, rounded to bf16, in place
+        uint32_t* w = reinterpret_cast<uint32_t*>(lq);
+        for (int i = threadIdx.x; i < TL::QTILE / 4; i += 128) {
+          const float2 x = unpack_bf16(w[i]);
+          w[i] = pack_bf16(__fmul_rn(x.x, p.scale), __fmul_rn(x.y, p.scale));
+        }
+        fence_proxy_async();
+        bar_sync(1, 128);
+      }
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 queries, HD / 16 k16 steps
+      float sc[BQ / 2], dc[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_bf16_ss(sc, smem_desc<128>(sm + TL::K_ + kk * 32, 16, 1024),
+                      smem_desc<128>(lq + kk * 32, 16, 1024), kk);
+        wgmma_bf16_ss(dc, smem_desc<128>(sm + TL::V_ + kk * 32, 16, 1024),
+                      smem_desc<128>(lq + TL::QTILE + kk * 32, 16, 1024), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+      // P^T = exp(S^T − LSE), dP rounded to bf16; this key block's share of
+      // D = rowsum(P ∘ dP), the warps' in order
+      float x[BQ / 2];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const bool kin = e < 2 ? kin0 : kin1;
+          const float pv = kin ? exp2_approx(sc[i] * c - ls[2 * j + (e & 1)]) : 0.f;
+          x[i] = pv * round_to<bf16>(dc[i]);
+        }
+      float* share = Dw + (it & 1) * 4 * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y = sum_over_g(x[4 * j + e] + x[4 * j + e + 2]);
+          if (g == 0) share[warp * BQ + 8 * j + 2 * t + e] = y;
+        }
+      bar_sync(1, 128);
+      if (threadIdx.x < BQ && q0 + static_cast<int>(threadIdx.x) < N) {
+        const int i = threadIdx.x;
+        float* d = p.delta + kg * slice + rows + q0 + i;
+        const float y = ((share[i] + share[BQ + i]) + share[2 * BQ + i]) + share[3 * BQ + i];
+        *d = first ? y : *d + y;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_free);  // the key block's K and V are read
+  }
+}
+
+// dq from the slices (attn_bwd_dq_kernel), after the gradients' pass
+template <int HD, typename T>
+cudaError_t launch_attention_bwd_dq(const AttnBwdArgs& p, int n_slices, cudaStream_t st) {
+  const long long pairs = (long long)p.B * p.H * p.N * HD / 2;
+  attn_bwd_dq_kernel<T><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, st>>>(p, HD,
+                                                                                    n_slices);
+  return cudaGetLastError();
+}
+
+template <int HD, typename T>
+cudaError_t launch_attention_bwd_mma_sync(const AttnBwdArgs& p, cudaStream_t st) {
   using TL = BwdTile<HD, std::is_same_v<T, float>>;
   static_assert(TL::BKV == BWD_KEYS, "attention_bwd_slices counts blocks of BWD_KEYS keys");
   const long long rows = (long long)p.B * p.H * p.N;
@@ -659,10 +1338,75 @@ cudaError_t launch_attention_bwd_hd(const AttnBwdArgs& p, cudaStream_t st) {
   grads<<<grid, TL::THREADS, TL::SMEM, st>>>(p, n_kb, per, n_slices);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long long pairs = rows * HD / 2;
-  attn_bwd_dq_kernel<T><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, st>>>(p, HD,
-                                                                                    n_slices);
-  return cudaGetLastError();
+  return launch_attention_bwd_dq<HD, T>(p, n_slices, st);
+}
+
+// The wgmma kernel: TMA maps of q and dO over their strided [B, H, N, hd]
+// views (boxes of 32 rows of hd, no swizzle; rows past N land as zeros)
+template <int HD, typename T>
+cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
+  constexpr bool LO = std::is_same_v<T, float>;
+  using TL = BwgTile<HD, LO>;
+  static_assert(TL::BKV == BWD_KEYS, "attention_bwd_slices counts blocks of BWD_KEYS keys");
+  constexpr auto type = LO ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  AttnArgs a;
+  a.B = p.B;
+  a.H = p.H;
+  a.N = p.N;
+  CUtensorMap qmap, gmap;
+  cudaError_t e = attention_map<HD>(&qmap, p.q, a, p.st[BW_Q][0], p.st[BW_Q][1], p.st[BW_Q][2],
+                                    type, sizeof(T), HD, TL::BQ, 0);
+  if (e == cudaSuccess)
+    e = attention_map<HD>(&gmap, p.dout, a, p.st[BW_DO][0], p.st[BW_DO][1], p.st[BW_DO][2], type,
+                          sizeof(T), HD, TL::BQ, 0);
+  if (e != cudaSuccess) return e;
+  const long long rows = (long long)p.B * p.H * p.N;
+  const int n_kb = cdiv(p.N, TL::BKV);
+  const int per = attention_bwd_group(p.B, p.H, p.N);
+  const int n_slices = cdiv(n_kb, per);
+  const unsigned grid = static_cast<unsigned>(p.B * p.H * n_slices);
+  if constexpr (LO) {
+    attn_bwd_dot_kernel<<<static_cast<unsigned>((rows + 31) / 32), 256, 0, st>>>(p, HD);
+  } else {  // D's pass on the inputs as they land: bf16 tiles, 128-byte swizzled
+    using DL = DeltaTile<HD>;
+    constexpr auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    CUtensorMap kmap, vmap, qsw, gsw;
+    e = attention_map<HD>(&kmap, p.k, a, p.st[BW_K][0], p.st[BW_K][1], p.st[BW_K][2], BF, 2, HD,
+                          DL::BKV, 128);
+    if (e == cudaSuccess)
+      e = attention_map<HD>(&vmap, p.v, a, p.st[BW_V][0], p.st[BW_V][1], p.st[BW_V][2], BF, 2,
+                            HD, DL::BKV, 128);
+    if (e == cudaSuccess)
+      e = attention_map<HD>(&qsw, p.q, a, p.st[BW_Q][0], p.st[BW_Q][1], p.st[BW_Q][2], BF, 2, HD,
+                            DL::BQ, 128);
+    if (e == cudaSuccess)
+      e = attention_map<HD>(&gsw, p.dout, a, p.st[BW_DO][0], p.st[BW_DO][1], p.st[BW_DO][2], BF,
+                            2, HD, DL::BQ, 128);
+    if (e != cudaSuccess) return e;
+    auto delta = attn_bwd_delta_kernel<HD>;
+    e = cudaFuncSetAttribute(delta, cudaFuncAttributeMaxDynamicSharedMemorySize, DL::SMEM);
+    if (e != cudaSuccess) return e;
+    delta<<<grid, DL::THREADS, DL::SMEM, st>>>(kmap, vmap, qsw, gsw, p, n_kb, per, n_slices);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  auto grads = attn_bwd_wgmma_kernel<HD, T>;
+  e = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (e != cudaSuccess) return e;
+  grads<<<grid, TL::THREADS, TL::SMEM, st>>>(qmap, gmap, p, n_kb, per, n_slices);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_attention_bwd_dq<HD, T>(p, n_slices, st);
+}
+
+// the route table's kernel for (HD, T)
+template <int HD, typename T>
+cudaError_t launch_attention_bwd_hd(const AttnBwdArgs& p, cudaStream_t st) {
+  constexpr int dt = std::is_same_v<T, float> ? DT_F32 : DT_BF16;
+  if constexpr (attention_bwd_route(HD, dt) == BWD_WGMMA)
+    return launch_attention_bwd_wgmma<HD, T>(p, st);
+  else
+    return launch_attention_bwd_mma_sync<HD, T>(p, st);
 }
 
 template <typename T>
@@ -680,9 +1424,12 @@ cudaError_t launch_attention_bwd_t(const AttnBwdArgs& p, int hd, cudaStream_t st
 }  // namespace
 
 // Launch the backward (the wrappers check shapes, strides and head dims,
-// and allocate the scratch for attention_bwd_slices(B, H, N) slices).
-static inline cudaError_t launch_attention_bwd(const AttnBwdArgs& p, int dtype, int hd,
+// and allocate the scratch for attention_bwd_slices(B, H, N) slices);
+// `route` is the kernel the caller counts the launch under, which must be
+// the table's (attention_bwd_route).
+static inline cudaError_t launch_attention_bwd(const AttnBwdArgs& p, int dtype, int hd, int route,
                                                cudaStream_t st) {
+  if (route != attention_bwd_route(hd, dtype)) return cudaErrorInvalidValue;
   if (p.B * p.H == 0 || p.N == 0) return cudaSuccess;
   if (dtype == DT_F32) return launch_attention_bwd_t<float>(p, hd, st);
   if (dtype == DT_BF16) return launch_attention_bwd_t<bf16>(p, hd, st);

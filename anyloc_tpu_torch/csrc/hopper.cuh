@@ -370,6 +370,21 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t desc_a, uint64_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D(64 x 32, f32) (+)= A(64 x 16 bf16) * B(16 x 32 bf16), both K-major in
+// shared memory; D's layout as above
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D(64 x 256, f32) (+)= A(64 x 16 bf16) * B(16 x 256 bf16), both K-major in
 // shared memory (scale-a, scale-b 1; trans-a, trans-b 0); D's layout as
 // above. One K step is 32 bytes, as for wgmma_s8.
@@ -611,9 +626,21 @@ inline cudaError_t make_tma_map(CUtensorMap* map, CUtensorMapDataType type, int 
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(swizzle_bytes),
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&] {
+    return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(swizzle_bytes),
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // cuTensorMapEncodeTiled needs the device's context current on this thread:
+    // the autograd engine runs a backward on a thread of its own, on which
+    // no runtime call may have bound it yet (cudaSetDevice binds it)
+    int dev;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+      return cudaErrorInvalidValue;
+    r = encode();
+  }
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

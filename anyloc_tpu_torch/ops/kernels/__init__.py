@@ -25,6 +25,8 @@ from anyloc_tpu_torch.ops.kernels.fused_block import (
     fused_block_int8_ref,
 )
 from anyloc_tpu_torch.ops.kernels.flash_attention import (
+    attention_bwd_mma_sync,
+    attention_bwd_wgmma,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -66,6 +68,10 @@ KERNELS = {
     # the backward kernels of K2 and K5 (their gradients under autograd)
     "K2b_flash_attention_bwd": flash_attention_bwd,
     "K5b_flash_attention_qkv_proj_bwd": flash_attention_qkv_proj_bwd,
+    # the attention backward that both launch, by the route its head dim and
+    # dtype take (attention_bwd_route): one of these counts each launch
+    "Kab_attention_bwd_wgmma": attention_bwd_wgmma,
+    "Kab_attention_bwd_mma_sync": attention_bwd_mma_sync,
 }
 
 
@@ -79,7 +85,8 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "KERNELS", "MAX_FUSED_TOKENS", "attention_proj", "attention_proj_ref",
+    "KERNELS", "MAX_FUSED_TOKENS", "attention_bwd_mma_sync", "attention_bwd_wgmma",
+    "attention_proj", "attention_proj_ref",
     "attn_geometry_ok", "attn_half_variant", "attn_half_variant_proj_ref", "attn_half_variant_ref",
     "flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
     "flash_attention_ref",

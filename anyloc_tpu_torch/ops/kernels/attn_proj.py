@@ -367,6 +367,50 @@ def flash_attention_qkv_proj_bwd_ref(grad, qkv, w_proj, b_proj, layerscale, o, l
     return d_qkv, d_w, d_b, d_ls, grad
 
 
+def qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4,
+                 name: str = "qkv_proj_bwd"):
+    """K5's projection backward alone on CUDA tensors (``csrc/
+    attn_qkv_proj_bwd.cu``): (d_o, d_w, d_b, d_layerscale) from the output
+    gradient ``grad`` [B, N, D_out], the weight, bias and LayerScale, the
+    kept attention output ``o`` [B, N, D] (contiguous) and, with LayerScale,
+    the projection before it ``pre``; ``needs`` says which are wanted (None
+    for the others). ``flash_attention_qkv_proj_bwd`` checks the shapes
+    and then runs it before the attention backward."""
+    want_o, want_w, want_b, want_ls = needs
+    want_b = want_b and b_proj is not None
+    want_ls = want_ls and layerscale is not None
+    b, n, d = o.shape
+    d_out = w_proj.shape[1]
+    code = _launch.dtype_code(o, name)
+    m = b * n
+    _launch.check_gemm_rows(m, name)
+    grad = grad.contiguous()
+    dev = o.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    gp = torch.empty((m, d_out), **f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks, rows = _dw_chunks(m, d, d_out, sms)
+    row_blocks = -(-(chunks * rows if want_w else m) // 32)   # the column sums' row blocks
+    colsum = torch.empty((2, row_blocks, d_out), **f32)
+    gpt = torch.empty((chunks, d_out, rows), **f32) if want_w else None
+    ot = torch.empty((chunks, d, rows), **f32) if want_w else None
+    part = torch.empty((chunks, d, d_out), **f32) if want_w else None
+    d_o = torch.empty((b, n, d), dtype=o.dtype, device=dev) if want_o else None
+    d_w = torch.empty((d, d_out), dtype=w_proj.dtype, device=dev) if want_w else None
+    d_b = torch.empty(d_out, **f32) if want_b else None
+    d_ls = torch.empty(d_out, **f32) if want_ls else None
+    w32 = w_proj.float().contiguous()      # W_O [D, D_out]: d_o's B operand rows
+    gamma = None if layerscale is None else layerscale.float().contiguous()
+    rc = _build.load_library().anyloc_qkv_proj_bwd(
+        grad.data_ptr(), _launch.ptr(pre), _launch.ptr(gamma), w32.data_ptr(), o.data_ptr(),
+        gp.data_ptr(), colsum.data_ptr(), _launch.ptr(gpt), _launch.ptr(ot), _launch.ptr(part),
+        _launch.ptr(d_o), _launch.ptr(d_w), _launch.ptr(d_b), _launch.ptr(d_ls), code,
+        _launch.dtype_code(w_proj, name), m, d, d_out, chunks, rows, row_blocks,
+        _launch.stream(o))
+    _build.check(rc, name)
+    return d_o, d_w, d_b, d_ls
+
+
 def flash_attention_qkv_proj_bwd(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, *,
                                  num_heads: int, scale: Optional[float] = None,
                                  needs=(True,) * 5):
@@ -394,7 +438,7 @@ def flash_attention_qkv_proj_bwd(grad, qkv, w_proj, b_proj, layerscale, o, lse, 
                      zip(r, (want_qkv, want_w, want_b, want_ls, want_res)))
     name = "flash_attention_qkv_proj_bwd"
     _launch.require_cuda(name, *tensors)
-    code = _launch.dtype_code(qkv, name)
+    _launch.dtype_code(qkv, name)
     if grad.dtype != qkv.dtype or o.dtype != qkv.dtype:
         raise TypeError(f"{name}: the output gradient and o must have qkv's dtype")
     if tuple(grad.shape) != (b, n, d_out) or tuple(o.shape) != (b, n, d):
@@ -409,35 +453,11 @@ def flash_attention_qkv_proj_bwd(grad, qkv, w_proj, b_proj, layerscale, o, lse, 
     if d_out % 8 or hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: D_out={d_out} must be a multiple of 8 and the head dim one "
                          f"of {SUPPORTED_HEAD_DIMS}")
-    m = b * n
-    _launch.check_gemm_rows(m, name)
-    grad = grad.contiguous()
-    dev = qkv.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    gp = torch.empty((m, d_out), **f32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunks, rows = _dw_chunks(m, d, d_out, sms)
-    row_blocks = -(-(chunks * rows if want_w else m) // 32)   # the column sums' row blocks
-    colsum = torch.empty((2, row_blocks, d_out), **f32)
-    gpt = torch.empty((chunks, d_out, rows), **f32) if want_w else None
-    ot = torch.empty((chunks, d, rows), **f32) if want_w else None
-    part = torch.empty((chunks, d, d_out), **f32) if want_w else None
-    d_o = torch.empty((b, n, d), dtype=qkv.dtype, device=dev) if want_qkv else None
-    d_w = torch.empty((d, d_out), dtype=w_proj.dtype, device=dev) if want_w else None
-    d_b = torch.empty(d_out, **f32) if want_b else None
-    d_ls = torch.empty(d_out, **f32) if want_ls else None
-    w32 = w_proj.float().contiguous()      # W_O [D, D_out]: d_o's B operand rows
-    gamma = None if layerscale is None else layerscale.float().contiguous()
-    rc = _build.load_library().anyloc_qkv_proj_bwd(
-        grad.data_ptr(), _launch.ptr(pre), _launch.ptr(gamma), w32.data_ptr(), o.data_ptr(),
-        gp.data_ptr(), colsum.data_ptr(), _launch.ptr(gpt), _launch.ptr(ot), _launch.ptr(part),
-        _launch.ptr(d_o), _launch.ptr(d_w), _launch.ptr(d_b), _launch.ptr(d_ls), code,
-        _launch.dtype_code(w_proj, name), m, d, d_out, chunks, rows, row_blocks,
-        _launch.stream(qkv))
-    _build.check(rc, name)
+    d_o, d_w, d_b, d_ls = qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre,
+                                       needs=(want_qkv, want_w, want_b, want_ls), name=name)
     d_qkv = None
     if want_qkv:
-        d_qkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=dev)
+        d_qkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
         q, k, v = _split_heads(qkv, num_heads)
         dq, dk, dv = _split_heads(d_qkv, num_heads)
         attention_bwd_launch(q, k, v, _heads(o, num_heads), lse, _heads(d_o, num_heads),

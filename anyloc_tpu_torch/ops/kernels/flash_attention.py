@@ -38,6 +38,12 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 # the card at least (csrc/flash_attention_bwd.cuh)
 BWD_KEYS = 64
 BWD_MIN_GRID = 512
+# the attention backward's route table (``attention_bwd_route`` of
+# csrc/flash_attention_bwd.cuh, which refuses a launch whose route differs):
+# the (head dim, dtype) pairs of the wgmma kernel; every other pair runs the
+# mma.sync kernel
+BWD_WGMMA_ROUTES = frozenset({(64, torch.float32), (64, torch.bfloat16)})
+BWD_ROUTE_CODES = {"mma.sync": 0, "wgmma": 1}
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -181,14 +187,69 @@ def attention_bwd_slices(b: int, h: int, n: int) -> int:
     return -(-blocks // per)
 
 
+def attention_bwd_route(hd: int, dtype: torch.dtype) -> str:
+    """The kernel the attention backward runs at head dim ``hd`` and
+    ``dtype``: "wgmma" (``attn_bwd_wgmma_kernel``) or "mma.sync"
+    (``attn_bwd_kernel``), the route table of csrc/flash_attention_bwd.cuh."""
+    return "wgmma" if (hd, dtype) in BWD_WGMMA_ROUTES else "mma.sync"
+
+
+def attention_bwd_smem(hd: int, dtype: torch.dtype, route: str) -> int:
+    """Bytes of shared memory a block of the backward takes on ``route``
+    (``BwgTile::SMEM`` / ``BwdTile::SMEM`` of csrc/flash_attention_bwd.cuh):
+    the wgmma kernel keeps K, V, K^T, Q, dO, Q^T, dO^T in f32 (hi and lo for
+    f32 operands), dS's hi and lo, two TMA landing stages of Q and dO, the
+    step's LSE and D, ten mbarriers and 1 KB to align
+    the base; the mma.sync kernel K, V, Q, dO (and Q's and dO's lo for f32)
+    in rows of hd rounded up to 32 floats, dS^T, LSE and D."""
+    lo = dtype == torch.float32
+    bkv, bq = BWD_KEYS, 32
+    if route == "wgmma":
+        copies = 2 if lo else 1
+        tiles = copies * (3 * bkv + 4 * bq) * hd * 4 + 2 * bq * bkv * 4
+        land = 2 * 2 * bq * hd * (4 if lo else 2)
+        return tiles + land + 2 * bq * 4 + 10 * 8 + 1024
+    ldh = -(-hd // 32) * 32
+    return 4 * ((2 * bkv + (4 if lo else 2) * bq) * ldh + bkv * bq + 2 * bq)
+
+
 def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
                          name: str) -> None:
-    """The attention backward kernel on CUDA tensors (K2's and K5's): every
-    operand a [B, H, N, hd] view with a contiguous head dim, the outputs
-    dq, dk, dv written in place. Its f32 scratch holds ``attention_bwd_slices``
-    slices (each group of key blocks' share of dq, and of D in bf16): dq's
-    size times at most four beyond small B·H, so the memory grows as N,
-    summed in a fixed order: the gradients are reproducible bit for bit."""
+    """The attention backward on CUDA tensors (K2's and K5's), on the kernel
+    the route table names for its head dim and dtype (``attention_bwd_route``),
+    counted on that route's wrapper: every operand a [B, H, N, hd] view with a
+    contiguous head dim, the outputs dq, dk, dv written in place."""
+    route = attention_bwd_route(q.shape[-1], q.dtype)
+    launch = attention_bwd_wgmma if route == "wgmma" else attention_bwd_mma_sync
+    launch(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q, name=name)
+
+
+def attention_bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
+                        name: str) -> None:
+    """The attention backward's wgmma kernel (``attn_bwd_wgmma_kernel``; the
+    route of hd 64): see ``_attention_bwd``."""
+    _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q,
+                   name=name, route="wgmma")
+    attention_bwd_wgmma.launches += 1
+
+
+def attention_bwd_mma_sync(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
+                           name: str) -> None:
+    """The attention backward's mma.sync kernel (``attn_bwd_kernel``; every
+    head dim but 64): see ``_attention_bwd``."""
+    _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q,
+                   name=name, route="mma.sync")
+    attention_bwd_mma_sync.launches += 1
+
+
+def _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
+                   name: str, route: str) -> None:
+    """One launch of the attention backward on ``route`` (the C entry refuses
+    a route the table does not give this head dim and dtype). Its f32
+    scratch holds ``attention_bwd_slices`` slices (each group of key blocks'
+    share of dq, and of D in bf16): dq's size times at most four beyond
+    small B·H, so the memory grows as N, summed in a fixed order: the
+    gradients are reproducible bit for bit."""
     b, h, n, hd = q.shape
     ops = (q, k, v, o, do, dq, dk, dv)
     _launch.require_cuda(name, *ops, lse)
@@ -216,7 +277,8 @@ def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, presc
     rc = _build.load_library().anyloc_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
-        code, b, h, n, hd, int(prescale_q), slices, strides, scale, _launch.stream(q))
+        code, b, h, n, hd, int(prescale_q), slices, BWD_ROUTE_CODES[route], strides, scale,
+        _launch.stream(q))
     _build.check(rc, name)
 
 
@@ -255,4 +317,6 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+attention_bwd_wgmma.launches = 0
+attention_bwd_mma_sync.launches = 0
 

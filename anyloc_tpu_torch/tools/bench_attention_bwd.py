@@ -1,0 +1,146 @@
+"""The attention backward (K2's and K5's gradients) at the training paths'
+shapes, on one CUDA card, beside PyTorch's SDPA backward and the bounds.
+
+Cases, random inputs from a torch seed on the card:
+  * ``k2``: ``FlashAttentionGrad``'s backward under autograd at a
+    tensor-parallel rank's q/k/v [48, 6, 197, 64] (dvgl ViT-B/16's 12 heads
+    over model 2), float32 and bfloat16, beside
+    ``scaled_dot_product_attention``'s backward on the same tensors, then
+    the attention backward alone on them (``attention_bwd_launch``), whose
+    time autograd's own work on the host does not cover;
+  * ``k5``: ``QkvProjGrad``'s backward under autograd at the dvgl vit
+    step's qkv [48, 197, 2304] float32 (12 heads of 64), then its two halves
+    alone on the same tensors: the attention backward on K5's strided views
+    of qkv (``attention_bwd_launch``, pre-scaled q) and, where the tree has
+    it, the projection backward (``qkv_proj_bwd``).
+Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
+bound is the larger of the operations (3xTF32 for float32: three tf32
+products an f32 one, at 494.7 TFLOP/s) and the bytes (each input read once,
+each output written once, at 3.35 TB/s), one H100 SXM's dense peaks.
+
+    python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR]
+
+``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
+earlier commit unpacked with ``git archive``), so that two trees are timed
+by the same script on the same card: run it once per tree, in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+PEAK_TF32, PEAK_BF16, HBM = 494.7e12, 989e12, 3.35e12
+
+
+def bound(ops: float, nbytes: float, dtype: str) -> dict:
+    """The least time for ``ops`` operations (f32: as three tf32 products;
+    bf16 at its own peak) and ``nbytes`` moved, and which of the two bounds
+    it."""
+    op_s = 3 * ops / PEAK_TF32 if dtype == "float32" else ops / PEAK_BF16
+    by_bytes = nbytes / HBM
+    return dict(bound_ms=1e3 * max(op_s, by_bytes),
+                bound_by="operations" if op_s >= by_bytes else "bytes")
+
+
+def run(iters: int = 10, seed: int = 0) -> dict:
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels import attn_proj
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_launch
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.tools._timing import card_line, require_card, time_ms
+
+    dev = require_card("bench_attention_bwd")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {"card": card_line(), "package": K.__file__, "cases": {}}
+
+    b, h, n, hd = 48, 6, 197, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((b, h, n, hd), generator=g, device=dev).to(dtype)
+                   .requires_grad_(True) for _ in range(3))
+        o = K.flash_attention(q, k, v)
+        go = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        name = str(dtype).replace("torch.", "")
+        esz = 4 if dtype == torch.float32 else 2
+        k2 = f"k2 [{b},{h},{n},{hd}] {name}"
+        out["cases"][k2] = dict(
+            ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True),
+                       iters=iters),
+            library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), go,
+                                                           retain_graph=True), iters=iters),
+            **bound(10 * b * h * n * n * hd, 8 * esz * b * h * n * hd, name))
+        with torch.no_grad():   # the attention backward alone, no autograd around it
+            lse = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5, -1)
+            grads = [torch.empty_like(q) for _ in range(3)]
+
+            def alone():
+                attention_bwd_launch(q, k, v, o, lse.contiguous(), go, *grads,
+                                     scale=hd ** -0.5, prescale_q=False,
+                                     name="bench_attention_bwd")
+
+            out["cases"][k2 + " kernel alone"] = dict(
+                ms=time_ms(alone, iters=iters),
+                **bound(10 * b * h * n * n * hd, 8 * esz * b * h * n * hd, name))
+        del q, k, v, o, go, sdpa
+
+    b, n, h, hd = 48, 197, 12, 64
+    d, m = h * hd, b * n
+    scale = hd ** -0.5
+    inputs = train_checks.k5_inputs(b, n, h, hd)
+    wanted = [t for t in inputs.values() if t is not None]
+    o = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+    go = torch.randn(o.shape, generator=g, device=dev)
+    k5 = f"k5 qkv [{b},{n},{3 * d}] float32"
+    out["cases"][k5] = dict(
+        ms=time_ms(lambda: torch.autograd.grad(o, wanted, go, retain_graph=True), iters=iters),
+        **bound(10 * b * h * n * n * hd + 4 * m * d * d,
+                4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d), "float32"))
+    with torch.no_grad():   # the attention half alone, on K5's views of qkv
+        qkv = inputs["qkv"].detach()
+        q, k, v = attn_proj._split_heads(qkv, h)
+        s = (q * scale) @ k.transpose(-1, -2)
+        lse = torch.logsumexp(s, dim=-1).contiguous()
+        att = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(b, n, d).contiguous()
+        d_o = torch.randn((b, n, d), generator=g, device=dev)
+        d_qkv = torch.empty_like(qkv)
+        dq, dk, dv = attn_proj._split_heads(d_qkv, h)
+
+        def attention():
+            attention_bwd_launch(
+                q, k, v, attn_proj._heads(att, h), lse, attn_proj._heads(d_o, h), dq, dk, dv,
+                scale=scale, prescale_q=True, name="bench_attention_bwd")
+
+        out["cases"][k5 + " attention half"] = dict(
+            ms=time_ms(attention, iters=iters),
+            **bound(10 * b * h * n * n * hd, 4 * 8 * m * d, "float32"))
+        proj = getattr(attn_proj, "qkv_proj_bwd", None)
+        if proj is not None:
+            args = (go, inputs["w_proj"].detach(), inputs["b_proj"], None, att, None)
+            out["cases"][k5 + " projection half"] = dict(
+                ms=time_ms(lambda: proj(*args), iters=iters),
+                **bound(4 * m * d * d, 4 * (3 * m * d + 2 * d * d + d), "float32"))
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="the checkout to import anyloc_tpu_torch from (default: this one)")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.root)
+    res = run(args.iters)
+    for case, r in res["cases"].items():
+        lib = f", SDPA's backward {r['library_ms']:.4f} ms" if "library_ms" in r else ""
+        print(f"[{res['card']}] {case}: {r['ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -129,8 +129,10 @@ Phases, each of which must pass or the script exits non-zero:
      gradient (its backward kernels) against its plain version's at
      [48, 197, 2304] float32 and bfloat16 with LayerScale
      (``train_checks.bf16_errors``), the backward timed beside the plain
-     version's autograd and its 3xTF32 and FMA bounds, and two backward
-     calls bit-equal;
+     version's autograd and its 3xTF32 and FMA bounds, then its two halves
+     alone (the projection backward and the attention backward on K5's
+     views of qkv), each beside its own bound, and two backward calls
+     bit-equal;
      then ``parallel/`` (``mesh_phase``): on a one-rank NCCL group in this
      process ``DescriptorEngine(mesh=local_mesh(1))`` in bf16 and
      int8_full (VLADs bit-equal to the engine's, both rates) and ``serve
@@ -152,7 +154,13 @@ Phases, each of which must pass or the script exits non-zero:
      statistics in float32, and gradients too in float64), the sharded
      restore, and (F25) the dp x pp step with dvgl vit's 12 blocks
      pipelined over model 2 (``pptrain``) and sequence-parallel facets'
-     gradients (``sptrain``), each against one rank; then the tooling
+     gradients (``sptrain``), each against one rank; then the attention
+     backward's route table (``attention_bwd_routes_phase``): every (head
+     dim, dtype) on the kernel the table names (wgmma at hd 64, mma.sync
+     elsewhere) against its plain version, two launches bit-equal, and each
+     kernel timed alone beside its plain version, SDPA's backward and its
+     bound (wgmma at [48, 6, 197, 64], mma.sync at [8, 16, 257, 80], f32);
+     the K2 gradient and memory lines name the route they ran; then the tooling
      (``tooling_phase``): ``python -m anyloc_tpu_torch viz clusters``
      and ``viz report`` at DINOv2-G l31
      (K5 launching, the report's labels equal to a direct run); the
@@ -237,6 +245,15 @@ KERNEL_INFO = {
     "K5b_flash_attention_qkv_proj_bwd": dict(
         source="anyloc_tpu_torch/csrc/attn_qkv_proj_bwd.cu",
         replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
+    # the attention backward that K2b and K5b launch, one entry per kernel of
+    # its route table (attention_bwd_route): wgmma at hd 64, mma.sync at the
+    # other head dims
+    "Kab_attention_bwd_wgmma": dict(
+        source="anyloc_tpu_torch/csrc/flash_attention_bwd.cuh",
+        replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
+    "Kab_attention_bwd_mma_sync": dict(
+        source="anyloc_tpu_torch/csrc/flash_attention_bwd.cuh",
+        replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
 }
 # kernels each path must launch
 PATH_KERNELS = {
@@ -273,7 +290,8 @@ PATH_KERNELS = {
     # python -m anyloc_tpu_torch train: the vit backbone's K5 in every block of
     # every step (forward kernel, backward kernels) and in mining and
     # validation; resnet18conv4 + NetVLAD launches no kernel
-    "train dvgl vit": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd"),
+    "train dvgl vit": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd",
+                       "Kab_attention_bwd_wgmma"),
     "train dvgl resnet18conv4": (),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
@@ -285,7 +303,8 @@ PATH_KERNELS = {
     # parallel/'s training half: K5 and its backward kernels in the dvgl
     # vit's FSDP steps, K2 and its backward on each tensor-parallel rank
     "train mesh": ("K2_flash_attention", "K5_flash_attention_qkv_proj",
-                   "K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd"),
+                   "K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd",
+                   "Kab_attention_bwd_wgmma"),
     # the repository's programs in this process: bench_mlp_xla_int8 (K3), the
     # quickstart (bf16: K1, K5) and serving (int8_full: K1, K3, K4) examples,
     # entry() (K1, K5)
@@ -1808,6 +1827,27 @@ def run(profile_dir) -> dict:
         results["K5_flash_attention_qkv_proj"]["fsdp_launches"] = trained_mesh["k5_fsdp"]
         results["K5_flash_attention_qkv_proj"]["pptrain_launches"] = trained_mesh["k5_pptrain"]
 
+        # ------------------------------------------------------------ Kab: the attention backward
+        mark("Kab, the attention backward's route table")
+        routes = attention_bwd_routes_phase(tag)
+        for route, r in routes["timed"].items():
+            name = "Kab_attention_bwd_" + route.replace(".", "_")
+            # launches on the main paths: the train CLI's vit steps and the
+            # training mesh (every one of them at hd 64)
+            main = (trained["launches"]["train dvgl vit"].get(name, 0)
+                    + trained_mesh["counts"].get(name, 0))
+            results[name].update(
+                launches=main, shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                max_abs_err=max(c["max_abs_err"] for c in routes["checks"] if c["route"] == route),
+                checked=[c["shape"] for c in routes["checks"] if c["route"] == route],
+                library_route="torch.nn.functional.scaled_dot_product_attention's backward")
+            note(f"{route} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, SDPA {r['library_ms']:.4f},"
+                 f" bound {r['bound_ms']:.4f}), {main} launches on the main paths")
+        results["Kab_attention_bwd_wgmma"]["k5_attention_half"] = k5b["halves"]["attention"]
+        results["K5b_flash_attention_qkv_proj_bwd"]["projection_half"] = (
+            k5b["halves"]["projection"])
+
         # ------------------------------------------------------------ tooling: viz
         mark("tooling: viz")
         viz_counts = tooling_phase(vlad, db + qu, work / "viz", tag)
@@ -2763,23 +2803,189 @@ def train_phase(root: Path, work: Path, tag: str) -> dict:
     nbytes = 4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d)   # qkv, G, o in; dqkv, d_W out
     bwd = bound({"tf32": TF32X3 * ops}, nbytes)
     bwd_fma = bound({"f32": ops}, nbytes)
+    # its two halves alone on the same tensors (what the forward keeps, from
+    # the plain math): the projection backward (d_o, d_W, d_b; G, o, W read)
+    # and the attention backward on K5's views of qkv (q, k, v, o, d_o read;
+    # dqkv written), each beside its own bound
+    halves = k5_backward_halves(inputs, gout, h)
     print(f"K5 backward {tag} qkv [{b},{n},{3 * d}] float32 (QkvProjGrad: the projection "
           f"backward and the attention backward kernels): {bwd_ms:.3f} ms, the plain version's "
           f"autograd {plain_ms:.3f} ms ({plain_ms / bwd_ms:.2f}x); bound {bwd['bound_ms']:.4f} ms "
           f"({bwd['bound_by']}, 3xTF32), {100 * bwd['bound_ms'] / bwd_ms:.1f} % of it; FMA bound "
           f"{bwd_fma['bound_ms']:.4f} ms; largest difference between two backward calls "
           f"{spread:.3e} (bound 0: no atomics); the forward under autograd (kernel + saved "
-          f"tensors) {fwd_ms:.3f} ms", flush=True)
+          f"tensors) {fwd_ms:.3f} ms; apart: the projection backward "
+          f"{halves['projection']['ms']:.3f} ms (bound {halves['projection']['bound_ms']:.4f}, "
+          f"{halves['projection']['bound_by']}), the attention backward "
+          f"{halves['attention']['ms']:.3f} ms on the {halves['attention']['route']} route "
+          f"(bound {halves['attention']['bound_ms']:.4f}, {halves['attention']['bound_by']})",
+          flush=True)
     check(spread == 0.0, "K5's backward differs between two calls on the same inputs")
     del inputs, wanted, out, ref, gout, first, again
     t3 = time.perf_counter()
     print(f"training, wall seconds: train CLI runs {t1 - t0:.1f}, step times {t2 - t1:.1f}, "
           f"card vs CPU and K5 gradient {t3 - t2:.1f}, total {t3 - t0:.1f}", flush=True)
     return dict(launches=launches, k5_train=k5_train, rates=rates,
-                k5_backward=dict(ms=bwd_ms, plain_ms=plain_ms, forward_ms=fwd_ms,
+                k5_backward=dict(ms=bwd_ms, plain_ms=plain_ms, forward_ms=fwd_ms, halves=halves,
                                  fma_bound_ms=bwd_fma["bound_ms"], spread=spread,
                                  max_abs_err=max_abs, max_grad_err=grad_errs,
                                  shape=f"qkv [{b},{n},{3 * d}] float32", **bwd))
+
+
+def attention_bwd_alone(b: int, h: int, n: int, hd: int, dtype, timed: bool = False,
+                        seed: int = 7) -> dict:
+    """The attention backward kernel alone (``attention_bwd_launch``, on the
+    kernel its route table gives hd and dtype) on q, k, v, dO [b, h, n, hd]
+    with the forward's output and log-sum-exp from the plain math: held to
+    its plain version (``flash_attention_bwd_ref``) on the same tensors
+    (float32 within ``train_checks.BOUND`` of each gradient's largest
+    |value|; bfloat16 by ``train_checks.bf16_errors`` with the float64
+    gradient), two launches bit-equal, the route counted once a launch;
+    ``timed``: the kernel, its plain version and SDPA's backward timed,
+    beside the bound of the five products (f32 as three tf32 products each)
+    and of q, k, v, O, dO read and dq, dk, dv written."""
+    import torch
+    import torch.nn.functional as F
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.flash_attention import (attention_bwd_launch,
+                                                              attention_bwd_route)
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, n, hd), generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = hd ** -0.5
+    route = attention_bwd_route(hd, dtype)
+    counter = K.KERNELS["Kab_attention_bwd_" + route.replace(".", "_")]
+    with torch.no_grad():
+        o = K.flash_attention_ref(q, k, v, scale=scale)
+        lse = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * scale, -1).contiguous()
+        outs = [torch.empty_like(q) for _ in range(3)]
+
+        def call():
+            attention_bwd_launch(q, k, v, o, lse, do, *outs, scale=scale, prescale_q=False,
+                                 name="attention_bwd_alone")
+
+        before = counter.launches
+        call()
+        launched = counter.launches - before
+        first = [t.clone() for t in outs]
+        call()
+        spread = max((a.float() - c.float()).abs().max().item() for a, c in zip(first, outs))
+        want = K.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
+        exact = None
+        if dtype != torch.float32:
+            exact = K.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, lse, do)),
+                                              scale=scale)
+        torch.cuda.synchronize()
+        r = train_checks._grad_report(("q", "k", "v"), first, want, exact)
+        out = dict(shape=f"[{b},{h},{n},{hd}] {str(dtype).replace('torch.', '')}", route=route,
+                   launched=launched, spread=spread, grad_errs=r["grad_errs"],
+                   max_abs_err=max((a.double() - w.double()).abs().max().item()
+                                   for a, w in zip(first, want)),
+                   ok=r["grads_ok"] and spread == 0.0 and launched == 1)
+        if timed:
+            out["ms"] = time_ms(call, iters=10, reps=3)
+            out["plain_ms"] = time_ms(lambda: K.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                                        scale=scale),
+                                      iters=3, reps=2)
+    if timed:
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sd = F.scaled_dot_product_attention(qs, ks, vs)
+        out["library_ms"] = time_ms(lambda: torch.autograd.grad(sd, (qs, ks, vs), do,
+                                                                retain_graph=True),
+                                    iters=10, reps=3)
+        ops = 10 * b * h * n * n * hd
+        esz = 4 if dtype == torch.float32 else 2
+        out.update(bound({"tf32": TF32X3 * ops} if dtype == torch.float32 else {"bf16": ops},
+                         8 * esz * b * h * n * hd))
+    return out
+
+
+def attention_bwd_routes_phase(tag: str) -> dict:
+    """Every (head dim, dtype) of the attention backward's route table on
+    the kernel the table names, at [4, 4, 197, hd] (attention_bwd_alone:
+    held to the plain version, two launches bit-equal, the route counted),
+    then each kernel timed at a shape its route serves: the wgmma kernel at
+    a tensor-parallel rank's [48, 6, 197, 64] float32 (dvgl ViT-B/16's
+    heads), the mma.sync kernel at [8, 16, 257, 80] float32 (ViT-H heads)."""
+    import torch
+
+    from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+
+    checks = []
+    for hd in SUPPORTED_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = attention_bwd_alone(4, 4, 197, hd, dtype)
+            errs = ", ".join(f"{k} {v:.2e}" for k, v in r["grad_errs"].items())
+            print(f"attention backward route {tag} {r['shape']}: {r['route']}, launched "
+                  f"{r['launched']}; against the plain version {errs}; two launches "
+                  f"{r['spread']:.1e} apart", flush=True)
+            check(r["ok"], f"the attention backward at {r['shape']} ({r['route']}) disagrees "
+                           f"with its plain version, or two launches differ")
+            checks.append(r)
+    timed = {}
+    for route, shape in (("wgmma", (48, 6, 197, 64)), ("mma.sync", (8, 16, 257, 80))):
+        r = attention_bwd_alone(*shape, torch.float32, timed=True)
+        check(r["ok"] and r["route"] == route, f"the timed {route} case failed: {r}")
+        print(f"attention backward {route} {tag} {r['shape']} (the kernel alone, its dq sum "
+              f"and D pass included): {r['ms']:.4f} ms, plain version {r['plain_ms']:.3f} ms, "
+              f"SDPA's backward {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, 3xTF32), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
+        timed[route] = r
+    return dict(checks=checks, timed=timed)
+
+
+def k5_backward_halves(inputs: dict, gout, h: int) -> dict:
+    """K5's backward in its two halves on one card, each launched alone on
+    the tensors ``QkvProjGrad`` hands it (the forward's o and log-sum-exp
+    from the plain math; no LayerScale): the projection backward
+    (``qkv_proj_bwd``: d_o, d_W, d_b) and the attention backward on strided
+    views of qkv (``attention_bwd_launch``, pre-scaled q), each timed beside
+    its 3xTF32 bound, the attention with the route it ran."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels import attn_proj
+    from anyloc_tpu_torch.ops.kernels.flash_attention import (attention_bwd_launch,
+                                                              attention_bwd_route)
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    with torch.no_grad():
+        qkv = inputs["qkv"].detach()
+        b, n, three_d = qkv.shape
+        d = three_d // 3
+        hd = d // h
+        m, scale = b * n, hd ** -0.5
+        q, k, v = attn_proj._split_heads(qkv, h)
+        sc = (q * scale) @ k.transpose(-1, -2)
+        lse = torch.logsumexp(sc, dim=-1).contiguous()
+        o = (torch.softmax(sc, dim=-1) @ v).transpose(1, 2).reshape(b, n, d).contiguous()
+        del sc
+        d_o = torch.randn((b, n, d), device=qkv.device)
+        d_qkv = torch.empty_like(qkv)
+        dq, dk, dv = attn_proj._split_heads(d_qkv, h)
+        w = inputs["w_proj"].detach()
+        route = attention_bwd_route(hd, qkv.dtype)
+        counter = K.KERNELS["Kab_attention_bwd_" + route.replace(".", "_")]
+        before = counter.launches
+
+        def attention():
+            attention_bwd_launch(q, k, v, attn_proj._heads(o, h), lse, attn_proj._heads(d_o, h),
+                                 dq, dk, dv, scale=scale, prescale_q=True, name="k5 halves")
+
+        att_ms = time_ms(attention, iters=10, reps=3)
+        check(counter.launches > before, f"the attention backward did not run on {route}")
+        proj_ms = time_ms(lambda: attn_proj.qkv_proj_bwd(gout, w, inputs["b_proj"], None, o, None),
+                          iters=10, reps=3)
+    return dict(
+        attention=dict(ms=att_ms, route=route,
+                       **bound({"tf32": TF32X3 * 10 * b * h * n * n * hd}, 4 * 8 * m * d)),
+        projection=dict(ms=proj_ms,
+                        **bound({"tf32": TF32X3 * 4 * m * d * d},
+                                4 * (3 * m * d + 2 * d * d + d))))
 
 
 def eval_model(label: str):
@@ -3625,8 +3831,15 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
         return out
 
     # K2's gradient at a TP rank's shape
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
+
     b, h, n, hd = 48, 6, 197, 64
+    route = attention_bwd_route(hd, torch.float32)
+    route_name = "Kab_attention_bwd_" + route.replace(".", "_")
+    before_route = K.KERNELS[route_name].launches
     r = train_checks.k2_gradient(b, h, n, hd, torch.float32)
+    check(K.KERNELS[route_name].launches == before_route + 1,
+          f"K2's gradient did not run the {route} attention backward")
     errs = ", ".join(f"{k} {v:.3e}" for k, v in r["grad_errs"].items())
     check(r["ok"], "K2's gradient disagrees with its plain version's")
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3670,7 +3883,8 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
                     backward_fma_bound_ms=bwd_fma["bound_ms"],
                     **{f"backward_{k_}": v_ for k_, v_ in bwd.items()})
     print(f"K2 gradient {tag} q/k/v [{b},{h},{n},{hd}] float32 (forward kernel, attention "
-          f"backward kernel, FlashAttentionGrad): max|err| / max|g| {errs} (bound "
+          f"backward kernel on its {route} route, FlashAttentionGrad): max|err| / max|g| {errs} "
+          f"(bound "
           f"{train_checks.BOUND:.0e}); output {r['out_err']:.3e}, bit-equal without autograd "
           f"{r['bit_equal']}; grad_fn {r['grad_fn']}; forward under autograd "
           f"{fwd_ms:.3f} ms (without autograd {kernel_ms:.3f}; plain {plain_ms:.3f}, SDPA's "
@@ -3695,16 +3909,21 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    mem_route = attention_bwd_route(hd, torch.float32)
+    before_route = K.KERNELS["Kab_attention_bwd_" + mem_route.replace(".", "_")].launches
     torch.autograd.grad(out, (q, k, v), gout)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    check(K.KERNELS["Kab_attention_bwd_" + mem_route.replace(".", "_")].launches
+          == before_route + 1, f"the memory line's backward did not run on {mem_route}")
     size = mb * mh * mn * hd * 4
     slices = attention_bwd_slices(mb, mh, mn)
-    memory = dict(shape=f"[{mb},{mh},{mn},{hd}] float32", peak_mb=peak / 2 ** 20,
+    memory = dict(shape=f"[{mb},{mh},{mn},{hd}] float32", route=mem_route,
+                  peak_mb=peak / 2 ** 20,
                   outputs_mb=3 * size / 2 ** 20, scratch_mb=slices * size / 2 ** 20,
                   slices=slices, per_key_block_mb=-(-mn // BWD_KEYS) * size / 2 ** 20)
-    print(f"K2 backward memory {tag} q/k/v {memory['shape']}: peak above its inputs "
-          f"{memory['peak_mb']:.1f} MB (outputs {memory['outputs_mb']:.1f} MB, dq scratch "
+    print(f"K2 backward memory {tag} q/k/v {memory['shape']} ({mem_route} route): peak above "
+          f"its inputs {memory['peak_mb']:.1f} MB (outputs {memory['outputs_mb']:.1f} MB, dq scratch "
           f"{memory['scratch_mb']:.1f} MB in {slices} slices; a slice per key block would take "
           f"{memory['per_key_block_mb']:.1f} MB)", flush=True)
     check(peak <= 1.05 * (memory["outputs_mb"] + memory["scratch_mb"]) * 2 ** 20 + 2 ** 26,

@@ -19,7 +19,15 @@ for K5, the projection before LayerScale) on the CPU:
 Inputs are made from numpy seeds; N 1, 9 and 65 cover one key, fewer keys
 than one block and ragged key blocks (the kernels mask the keys past N of
 their last 64-key block).
+
+The route table of the attention backward (which kernel each head dim and
+dtype runs) and its Python mirror are held to a table written here and to
+the CUDA source; the dq scratch's slices to a hand count; and each routed
+block's shared memory, mirrored from the tile constants, to the 227 KB a
+block may use on the H100.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +40,13 @@ from anyloc_tpu.ops.pallas.flash_attention import xla_attention
 
 from anyloc_tpu_torch.ops import kernels as K
 from anyloc_tpu_torch.ops.kernels.attn_proj import _split_heads
+from anyloc_tpu_torch.ops.kernels.flash_attention import (
+    BWD_KEYS,
+    BWD_MIN_GRID,
+    attention_bwd_route,
+    attention_bwd_slices,
+    attention_bwd_smem,
+)
 from anyloc_tpu_torch.tools.train_checks import BF16_BOUND, BF16_RATIO, attention64, bf16_errors
 
 torch.set_num_threads(2)
@@ -247,4 +262,66 @@ def test_backward_wrappers_on_cpu_tensors_take_their_plain_versions():
     for i in (0, 2, 4):
         assert torch.equal(got[i], want[i])
     assert K.launch_counts() == before
-    assert {"K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd"} <= set(before)
+    assert {"K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd",
+            "Kab_attention_bwd_wgmma", "Kab_attention_bwd_mma_sync"} <= set(before)
+
+
+# ---------------------------------------------------------------- the route table
+
+# the attention backward's kernel for each (head dim, dtype), written out:
+# the wgmma kernel at hd 64 (dvgl ViT-B/16, tensor-parallel training,
+# DINOv2), the mma.sync kernel at the other head dims
+ROUTES = {(hd, dt): ("wgmma" if hd == 64 else "mma.sync")
+          for hd in (16, 32, 64, 80, 128) for dt in (torch.float32, torch.bfloat16)}
+CUH = Path(K.__file__).resolve().parents[2] / "csrc" / "flash_attention_bwd.cuh"
+SMEM_LIMIT = 232448   # a block's shared memory on the H100 (227 KB)
+
+
+@pytest.mark.parametrize("hd,dtype", sorted(ROUTES, key=str), ids=lambda x: str(x))
+def test_attention_bwd_route_mirror_matches_the_table(hd, dtype):
+    """The Python mirror of the route table (``attention_bwd_route``) gives
+    each (head dim, dtype) the kernel the table above names."""
+    assert attention_bwd_route(hd, dtype) == ROUTES[hd, dtype]
+
+
+def test_attention_bwd_route_table_matches_the_cuda_source():
+    """The CUDA route table (``attention_bwd_route`` of
+    ``csrc/flash_attention_bwd.cuh``) sends hd 64 of both dtypes to the wgmma
+    kernel and nothing else, and the tile constants the Python mirrors read
+    are the source's."""
+    src = CUH.read_text()
+    body = src[src.index("constexpr int attention_bwd_route("):]
+    body = body[:body.index("}")]
+    assert "hd == 64 && (dtype == DT_F32 || dtype == DT_BF16) ? BWD_WGMMA : BWD_MMA_SYNC" in body
+    for line in ("constexpr int BWD_KEYS = 64;", "constexpr int BWD_MIN_GRID = 512;",
+                 "static constexpr int BKV = 64, BQ = 32, STAGES = 2;",
+                 "static constexpr int BAR_ = L_ + 2 * BQ * 4;",
+                 "static constexpr int NBAR = 2 * STAGES + 6;",
+                 "static constexpr int SMEM = 4 * ((2 * BKV + (LO ? 4 : 2) * BQ) * LDH + BKV * "
+                 "BQ + 2 * BQ);"):
+        assert line in src, line
+    assert (BWD_KEYS, BWD_MIN_GRID) == (64, 512)
+
+
+# B, H, N -> the dq scratch slices, counted by hand: key blocks of 64, at
+# least four groups, and B·H blocks alone under 512 keep more
+SLICES = {(48, 6, 197): 4,      # 4 key blocks, 288 heads: a slice each
+          (48, 12, 1370): 4,    # 22 key blocks in 4 groups of 6 (the last 4)
+          (8, 16, 300): 3}      # 5 key blocks, 128 heads: 4 groups of 2 -> 3 slices
+
+
+@pytest.mark.parametrize("b,h,n", sorted(SLICES))
+def test_attention_bwd_slices_against_a_hand_count(b, h, n):
+    assert attention_bwd_slices(b, h, n) == SLICES[b, h, n]
+
+
+@pytest.mark.parametrize("hd,dtype", sorted(ROUTES, key=str), ids=lambda x: str(x))
+def test_attention_bwd_tiles_fit_a_block(hd, dtype):
+    """Each (head dim, dtype)'s block on its route fits the 227 KB a block
+    may use (``attention_bwd_smem``, mirrored from the tile constants); at
+    hd 64 the wgmma kernel takes 214,352 bytes in f32 (hi and lo of every
+    tile) and 116,048 in bf16."""
+    smem = attention_bwd_smem(hd, dtype, ROUTES[hd, dtype])
+    assert smem <= SMEM_LIMIT
+    if ROUTES[hd, dtype] == "wgmma":
+        assert smem == {torch.float32: 214352, torch.bfloat16: 116048}[dtype]

@@ -1382,13 +1382,17 @@ def test_k5_float32_at_the_eval_shapes(b, n, h, hd):
 
 K5_GRAD_CASES = [(48, 197, 12, 64, False), (4, 257, 16, 80, False), (2, 65, 4, 16, True),
                  (2, 65, 2, 32, True), (2, 65, 2, 128, False), (2, 1, 4, 64, True),
-                 (2, 130, 2, 128, True)]
+                 (2, 130, 2, 128, True),
+                 # the wgmma route (hd 64) on K5's strided views of qkv: a ragged
+                 # N, fewer queries than one 32-query step, a long sequence whose
+                 # blocks take several key blocks in turn
+                 (3, 300, 4, 64, True), (2, 20, 4, 64, False), (2, 1370, 4, 64, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,hd,ls", K5_GRAD_CASES,
                          ids=["dvgl-vit-b16-step", "hd80", "hd16-n65", "hd32-n65", "hd128-n65",
-                              "n1", "hd128-n130"])
+                              "n1", "hd128-n130", "hd64-n300", "hd64-n20", "hd64-n1370"])
 def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, ls, dtype):
     """K5 under autograd launches its forward kernel once and its backward
     kernels once (``flash_attention_qkv_proj_bwd``: the projection backward,
@@ -1419,7 +1423,13 @@ K2_GRAD_CASES = [(48, 6, 197, 64, torch.float32), (2, 4, 300, 80, torch.float32)
                  (2, 4, 1, 16, torch.bfloat16),
                  # blocks of the backward that take 2 (f32) and 4 (bf16, its D
                  # pass too) key blocks in turn (attention_bwd_slices)
-                 (8, 16, 300, 64, torch.float32), (8, 12, 1370, 32, torch.bfloat16)]
+                 (8, 16, 300, 64, torch.float32), (8, 12, 1370, 32, torch.bfloat16),
+                 # the wgmma route (hd 64) in bf16 and at the shapes its tiles
+                 # meet: ragged N, N under one 32-query step, N 1, several key
+                 # blocks a block (bf16's D pass too), a long sequence
+                 (8, 16, 300, 64, torch.bfloat16), (2, 4, 20, 64, torch.float32),
+                 (2, 4, 20, 64, torch.bfloat16), (2, 4, 1, 64, torch.bfloat16),
+                 (2, 12, 1370, 64, torch.float32), (2, 12, 1370, 64, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,h,n,hd,dtype", K2_GRAD_CASES)
@@ -1437,6 +1447,31 @@ def test_k2_gradient_matches_the_plain_versions(b, h, n, hd, dtype):
     assert r["bwd_launched"] == 1 and r["bit_equal"]
     assert r["ok"], (r["grad_errs"], r.get("ratios"))
     assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_runs_the_route_tables_kernel(hd, dtype):
+    """K2's backward at each (head dim, dtype) launches the kernel the route
+    table names (``attention_bwd_route``: wgmma at hd 64, mma.sync at the
+    others), counted once on that route and never on the other, and two
+    backward calls on the same inputs are bit-equal."""
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
+
+    route = attention_bwd_route(hd, dtype)
+    q, k, v = (_randn(2, 3, 197, hd, dtype=dtype, seed=40 + i).requires_grad_(True)
+               for i in range(3))
+    grad = _randn(2, 3, 197, hd, dtype=dtype, seed=43)
+    out = K.flash_attention(q, k, v)
+    K.reset_launch_counts()
+    first = torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), grad)
+    counts = K.launch_counts()
+    other = "mma.sync" if route == "wgmma" else "wgmma"
+    assert counts["Kab_attention_bwd_" + route.replace(".", "_")] == 2
+    assert counts["Kab_attention_bwd_" + other.replace(".", "_")] == 0
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,6 +13,12 @@ them to the port's float32 bound of 2e-5 absolute (``tests/test_torch_gpu.py``'s
 term would be caught. The tensor core's own f32 sums are not emulated: the
 kernels keep them apart by size (hi·hi and the small products in separate
 accumulators in the GEMM), and the card tests bound the whole.
+
+The attention backward's wgmma kernel (``csrc/flash_attention_bwd.cuh``)
+splits each operand once: K, V and K^T per key block, Q, dO, Q^T and dO^T
+per query step, P^T in registers, and dS once (the same hi and lo feed dK
+from registers and dQ^T from shared memory); its five products are
+emulated here at a tensor-parallel rank's [4 x 6, 197, 64] heads.
 """
 
 import numpy as np
@@ -142,3 +148,40 @@ def test_pv_is_exact_at_one_key():
     vh, vl = split(v)
     two = mm64(tf32_read(pl), vh) + mm64(ph, tf32_read(vl)) + mm64(ph, vh)
     assert not torch.equal(two.float(), v)               # two pieces of V lose its last bits
+
+
+@pytest.mark.parametrize("one", [False, True], ids=["3xtf32", "one-tf32-product"])
+def test_attention_backward_within_the_f32_bound(one):
+    """The backward's five products (S^T = K Q^T, dP^T = V dO^T, dV = P^T
+    dO, dK = dS^T Q, dQ^T = K^T dS^T) as the wgmma kernel computes them, the
+    elementwise steps in f32, against the float64 gradient: every gradient
+    within 2e-5 of its largest |value|; one tf32 product of the raw words
+    instead falls outside it."""
+    b, n, hd = 24, 197, 64
+    scale = hd ** -0.5
+    q, k, v, do = (_randn(b, n, hd, seed=10 + i) for i in range(4))
+    prod = tf32x1 if one else tf32x3
+    # float64 reference
+    s64 = mm64(q, k.transpose(-1, -2)) * scale
+    p64 = torch.softmax(s64, dim=-1)
+    o64 = p64 @ v.double()
+    dp64 = mm64(do, v.transpose(-1, -2))
+    ds64 = p64 * (dp64 - (do.double() * o64).sum(-1, keepdim=True))
+    want = (ds64 @ k.double() * scale, ds64.transpose(-1, -2) @ q.double() * scale,
+            p64.transpose(-1, -2) @ do.double())
+    # the kernel: key-major tiles (S^T rows are keys), f32 between products,
+    # LSE and O as the forward kept them (f32)
+    lse = torch.logsumexp(s64, dim=-1).float()
+    st = prod(k, q.transpose(-1, -2)).float()
+    pt = torch.exp(st * scale - lse[:, None, :])
+    dpt = prod(v, do.transpose(-1, -2)).float()
+    d = (do * o64.float()).sum(-1)
+    dst = pt * (dpt - d[:, None, :])
+    dv = prod(pt, do)
+    dk = prod(dst, q) * scale
+    dq = prod(k.transpose(-1, -2), dst).transpose(-1, -2) * scale
+    errs = [_err(g, w) / w.abs().max().item() for g, w in zip((dq, dk, dv), want)]
+    if one:
+        assert max(errs) > F32_BOUND
+    else:
+        assert max(errs) <= F32_BOUND, errs
