@@ -33,7 +33,7 @@ SIGNATURES = {
     "anyloc_flash_attention": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "anyloc_attn_qkv_proj": [_P] * 9 + [_I] * 6 + [_F, _P],
     "anyloc_attention_bwd": [_P] * 11 + [_I] * 8 + [ctypes.POINTER(_L), _F, _P],
-    "anyloc_qkv_proj_bwd": [_P] * 14 + [_I] * 8 + [_P],
+    "anyloc_qkv_proj_bwd": [_P] * 10 + [_I] * 9 + [_P],
     "anyloc_vlad_aggregate": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
     "anyloc_vlad_resident_clusters": [_I],
     "anyloc_fused_mlp_int8": [_P] * 16 + [_I] * 8 + [_F, _P],

@@ -67,7 +67,6 @@ struct GemmArgs {
   int q_cols;          // EPI_QKV
   float q_scale;       // EPI_QKV
   float* pre;          // EPI_RESID: [M, N] f32, the value before LayerScale, or null
-  GemmBatch batch;     // products in one launch of a BATCH instance (int8_common.cuh)
 };
 
 // Output columns col, col + 1 of row `row` from their f32 sums (v0, v1) and,
@@ -173,18 +172,17 @@ struct OpTF32x3 : OpBF16 {
 };
 
 // Launch the GEMM for the operand dtype code (DT_BF16 or DT_F32); the output
-// and the residual have the operands' dtype, or OutT when it is given;
-// BATCH: p.batch.count products in one launch (GemmBatch).
-template <int EPI, typename OutT = void, bool BATCH = false>
+// and the residual have the operands' dtype, or OutT when it is given.
+template <int EPI, typename OutT = void>
 cudaError_t launch_gemm(const GemmArgs& p, int dtype, cudaStream_t st) {
   if (p.M == 0 || p.N == 0) return cudaSuccess;
   if (dtype == DT_BF16) {
     using O = std::conditional_t<std::is_void_v<OutT>, bf16, OutT>;
-    return launch_gemm_tiles<OpBF16, EPI, O, O, false, true, BATCH>(p, st);
+    return launch_gemm_tiles<OpBF16, EPI, O, O, false, true>(p, st);
   }
   if (dtype == DT_F32) {
     using O = std::conditional_t<std::is_void_v<OutT>, float, OutT>;
-    return launch_gemm_tiles<OpTF32x3, EPI, O, O, false, true, BATCH>(p, st);
+    return launch_gemm_tiles<OpTF32x3, EPI, O, O, false, true>(p, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -208,16 +208,6 @@ enum {
   EPI_I32 = 4,     // int8 only: the int32 sums, no scales -> OutT [M, N]
 };
 
-// Independent products in one launch (grid z) of a BATCH instance of the
-// GEMM: product z reads A's rows from z·a_rows and B's from z·b_rows of the
-// operands' maps and writes the output z·out_elems elements on. Only K5's
-// backward instantiates it (d_W's reduction over the rows split into such
-// products); every other GEMM compiles without it.
-struct GemmBatch {
-  int count, a_rows, b_rows;
-  long long out_elems;
-};
-
 struct I8GemmArgs {
   const int8_t* A;          // [M, K]
   const int8_t* B;          // [rows, K]
@@ -491,8 +481,7 @@ struct OpS8 {
 // express), into the layout TMA's 128-byte swizzle gives; the other
 // instances load A by TMA and compile without the mapping (a runtime
 // branch in every GEMM cost K3 and K4 ~1-3 %, on an H100 at 700 W).
-template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, bool BATCH,
-          class Args>
+template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, class Args>
 __global__ void __launch_bounds__(QTHREADS, 1)
     gemm_tma_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap bmap, Args p) {
@@ -552,20 +541,12 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       const int k0 = kt * KE;
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], A_MAP ? T::B_BYTES : T::RAW);
-        if (!A_MAP) {
-          if constexpr (BATCH)  // product blockIdx.z of the batch (GemmBatch)
-            tma_load_2d(As, &amap, &full[s], k0, m0 + blockIdx.z * p.batch.a_rows);
-          else
-            tma_load_2d(As, &amap, &full[s], k0, m0);
-        }
+        if (!A_MAP) tma_load_2d(As, &amap, &full[s], k0, m0);
         if (EPI == EPI_SWIGLU) {
           tma_load_2d(Bs, &bmap, &full[s], k0, c0);
           tma_load_2d(Bs + BN / 2 * QBK, &bmap, &full[s], k0, p.hid + c0);
         } else {
-          if constexpr (BATCH)
-            tma_load_2d(Bs, &bmap, &full[s], k0, c0 + blockIdx.z * p.batch.b_rows);
-          else
-            tma_load_2d(Bs, &bmap, &full[s], k0, c0);
+          tma_load_2d(Bs, &bmap, &full[s], k0, c0);
         }
       }
       if constexpr (A_MAP) {
@@ -665,48 +646,35 @@ __global__ void __launch_bounds__(QTHREADS, 1)
   wgmma_wait<0>();
   fence_regs(acc);
   if constexpr (Op::SPLIT) fence_regs(facc);
-  if constexpr (BATCH) {  // the batch's product writes its own output
-    Args pz = p;
-    pz.out = static_cast<OutT*>(p.out) + blockIdx.z * p.batch.out_elems;
-    Op::template epilogue<EPI, OutT, ResT, ONE>(pz, acc, facc, row0, src0, src1, c0, t);
-  } else {
-    Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
-  }
+  Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
 }
 
 // Encode the two tensor maps (A [M, K], B [rows, K], boxes of one 128-byte
 // row of K by 128 rows of A and BN rows of B, or two boxes of BN / 2 for
-// EPI_SWIGLU) and launch one block per 128 x BN output tile (BATCH: of
-// each of p.batch.count products).
-template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE,
-          bool BATCH = false, class Args>
+// EPI_SWIGLU) and launch one block per 128 x BN output tile.
+template <class Op, int EPI, typename OutT, typename ResT, bool A_MAP, bool ONE, class Args>
 cudaError_t launch_gemm_tiles(const Args& p, cudaStream_t st) {
   using T = GemmTile<ONE, Op::SPLIT>;
   constexpr cuuint32_t KE = QBK / sizeof(typename Op::Elem);  // K elements of a box row
   CUtensorMap amap = {}, bmap;
   cudaError_t e = cudaSuccess;
   const cuuint64_t kb = (cuuint64_t)p.K * sizeof(typename Op::Elem);  // bytes per row of A and B
-  int nz = 1;  // products in the launch
-  if constexpr (BATCH) nz = p.batch.count > 1 ? p.batch.count : 1;
   if (!A_MAP) {
-    cuuint64_t rows = (cuuint64_t)p.M;
-    if constexpr (BATCH) rows += (cuuint64_t)(nz - 1) * p.batch.a_rows;
-    const cuuint64_t dims[2] = {(cuuint64_t)p.K, rows};
+    const cuuint64_t dims[2] = {(cuuint64_t)p.K, (cuuint64_t)p.M};
     const cuuint32_t box[2] = {KE, QBM};
     e = make_tma_map(&amap, Op::TMA_TYPE, 2, p.A, dims, &kb, box, 128);
   }
   if (e != cudaSuccess) return e;
-  cuuint64_t b_rows = EPI == EPI_SWIGLU ? (cuuint64_t)(p.hid + p.N) : (cuuint64_t)p.N;
-  if constexpr (BATCH) b_rows += (cuuint64_t)(nz - 1) * p.batch.b_rows;
+  const cuuint64_t b_rows = EPI == EPI_SWIGLU ? (cuuint64_t)(p.hid + p.N) : (cuuint64_t)p.N;
   const cuuint64_t bdims[2] = {(cuuint64_t)p.K, b_rows};
   const cuuint32_t bbox[2] = {KE, (cuuint32_t)(EPI == EPI_SWIGLU ? T::BN / 2 : T::BN)};
   e = make_tma_map(&bmap, Op::TMA_TYPE, 2, p.B, bdims, &kb, bbox, 128);
   if (e != cudaSuccess) return e;
-  auto kernel = gemm_tma_kernel<Op, EPI, OutT, ResT, A_MAP, ONE, BATCH, Args>;
+  auto kernel = gemm_tma_kernel<Op, EPI, OutT, ResT, A_MAP, ONE, Args>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return e;
   const int cols_per_block = EPI == EPI_SWIGLU ? T::BN / 2 : T::BN;
-  const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM), nz);
+  const dim3 grid(cdiv(p.N, cols_per_block), cdiv(p.M, QBM));
   kernel<<<grid, QTHREADS, T::SMEM, st>>>(amap, bmap, p);
   return cudaGetLastError();
 }

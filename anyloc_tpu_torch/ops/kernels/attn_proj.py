@@ -55,6 +55,7 @@ ignore them (K7 still refuses a head geometry the TPU kernel refuses).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -330,14 +331,114 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.view(b, n, num_heads, d // num_heads).transpose(1, 2)
 
 
-def _dw_chunks(m: int, d: int, d_out: int, sms: int) -> tuple:
-    """d_W = oᵀ·G' reduces over the m rows into only ceil(d / 128) ·
-    ceil(d_out / 128) output tiles: cut the reduction into chunks so that
-    the tiles of all chunks give about two blocks per SM, each chunk at
-    least 512 rows. Returns (chunks, rows per chunk, a multiple of 4)."""
-    tiles = -(-d // 128) * -(-d_out // 128)
-    chunks = max(1, min(-(-2 * sms // tiles), -(-m // 512)))
-    return chunks, round_up(-(-m // chunks), 4)
+# The work plan of the projection backward (csrc/proj_bwd_plan.cuh, which the
+# C entry also computes: it refuses a launch whose plan differs): 128 x 128
+# output tiles, stages of 32 reduction elements, d_W's chunks at least 8
+# stages, reduction units of 32 rows of a d_W tile, column sums in blocks
+# of 32 columns and splits of at least 64 rows, counters rounded up to 64
+# ints; the unit kinds.
+PB_TILE, PB_K, PB_MIN_CHUNK, PB_RED_ROWS = 128, 32, 8, 32
+PB_COL, PB_COL_ROWS, PB_COUNTERS_ALIGN = 32, 64, 64
+PB_DO, PB_DW, PB_RED = 0, 1, 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def proj_bwd_plan(m: int, d: int, nc: int, sms: int, want_o: bool = True,
+                  want_w: bool = True, want_sums: bool = True) -> dict:
+    """``proj_bwd_plan`` of ``csrc/proj_bwd_plan.cuh``: the tiles of M, D
+    and Nc, d_W's reduction over the m rows cut into ``chunks`` chunks of
+    ``chunk_rows`` rows (about as many 32-row stages as a d_o tile has
+    32-column ones, at least 8), the work units (d_W's (tile, chunk) units,
+    d_o's tiles, then with more than one chunk the reduction units, four a
+    d_W tile) over ``grid`` = min(units, sms) persistent blocks, and the
+    column sums' row splits (about four blocks of 32 columns per SM)."""
+    p = dict(m_tiles=_cdiv(m, PB_TILE), d_tiles=_cdiv(d, PB_TILE), c_tiles=_cdiv(nc, PB_TILE),
+             chunks=0, chunk_rows=0, n_dw=0, n_do=0, n_red=0, col_splits=0, col_rows=0)
+    if want_w and m > 0:
+        stages = _cdiv(m, PB_K)
+        chunks = _cdiv(stages, max(_cdiv(nc, PB_K), PB_MIN_CHUNK))
+        p["chunk_rows"] = _cdiv(stages, chunks) * PB_K
+        p["chunks"] = _cdiv(m, p["chunk_rows"])
+        p["n_dw"] = p["d_tiles"] * p["c_tiles"] * p["chunks"]
+    if want_o and m > 0:
+        p["n_do"] = p["m_tiles"] * p["d_tiles"]
+    if p["chunks"] > 1:
+        p["n_red"] = p["d_tiles"] * p["c_tiles"] * (PB_TILE // PB_RED_ROWS)
+    p["units"] = p["n_dw"] + p["n_do"] + p["n_red"]
+    p["grid"] = min(p["units"], sms)
+    if want_sums and m > 0:
+        splits = max(1, min(_cdiv(4 * sms, _cdiv(nc, PB_COL)), _cdiv(m, PB_COL_ROWS)))
+        p["col_rows"] = _cdiv(m, splits)
+        p["col_splits"] = _cdiv(m, p["col_rows"])
+    return p
+
+
+def proj_bwd_unit(plan: dict, m: int, nc: int, u: int) -> tuple:
+    """Unit u (``proj_bwd_unit``): (kind, ti, tj, chunk, k0, k1): d_W's tile
+    (D-tile ti, Nc-tile tj) over rows k0..k1 - 1 of chunk ``chunk``
+    (``PB_DW``), d_o's tile (M-tile ti, D-tile tj) over the columns
+    0..nc - 1 (``PB_DO``), or rows k0..k1 - 1 of d_W tile (ti, tj) summed
+    over the chunks (``PB_RED``)."""
+    tiles = plan["d_tiles"] * plan["c_tiles"]
+    if u < plan["n_dw"]:
+        chunk, tile = divmod(u, tiles)
+        k0 = chunk * plan["chunk_rows"]
+        return (PB_DW, tile // plan["c_tiles"], tile % plan["c_tiles"], chunk, k0,
+                min(m, k0 + plan["chunk_rows"]))
+    if u < plan["n_dw"] + plan["n_do"]:
+        ti, tj = divmod(u - plan["n_dw"], plan["d_tiles"])
+        return (PB_DO, ti, tj, 0, 0, nc)
+    tile, part = divmod(u - plan["n_dw"] - plan["n_do"], PB_TILE // PB_RED_ROWS)
+    return (PB_RED, tile // plan["c_tiles"], tile % plan["c_tiles"], 0, part * PB_RED_ROWS,
+            (part + 1) * PB_RED_ROWS)
+
+
+def proj_bwd_units(plan: dict, m: int, nc: int) -> list:
+    """Each persistent block's units in order: block b takes units b,
+    b + grid, ... (``proj_bwd_unit``)."""
+    return [[proj_bwd_unit(plan, m, nc, u) for u in range(b, plan["units"], plan["grid"])]
+            for b in range(plan["grid"])]
+
+
+def proj_bwd_workspace(plan: dict, d: int, nc: int) -> dict:
+    """``proj_bwd_workspace``: byte offsets of the arrival counters (d_W's
+    tiles when there is more than one chunk, the column sums' blocks), of
+    d_W's f32 partials [chunks, D, Nc] (more than one chunk) and of the
+    column sums' partials [2, col_splits, Nc], and the total."""
+    n_counters = ((plan["d_tiles"] * plan["c_tiles"] if plan["chunks"] > 1 else 0)
+                  + (_cdiv(nc, PB_COL) if plan["col_splits"] > 0 else 0))
+    part = 4 * _cdiv(n_counters, PB_COUNTERS_ALIGN) * PB_COUNTERS_ALIGN
+    col = part + (4 * plan["chunks"] * d * nc if plan["chunks"] > 1 else 0)
+    return dict(counters=0, part=part, col=col, bytes=col + 4 * 2 * plan["col_splits"] * nc)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def qkv_proj_bwd_ref(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4):
+    """Plain PyTorch version of K5's projection backward (``qkv_proj_bwd``):
+    (d_o, d_w, d_b, d_layerscale) from the output gradient, the weight, bias
+    and LayerScale, the heads' outputs o [B, N, D] and, with LayerScale, the
+    projection before it ``pre`` [B, N, D_out] f32; None for what ``needs``
+    does not want or an input that is None. Rounding as the plain version's
+    autograd: G' = G · LayerScale in f32, d_o = G'·Wᵀ rounded to o's dtype,
+    d_w = oᵀ·G' in W's dtype, d_b and d_layerscale summed in f32."""
+    want_o, want_w, want_b, want_ls = needs
+    d = o.shape[-1]
+    g = _f32(grad)
+    gp = g * _f32(layerscale) if layerscale is not None else g
+    d_o = (gp @ _f32(w_proj).t()).to(o.dtype) if want_o else None
+    d_w = None
+    if want_w:
+        d_w = (_f32(o).reshape(-1, d).t() @ gp.reshape(-1, gp.shape[-1])).to(w_proj.dtype)
+    d_b = gp.sum((0, 1)) if want_b and b_proj is not None else None
+    d_ls = (g * pre).sum((0, 1)) if want_ls and layerscale is not None else None
+    return d_o, d_w, d_b, d_ls
 
 
 def flash_attention_qkv_proj_bwd_ref(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, *,
@@ -346,25 +447,20 @@ def flash_attention_qkv_proj_bwd_ref(grad, qkv, w_proj, b_proj, layerscale, o, l
     arguments: the output gradient, the inputs, and what the forward kept
     (o, the heads' outputs [B, N, D]; lse [B, H, N]; pre = o·W + b before
     LayerScale [B, N, D_out] f32, or None) -> (d_qkv, d_w_proj, d_b_proj,
-    d_layerscale, d_residual), None for an input that is None. Rounding
-    as the plain version's autograd: G' = G · LayerScale in f32, d_o =
-    G'·Wᵀ rounded to qkv's dtype, then the attention backward
-    (``attention_bwd_math`` with K5's pre-scaled q)."""
+    d_layerscale, d_residual), None for an input that is None: the
+    projection backward (``qkv_proj_bwd_ref``), then the attention backward
+    (``attention_bwd_math`` with K5's pre-scaled q) on its d_o."""
     b, n, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
     scale = hd ** -0.5 if scale is None else float(scale)
-    g = _f32(grad)
-    gp = g * _f32(layerscale) if layerscale is not None else g
-    d_b = None if b_proj is None else gp.sum((0, 1)).to(b_proj.dtype)
-    d_ls = None if layerscale is None else (g * pre).sum((0, 1)).to(layerscale.dtype)
-    d_w = (_f32(o).reshape(-1, d).t() @ gp.reshape(-1, gp.shape[-1])).to(w_proj.dtype)
-    d_o = (gp @ _f32(w_proj).t()).to(qkv.dtype)
+    d_o, d_w, d_b, d_ls = qkv_proj_bwd_ref(grad, w_proj, b_proj, layerscale, o, pre)
     q, k, v = _split_heads(qkv, num_heads)
     grads = attention_bwd_math(q, k, v, _heads(o, num_heads), lse, _heads(d_o, num_heads),
                                scale=scale, prescale_q=True)
     d_qkv = torch.cat([t.transpose(1, 2).reshape(b, n, d) for t in grads], dim=-1)
-    return d_qkv, d_w, d_b, d_ls, grad
+    return (d_qkv, d_w, None if d_b is None else d_b.to(b_proj.dtype),
+            None if d_ls is None else d_ls.to(layerscale.dtype), grad)
 
 
 def qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4,
@@ -374,8 +470,18 @@ def qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4,
     gradient ``grad`` [B, N, D_out], the weight, bias and LayerScale, the
     kept attention output ``o`` [B, N, D] (contiguous) and, with LayerScale,
     the projection before it ``pre``; ``needs`` says which are wanted (None
-    for the others). ``flash_attention_qkv_proj_bwd`` checks the shapes
-    and then runs it before the attention backward."""
+    for the others; d_b and d_layerscale in f32). CPU tensors take the
+    plain version (``qkv_proj_bwd_ref``); on CUDA tensors one persistent
+    kernel computes d_o and d_w (``proj_bwd_plan``'s units), after a small
+    one for d_b and d_layerscale, with ``proj_bwd_workspace``'s scratch;
+    after each launch ``qkv_proj_bwd.last_call`` holds the plan, the
+    scratch's bytes and the launches (kernels and memsets).
+    ``flash_attention_qkv_proj_bwd`` checks the shapes and then runs it
+    before the attention backward."""
+    tensors = [t for t in (grad, w_proj, b_proj, layerscale, o, pre) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return qkv_proj_bwd_ref(grad, w_proj, b_proj, layerscale, o, pre, needs=needs)
+    _launch.require_cuda(name, *tensors)
     want_o, want_w, want_b, want_ls = needs
     want_b = want_b and b_proj is not None
     want_ls = want_ls and layerscale is not None
@@ -383,18 +489,17 @@ def qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4,
     d_out = w_proj.shape[1]
     code = _launch.dtype_code(o, name)
     m = b * n
-    _launch.check_gemm_rows(m, name)
+    if d % 8 or d_out % 8:
+        raise ValueError(f"{name}: D={d} and D_out={d_out} must be multiples of 8")
+    if not o.is_contiguous() or o.data_ptr() % 16:
+        raise ValueError(f"{name}: o must be contiguous and 16-byte aligned")
     grad = grad.contiguous()
     dev = o.device
     f32 = dict(dtype=torch.float32, device=dev)
-    gp = torch.empty((m, d_out), **f32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunks, rows = _dw_chunks(m, d, d_out, sms)
-    row_blocks = -(-(chunks * rows if want_w else m) // 32)   # the column sums' row blocks
-    colsum = torch.empty((2, row_blocks, d_out), **f32)
-    gpt = torch.empty((chunks, d_out, rows), **f32) if want_w else None
-    ot = torch.empty((chunks, d, rows), **f32) if want_w else None
-    part = torch.empty((chunks, d, d_out), **f32) if want_w else None
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    plan = proj_bwd_plan(m, d, d_out, sms, want_o, want_w, want_b or want_ls)
+    ws = proj_bwd_workspace(plan, d, d_out)
+    work = torch.empty(max(ws["bytes"], 16), dtype=torch.uint8, device=dev)
     d_o = torch.empty((b, n, d), dtype=o.dtype, device=dev) if want_o else None
     d_w = torch.empty((d, d_out), dtype=w_proj.dtype, device=dev) if want_w else None
     d_b = torch.empty(d_out, **f32) if want_b else None
@@ -403,12 +508,18 @@ def qkv_proj_bwd(grad, w_proj, b_proj, layerscale, o, pre, *, needs=(True,) * 4,
     gamma = None if layerscale is None else layerscale.float().contiguous()
     rc = _build.load_library().anyloc_qkv_proj_bwd(
         grad.data_ptr(), _launch.ptr(pre), _launch.ptr(gamma), w32.data_ptr(), o.data_ptr(),
-        gp.data_ptr(), colsum.data_ptr(), _launch.ptr(gpt), _launch.ptr(ot), _launch.ptr(part),
-        _launch.ptr(d_o), _launch.ptr(d_w), _launch.ptr(d_b), _launch.ptr(d_ls), code,
-        _launch.dtype_code(w_proj, name), m, d, d_out, chunks, rows, row_blocks,
-        _launch.stream(o))
+        work.data_ptr(), _launch.ptr(d_o), _launch.ptr(d_w), _launch.ptr(d_b),
+        _launch.ptr(d_ls), code, _launch.dtype_code(w_proj, name), m, d, d_out, sms,
+        plan["chunks"], plan["chunk_rows"], plan["col_splits"], _launch.stream(o))
     _build.check(rc, name)
+    qkv_proj_bwd.last_call = dict(
+        plan=plan, workspace_bytes=ws["bytes"],
+        kernels=int(plan["col_splits"] > 0) + int(plan["units"] > 0),
+        memsets=int(ws["part"] > 0))
     return d_o, d_w, d_b, d_ls
+
+
+qkv_proj_bwd.last_call = None
 
 
 def flash_attention_qkv_proj_bwd(grad, qkv, w_proj, b_proj, layerscale, o, lse, pre, *,

@@ -9,16 +9,22 @@ Cases, random inputs from a torch seed on the card:
     the attention backward alone on them (``attention_bwd_launch``), whose
     time autograd's own work on the host does not cover;
   * ``k5``: ``QkvProjGrad``'s backward under autograd at the dvgl vit
-    step's qkv [48, 197, 2304] float32 (12 heads of 64), then its two halves
-    alone on the same tensors: the attention backward on K5's strided views
-    of qkv (``attention_bwd_launch``, pre-scaled q) and, where the tree has
-    it, the projection backward (``qkv_proj_bwd``).
+    step's qkv [48, 197, 2304] (12 heads of 64), float32 and bfloat16, then
+    its two halves alone on the same tensors: the attention backward on K5's
+    strided views of qkv (``attention_bwd_launch``, pre-scaled q) and, where
+    the tree has it, the projection backward (``qkv_proj_bwd``: d_o, d_W,
+    d_b), beside its plain version (``qkv_proj_bwd_ref``, where the tree has
+    it) and the library's route (two ``torch.mm`` in full float32 and a
+    column sum: not one call), with the peak memory a call allocates beyond
+    its outputs (its scratch) and, with ``--profile``, its launches split
+    by kernel (``torch.profiler``, device time per call).
 Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
 bound is the larger of the operations (3xTF32 for float32: three tf32
-products an f32 one, at 494.7 TFLOP/s) and the bytes (each input read once,
-each output written once, at 3.35 TB/s), one H100 SXM's dense peaks.
+products an f32 one, at 494.7 TFLOP/s; bfloat16 at 989 TFLOP/s) and the
+bytes (each input read once, each output written once, at 3.35 TB/s), one
+H100 SXM's dense peaks.
 
-    python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR]
+    python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR] [--profile]
 
 ``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive``), so that two trees are timed
@@ -45,7 +51,64 @@ def bound(ops: float, nbytes: float, dtype: str) -> dict:
                 bound_by="operations" if op_s >= by_bytes else "bytes")
 
 
-def run(iters: int = 10, seed: int = 0) -> dict:
+def projection_half(attn_proj, args, iters: int, profile: bool, **bounds) -> dict:
+    """K5's projection backward alone (``qkv_proj_bwd``) on ``args``: its
+    time, its plain version's (where the tree has ``qkv_proj_bwd_ref``),
+    the library's route (d_o and d_W as two ``torch.mm`` in full float32,
+    d_b a column sum), the memory a call allocates beyond its outputs, the
+    launches a call makes (``qkv_proj_bwd.last_call``, where the tree has
+    it) and, with ``profile``, the device time per call of each kernel it
+    launches."""
+    import torch
+
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    proj = attn_proj.qkv_proj_bwd
+    grad, w, bias, _, o, _ = args
+    r = dict(ms=time_ms(lambda: proj(*args), iters=iters), **bounds)
+    plain = getattr(attn_proj, "qkv_proj_bwd_ref", None)
+    if plain is not None:
+        r["plain_ms"] = time_ms(lambda: plain(*args), iters=max(1, iters // 2))
+    d = o.shape[-1]
+    g2, o2, w2 = grad.reshape(-1, grad.shape[-1]).float(), o.reshape(-1, d).float(), w.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32, as the kernel's 3xTF32
+    try:
+        r["library_ms"] = time_ms(lambda: (torch.mm(g2, w2.t()), torch.mm(o2.t(), g2),
+                                           g2.sum(0)), iters=iters)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    outs = proj(*args)
+    torch.cuda.synchronize()
+    r["scratch_mib"] = (torch.cuda.max_memory_allocated() - base
+                        - sum(x.nbytes for x in outs if x is not None)) / 2 ** 20
+    call = getattr(proj, "last_call", None)
+    if call is not None:
+        r["launches_per_call"] = dict(kernels=call["kernels"], memsets=call["memsets"])
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+
+        calls = 5
+        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                proj(*args)
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            if us > 0 and e.key not in ("cudaLaunchKernel", "cudaMemsetAsync"):
+                split[e.key] = dict(ms_per_call=us / 1e3 / calls, count_per_call=e.count / calls)
+        r["profile"] = split
+    return r
+
+
+def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
     import torch
 
     from anyloc_tpu_torch.ops import kernels as K
@@ -91,39 +154,47 @@ def run(iters: int = 10, seed: int = 0) -> dict:
     b, n, h, hd = 48, 197, 12, 64
     d, m = h * hd, b * n
     scale = hd ** -0.5
-    inputs = train_checks.k5_inputs(b, n, h, hd)
-    wanted = [t for t in inputs.values() if t is not None]
-    o = K.flash_attention_qkv_proj(num_heads=h, **inputs)
-    go = torch.randn(o.shape, generator=g, device=dev)
-    k5 = f"k5 qkv [{b},{n},{3 * d}] float32"
-    out["cases"][k5] = dict(
-        ms=time_ms(lambda: torch.autograd.grad(o, wanted, go, retain_graph=True), iters=iters),
-        **bound(10 * b * h * n * n * hd + 4 * m * d * d,
-                4 * (2 * m * 3 * d + 2 * d * d + 2 * m * d + d), "float32"))
-    with torch.no_grad():   # the attention half alone, on K5's views of qkv
-        qkv = inputs["qkv"].detach()
-        q, k, v = attn_proj._split_heads(qkv, h)
-        s = (q * scale) @ k.transpose(-1, -2)
-        lse = torch.logsumexp(s, dim=-1).contiguous()
-        att = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(b, n, d).contiguous()
-        d_o = torch.randn((b, n, d), generator=g, device=dev)
-        d_qkv = torch.empty_like(qkv)
-        dq, dk, dv = attn_proj._split_heads(d_qkv, h)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        esz = 4 if dtype == torch.float32 else 2
+        inputs = train_checks.k5_inputs(b, n, h, hd, dtype)
+        wanted = [t for t in inputs.values() if t is not None]
+        o = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+        go = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+        k5 = f"k5 qkv [{b},{n},{3 * d}] {name}"
+        out["cases"][k5] = dict(
+            ms=time_ms(lambda: torch.autograd.grad(o, wanted, go, retain_graph=True),
+                       iters=iters),
+            **bound(10 * b * h * n * n * hd + 4 * m * d * d,
+                    esz * (2 * m * 3 * d + 2 * d * d + 2 * m * d) + 4 * d, name))
+        with torch.no_grad():   # the attention half alone, on K5's views of qkv
+            qkv = inputs["qkv"].detach()
+            q, k, v = attn_proj._split_heads(qkv, h)
+            s = (q.float() * scale) @ k.float().transpose(-1, -2)
+            lse = torch.logsumexp(s, dim=-1).contiguous()
+            att = (torch.softmax(s, dim=-1) @ v.float()).transpose(1, 2).reshape(b, n, d)
+            att = att.to(dtype).contiguous()
+            del s
+            d_o = torch.randn((b, n, d), generator=g, device=dev).to(dtype)
+            d_qkv = torch.empty_like(qkv)
+            dq, dk, dv = attn_proj._split_heads(d_qkv, h)
 
-        def attention():
-            attention_bwd_launch(
-                q, k, v, attn_proj._heads(att, h), lse, attn_proj._heads(d_o, h), dq, dk, dv,
-                scale=scale, prescale_q=True, name="bench_attention_bwd")
+            def attention():
+                attention_bwd_launch(
+                    q, k, v, attn_proj._heads(att, h), lse, attn_proj._heads(d_o, h), dq, dk,
+                    dv, scale=scale, prescale_q=True, name="bench_attention_bwd")
 
-        out["cases"][k5 + " attention half"] = dict(
-            ms=time_ms(attention, iters=iters),
-            **bound(10 * b * h * n * n * hd, 4 * 8 * m * d, "float32"))
-        proj = getattr(attn_proj, "qkv_proj_bwd", None)
-        if proj is not None:
-            args = (go, inputs["w_proj"].detach(), inputs["b_proj"], None, att, None)
-            out["cases"][k5 + " projection half"] = dict(
-                ms=time_ms(lambda: proj(*args), iters=iters),
-                **bound(4 * m * d * d, 4 * (3 * m * d + 2 * d * d + d), "float32"))
+            out["cases"][k5 + " attention half"] = dict(
+                ms=time_ms(attention, iters=iters),
+                **bound(10 * b * h * n * n * hd, esz * 8 * m * d, name))
+            proj = getattr(attn_proj, "qkv_proj_bwd", None)
+            if proj is not None:
+                args = (go, inputs["w_proj"].detach(), inputs["b_proj"].detach(), None, att,
+                        None)
+                out["cases"][k5 + " projection half"] = projection_half(
+                    attn_proj, args, iters, profile,
+                    **bound(4 * m * d * d, esz * (3 * m * d + 2 * d * d) + 4 * d, name))
+        del inputs, wanted, o, go
     return out
 
 
@@ -132,11 +203,15 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="the checkout to import anyloc_tpu_torch from (default: this one)")
+    ap.add_argument("--profile", action="store_true",
+                    help="split the projection half into its kernels (torch.profiler)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
-    res = run(args.iters)
+    res = run(args.iters, profile=args.profile)
     for case, r in res["cases"].items():
-        lib = f", SDPA's backward {r['library_ms']:.4f} ms" if "library_ms" in r else ""
+        lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms") if k in r)
+        if "scratch_mib" in r:
+            lib += f", scratch {r['scratch_mib']:.1f} MiB"
         print(f"[{res['card']}] {case}: {r['ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
     print(json.dumps(res), flush=True)

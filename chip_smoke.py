@@ -2815,8 +2815,13 @@ def train_phase(root: Path, work: Path, tag: str) -> dict:
           f"{bwd_fma['bound_ms']:.4f} ms; largest difference between two backward calls "
           f"{spread:.3e} (bound 0: no atomics); the forward under autograd (kernel + saved "
           f"tensors) {fwd_ms:.3f} ms; apart: the projection backward "
-          f"{halves['projection']['ms']:.3f} ms (bound {halves['projection']['bound_ms']:.4f}, "
-          f"{halves['projection']['bound_by']}), the attention backward "
+          f"{halves['projection']['ms']:.4f} ms (bound {halves['projection']['bound_ms']:.4f}, "
+          f"{halves['projection']['bound_by']}; plain version "
+          f"{halves['projection']['plain_ms']:.3f} ms, torch.mm x2 + column sum "
+          f"{halves['projection']['library_ms']:.4f} ms; peak scratch "
+          f"{halves['projection']['scratch_mib']:.1f} MiB; "
+          f"{halves['projection']['kernels_per_call']} kernels + "
+          f"{halves['projection']['memsets_per_call']} memset a call), the attention backward "
           f"{halves['attention']['ms']:.3f} ms on the {halves['attention']['route']} route "
           f"(bound {halves['attention']['bound_ms']:.4f}, {halves['attention']['bound_by']})",
           flush=True)
@@ -2944,7 +2949,11 @@ def k5_backward_halves(inputs: dict, gout, h: int) -> dict:
     from the plain math; no LayerScale): the projection backward
     (``qkv_proj_bwd``: d_o, d_W, d_b) and the attention backward on strided
     views of qkv (``attention_bwd_launch``, pre-scaled q), each timed beside
-    its 3xTF32 bound, the attention with the route it ran."""
+    its 3xTF32 bound, the attention with the route it ran; the projection
+    also beside its plain version (``qkv_proj_bwd_ref``) and the library's
+    route (two ``torch.mm`` in full float32 and a column sum: not one call),
+    with the memory a call allocates beyond its outputs (its scratch) and
+    the launches it makes."""
     import torch
 
     from anyloc_tpu_torch.ops import kernels as K
@@ -2978,12 +2987,32 @@ def k5_backward_halves(inputs: dict, gout, h: int) -> dict:
 
         att_ms = time_ms(attention, iters=10, reps=3)
         check(counter.launches > before, f"the attention backward did not run on {route}")
-        proj_ms = time_ms(lambda: attn_proj.qkv_proj_bwd(gout, w, inputs["b_proj"], None, o, None),
-                          iters=10, reps=3)
+        args = (gout, w, inputs["b_proj"].detach(), None, o, None)
+        proj_ms = time_ms(lambda: attn_proj.qkv_proj_bwd(*args), iters=10, reps=3)
+        plain_ms = time_ms(lambda: attn_proj.qkv_proj_bwd_ref(*args), iters=5, reps=2)
+        g2, o2 = gout.reshape(m, -1), o.reshape(m, d)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False   # full float32
+        try:
+            lib_ms = time_ms(lambda: (torch.mm(g2, w.t()), torch.mm(o2.t(), g2), g2.sum(0)),
+                             iters=10, reps=3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outs = attn_proj.qkv_proj_bwd(*args)
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated() - base
+                   - sum(x.nbytes for x in outs if x is not None))
+        call = attn_proj.qkv_proj_bwd.last_call
     return dict(
         attention=dict(ms=att_ms, route=route,
                        **bound({"tf32": TF32X3 * 10 * b * h * n * n * hd}, 4 * 8 * m * d)),
-        projection=dict(ms=proj_ms,
+        projection=dict(ms=proj_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        library_route="torch.mm x2 (full float32) + a column sum: not one call",
+                        scratch_mib=scratch / 2 ** 20, workspace_bytes=call["workspace_bytes"],
+                        kernels_per_call=call["kernels"], memsets_per_call=call["memsets"],
                         **bound({"tf32": TF32X3 * 4 * m * d * d},
                                 4 * (3 * m * d + 2 * d * d + d))))
 

@@ -266,6 +266,42 @@ def test_backward_wrappers_on_cpu_tensors_take_their_plain_versions():
             "Kab_attention_bwd_wgmma", "Kab_attention_bwd_mma_sync"} <= set(before)
 
 
+PROJ_SHAPES = [(2, 1, 32, 16, True), (2, 9, 64, 24, False), (3, 65, 40, 136, True)]
+
+
+@pytest.mark.parametrize("b,n,d,d_out,ls", PROJ_SHAPES,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else ("ls" if v else "-"))
+@pytest.mark.parametrize("needs", [(True,) * 4, (True, False, True, False),
+                                   (False, True, False, True)], ids=["all", "o-b", "w-ls"])
+def test_projection_backward_on_cpu_matches_jax_vjp(b, n, d, d_out, ls, needs):
+    """K5's projection backward alone (``qkv_proj_bwd``; on CPU tensors its
+    plain version) against ``jax.vjp`` of (o·W + b)·γ + residual in jnp, in
+    float32: d_o, d_W, d_b and d_γ within 1e-5 of each one's largest
+    |value|; what ``needs`` leaves out is None."""
+    from anyloc_tpu_torch.ops.kernels.attn_proj import qkv_proj_bwd
+
+    o, grad, res = (torch.from_numpy(a) for a in _arrays((b, n, d), 1, 30) +
+                    _arrays((b, n, d_out), 2, 31))
+    w, = (torch.from_numpy(a) for a in _arrays((d, d_out), 1, 32, scale=d ** -0.5))
+    bias, gamma = (torch.from_numpy(a) for a in _arrays((d_out,), 2, 33, scale=0.5))
+    gamma = gamma if ls else None
+    pre = o @ w + bias if ls else None
+
+    def proj(o_, w_, b_, g_):
+        out = o_ @ w_ + b_
+        return (out * g_ if ls else out) + jnp.asarray(res.numpy())
+
+    _, vjp = jax.vjp(proj, *(jnp.asarray(t.numpy()) for t in (o, w, bias)),
+                     jnp.ones(d_out) if gamma is None else jnp.asarray(gamma.numpy()))
+    want = vjp(jnp.asarray(grad.numpy()))
+    got = qkv_proj_bwd(grad, w, bias, gamma, o, pre, needs=needs)
+    for name, a, wt, need in zip(("d_o", "d_w", "d_b", "d_ls"), got, want, needs):
+        if not need or (name == "d_ls" and not ls):
+            assert a is None, name
+            continue
+        assert _rel(a.numpy(), wt) <= F32_BOUND, name
+
+
 # ---------------------------------------------------------------- the route table
 
 # the attention backward's kernel for each (head dim, dtype), written out:

@@ -1416,6 +1416,78 @@ def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, ls, dtype):
     assert r["out_err"] <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+# K5's projection backward alone (qkv_proj_bwd): (B, N, D, D_out) at the vit
+# step's width, ViT-H's, a ragged M under one 128-row tile, one row, D !=
+# D_out with D_out a multiple of 8 and not of 128
+PROJ_BWD_SHAPES = [(48, 197, 768, 768), (4, 257, 1280, 1280), (2, 45, 256, 256),
+                   (1, 1, 64, 64), (3, 77, 200, 136)]
+# (bias, LayerScale, needs: d_o, d_W, d_b, d_LayerScale)
+PROJ_BWD_CONFIGS = [(True, False, (True,) * 4), (True, True, (True,) * 4),
+                    (False, True, (False, True, False, True)),
+                    (True, False, (True, False, True, False)),
+                    (False, False, (False, True, False, False)),
+                    (True, True, (False, False, True, True))]
+
+
+@pytest.mark.parametrize("config", PROJ_BWD_CONFIGS,
+                         ids=["b", "b-ls", "w-ls", "o-b", "w", "b-ls-sums"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,d_out", PROJ_BWD_SHAPES,
+                         ids=["vit-step", "vit-h", "m90", "m1", "d200-c136"])
+def test_projection_backward_matches_its_plain_version(b, n, d, d_out, dtype, config):
+    """K5's projection backward alone (``qkv_proj_bwd``: the persistent
+    3xTF32 kernel, the column sums before it) against its plain version
+    (``qkv_proj_bwd_ref``) on the same tensors: float32 within 1e-4 of each
+    gradient's largest |value|; bfloat16 by ``train_checks.bf16_errors``
+    with the float64 gradient. What ``needs`` leaves out is None; two calls
+    are bit-equal; the call allocates no more than its outputs, the scratch
+    ``proj_bwd_workspace`` states and W's f32 copy (a bf16 W), each
+    allocation counted as the caching allocator counts it (512-byte units;
+    a block over 1 MiB may keep an unsplit remainder of its segment below
+    1 MiB)."""
+    from anyloc_tpu_torch.ops.kernels.attn_proj import (proj_bwd_workspace, qkv_proj_bwd,
+                                                        qkv_proj_bwd_ref)
+    from anyloc_tpu_torch.tools import train_checks
+
+    bias_on, ls_on, needs = config
+    o = _randn(b, n, d, dtype=dtype, seed=1, scale=0.5)
+    grad = _randn(b, n, d_out, dtype=dtype, seed=2)
+    w = _randn(d, d_out, dtype=dtype, seed=3, scale=d ** -0.5)
+    bias = _randn(d_out, seed=4, scale=0.1) if bias_on else None
+    gamma = _randn(d_out, seed=5, scale=0.5) if ls_on else None
+    pre = (o.float() @ w.float() + (0 if bias is None else bias)) if ls_on else None
+    args = (grad, w, bias, gamma, o, pre)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = qkv_proj_bwd(*args, needs=needs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    call = qkv_proj_bwd.last_call
+    again = qkv_proj_bwd(*args, needs=needs)
+    want = qkv_proj_bwd_ref(*args, needs=needs)
+    exact = qkv_proj_bwd_ref(*(None if t is None else t.double() for t in args), needs=needs)
+    torch.cuda.synchronize()
+    names = ("d_o", "d_w", "d_b", "d_ls")
+    present = [x is not None for x in want]
+    assert [x is not None for x in got] == present
+    assert present == [needs[0], needs[1], needs[2] and bias_on, needs[3] and ls_on]
+    for a, c in zip(got, again):
+        assert a is None or torch.equal(a, c)
+    kept = [i for i, x in enumerate(got) if x is not None]
+    r = train_checks._grad_report(
+        [names[i] for i in kept], [got[i] for i in kept], [want[i] for i in kept],
+        None if dtype == torch.float32 else [exact[i] for i in kept])
+    assert r["grads_ok"], r
+    ws = proj_bwd_workspace(call["plan"], d, d_out)["bytes"]
+    assert call["workspace_bytes"] == ws
+    sizes = [max(ws, 16)] + [x.nbytes for x in got if x is not None]
+    if dtype != torch.float32:
+        sizes.append(4 * d * d_out)
+    stated = sum(-(-x // 512) * 512 + (2 ** 20 if x > 2 ** 20 else 0) for x in sizes)
+    assert peak <= stated, (peak, stated)
+
+
 K2_GRAD_CASES = [(48, 6, 197, 64, torch.float32), (2, 4, 300, 80, torch.float32),
                  (2, 8, 257, 64, torch.bfloat16), (2, 3, 65, 16, torch.float32),
                  (2, 3, 65, 32, torch.bfloat16), (2, 2, 130, 128, torch.float32),

@@ -19,11 +19,18 @@ splits each operand once: K, V and K^T per key block, Q, dO, Q^T and dO^T
 per query step, P^T in registers, and dS once (the same hi and lo feed dK
 from registers and dQ^T from shared memory); its five products are
 emulated here at a tensor-parallel rank's [4 x 6, 197, 64] heads.
+
+K5's projection backward (``csrc/attn_qkv_proj_bwd.cu``) forms G' = G ∘ γ
+in f32 before the split, runs d_o = G' W^T over the columns and d_W = o^T G'
+over the rows in chunks (``proj_bwd_plan``), each chunk's f32 partial added
+in chunk order; emulated here at K5's f32 widths.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from anyloc_tpu_torch.ops.kernels.attn_proj import proj_bwd_plan
 
 F32_BOUND = 2e-5
 
@@ -185,3 +192,50 @@ def test_attention_backward_within_the_f32_bound(one):
         assert max(errs) > F32_BOUND
     else:
         assert max(errs) <= F32_BOUND, errs
+
+
+@pytest.mark.parametrize("one", [False, True], ids=["3xtf32", "one-tf32-product"])
+@pytest.mark.parametrize("k,layerscale", [(768, False), (1024, True), (1280, False)])
+def test_projection_backward_within_the_f32_bound(k, layerscale, one):
+    """d_o = G' W^T and d_W = o^T G' as the persistent kernel computes them
+    at dvgl ViT-B/16 (768, no LayerScale), CLIP-L (1024, with it) and
+    ImageBind-H (1280) widths over 2400 rows (128 of D's rows, all of the
+    reduction's): G' = G ∘ γ rounded to f32 before the split; d_W's chunks of
+    ``proj_bwd_plan`` (4 at 768) summed in float64 inside a chunk, rounded
+    to f32, then added in chunk order in f32. Each within 2e-5 of its
+    largest |value| from the float64 products; one tf32 product falls
+    outside."""
+    m, d = 2400, 128
+    grad = _randn(m, k, seed=20)
+    gamma = _randn(k, seed=21, scale=0.5) if layerscale else None
+    o = _randn(m, d, seed=22, scale=0.3)
+    w = _randn(d, k, seed=23, scale=k ** -0.5)
+    gp = grad * gamma if layerscale else grad          # f32, rounded once
+    prod = tf32x1 if one else tf32x3
+    d_o = prod(gp, w.t()).float()
+    plan = proj_bwd_plan(m, d, k, 132)
+    assert plan["chunks"] > 1
+    d_w = None
+    for c in range(plan["chunks"]):
+        rows = slice(c * plan["chunk_rows"], min(m, (c + 1) * plan["chunk_rows"]))
+        part = prod(o[rows].t(), gp[rows]).float()
+        d_w = part if d_w is None else d_w + part       # f32 adds, chunk order
+    errs = [_err(got, want) / want.abs().max().item()
+            for got, want in ((d_o, mm64(gp, w.t())), (d_w, mm64(o.t(), gp)))]
+    if one:
+        assert max(errs) > F32_BOUND
+    else:
+        assert max(errs) <= F32_BOUND, errs
+
+
+def test_bf16_o_needs_no_lo():
+    """bf16 values are exact in tf32: their split's lo is 0, so in bf16's
+    d_W the product that reads o's lo adds zeros (the kernel runs it, on the
+    f32 path's code) and the three products sum to the two others."""
+    o = _randn(512, 64, seed=24).to(torch.bfloat16).float()
+    hi, lo = split(o)
+    assert torch.equal(hi, o) and not lo.any()
+    gp = _randn(512, 96, seed=25) * _randn(96, seed=26, scale=0.5)
+    gh, gl = split(gp)
+    two = mm64(hi.t(), tf32_read(gl)) + mm64(hi.t(), gh)
+    assert torch.equal(two, tf32x3(o.t(), gp))
