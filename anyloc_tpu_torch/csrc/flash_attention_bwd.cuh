@@ -37,39 +37,47 @@
 // Two kernels, chosen per (head dim, dtype) by a table fixed at build time
 // (attention_bwd_route; ops/kernels/flash_attention.py mirrors it, and the
 // entry refuses a caller whose mirror disagrees):
-//   * attn_bwd_wgmma_kernel (hd 64, f32 and bf16: the dvgl ViT-B/16 step,
-//     tensor-parallel training, DINOv2): every product a warpgroup wgmma
-//     (hopper.cuh), 3xTF32 for f32. A producer thread lands each step's Q
-//     and dO by TMA (4-D maps over the strided views, two stages,
-//     mbarriers); a split warpgroup splits every tile into
-//     tf32 hi and lo once (K, V, K^T once per key block; Q, dO, Q^T, dO^T
-//     once per step) into 128-byte swizzled K-major tiles that the
-//     descriptors name. tf32 wgmma has no transpose bit, so the three
-//     products that reduce over tokens read K-major copies: dV += P^T dO
-//     and dK += dS^T Q take P^T and dS^T from the S^T / dP^T accumulators
-//     in registers (RS) against dO^T and Q^T (each 8 queries stored 0 2 4 6
-//     1 3 5 7, the order of the accumulator's columns in an A fragment, as
-//     the forward's V^T), and dQ is computed as dQ^T = K^T dS^T (M = hd,
-//     N = 32 queries) from K^T and dS, which the consumer warpgroup writes
-//     to shared memory split once. A step's tiles go over in two halves
-//     (Q, dO, LSE, D for S^T and dP^T; Q^T, dO^T for dV and dK), so that
-//     the split warpgroup writes the next step's first half while the
-//     consumers run this one's last products. setmaxnreg gives the
-//     consumers 240 registers. Shared memory at hd 64: 214,352 bytes (f32:
-//     hi and lo of nine tiles, two landing stages), 116,048 (bf16: no lo
-//     but dS's); one block per SM. bf16's D
-//     pass (attn_bwd_delta_kernel) needs only S^T and dP^T, whose operands
-//     are all bf16 inputs: bf16 wgmma on the tiles as TMA lands them, no
-//     split, 51 KB, three blocks per SM.
-//   * attn_bwd_kernel (hd 16, 32, 80, 128): warp-level mma.sync m16n8k8
-//     tf32, four warps of 16 keys, fragments read from one copy of each tile
-//     in any orientation (S^T's and dP^T's by ldmatrix), in 33-140 KB. A
-//     wgmma design needs a K-major copy of seven tiles in hi and lo: at hd
-//     128 f32 the resident K, V and K^T alone take 192 KB, and at hd 16 / 32
-//     / 80 dQ^T's M (= hd) is not a multiple of 64 (ROADMAP: open items). In
-//     development runs on the H100, removing any one of its three product
-//     phases saved only 15-25 %: it is bound by fragment reads and splits,
-//     not by the tensor cores (PERF.md).
+//   * attn_bwd_wgmma_kernel (hd 16, 32, 64, 80 in f32 and bf16, hd 128 in
+//     bf16: the dvgl ViT-B/16 step, tensor-parallel training, DINOv2 at hd
+//     64; MAE-H, ImageBind-H and SAM-H at hd 80): every product a warpgroup
+//     wgmma (hopper.cuh), 3xTF32 for f32. A producer thread lands each
+//     step's Q and dO by TMA (4-D maps over the strided views, two stages,
+//     mbarriers); a split warpgroup splits every tile into tf32 hi and lo
+//     once (K, V, K^T once per key block; Q, dO, Q^T, dO^T once per step)
+//     into swizzled K-major tiles that the descriptors name (128-byte panels
+//     of 32 columns, 64-byte panels of 16 where a row's bytes need them).
+//     tf32 wgmma has no transpose bit, so the three products that reduce
+//     over tokens read K-major copies: dV += P^T dO and dK += dS^T Q take
+//     P^T and dS^T from the S^T / dP^T accumulators in registers (RS)
+//     against dO^T and Q^T (each 8 queries stored 0 2 4 6 1 3 5 7, the order
+//     of the accumulator's columns in an A fragment, as the forward's V^T),
+//     and dQ is computed as dQ^T = K^T dS^T (M = hd, in products of 64 rows;
+//     at hd 16, 32 and 80 the last product's rows past hd read past K^T and
+//     are never stored) from K^T and dS, which the consumer warpgroup writes
+//     to shared memory split once. A step's tiles go over in two halves (Q,
+//     dO, LSE, D for S^T and dP^T; Q^T, dO^T for dV and dK), so that the
+//     split warpgroup writes the next step's first half while the consumers
+//     run this one's last products. setmaxnreg gives the consumers 240
+//     registers. A step is 32 queries, 16 at hd 128 (dK and dV hold 64 x hd
+//     each in registers). Shared memory: 214,352 bytes at hd 64 f32 (hi and
+//     lo of nine tiles, two landing stages), 116,048 at hd 64 bf16 (no lo
+//     but dS's); at hd 80 f32 the landing stages would not fit, so Q and dO
+//     land in place, in their tiles' panels, and are split where they lie
+//     (222,528 bytes; at hd 64, where both fit, landing in place was 9 %
+//     slower on the H100). One block per SM, two at hd 16 (consumers at
+//     136 registers), whose short steps leave one block's chain of
+//     dependent products idle without the other. bf16's D pass
+//     (attn_bwd_delta_kernel) needs only S^T and dP^T, whose operands are
+//     all bf16 inputs: bf16 wgmma on the tiles as TMA lands them, no split,
+//     51 KB at hd 64, three blocks per SM.
+//   * attn_bwd_kernel (hd 128 in f32): warp-level mma.sync m16n8k8 tf32,
+//     four warps of 16 keys, fragments read from one copy of each tile in
+//     any orientation (S^T's and dP^T's by ldmatrix), in 140 KB. The wgmma
+//     kernel's resident K, V and K^T in hi and lo alone would take 196,608
+//     bytes there (ROADMAP: open items). In development runs on the H100,
+//     removing any one of its three product phases saved only 15-25 %: it
+//     is bound by fragment reads and splits, not by the tensor cores
+//     (PERF.md).
 // f32 splits (hopper.cuh's tf32_split) every operand into hi and lo, x = hi
 // + lo, and sums lo·hi + hi·lo + hi·hi (f32-accurate).
 //
@@ -80,9 +88,9 @@
 //   * dP = dO V^T in f32, rounded to bf16 (the backward of .float() on
 //     the bf16 P);
 //   * D = rowsum(P ∘ dP) on the f32 P and that rounded dP, in a first pass
-//     (the mma.sync kernel's DELTA instance, or attn_bwd_delta_kernel
-//     before the wgmma kernel: each key block's share in its slice, summed
-//     in order by the second), since O came from the rounded P;
+//     (attn_bwd_delta_kernel before the wgmma kernel: each key block's
+//     share in its slice, summed in order by the second), since O came
+//     from the rounded P;
 //   * dS = P ∘ (dP − D) in f32;
 //   * dV = P_bf16^T dO with P rounded to bf16 (the forward's PV operand);
 //   * dK, dV, dq rounded to bf16 once at the end; K5's dq as its plain
@@ -152,30 +160,29 @@ static inline int attention_bwd_slices(int B, int H, int N) {
 }
 
 // The route table: which kernel the backward runs at head dim hd and dtype
-// (DT_F32, DT_BF16). The wgmma kernel where its tiles fit a block's shared
-// memory and dQ^T's M (= hd) is a warpgroup's 64 rows; the mma.sync kernel
-// elsewhere. Fixed at build time, never a fallback.
+// (DT_F32, DT_BF16). The wgmma kernel wherever its tiles fit a block's
+// shared memory (BwgTile); the mma.sync kernel at hd 128 in f32, where the
+// resident K, V and K^T in hi and lo alone take 196,608 bytes. Fixed at
+// build time, never a fallback.
 enum { BWD_MMA_SYNC = 0, BWD_WGMMA = 1 };
 constexpr int attention_bwd_route(int hd, int dtype) {
-  return hd == 64 && (dtype == DT_F32 || dtype == DT_BF16) ? BWD_WGMMA : BWD_MMA_SYNC;
+  return dtype == DT_BF16 || (dtype == DT_F32 && hd != 128) ? BWD_WGMMA : BWD_MMA_SYNC;
 }
 
 namespace {
 
-// LO (f32 operands): Q and dO are split once per step into tf32 hi and lo
-// tiles, which every warp reads for two products, instead of each warp
-// splitting each value it reads
-template <int HD, bool LO>
+// The mma.sync kernel's tiles (f32 operands; the route table gives it hd 128
+// only): Q and dO are split once per step into tf32 hi and lo tiles, which
+// every warp reads for two products, instead of each warp splitting each
+// value it reads
+template <int HD>
 struct BwdTile {
   static constexpr int BKV = 64;                   // keys per block, 16 per warp
   static constexpr int BQ = 32;                    // queries per step
   static constexpr int LDH = (HD + 31) / 32 * 32;  // floats per row of an hd-wide tile
   static constexpr int THREADS = 128;
-  // blocks per SM the registers are cut for (chip runs: three at hd 32-64,
-  // four at hd 16; at hd 80 and 128 a cut spills)
-  static constexpr int MIN_BLOCKS = HD == 16 ? 4 : (HD <= 64 ? 3 : 1);
-  // K, V [BKV][LDH]; Q, dO (and their lo) [BQ][LDH]; dS^T [BKV][BQ]; LSE and D [BQ]
-  static constexpr int SMEM = 4 * ((2 * BKV + (LO ? 4 : 2) * BQ) * LDH + BKV * BQ + 2 * BQ);
+  // K, V [BKV][LDH]; Q, dO and their lo [BQ][LDH]; dS^T [BKV][BQ]; LSE and D [BQ]
+  static constexpr int SMEM = 4 * ((2 * BKV + 4 * BQ) * LDH + BKV * BQ + 2 * BQ);
 };
 
 // Column c of row r of a tile is stored at column swz(r, c): bits 2-4 of c
@@ -214,11 +221,12 @@ __device__ __forceinline__ float prescale(float x, float scale) {
   return round_to<T>(__fmul_rn(x, scale));
 }
 
-// Rows row0 .. row0 + rows - 1 of a [N, HD] operand (row stride sn
-// elements) into a swizzled f32 tile; rows past N as zeros. With lo, the
-// tile gets each value's tf32 hi (hopper.cuh's tf32_split) and lo its lo.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float* tile, float* lo, const T* src, long long sn,
+// Rows row0 .. row0 + rows - 1 of a [N, HD] f32 operand (row stride sn
+// elements) into a swizzled tile; rows past N as zeros; pre: times scale
+// (K5's q). With lo, the tile gets each value's tf32 hi (hopper.cuh's
+// tf32_split) and lo its lo.
+template <int HD, int LD>
+__device__ __forceinline__ void load_tile(float* tile, float* lo, const float* src, long long sn,
                                           int row0, int rows, int N, bool pre, float scale) {
   for (int i = threadIdx.x; i < rows * HD / 4; i += 128) {
     const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
@@ -226,10 +234,10 @@ __device__ __forceinline__ void load_tile(float* tile, float* lo, const T* src, 
     if (row0 + r < N) {
       x = load4(src + (row0 + r) * sn + c);
       if (pre) {
-        x.x = prescale<T>(x.x, scale);
-        x.y = prescale<T>(x.y, scale);
-        x.z = prescale<T>(x.z, scale);
-        x.w = prescale<T>(x.w, scale);
+        x.x = __fmul_rn(x.x, scale);
+        x.y = __fmul_rn(x.y, scale);
+        x.z = __fmul_rn(x.z, scale);
+        x.w = __fmul_rn(x.w, scale);
       }
     }
     const int at = r * LD + swz(r, c);
@@ -247,9 +255,7 @@ __device__ __forceinline__ void load_tile(float* tile, float* lo, const T* src, 
   }
 }
 
-// mma.m16n8k8 tf32 fragments, split for 3xTF32 (hopper.cuh's tf32_split):
-// EXACT operands (bf16 data, exact in tf32) keep their value as hi and have
-// no lo product.
+// mma.m16n8k8 tf32 fragments, split for 3xTF32 (hopper.cuh's tf32_split)
 struct FragA {
   uint32_t hi[4], lo[4];
 };
@@ -257,33 +263,18 @@ struct FragB {
   uint32_t hi[2], lo[2];
 };
 
-template <bool EXACT>
 __device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
   FragA f;
   const float a[4] = {a0, a1, a2, a3};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (EXACT) {
-      f.hi[i] = __float_as_uint(a[i]);
-      f.lo[i] = 0u;
-    } else {
-      tf32_split(a[i], f.hi[i], f.lo[i]);
-    }
-  }
+  for (int i = 0; i < 4; ++i) tf32_split(a[i], f.hi[i], f.lo[i]);
   return f;
 }
 
-template <bool EXACT>
 __device__ __forceinline__ FragB split_b(float b0, float b1) {
   FragB f;
-  if (EXACT) {
-    f.hi[0] = __float_as_uint(b0);
-    f.hi[1] = __float_as_uint(b1);
-    f.lo[0] = f.lo[1] = 0u;
-  } else {
-    tf32_split(b0, f.hi[0], f.lo[0]);
-    tf32_split(b1, f.hi[1], f.lo[1]);
-  }
+  tf32_split(b0, f.hi[0], f.lo[0]);
+  tf32_split(b1, f.hi[1], f.lo[1]);
   return f;
 }
 
@@ -310,64 +301,61 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* row) 
 }
 
 // The A fragment of rows r0..r0+15, columns c0..c0+7 (c0 % 8 == 0) of a
-// row-major tile, split (EX: exact)
-template <bool EX, int LD>
+// row-major tile, split
+template <int LD>
 __device__ __forceinline__ FragA ld_frag_a(const float* x, int r0, int c0) {
   const int lane = threadIdx.x & 31, i = lane >> 3;
   const int r = r0 + (lane & 7) + ((i & 1) << 3), c = c0 + ((i & 2) << 1);
   uint32_t v[4];
   ldmatrix_x4(v, x + r * LD + swz(r, c));
-  return split_a<EX>(__uint_as_float(v[0]), __uint_as_float(v[1]), __uint_as_float(v[2]),
-                     __uint_as_float(v[3]));
+  return split_a(__uint_as_float(v[0]), __uint_as_float(v[1]), __uint_as_float(v[2]),
+                 __uint_as_float(v[3]));
 }
 
 // The B fragment B[k][n] = X[n][k] of rows n0..n0+7, columns c0..c0+7 of
-// a split tile (hi, lo; EX: exact, lo not read)
-template <bool EX, int LD>
+// a split tile (hi, lo)
+template <int LD>
 __device__ __forceinline__ FragB ld_frag_b(const float* hi, const float* lo, int n0, int c0) {
   const int lane = threadIdx.x & 31, i = lane >> 3;
   const int r = n0 + (lane & 7), c = c0 + ((i & 1) << 2);
   uint32_t v[4];
-  ldmatrix_x4(v, ((EX || i < 2) ? hi : lo) + r * LD + swz(r, c));
+  ldmatrix_x4(v, (i < 2 ? hi : lo) + r * LD + swz(r, c));
   FragB f;
   f.hi[0] = v[0];
   f.hi[1] = v[1];
-  f.lo[0] = EX ? 0u : v[2];
-  f.lo[1] = EX ? 0u : v[3];
+  f.lo[0] = v[2];
+  f.lo[1] = v[3];
   return f;
 }
 
-// A B fragment from a tile already split (hi, lo; EX: exact, no lo):
-// values (r0, c0) and (r1, c1)
-template <bool EX, int LD>
+// A B fragment from a tile already split (hi, lo): values (r0, c0) and
+// (r1, c1)
+template <int LD>
 __device__ __forceinline__ FragB tile_b(const float* hi, const float* lo, int r0, int c0, int r1,
                                         int c1) {
   FragB f;
   f.hi[0] = __float_as_uint(tile_at<LD>(hi, r0, c0));
   f.hi[1] = __float_as_uint(tile_at<LD>(hi, r1, c1));
-  f.lo[0] = EX ? 0u : __float_as_uint(tile_at<LD>(lo, r0, c0));
-  f.lo[1] = EX ? 0u : __float_as_uint(tile_at<LD>(lo, r1, c1));
+  f.lo[0] = __float_as_uint(tile_at<LD>(lo, r0, c0));
+  f.lo[1] = __float_as_uint(tile_at<LD>(lo, r1, c1));
   return f;
 }
 
-// 3xTF32: lo·hi + hi·lo + hi·hi, less the products of an exact operand's lo
-template <bool EA, bool EB>
+// 3xTF32: lo·hi + hi·lo + hi·hi
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  if (!EA) mma_tf32(d, a.lo, b.hi);
-  if (!EB) mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
 }
 
 // The same for two independent products, d += a·b and e += c·f, issued in
-// turns (lo·hi, hi·lo, hi·hi of each), less the products of an exact
-// operand's lo (EA, EB: a's and b's; EC, EF: c's and f's)
-template <bool EA, bool EB, bool EC, bool EF>
+// turns (lo·hi, hi·lo, hi·hi of each)
 __device__ __forceinline__ void mma3x2(float (&d)[4], const FragA& a, const FragB& b,
                                        float (&e)[4], const FragA& c, const FragB& f) {
-  if (!EA) mma_tf32(d, a.lo, b.hi);
-  if (!EC) mma_tf32(e, c.lo, f.hi);
-  if (!EB) mma_tf32(d, a.hi, b.lo);
-  if (!EF) mma_tf32(e, c.hi, f.lo);
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(e, c.lo, f.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(e, c.hi, f.lo);
   mma_tf32(d, a.hi, b.hi);
   mma_tf32(e, c.hi, f.hi);
 }
@@ -390,21 +378,21 @@ __device__ __forceinline__ float sum_over_g(float x) {  // the 8 lanes of one t
 }
 
 // One block per (group of `per` consecutive key blocks, head, batch), which
-// takes its key blocks in turn; DELTA: only D's pass (bf16).
-template <int HD, typename T, bool DELTA>
-__global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::MIN_BLOCKS))
+// takes its key blocks in turn; f32 operands (one block per SM: a tighter
+// register cut spills at hd 128).
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
     attn_bwd_kernel(AttnBwdArgs p, int n_kb, int per, int n_slices) {
-  constexpr bool EX = !std::is_same_v<T, float>;  // the inputs are exact in tf32
-  using TL = BwdTile<HD, !EX>;
+  using TL = BwdTile<HD>;
   constexpr int BKV = TL::BKV, BQ = TL::BQ, LD = TL::LDH;
   extern __shared__ float4 bw_smem4[];
   float* Ks = reinterpret_cast<float*>(bw_smem4);
   float* Vs = Ks + BKV * LD;
-  float* Qs = Vs + BKV * LD;  // f32: Q's and dO's tf32 hi, then their lo
+  float* Qs = Vs + BKV * LD;  // Q's and dO's tf32 hi, then their lo
   float* Gs = Qs + BQ * LD;   // dO
-  float* Ql = EX ? nullptr : Gs + BQ * LD;
-  float* Gl = EX ? nullptr : Ql + BQ * LD;
-  float* Ss = Gs + (EX ? 1 : 3) * BQ * LD;  // dS^T [BKV][BQ]
+  float* Ql = Gs + BQ * LD;
+  float* Gl = Ql + BQ * LD;
+  float* Ss = Gl + BQ * LD;   // dS^T [BKV][BQ]
   float* Ls = Ss + BKV * BQ;  // LSE · log2 e per query row
   float* Ds = Ls + BQ;        // D per query row
 
@@ -416,10 +404,10 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
   const int g = lane >> 2, t = lane & 3;
   const int kr = warp * 16 + g;  // this thread's key rows kr, kr + 8 of the block
 
-  const T* Qg = static_cast<const T*>(p.q) + b * p.st[BW_Q][0] + h * p.st[BW_Q][1];
-  const T* Kg = static_cast<const T*>(p.k) + b * p.st[BW_K][0] + h * p.st[BW_K][1];
-  const T* Vg = static_cast<const T*>(p.v) + b * p.st[BW_V][0] + h * p.st[BW_V][1];
-  const T* Gg = static_cast<const T*>(p.dout) + b * p.st[BW_DO][0] + h * p.st[BW_DO][1];
+  const float* Qg = static_cast<const float*>(p.q) + b * p.st[BW_Q][0] + h * p.st[BW_Q][1];
+  const float* Kg = static_cast<const float*>(p.k) + b * p.st[BW_K][0] + h * p.st[BW_K][1];
+  const float* Vg = static_cast<const float*>(p.v) + b * p.st[BW_V][0] + h * p.st[BW_V][1];
+  const float* Gg = static_cast<const float*>(p.dout) + b * p.st[BW_DO][0] + h * p.st[BW_DO][1];
   const long long rows = (long long)bh * N;  // this (batch, head)'s first row of LSE, D, dq
   const long long slice = (long long)p.B * p.H * N;  // rows of one key group's scratch slice
   const int kb_end = min((kg + 1) * per, n_kb);
@@ -429,8 +417,8 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
     const bool first = kb == kg * per;
     const int k0 = kb * BKV;
     __syncthreads();  // the last key block's reads of Ks and Vs are done
-    load_tile<T, HD, LD>(Ks, nullptr, Kg, p.st[BW_K][2], k0, BKV, N, false, 0.f);
-    load_tile<T, HD, LD>(Vs, nullptr, Vg, p.st[BW_V][2], k0, BKV, N, false, 0.f);
+    load_tile<HD, LD>(Ks, nullptr, Kg, p.st[BW_K][2], k0, BKV, N, false, 0.f);
+    load_tile<HD, LD>(Vs, nullptr, Vg, p.st[BW_V][2], k0, BKV, N, false, 0.f);
     const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
     const bool kin0 = k0 + kr < N, kin1 = k0 + kr + 8 < N;   // keys past N: P = 0
     // a warp whose 16 keys all lie past N (the last block of a ragged N)
@@ -448,17 +436,12 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
     for (int qb = 0; qb < nq; ++qb) {
       const int q0 = qb * BQ;
       __syncthreads();  // the last step's reads of Qs, Gs, Ss, Ls, Ds are done
-      load_tile<T, HD, LD>(Qs, Ql, Qg, p.st[BW_Q][2], q0, BQ, N, p.prescale_q != 0, p.scale);
-      load_tile<T, HD, LD>(Gs, Gl, Gg, p.st[BW_DO][2], q0, BQ, N, false, 0.f);
+      load_tile<HD, LD>(Qs, Ql, Qg, p.st[BW_Q][2], q0, BQ, N, p.prescale_q != 0, p.scale);
+      load_tile<HD, LD>(Gs, Gl, Gg, p.st[BW_DO][2], q0, BQ, N, false, 0.f);
       for (int i = threadIdx.x; i < BQ; i += 128) {
         const bool in = q0 + i < N;  // rows past N: LSE +inf, so P = 0
         Ls[i] = in ? p.lse[rows + q0 + i] * LOG2E : INFINITY;
-        if (!DELTA) {  // D: f32 one slice; bf16 the key blocks' shares, summed in order
-          float d = 0.f;
-          for (int z = 0; z < (EX ? n_slices : 1) && in; ++z)
-            d += p.delta[z * slice + rows + q0 + i];
-          Ds[i] = d;
-        }
+        Ds[i] = in ? p.delta[rows + q0 + i] : 0.f;  // D = rowsum(dO ∘ O)
       }
       __syncthreads();
 
@@ -471,35 +454,26 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
           for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < HD / 8; ++kk) {  // fragments by ldmatrix
-          const FragA ka = ld_frag_a<EX, LD>(Ks, 16 * warp, 8 * kk);
-          const FragA va = ld_frag_a<EX, LD>(Vs, 16 * warp, 8 * kk);
+          const FragA ka = ld_frag_a<LD>(Ks, 16 * warp, 8 * kk);
+          const FragA va = ld_frag_a<LD>(Vs, 16 * warp, 8 * kk);
 #pragma unroll
           for (int j = 0; j < BQ / 8; ++j) {  // B[k = hd][n = query] = X[query][hd]
-            const FragB qb = ld_frag_b<EX, LD>(Qs, Ql, 8 * j, 8 * kk);
-            const FragB gb = ld_frag_b<EX, LD>(Gs, Gl, 8 * j, 8 * kk);
-            mma3x2<EX, EX, EX, EX>(s[j], ka, qb, dp[j], va, gb);
+            const FragB qb = ld_frag_b<LD>(Qs, Ql, 8 * j, 8 * kk);
+            const FragB gb = ld_frag_b<LD>(Gs, Gl, 8 * j, 8 * kk);
+            mma3x2(s[j], ka, qb, dp[j], va, gb);
           }
         }
 
-        // P^T = exp(S^T − LSE) (log2 domain); bf16: dP rounded to bf16
+        // P^T = exp(S^T − LSE) (log2 domain)
 #pragma unroll
         for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool kin = e < 2 ? kin0 : kin1;
             s[j][e] = kin ? exp2_approx(s[j][e] * c - Ls[8 * j + 2 * t + (e & 1)]) : 0.f;
-            if (EX) dp[j][e] = round_to<T>(dp[j][e]);
           }
 
-        if constexpr (DELTA) {  // D = rowsum(P ∘ dP): this warp's 16 keys' share
-#pragma unroll
-          for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float x = sum_over_g(s[j][e] * dp[j][e] + s[j][e + 2] * dp[j][e + 2]);
-              if (g == 0) Ss[warp * BQ + 8 * j + 2 * t + e] = x;
-            }
-        } else {
+        {
           // dS^T = P^T ∘ (dP^T − D), into dp, and to shared memory for dQ
 #pragma unroll
           for (int j = 0; j < BQ / 8; ++j) {
@@ -517,37 +491,18 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
           // t + 4, so B reads the same two rows of dO and Q
 #pragma unroll
           for (int j = 0; j < BQ / 8; ++j) {
-            float p0 = s[j][0], p1 = s[j][2], p2 = s[j][1], p3 = s[j][3];
-            if (EX) {  // the forward's PV operand: P rounded to bf16
-              p0 = round_to<T>(p0);
-              p1 = round_to<T>(p1);
-              p2 = round_to<T>(p2);
-              p3 = round_to<T>(p3);
-            }
-            const FragA pa = split_a<EX>(p0, p1, p2, p3);
-            const FragA sa = split_a<false>(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+            const FragA pa = split_a(s[j][0], s[j][2], s[j][1], s[j][3]);
+            const FragA sa = split_a(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
             const int qa = 8 * j + 2 * t, qz = qa + 1;
 #pragma unroll
             for (int n = 0; n < HD / 8; ++n) {
               const int col = 8 * n + g;
-              const FragB gb = tile_b<EX, LD>(Gs, Gl, qa, col, qz, col);
-              const FragB qb = tile_b<EX, LD>(Qs, Ql, qa, col, qz, col);
-              mma3x2<EX, EX, false, EX>(dv[n], pa, gb, dk[n], sa, qb);
+              const FragB gb = tile_b<LD>(Gs, Gl, qa, col, qz, col);
+              const FragB qb = tile_b<LD>(Qs, Ql, qa, col, qz, col);
+              mma3x2(dv[n], pa, gb, dk[n], sa, qb);
             }
           }
         }
-      }
-      if constexpr (DELTA) {  // the key block's share of D: its warps' in order, into the slice
-        if (!active)
-          for (int i = lane; i < BQ; i += 32) Ss[warp * BQ + i] = 0.f;
-        __syncthreads();
-        for (int i = threadIdx.x; i < BQ; i += 128)
-          if (q0 + i < N) {
-            float* d = p.delta + kg * slice + rows + q0 + i;
-            const float x = ((Ss[i] + Ss[BQ + i]) + Ss[2 * BQ + i]) + Ss[3 * BQ + i];
-            *d = first ? x : *d + x;
-          }
-        continue;
       }
       __syncthreads();  // dS^T is in shared memory
 
@@ -564,19 +519,18 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
       for (int kk = 0; kk < BKV / 8; ++kk) {
         if (kk == nkk) break;
         const int key = 8 * kk + t, qr = 16 * mt + g;  // A[m = query][k = key] = dS^T[key][query]
-        const FragA a = split_a<false>(tile_at<BQ>(Ss, key, qr), tile_at<BQ>(Ss, key, qr + 8),
-                                       tile_at<BQ>(Ss, key + 4, qr),
-                                       tile_at<BQ>(Ss, key + 4, qr + 8));
+        const FragA a = split_a(tile_at<BQ>(Ss, key, qr), tile_at<BQ>(Ss, key, qr + 8),
+                                tile_at<BQ>(Ss, key + 4, qr), tile_at<BQ>(Ss, key + 4, qr + 8));
 #pragma unroll
         for (int n = 0; n < NT; n += 2) {  // n-tiles in pairs, an odd last one alone
           const int c0 = 8 * (n0 + n) + g;   // B[k = key][n = hd] = K[key][hd]
-          const FragB b0 = split_b<EX>(tile_at<LD>(Ks, key, c0), tile_at<LD>(Ks, key + 4, c0));
+          const FragB b0 = split_b(tile_at<LD>(Ks, key, c0), tile_at<LD>(Ks, key + 4, c0));
           if (n + 1 < NT) {
             const int c1 = c0 + 8;
-            const FragB b1 = split_b<EX>(tile_at<LD>(Ks, key, c1), tile_at<LD>(Ks, key + 4, c1));
-            mma3x2<false, EX, false, EX>(dq[n], a, b0, dq[n + 1], a, b1);
+            const FragB b1 = split_b(tile_at<LD>(Ks, key, c1), tile_at<LD>(Ks, key + 4, c1));
+            mma3x2(dq[n], a, b0, dq[n + 1], a, b1);
           } else {
-            mma3<false, EX>(dq[n], a, b0);
+            mma3(dq[n], a, b0);
           }
         }
       }
@@ -591,23 +545,21 @@ __global__ void __launch_bounds__(128, (BwdTile<HD, std::is_same_v<T, float>>::M
       }
     }
 
-    if constexpr (!DELTA) {
-      // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
-      const float ks = p.prescale_q ? 1.f : p.scale;
-      T* DK = static_cast<T*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
-      T* DV = static_cast<T*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
-      const int r0 = k0 + kr, r1 = r0 + 8;
+    // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
+    const float ks = p.prescale_q ? 1.f : p.scale;
+    float* DK = static_cast<float*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
+    float* DV = static_cast<float*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
+    const int r0 = k0 + kr, r1 = r0 + 8;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        if (r0 < N) {
-          store2(DK + r0 * p.st[BW_DK][2] + col, dk[n][0] * ks, dk[n][1] * ks);
-          store2(DV + r0 * p.st[BW_DV][2] + col, dv[n][0], dv[n][1]);
-        }
-        if (r1 < N) {
-          store2(DK + r1 * p.st[BW_DK][2] + col, dk[n][2] * ks, dk[n][3] * ks);
-          store2(DV + r1 * p.st[BW_DV][2] + col, dv[n][2], dv[n][3]);
-        }
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (r0 < N) {
+        store2(DK + r0 * p.st[BW_DK][2] + col, dk[n][0] * ks, dk[n][1] * ks);
+        store2(DV + r0 * p.st[BW_DV][2] + col, dv[n][0], dv[n][1]);
+      }
+      if (r1 < N) {
+        store2(DK + r1 * p.st[BW_DK][2] + col, dk[n][2] * ks, dk[n][3] * ks);
+        store2(DV + r1 * p.st[BW_DV][2] + col, dv[n][2], dv[n][3]);
       }
     }
   }
@@ -666,25 +618,39 @@ __global__ void __launch_bounds__(256) attn_bwd_dq_kernel(AttnBwdArgs p, int hd,
 
 // ---------------------------------------------------------------- the wgmma kernel
 
-// The wgmma kernel's tiles at head dim HD (64): a block of one consumer
-// warpgroup (the products; keys 16w..16w+15 of the key block in warp w),
-// one split warpgroup and the producer's warpgroup. Every operand tile is f32 in
-// 128-byte swizzled K-major panels of 32 columns (kmaj), hi then, with LO
+// The wgmma kernel's tiles at head dim HD (16, 32, 64, 80; 128 in bf16): a
+// block of one consumer warpgroup (the products; keys 16w..16w+15 of the key
+// block in warp w), one split warpgroup and the producer's warpgroup. Every
+// operand tile is f32 in swizzled K-major panels (kmaj), hi then, with LO
 // (f32 operands), lo a tile on: K, V [64 keys x HD] and K^T [HD x 64 keys]
-// for the key block; Q, dO [32 x HD] and Q^T, dO^T [HD x 32 queries, each
-// 8 as 0 2 4 6 1 3 5 7] for the step; dS [32 queries x 64 keys] hi and lo
+// for the key block; Q, dO [BQ x HD] and Q^T, dO^T [HD x BQ queries, each
+// 8 as 0 2 4 6 1 3 5 7] for the step; dS [BQ queries x 64 keys] hi and lo
 // in both dtypes (dS is f32); two landing stages of Q and dO as TMA writes
-// them (rows of HD in the input dtype); LSE · log2 e and D of the
-// step's queries.
+// them (rows of HD in the input dtype) where they fit; LSE · log2 e and D
+// of the step's queries.
 template <int HD, bool LO>
 struct BwgTile {
-  static constexpr int BKV = 64, BQ = 32, STAGES = 2;
+  // queries per step: 32, but 16 in bf16 at hd 128, where dK and dV hold
+  // 64 x 128 accumulators each
+  static constexpr int BKV = 64, BQ = HD == 128 ? 16 : 32;
+  // dQ^T = K^T dS^T has M = HD rows, in MQ / 64 warpgroup products of 64
+  // rows; at hd 16, 32 and 80 the last product's rows past HD read what
+  // follows K^T's rows in shared memory, and their sums are never stored
+  static constexpr int MQ = (HD + 63) / 64 * 64;
   // three warpgroups (the producer's, of which one thread issues the TMA
   // loads): setmaxnreg works on whole warpgroups, and moves its registers
   // to the consumers, whose accumulators would not fit the even share
   static constexpr int THREADS = 3 * 128;
-  static constexpr int REGS_CONSUMER = 240, REGS_SPLIT = 168, REGS_PRODUCER = 40;
-  static_assert(128 * (REGS_CONSUMER + REGS_SPLIT + REGS_PRODUCER) <= 65536, "the register file");
+  // blocks an SM: two at hd 16, whose steps are a fifth of hd 80's work,
+  // so that one block's chain of dependent products runs while the other's
+  // waits; their accumulators fit the halved register share
+  static constexpr int MIN_BLOCKS = HD == 16 ? 2 : 1;
+  static constexpr int REGS_CONSUMER = MIN_BLOCKS == 2 ? 136 : 240;
+  static constexpr int REGS_SPLIT = MIN_BLOCKS == 2 ? 80 : 168;  // the launch's share
+  static constexpr int REGS_PRODUCER = MIN_BLOCKS == 2 ? 24 : 40;
+  static_assert(REGS_SPLIT * THREADS * MIN_BLOCKS <= 65536, "the launch's registers");
+  static_assert(REGS_CONSUMER + REGS_SPLIT + REGS_PRODUCER <= 3 * REGS_SPLIT,
+                "setmaxnreg moves the launch's registers, no more");
   static constexpr int COPIES = LO ? 2 : 1;
   static constexpr int KTILE = BKV * HD * 4;            // K, V, K^T
   static constexpr int QTILE = BQ * HD * 4;             // Q, dO, Q^T, dO^T
@@ -699,28 +665,47 @@ struct BwgTile {
   static constexpr int GT_ = QT_ + COPIES * QTILE;
   static constexpr int S_ = GT_ + COPIES * QTILE;
   static constexpr int LAND_ = S_ + 2 * STILE;
-  static constexpr int L_ = LAND_ + STAGES * 2 * LAND;  // Ls [BQ], Ds [BQ]
+  // Q and dO land in two stages where those fit a block; else (f32 at hd 80)
+  // in place: TMA writes their f32 rows into the Q and dO tiles' hi panels,
+  // and the split warpgroup splits them where they lie
+  static constexpr bool IN_PLACE = LAND_ + 4 * LAND + 2 * BQ * 4 + 10 * 8 + 1024 > 232448;
+  static constexpr int STAGES = IN_PLACE ? 1 : 2;       // full / empty barrier pairs
+  static constexpr int L_ = LAND_ + (IN_PLACE ? 0 : STAGES * 2 * LAND);  // Ls [BQ], Ds [BQ]
   static constexpr int BAR_ = L_ + 2 * BQ * 4;
   static constexpr int NBAR = 2 * STAGES + 6;
   static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;   // + alignment of the base to 1024
-  static_assert(HD == 64, "dQ^T's M is the head dim: one warpgroup's 64 rows");
+  // f32 at hd 64: 214,352; 80: 222,528, in place (hd 128 f32 would need
+  // 196,608 for K, V and K^T alone, before any query tile: it keeps the
+  // mma.sync kernel)
   static_assert(SMEM <= 232448, "a block's shared memory");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "the blocks an SM");
+  static_assert(!IN_PLACE || LO, "bf16 lands in stages: its tiles hold f32");
+  static_assert(KT_ + COPIES * KTILE + (MQ - HD) * 128 <= SMEM, "dQ^T's reads past K^T");
 };
 
-// Byte offset of element (r, c) of an f32 K-major tile of R rows: panels of
-// 32 columns (128 bytes) of R rows, each row swizzled as TMA's 128-byte
-// swizzle, the layout smem_desc<128> names (c % 4 == 0 keeps a float4
+// An f32 K-major tile of C columns is cut into panels of SW bytes, the
+// largest TMA swizzle (128 or 64) that divides a row's 4·C bytes: 32
+// columns a panel, 16 where C is an odd multiple of 16 (hd 16 and 80, the
+// 16-query steps of hd 128), as the forward's f32 K tiles (Fa32Tile)
+template <int C>
+constexpr int kmaj_sw = (C * 4) % 128 == 0 ? 128 : 64;
+
+// Byte offset of element (r, c) of an f32 K-major tile of R rows and C
+// columns: panels of R rows, each row swizzled as TMA's swizzle of the
+// panel's width, the layout smem_desc<SW> names (c % 4 == 0 keeps a float4
 // together)
-template <int R>
+template <int R, int C>
 __device__ __forceinline__ int kmaj(int r, int c) {
-  return (c >> 5) * (R * 128) + swizzle<128>(r * 128 + (c & 31) * 4);
+  constexpr int SW = kmaj_sw<C>, BOX = SW / 4;
+  return (c / BOX) * (R * SW) + swizzle<SW>(r * SW + (c % BOX) * 4);
 }
 
 // The descriptor of k8 step kk (32 bytes along K) of such a tile
-template <int R>
+template <int R, int C>
 __device__ __forceinline__ uint64_t kdesc(const uint8_t* tile, int kk) {
+  constexpr int SW = kmaj_sw<C>;
   const int off = kk * 32;
-  return smem_desc<128>(tile + (off >> 7) * (R * 128) + (off & 127), 16, 1024);
+  return smem_desc<SW>(tile + (off / SW) * (R * SW) + off % SW, 16, 8 * SW);
 }
 
 // Four values into a tile at byte offset `off`: with LO their tf32 hi, and
@@ -772,13 +757,14 @@ __device__ __forceinline__ void frag_of(const float* acc, uint32_t (&hi)[4], uin
 // they are done, so that no two groups' operands and accumulators hold
 // registers at once.
 template <int HD, typename T>
-__global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS, 1)
+__global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS,
+                                  BwgTile<HD, std::is_same_v<T, float>>::MIN_BLOCKS)
     attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap gmap, AttnBwdArgs p, int n_kb,
                           int per, int n_slices) {
   constexpr bool LO = std::is_same_v<T, float>;  // bf16 is exact in tf32: no lo
   using TL = BwgTile<HD, LO>;
-  constexpr int BKV = TL::BKV, BQ = TL::BQ;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ, MQ = TL::MQ;
   constexpr uint32_t KLO = TL::KTILE >> 4, QLO = TL::QTILE >> 4, SLO = TL::STILE >> 4;
   extern __shared__ uint8_t bw_smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
@@ -830,13 +816,29 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       tma_prefetch_map(&gmap);
       const int steps = (kb_end - kb0) * nq;
       for (int it = 0; it < steps; ++it) {
-        const int s = it % TL::STAGES;
-        if (it >= TL::STAGES) mbar_wait(&empty[s], (it / TL::STAGES - 1) & 1);
-        uint8_t* land = sm + TL::LAND_ + s * 2 * TL::LAND;
         const int q0 = (it % nq) * BQ;
-        mbar_arrive_expect_tx(&full[s], 2 * TL::LAND);
-        tma_load_4d(land, &qmap, &full[s], 0, q0, h, b);
-        tma_load_4d(land + TL::LAND, &gmap, &full[s], 0, q0, h, b);
+        if constexpr (TL::IN_PLACE) {
+          // into the Q and dO tiles, a box a panel, once the last step's
+          // readers are done: the consumers' S^T and dP^T, the split's
+          // transposes
+          if (it > 0) {
+            mbar_wait(done_a, (it - 1) & 1);
+            mbar_wait(&empty[0], (it - 1) & 1);
+          }
+          constexpr int SW = kmaj_sw<HD>;
+          mbar_arrive_expect_tx(&full[0], 2 * TL::QTILE);
+          for (int pn = 0; pn < HD * 4 / SW; ++pn) {
+            tma_load_4d(sm + TL::Q_ + pn * BQ * SW, &qmap, &full[0], pn * SW / 4, q0, h, b);
+            tma_load_4d(sm + TL::G_ + pn * BQ * SW, &gmap, &full[0], pn * SW / 4, q0, h, b);
+          }
+        } else {
+          const int s = it % TL::STAGES;
+          if (it >= TL::STAGES) mbar_wait(&empty[s], (it / TL::STAGES - 1) & 1);
+          uint8_t* land = sm + TL::LAND_ + s * 2 * TL::LAND;
+          mbar_arrive_expect_tx(&full[s], 2 * TL::LAND);
+          tma_load_4d(land, &qmap, &full[s], 0, q0, h, b);
+          tma_load_4d(land + TL::LAND, &gmap, &full[s], 0, q0, h, b);
+        }
       }
     }
     return;
@@ -849,26 +851,33 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
     const T* Vg = static_cast<const T*>(p.v) + b * p.st[BW_V][0] + h * p.st[BW_V][1];
     const long long skn = p.st[BW_K][2], svn = p.st[BW_V][2];
     constexpr int KV_ITEMS = BKV * HD / 4 / 128;  // float4 items of K (and V) per thread
+    // in two chunks beyond hd 64, for the registers
+    constexpr int CHUNK = KV_ITEMS > 8 ? KV_ITEMS / 2 : KV_ITEMS;
+    static_assert(KV_ITEMS % CHUNK == 0, "whole chunks");
     int it = 0;
     for (int kb = kb0; kb < kb_end; ++kb) {
       const int k0 = kb * BKV;
-      // K, V rows of keys (zeros past N): every load issued before a store
-      float4 kx[KV_ITEMS], vx[KV_ITEMS];
+      // K, V rows of keys (zeros past N): every load of a chunk issued
+      // before its stores
 #pragma unroll
-      for (int m = 0; m < KV_ITEMS; ++m) {
-        const int i = tid + 128 * m, r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-        kx[m] = vx[m] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + r < N) {
-          kx[m] = load4(Kg + (k0 + r) * skn + c);
-          vx[m] = load4(Vg + (k0 + r) * svn + c);
+      for (int m0 = 0; m0 < KV_ITEMS; m0 += CHUNK) {
+        float4 kx[CHUNK], vx[CHUNK];
+#pragma unroll
+        for (int m = 0; m < CHUNK; ++m) {
+          const int i = tid + 128 * (m0 + m), r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+          kx[m] = vx[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (k0 + r < N) {
+            kx[m] = load4(Kg + (k0 + r) * skn + c);
+            vx[m] = load4(Vg + (k0 + r) * svn + c);
+          }
         }
-      }
-      if (kb > kb0) mbar_wait(kv_free, (kb - kb0 - 1) & 1);
+        if (m0 == 0 && kb > kb0) mbar_wait(kv_free, (kb - kb0 - 1) & 1);
 #pragma unroll
-      for (int m = 0; m < KV_ITEMS; ++m) {
-        const int i = tid + 128 * m, r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-        put4<LO>(sm + TL::K_, TL::KTILE, kmaj<BKV>(r, c), kx[m]);
-        put4<LO>(sm + TL::V_, TL::KTILE, kmaj<BKV>(r, c), vx[m]);
+        for (int m = 0; m < CHUNK; ++m) {
+          const int i = tid + 128 * (m0 + m), r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+          put4<LO>(sm + TL::K_, TL::KTILE, kmaj<BKV, HD>(r, c), kx[m]);
+          put4<LO>(sm + TL::V_, TL::KTILE, kmaj<BKV, HD>(r, c), vx[m]);
+        }
       }
       // K^T from K's tiles (hi and lo as they are): item (c, d) is head-dim
       // row d, keys 4c..4c+3 (panels of 32 keys)
@@ -879,12 +888,11 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         for (int i = tid; i < HD * BKV / 4; i += 128) {
           const int d = i % HD, c = i / HD;
           uint4 x;
-          x.x = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c, d));
-          x.y = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 1, d));
-          x.z = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 2, d));
-          x.w = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV>(4 * c + 3, d));
-          *reinterpret_cast<uint4*>(sm + TL::KT_ + cp * TL::KTILE + (c >> 3) * (HD * 128) +
-                                    swizzle<128>(d * 128 + (c & 7) * 16)) = x;
+          x.x = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV, HD>(4 * c, d));
+          x.y = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV, HD>(4 * c + 1, d));
+          x.z = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV, HD>(4 * c + 2, d));
+          x.w = *reinterpret_cast<const uint32_t*>(kt + kmaj<BKV, HD>(4 * c + 3, d));
+          *reinterpret_cast<uint4*>(sm + TL::KT_ + cp * TL::KTILE + kmaj<HD, BKV>(d, 4 * c)) = x;
         }
       }
       fence_proxy_async();  // the writes, visible to the consumers' wgmma
@@ -906,11 +914,18 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         // half (a): Q (K5: pre-scaled), dO, LSE, D
         if (it > 0) mbar_wait(done_a, (it - 1) & 1);
         for (int i = tid; i < BQ * HD / 4; i += 128) {
-          const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-          float4 x = load4(lq + r * HD + c);
+          const int r = i / (HD / 4), c = (i % (HD / 4)) * 4, off = kmaj<BQ, HD>(r, c);
+          float4 x, y;
+          if constexpr (TL::IN_PLACE) {  // split where TMA put them
+            x = *reinterpret_cast<const float4*>(sm + TL::Q_ + off);
+            y = *reinterpret_cast<const float4*>(sm + TL::G_ + off);
+          } else {
+            x = load4(lq + r * HD + c);
+            y = load4(lg + r * HD + c);
+          }
           if (pre) x = prescale4<T>(x, p.scale);
-          put4<LO>(sm + TL::Q_, TL::QTILE, kmaj<BQ>(r, c), x);
-          put4<LO>(sm + TL::G_, TL::QTILE, kmaj<BQ>(r, c), load4(lg + r * HD + c));
+          put4<LO>(sm + TL::Q_, TL::QTILE, off, x);
+          put4<LO>(sm + TL::G_, TL::QTILE, off, y);
         }
         if (tid < BQ) {
           Ls[tid] = lse;
@@ -921,20 +936,45 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         // half (b): Q^T, dO^T; item (c, d) is head-dim row d, slots 4c..4c+3,
         // queries 8(c / 2) + c % 2 + {0, 2, 4, 6}
         if (it > 0) mbar_wait(done_b, (it - 1) & 1);
-        for (int i = tid; i < HD * BQ / 4; i += 128) {
-          const int d = i % HD, c = i / HD;
-          const int r = 8 * (c >> 1) + (c & 1);
-          float4 x = make_float4(to_float(lq[r * HD + d]), to_float(lq[(r + 2) * HD + d]),
-                                 to_float(lq[(r + 4) * HD + d]), to_float(lq[(r + 6) * HD + d]));
-          if (pre) x = prescale4<T>(x, p.scale);
-          const float4 y =
-              make_float4(to_float(lg[r * HD + d]), to_float(lg[(r + 2) * HD + d]),
-                          to_float(lg[(r + 4) * HD + d]), to_float(lg[(r + 6) * HD + d]));
-          const int off = swizzle<128>(d * 128 + c * 16);
-          put4<LO>(sm + TL::QT_, TL::QTILE, off, x);
-          put4<LO>(sm + TL::GT_, TL::QTILE, off, y);
+        if constexpr (TL::IN_PLACE) {  // from the split Q and dO tiles, hi and lo as they are
+          bar_sync(2, 128);            // every split thread's half (a) is written
+#pragma unroll
+          for (int cp = 0; cp < TL::COPIES; ++cp) {
+            const uint8_t* qs = sm + TL::Q_ + cp * TL::QTILE;
+            const uint8_t* gs = sm + TL::G_ + cp * TL::QTILE;
+            for (int i = tid; i < HD * BQ / 4; i += 128) {
+              const int d = i % HD, c = i / HD;
+              const int r = 8 * (c >> 1) + (c & 1);
+              uint4 x, y;
+              x.x = lds32(qs + kmaj<BQ, HD>(r, d));
+              x.y = lds32(qs + kmaj<BQ, HD>(r + 2, d));
+              x.z = lds32(qs + kmaj<BQ, HD>(r + 4, d));
+              x.w = lds32(qs + kmaj<BQ, HD>(r + 6, d));
+              y.x = lds32(gs + kmaj<BQ, HD>(r, d));
+              y.y = lds32(gs + kmaj<BQ, HD>(r + 2, d));
+              y.z = lds32(gs + kmaj<BQ, HD>(r + 4, d));
+              y.w = lds32(gs + kmaj<BQ, HD>(r + 6, d));
+              const int off = kmaj<HD, BQ>(d, 4 * c);
+              *reinterpret_cast<uint4*>(sm + TL::QT_ + cp * TL::QTILE + off) = x;
+              *reinterpret_cast<uint4*>(sm + TL::GT_ + cp * TL::QTILE + off) = y;
+            }
+          }
+        } else {  // from the landed rows, split again
+          for (int i = tid; i < HD * BQ / 4; i += 128) {
+            const int d = i % HD, c = i / HD;
+            const int r = 8 * (c >> 1) + (c & 1);
+            float4 x = make_float4(to_float(lq[r * HD + d]), to_float(lq[(r + 2) * HD + d]),
+                                   to_float(lq[(r + 4) * HD + d]), to_float(lq[(r + 6) * HD + d]));
+            if (pre) x = prescale4<T>(x, p.scale);
+            const float4 y =
+                make_float4(to_float(lg[r * HD + d]), to_float(lg[(r + 2) * HD + d]),
+                            to_float(lg[(r + 4) * HD + d]), to_float(lg[(r + 6) * HD + d]));
+            const int off = kmaj<HD, BQ>(d, 4 * c);
+            put4<LO>(sm + TL::QT_, TL::QTILE, off, x);
+            put4<LO>(sm + TL::GT_, TL::QTILE, off, y);
+          }
         }
-        mbar_arrive(&empty[s]);  // the landed stage is read
+        mbar_arrive(&empty[s]);  // the landed stage (in place: the Q and dO tiles) is read
         fence_proxy_async();
         mbar_arrive(ready_b);
       }
@@ -961,7 +1001,7 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
     for (int qb = 0; qb < nq; ++qb, ++it) {
       const int q0 = qb * BQ;
       mbar_wait(ready_a, it & 1);
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 queries, HD / 8 k8 steps.
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries, HD / 8 k8 steps.
       // The accumulators live in this scope only and are copied out: with
       // the products' registers free once they are done, ptxas keeps the
       // later groups' wgmmas in flight (otherwise it serializes the bf16
@@ -972,8 +1012,8 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 8; ++kk) {
-          const uint64_t ak = kdesc<BKV>(sm + TL::K_, kk), bq = kdesc<BQ>(sm + TL::Q_, kk);
-          const uint64_t av = kdesc<BKV>(sm + TL::V_, kk), bg = kdesc<BQ>(sm + TL::G_, kk);
+          const uint64_t ak = kdesc<BKV, HD>(sm + TL::K_, kk), bq = kdesc<BQ, HD>(sm + TL::Q_, kk);
+          const uint64_t av = kdesc<BKV, HD>(sm + TL::V_, kk), bg = kdesc<BQ, HD>(sm + TL::G_, kk);
           if (LO) {
             wgmma_tf32_ss(sa, ak + KLO, bq, kk);
             wgmma_tf32_ss(da, av + KLO, bg, kk);
@@ -1016,13 +1056,13 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       __syncwarp();
       if (lane == 0) mbar_arrive(done_a);  // Q, dO, LSE, D are read
 
-      // dS to shared memory, [32 queries x 64 keys] split once, for dQ^T
+      // dS to shared memory, [BQ queries x 64 keys] split once, for dQ^T
       bar_sync(1, 128);  // the last step's dQ^T products are done with dS
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int off = kmaj<BQ>(8 * j + 2 * t + (e & 1), kr + (e & 2) * 4);
+          const int off = kmaj<BQ, BKV>(8 * j + 2 * t + (e & 1), kr + (e & 2) * 4);
           uint32_t hi, lo;
           tf32_split(dp[4 * j + e], hi, lo);
           *reinterpret_cast<uint32_t*>(sm + TL::S_ + off) = hi;
@@ -1047,8 +1087,8 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BQ / 8; ++j) {
-          const uint64_t bgt = smem_desc<128>(sm + TL::GT_ + j * 32, 16, 1024);
-          const uint64_t bqt = smem_desc<128>(sm + TL::QT_ + j * 32, 16, 1024);
+          const uint64_t bgt = kdesc<HD, BQ>(sm + TL::GT_, j);
+          const uint64_t bqt = kdesc<HD, BQ>(sm + TL::QT_, j);
           if (LO) {
             wgmma_tf32_rs(dv, pl[j], bgt, 1);
             wgmma_tf32_rs(dk, sl[j], bqt, 1);
@@ -1078,39 +1118,55 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       if (lane == 0) mbar_arrive(done_b);  // Q^T, dO^T are read
       bar_sync(1, 128);                    // every warp's dS is in shared memory
 
-      // dQ^T = K^T dS^T: hd x 32 queries over the block's 64 keys (the
-      // accumulator scoped as S^T's)
-      float dq[BQ / 2];
+      // dQ^T = K^T dS^T: MQ x BQ queries over the block's 64 keys, as
+      // products of 64 head-dim rows, issued in turns (the accumulators
+      // scoped as S^T's); this key block's share of dQ then goes into its
+      // group's slice: rows (queries) q0 + 8j + 2t (+1), columns (head dim)
+      // 64m + kr (+8), those under HD, added to what the group's earlier
+      // key blocks left there (loaded while the products run)
+      float* part = p.dq_part + (kg * slice + rows) * HD;
+      float dq[MQ / 64][BQ / 2];
       {
-        float qa[BQ / 2];
+        float qa[MQ / 64][BQ / 2];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BKV / 8; ++kk) {
-          const uint64_t a = kdesc<HD>(sm + TL::KT_, kk), bs = kdesc<BQ>(sm + TL::S_, kk);
-          if (LO) wgmma_tf32_ss(qa, a + KLO, bs, kk);
-          wgmma_tf32_ss(qa, a, bs + SLO, LO || kk > 0);
-          wgmma_tf32_ss(qa, a, bs, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(qa);
+        for (int kk = 0; kk < BKV / 8; ++kk)
 #pragma unroll
-        for (int i = 0; i < BQ / 2; ++i) dq[i] = qa[i];
-      }
-
-      // this key block's share of dQ into its group's slice: rows (queries)
-      // q0 + 8j + 2t (+1), columns (head dim) kr (+8)
-      float* part = p.dq_part + (kg * slice + rows) * HD;
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = q0 + 8 * j + 2 * t + (e & 1);
-          if (q < N) {
-            float* at = part + (long long)q * HD + kr + (e & 2) * 4;
-            *at = first ? dq[4 * j + e] : *at + dq[4 * j + e];
+          for (int m = 0; m < MQ / 64; ++m) {
+            const uint64_t a = kdesc<HD, BKV>(sm + TL::KT_ + m * 64 * 128, kk);
+            const uint64_t bs = kdesc<BQ, BKV>(sm + TL::S_, kk);
+            if (LO) wgmma_tf32_ss(qa[m], a + KLO, bs, kk);
+            wgmma_tf32_ss(qa[m], a, bs + SLO, LO || kk > 0);
+            wgmma_tf32_ss(qa[m], a, bs, 1);
           }
+        wgmma_commit();
+#pragma unroll
+        for (int m = 0; m < MQ / 64; ++m)
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = q0 + 8 * j + 2 * t + (e & 1), col = 64 * m + kr + (e & 2) * 4;
+              dq[m][4 * j + e] = !first && q < N && (HD % 64 == 0 || col < HD)
+                                     ? part[(long long)q * HD + col] : 0.f;
+            }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < MQ / 64; ++m) {
+          fence_regs(qa[m]);
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) dq[m][i] = first ? qa[m][i] : dq[m][i] + qa[m][i];
         }
+      }
+#pragma unroll
+      for (int m = 0; m < MQ / 64; ++m)
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * t + (e & 1), col = 64 * m + kr + (e & 2) * 4;
+            if (q < N && (HD % 64 == 0 || col < HD)) part[(long long)q * HD + col] = dq[m][4 * j + e];
+          }
     }
 
     __syncwarp();
@@ -1142,22 +1198,33 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
 // bf16's D pass on wgmma: D = rowsum(P ∘ round(dP)) needs only S^T and
 // dP^T, whose operands are all bf16 inputs, so it multiplies them as they
 // land: bf16 wgmma (exact products, f32 sums, as the tf32 products of the
-// same values) on K, V, Q and dO tiles that TMA writes with the 128-byte
-// swizzle the descriptors name (rows of 64 bf16), no split warpgroup. K5's
-// q is pre-scaled and rounded in place in its landed tile. One consumer
-// warpgroup and a producer warp; 52 KB of shared memory, so that several
-// blocks share an SM.
+// same values) on K, V, Q and dO tiles that TMA writes with the swizzle the
+// descriptors name, no split warpgroup: each row of HD bf16 in panels of SW
+// bytes, the largest TMA swizzle that divides it (as the forward's bf16
+// tiles, FaTile: one panel up to hd 64, two of 128 bytes at hd 128, five of
+// 32 bytes at hd 80), a TMA box each. K5's q is pre-scaled and rounded in
+// place in its landed tile. One consumer warpgroup and a producer warp;
+// 52 KB of shared memory at hd 64, so that several blocks share an SM.
 template <int HD>
 struct DeltaTile {
   static constexpr int BKV = 64, BQ = 32, STAGES = 4;
   static constexpr int THREADS = 128 + 32;
+  static constexpr int SW = (HD * 2) % 128 == 0 ? 128 : ((HD * 2) % 64 == 0 ? 64 : 32);
+  static constexpr int BOX = SW / 2;  // head-dim columns per TMA box (panel)
+  static constexpr int PANELS = HD / BOX;
   static constexpr int KTILE = BKV * HD * 2, QTILE = BQ * HD * 2;
   static constexpr int K_ = 0, V_ = KTILE, LAND_ = 2 * KTILE;
   static constexpr int W_ = LAND_ + STAGES * 2 * QTILE;  // the warps' shares [2][4][BQ]
   static constexpr int BAR_ = W_ + 8 * BQ * 4;
   static constexpr int SMEM = BAR_ + (2 * STAGES + 2) * 8 + 1024;
-  static_assert(HD * 2 == 128, "rows of one 128-byte swizzle panel");
 };
+
+// The descriptor of k16 step kk (32 bytes along K) of such a tile of R rows
+template <int R, int SW>
+__device__ __forceinline__ uint64_t pdesc(const uint8_t* tile, int kk) {
+  const int off = kk * 32;
+  return smem_desc<SW>(tile + (off / SW) * (R * SW) + off % SW, 16, 8 * SW);
+}
 
 template <int HD>
 __global__ void __launch_bounds__(DeltaTile<HD>::THREADS, 3)
@@ -1206,15 +1273,21 @@ __global__ void __launch_bounds__(DeltaTile<HD>::THREADS, 3)
       for (int kb = kb0; kb < kb_end; ++kb) {
         if (kb > kb0) mbar_wait(kv_free, (kb - kb0 - 1) & 1);
         mbar_arrive_expect_tx(kv_full, 2 * TL::KTILE);
-        tma_load_4d(sm + TL::K_, &kmap, kv_full, 0, kb * BKV, h, b);
-        tma_load_4d(sm + TL::V_, &vmap, kv_full, 0, kb * BKV, h, b);
+        for (int pn = 0; pn < TL::PANELS; ++pn) {
+          const int at = pn * BKV * TL::SW;
+          tma_load_4d(sm + TL::K_ + at, &kmap, kv_full, pn * TL::BOX, kb * BKV, h, b);
+          tma_load_4d(sm + TL::V_ + at, &vmap, kv_full, pn * TL::BOX, kb * BKV, h, b);
+        }
         for (int qb = 0; qb < nq; ++qb, ++it) {
           const int s = it % TL::STAGES;
           if (it >= TL::STAGES) mbar_wait(&empty[s], (it / TL::STAGES - 1) & 1);
           uint8_t* land = sm + TL::LAND_ + s * 2 * TL::QTILE;
           mbar_arrive_expect_tx(&full[s], 2 * TL::QTILE);
-          tma_load_4d(land, &qmap, &full[s], 0, qb * BQ, h, b);
-          tma_load_4d(land + TL::QTILE, &gmap, &full[s], 0, qb * BQ, h, b);
+          for (int pn = 0; pn < TL::PANELS; ++pn) {
+            const int at = pn * BQ * TL::SW;
+            tma_load_4d(land + at, &qmap, &full[s], pn * TL::BOX, qb * BQ, h, b);
+            tma_load_4d(land + TL::QTILE + at, &gmap, &full[s], pn * TL::BOX, qb * BQ, h, b);
+          }
         }
       }
     }
@@ -1259,10 +1332,9 @@ __global__ void __launch_bounds__(DeltaTile<HD>::THREADS, 3)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        wgmma_bf16_ss(sc, smem_desc<128>(sm + TL::K_ + kk * 32, 16, 1024),
-                      smem_desc<128>(lq + kk * 32, 16, 1024), kk);
-        wgmma_bf16_ss(dc, smem_desc<128>(sm + TL::V_ + kk * 32, 16, 1024),
-                      smem_desc<128>(lq + TL::QTILE + kk * 32, 16, 1024), kk);
+        wgmma_bf16_ss(sc, pdesc<BKV, TL::SW>(sm + TL::K_, kk), pdesc<BQ, TL::SW>(lq, kk), kk);
+        wgmma_bf16_ss(dc, pdesc<BKV, TL::SW>(sm + TL::V_, kk),
+                      pdesc<BQ, TL::SW>(lq + TL::QTILE, kk), kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1314,25 +1386,18 @@ cudaError_t launch_attention_bwd_dq(const AttnBwdArgs& p, int n_slices, cudaStre
 
 template <int HD, typename T>
 cudaError_t launch_attention_bwd_mma_sync(const AttnBwdArgs& p, cudaStream_t st) {
-  using TL = BwdTile<HD, std::is_same_v<T, float>>;
+  using TL = BwdTile<HD>;
   static_assert(TL::BKV == BWD_KEYS, "attention_bwd_slices counts blocks of BWD_KEYS keys");
   const long long rows = (long long)p.B * p.H * p.N;
   const int n_kb = cdiv(p.N, TL::BKV);
   const int per = attention_bwd_group(p.B, p.H, p.N);
   const int n_slices = cdiv(n_kb, per);
   const unsigned grid = static_cast<unsigned>(p.B * p.H * n_slices);
-  cudaError_t e;
-  if constexpr (std::is_same_v<T, float>) {
-    attn_bwd_dot_kernel<<<static_cast<unsigned>((rows + 31) / 32), 256, 0, st>>>(p, HD);
-  } else {
-    auto delta = attn_bwd_kernel<HD, T, true>;
-    e = cudaFuncSetAttribute(delta, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
-    if (e != cudaSuccess) return e;
-    delta<<<grid, TL::THREADS, TL::SMEM, st>>>(p, n_kb, per, n_slices);
-  }
-  e = cudaGetLastError();
+  static_assert(std::is_same_v<T, float>, "the route table sends bf16 to the wgmma kernel");
+  attn_bwd_dot_kernel<<<static_cast<unsigned>((rows + 31) / 32), 256, 0, st>>>(p, HD);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto grads = attn_bwd_kernel<HD, T, false>;
+  auto grads = attn_bwd_kernel<HD>;
   e = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (e != cudaSuccess) return e;
   grads<<<grid, TL::THREADS, TL::SMEM, st>>>(p, n_kb, per, n_slices);
@@ -1342,7 +1407,9 @@ cudaError_t launch_attention_bwd_mma_sync(const AttnBwdArgs& p, cudaStream_t st)
 }
 
 // The wgmma kernel: TMA maps of q and dO over their strided [B, H, N, hd]
-// views (boxes of 32 rows of hd, no swizzle; rows past N land as zeros)
+// views, boxes of BQ rows (rows past N land as zeros): of hd, no swizzle,
+// into the landing stages; or (in place) of one panel, swizzled as the
+// tiles' panels
 template <int HD, typename T>
 cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
   constexpr bool LO = std::is_same_v<T, float>;
@@ -1353,12 +1420,13 @@ cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
   a.B = p.B;
   a.H = p.H;
   a.N = p.N;
+  constexpr int SW = TL::IN_PLACE ? kmaj_sw<HD> : 0, BOX = TL::IN_PLACE ? SW / 4 : HD;
   CUtensorMap qmap, gmap;
   cudaError_t e = attention_map<HD>(&qmap, p.q, a, p.st[BW_Q][0], p.st[BW_Q][1], p.st[BW_Q][2],
-                                    type, sizeof(T), HD, TL::BQ, 0);
+                                    type, sizeof(T), BOX, TL::BQ, SW);
   if (e == cudaSuccess)
     e = attention_map<HD>(&gmap, p.dout, a, p.st[BW_DO][0], p.st[BW_DO][1], p.st[BW_DO][2], type,
-                          sizeof(T), HD, TL::BQ, 0);
+                          sizeof(T), BOX, TL::BQ, SW);
   if (e != cudaSuccess) return e;
   const long long rows = (long long)p.B * p.H * p.N;
   const int n_kb = cdiv(p.N, TL::BKV);
@@ -1371,17 +1439,17 @@ cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
     using DL = DeltaTile<HD>;
     constexpr auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     CUtensorMap kmap, vmap, qsw, gsw;
-    e = attention_map<HD>(&kmap, p.k, a, p.st[BW_K][0], p.st[BW_K][1], p.st[BW_K][2], BF, 2, HD,
-                          DL::BKV, 128);
+    e = attention_map<HD>(&kmap, p.k, a, p.st[BW_K][0], p.st[BW_K][1], p.st[BW_K][2], BF, 2,
+                          DL::BOX, DL::BKV, DL::SW);
     if (e == cudaSuccess)
       e = attention_map<HD>(&vmap, p.v, a, p.st[BW_V][0], p.st[BW_V][1], p.st[BW_V][2], BF, 2,
-                            HD, DL::BKV, 128);
+                            DL::BOX, DL::BKV, DL::SW);
     if (e == cudaSuccess)
-      e = attention_map<HD>(&qsw, p.q, a, p.st[BW_Q][0], p.st[BW_Q][1], p.st[BW_Q][2], BF, 2, HD,
-                            DL::BQ, 128);
+      e = attention_map<HD>(&qsw, p.q, a, p.st[BW_Q][0], p.st[BW_Q][1], p.st[BW_Q][2], BF, 2,
+                            DL::BOX, DL::BQ, DL::SW);
     if (e == cudaSuccess)
       e = attention_map<HD>(&gsw, p.dout, a, p.st[BW_DO][0], p.st[BW_DO][1], p.st[BW_DO][2], BF,
-                            2, HD, DL::BQ, 128);
+                            2, DL::BOX, DL::BQ, DL::SW);
     if (e != cudaSuccess) return e;
     auto delta = attn_bwd_delta_kernel<HD>;
     e = cudaFuncSetAttribute(delta, cudaFuncAttributeMaxDynamicSharedMemorySize, DL::SMEM);

@@ -38,11 +38,15 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 # the card at least (csrc/flash_attention_bwd.cuh)
 BWD_KEYS = 64
 BWD_MIN_GRID = 512
+# bytes of shared memory a block may use on the H100
+BLOCK_SMEM = 232448
 # the attention backward's route table (``attention_bwd_route`` of
 # csrc/flash_attention_bwd.cuh, which refuses a launch whose route differs):
-# the (head dim, dtype) pairs of the wgmma kernel; every other pair runs the
-# mma.sync kernel
-BWD_WGMMA_ROUTES = frozenset({(64, torch.float32), (64, torch.bfloat16)})
+# the (head dim, dtype) pairs of the wgmma kernel, every pair but hd 128 in
+# float32, which runs the mma.sync kernel
+BWD_WGMMA_ROUTES = frozenset({(hd, dt) for hd in SUPPORTED_HEAD_DIMS
+                              for dt in (torch.float32, torch.bfloat16)}
+                             - {(128, torch.float32)})
 BWD_ROUTE_CODES = {"mma.sync": 0, "wgmma": 1}
 
 
@@ -197,20 +201,25 @@ def attention_bwd_route(hd: int, dtype: torch.dtype) -> str:
 def attention_bwd_smem(hd: int, dtype: torch.dtype, route: str) -> int:
     """Bytes of shared memory a block of the backward takes on ``route``
     (``BwgTile::SMEM`` / ``BwdTile::SMEM`` of csrc/flash_attention_bwd.cuh):
-    the wgmma kernel keeps K, V, K^T, Q, dO, Q^T, dO^T in f32 (hi and lo for
-    f32 operands), dS's hi and lo, two TMA landing stages of Q and dO, the
-    step's LSE and D, ten mbarriers and 1 KB to align
-    the base; the mma.sync kernel K, V, Q, dO (and Q's and dO's lo for f32)
-    in rows of hd rounded up to 32 floats, dS^T, LSE and D."""
+    the wgmma kernel keeps K, V, K^T [64 x hd] and Q, dO, Q^T, dO^T [a step
+    of 32 queries, 16 at hd 128, x hd] in f32 (hi and lo for f32 operands),
+    dS's hi and lo, two TMA landing stages of Q and dO, the step's LSE and
+    D, ten mbarriers and 1 KB to align the base; where the landing stages
+    would outgrow a block (f32 at hd 80) Q and dO land in place, and one
+    barrier pair goes with the stages. The mma.sync kernel (f32 only) keeps
+    K, V, Q, dO and Q's and dO's lo in rows of hd rounded up to 32 floats,
+    dS^T, LSE and D."""
     lo = dtype == torch.float32
     bkv, bq = BWD_KEYS, 32
     if route == "wgmma":
+        bq = 16 if hd == 128 else 32
         copies = 2 if lo else 1
         tiles = copies * (3 * bkv + 4 * bq) * hd * 4 + 2 * bq * bkv * 4
         land = 2 * 2 * bq * hd * (4 if lo else 2)
-        return tiles + land + 2 * bq * 4 + 10 * 8 + 1024
+        staged = tiles + land + 2 * bq * 4 + 10 * 8 + 1024
+        return staged if staged <= BLOCK_SMEM else tiles + 2 * bq * 4 + 8 * 8 + 1024
     ldh = -(-hd // 32) * 32
-    return 4 * ((2 * bkv + (4 if lo else 2) * bq) * ldh + bkv * bq + 2 * bq)
+    return 4 * ((2 * bkv + 4 * bq) * ldh + bkv * bq + 2 * bq)
 
 
 def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
@@ -226,8 +235,9 @@ def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, presc
 
 def attention_bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
                         name: str) -> None:
-    """The attention backward's wgmma kernel (``attn_bwd_wgmma_kernel``; the
-    route of hd 64): see ``_attention_bwd``."""
+    """The attention backward's wgmma kernel (``attn_bwd_wgmma_kernel``;
+    every head dim in bf16, all but 128 in float32): see
+    ``_attention_bwd``."""
     _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q,
                    name=name, route="wgmma")
     attention_bwd_wgmma.launches += 1
@@ -235,8 +245,8 @@ def attention_bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, presca
 
 def attention_bwd_mma_sync(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
                            name: str) -> None:
-    """The attention backward's mma.sync kernel (``attn_bwd_kernel``; every
-    head dim but 64): see ``_attention_bwd``."""
+    """The attention backward's mma.sync kernel (``attn_bwd_kernel``; hd 128
+    in float32): see ``_attention_bwd``."""
     _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q,
                    name=name, route="mma.sync")
     attention_bwd_mma_sync.launches += 1

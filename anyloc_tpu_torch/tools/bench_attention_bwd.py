@@ -17,7 +17,19 @@ Cases, random inputs from a torch seed on the card:
     it) and the library's route (two ``torch.mm`` in full float32 and a
     column sum: not one call), with the peak memory a call allocates beyond
     its outputs (its scratch) and, with ``--profile``, its launches split
-    by kernel (``torch.profiler``, device time per call).
+    by kernel (``torch.profiler``, device time per call);
+  * ``vith``: the same two at ViT-H's heads (MAE-H/14, ImageBind-H and
+    SAM-H at 224 px: 16 heads of 80), K2 at q/k/v [8, 16, 257, 80] and K5
+    at qkv [8, 257, 3840] with its attention half alone, float32 and
+    bfloat16, beside SDPA's backward;
+  * ``hds``: K2 at the other head dims the kernels take, q/k/v
+    [8, 1280/hd, 257, hd] for hd 16, 32 and 128 (ViT-H's width cut into
+    narrower or wider heads), float32 and bfloat16, as ``k2``;
+  * ``k5fwd``: K5's bfloat16 forward alone (``flash_attention_qkv_proj``,
+    with bias, LayerScale and residual, the weight a ``.t()`` view as the
+    trunk gives it) at DINOv2-G's 308-px batch, qkv [32, 485, 4608] (24
+    heads of 64), and at ViT-H's, qkv [32, 257, 3840] (16 heads of 80): a
+    forward kernel timed on another tree (``--root``) against this one.
 Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
 bound is the larger of the operations (3xTF32 for float32: three tf32
 products an f32 one, at 494.7 TFLOP/s; bfloat16 at 989 TFLOP/s) and the
@@ -25,10 +37,12 @@ bytes (each input read once, each output written once, at 3.35 TB/s), one
 H100 SXM's dense peaks.
 
     python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR] [--profile]
+        [--cases k2 k5 vith hds k5fwd]
 
 ``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive``), so that two trees are timed
-by the same script on the same card: run it once per tree, in turns.
+by the same script on the same card: run it once per tree, in turns (a
+tree without the attention backward kernels takes ``--cases k5fwd`` only).
 """
 
 from __future__ import annotations
@@ -108,20 +122,44 @@ def projection_half(attn_proj, args, iters: int, profile: bool, **bounds) -> dic
     return r
 
 
-def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
+CASES = ("k2", "k5", "vith", "hds", "k5fwd")
+
+
+def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) -> dict:
     import torch
 
     from anyloc_tpu_torch.ops import kernels as K
-    from anyloc_tpu_torch.ops.kernels import attn_proj
-    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_launch
-    from anyloc_tpu_torch.tools import train_checks
-    from anyloc_tpu_torch.tools._timing import card_line, require_card, time_ms
+    from anyloc_tpu_torch.tools._timing import card_line, require_card
 
     dev = require_card("bench_attention_bwd")
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {"card": card_line(), "package": K.__file__, "cases": {}}
+    if "k2" in cases:
+        out["cases"].update(k2_case(48, 6, 197, 64, g, iters))
+    if "k5" in cases:
+        out["cases"].update(k5_case(48, 197, 12, 64, g, iters, profile))
+    if "vith" in cases:
+        out["cases"].update(k2_case(8, 16, 257, 80, g, iters))
+        out["cases"].update(k5_case(8, 257, 16, 80, g, iters, profile))
+    if "hds" in cases:
+        for hd in (16, 32, 128):
+            out["cases"].update(k2_case(8, 1280 // hd, 257, hd, g, iters))
+    if "k5fwd" in cases:
+        out["cases"].update(k5_forward_case(32, 485, 24, 64, g, iters))
+        out["cases"].update(k5_forward_case(32, 257, 16, 80, g, iters))
+    return out
 
-    b, h, n, hd = 48, 6, 197, 64
+
+def k2_case(b: int, h: int, n: int, hd: int, g, iters: int) -> dict:
+    """K2's backward under autograd at q/k/v [b, h, n, hd] beside SDPA's,
+    then the attention backward alone on the same tensors, f32 and bf16."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_launch
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    dev, cases = g.device, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((b, h, n, hd), generator=g, device=dev).to(dtype)
                    .requires_grad_(True) for _ in range(3))
@@ -131,7 +169,7 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
         name = str(dtype).replace("torch.", "")
         esz = 4 if dtype == torch.float32 else 2
         k2 = f"k2 [{b},{h},{n},{hd}] {name}"
-        out["cases"][k2] = dict(
+        cases[k2] = dict(
             ms=time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True),
                        iters=iters),
             library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (q, k, v), go,
@@ -146,12 +184,25 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
                                      scale=hd ** -0.5, prescale_q=False,
                                      name="bench_attention_bwd")
 
-            out["cases"][k2 + " kernel alone"] = dict(
+            cases[k2 + " kernel alone"] = dict(
                 ms=time_ms(alone, iters=iters),
                 **bound(10 * b * h * n * n * hd, 8 * esz * b * h * n * hd, name))
         del q, k, v, o, go, sdpa
+    return cases
 
-    b, n, h, hd = 48, 197, 12, 64
+
+def k5_case(b: int, n: int, h: int, hd: int, g, iters: int, profile: bool) -> dict:
+    """K5's backward under autograd at qkv [b, n, 3·h·hd], then its two
+    halves alone on the same tensors, f32 and bf16."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels import attn_proj
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_launch
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    dev, cases = g.device, {}
     d, m = h * hd, b * n
     scale = hd ** -0.5
     for dtype in (torch.float32, torch.bfloat16):
@@ -162,7 +213,7 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
         o = K.flash_attention_qkv_proj(num_heads=h, **inputs)
         go = torch.randn(o.shape, generator=g, device=dev).to(dtype)
         k5 = f"k5 qkv [{b},{n},{3 * d}] {name}"
-        out["cases"][k5] = dict(
+        cases[k5] = dict(
             ms=time_ms(lambda: torch.autograd.grad(o, wanted, go, retain_graph=True),
                        iters=iters),
             **bound(10 * b * h * n * n * hd + 4 * m * d * d,
@@ -184,18 +235,42 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False) -> dict:
                     q, k, v, attn_proj._heads(att, h), lse, attn_proj._heads(d_o, h), dq, dk,
                     dv, scale=scale, prescale_q=True, name="bench_attention_bwd")
 
-            out["cases"][k5 + " attention half"] = dict(
+            cases[k5 + " attention half"] = dict(
                 ms=time_ms(attention, iters=iters),
                 **bound(10 * b * h * n * n * hd, esz * 8 * m * d, name))
             proj = getattr(attn_proj, "qkv_proj_bwd", None)
             if proj is not None:
                 args = (go, inputs["w_proj"].detach(), inputs["b_proj"].detach(), None, att,
                         None)
-                out["cases"][k5 + " projection half"] = projection_half(
+                cases[k5 + " projection half"] = projection_half(
                     attn_proj, args, iters, profile,
                     **bound(4 * m * d * d, esz * (3 * m * d + 2 * d * d) + 4 * d, name))
         del inputs, wanted, o, go
-    return out
+    return cases
+
+
+def k5_forward_case(b: int, n: int, h: int, hd: int, g, iters: int) -> dict:
+    """K5's bf16 forward alone at qkv [b, n, 3·h·hd] (bias, LayerScale,
+    residual; the weight a ``.t()`` view), beside its bound: the attention's
+    four products and the projection's, or the bytes."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    d, m, dev, bf = h * hd, b * n, g.device, torch.bfloat16
+
+    def r(*shape, scale=1.0, dt=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    qkv, w = r(b, n, 3 * d), r(d, d, scale=d ** -0.5).t()
+    kw = dict(b_proj=r(d, scale=0.1, dt=torch.float32),
+              layerscale=r(d, scale=0.5, dt=torch.float32), residual=r(b, n, d), num_heads=h)
+    with torch.no_grad():
+        ms = time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw), iters=iters)
+    ops = 4 * b * h * n * n * hd + 2 * m * d * d
+    nbytes = 2 * (m * 3 * d + d * d + 2 * m * d) + 2 * d * 4
+    return {f"k5fwd qkv [{b},{n},{3 * d}] bfloat16": dict(ms=ms, **bound(ops, nbytes, "bfloat16"))}
 
 
 def main(argv=None) -> None:
@@ -205,9 +280,11 @@ def main(argv=None) -> None:
                     help="the checkout to import anyloc_tpu_torch from (default: this one)")
     ap.add_argument("--profile", action="store_true",
                     help="split the projection half into its kernels (torch.profiler)")
+    ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES[:4]),
+                    help="the cases to time (default: all but k5fwd)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
-    res = run(args.iters, profile=args.profile)
+    res = run(args.iters, profile=args.profile, cases=args.cases)
     for case, r in res["cases"].items():
         lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms") if k in r)
         if "scratch_mib" in r:

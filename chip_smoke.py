@@ -156,11 +156,15 @@ Phases, each of which must pass or the script exits non-zero:
      pipelined over model 2 (``pptrain``) and sequence-parallel facets'
      gradients (``sptrain``), each against one rank; then the attention
      backward's route table (``attention_bwd_routes_phase``): every (head
-     dim, dtype) on the kernel the table names (wgmma at hd 64, mma.sync
-     elsewhere) against its plain version, two launches bit-equal, and each
-     kernel timed alone beside its plain version, SDPA's backward and its
-     bound (wgmma at [48, 6, 197, 64], mma.sync at [8, 16, 257, 80], f32);
-     the K2 gradient and memory lines name the route they ran; then the tooling
+     dim, dtype) on the kernel the table names (wgmma everywhere but hd 128
+     in f32, which runs mma.sync) against its plain version, two launches
+     bit-equal, and each timed alone beside its plain version, SDPA's
+     backward and its bound (hd 64 at [48, 6, 197, 64], the other head dims
+     at [8, 1280 / hd, 257, hd], f32 and bf16); the ViT-H gradient
+     (``vith_gradient_phase``): K5's backward under autograd at MAE-H/14's
+     qkv [8, 257, 3840] and K2's at [8, 16, 257, 80], f32 and bf16, held
+     to the plain autograd and timed beside it, with the launches of the
+     run; the K2 gradient and memory lines name the route they ran; then the tooling
      (``tooling_phase``): ``python -m anyloc_tpu_torch viz clusters``
      and ``viz report`` at DINOv2-G l31
      (K5 launching, the report's labels equal to a direct run); the
@@ -246,8 +250,8 @@ KERNEL_INFO = {
         source="anyloc_tpu_torch/csrc/attn_qkv_proj_bwd.cu",
         replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
     # the attention backward that K2b and K5b launch, one entry per kernel of
-    # its route table (attention_bwd_route): wgmma at hd 64, mma.sync at the
-    # other head dims
+    # its route table (attention_bwd_route): wgmma everywhere but hd 128 in
+    # float32, which runs mma.sync
     "Kab_attention_bwd_wgmma": dict(
         source="anyloc_tpu_torch/csrc/flash_attention_bwd.cuh",
         replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
@@ -293,6 +297,11 @@ PATH_KERNELS = {
     "train dvgl vit": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd",
                        "Kab_attention_bwd_wgmma"),
     "train dvgl resnet18conv4": (),
+    # ViT-H's attention gradient (MAE-H/14, ImageBind-H, SAM-H: 16 heads of
+    # 80): K5 and K2 under autograd, the backward on the wgmma route
+    "vit-h gradient": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd",
+                       "K2_flash_attention", "K2b_flash_attention_bwd",
+                       "Kab_attention_bwd_wgmma"),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
     # parallel/: DescriptorEngine(mesh=...) in bf16 (K1, K5) and int8_full
@@ -1830,21 +1839,26 @@ def run(profile_dir) -> dict:
         # ------------------------------------------------------------ Kab: the attention backward
         mark("Kab, the attention backward's route table")
         routes = attention_bwd_routes_phase(tag)
+        mark("the ViT-H gradient")
+        vith = vith_gradient_phase(tag)
+        note("launches " + ", ".join(f"{k} {v}" for k, v in vith["counts"].items()))
         for route, r in routes["timed"].items():
             name = "Kab_attention_bwd_" + route.replace(".", "_")
             # launches on the main paths: the train CLI's vit steps and the
-            # training mesh (every one of them at hd 64)
+            # training mesh (hd 64), ViT-H's gradient (hd 80)
             main = (trained["launches"]["train dvgl vit"].get(name, 0)
-                    + trained_mesh["counts"].get(name, 0))
+                    + trained_mesh["counts"].get(name, 0) + vith["counts"].get(name, 0))
             results[name].update(
                 launches=main, shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
                 library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 max_abs_err=max(c["max_abs_err"] for c in routes["checks"] if c["route"] == route),
                 checked=[c["shape"] for c in routes["checks"] if c["route"] == route],
+                by_head_dim=[x for x in routes["by_head_dim"] if x["route"] == route],
                 library_route="torch.nn.functional.scaled_dot_product_attention's backward")
             note(f"{route} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, SDPA {r['library_ms']:.4f},"
                  f" bound {r['bound_ms']:.4f}), {main} launches on the main paths")
         results["Kab_attention_bwd_wgmma"]["k5_attention_half"] = k5b["halves"]["attention"]
+        results["Kab_attention_bwd_wgmma"]["vit_h_gradient"] = vith["lines"]
         results["K5b_flash_attention_qkv_proj_bwd"]["projection_half"] = (
             k5b["halves"]["projection"])
 
@@ -2913,9 +2927,12 @@ def attention_bwd_routes_phase(tag: str) -> dict:
     """Every (head dim, dtype) of the attention backward's route table on
     the kernel the table names, at [4, 4, 197, hd] (attention_bwd_alone:
     held to the plain version, two launches bit-equal, the route counted),
-    then each kernel timed at a shape its route serves: the wgmma kernel at
-    a tensor-parallel rank's [48, 6, 197, 64] float32 (dvgl ViT-B/16's
-    heads), the mma.sync kernel at [8, 16, 257, 80] float32 (ViT-H heads)."""
+    then each (head dim, dtype) timed at a shape its route serves: hd 64 at
+    a tensor-parallel rank's [48, 6, 197, 64] (dvgl ViT-B/16's heads), the
+    others at [8, 1280 / hd, 257, hd] (ViT-H's width: 16 heads of 80), f32
+    and bf16. ``timed`` gives each route its row of the kernels line: the
+    wgmma kernel at [48, 6, 197, 64] f32, the mma.sync kernel at
+    [8, 10, 257, 128] f32, its one pair."""
     import torch
 
     from anyloc_tpu_torch.ops.kernels.flash_attention import SUPPORTED_HEAD_DIMS
@@ -2931,16 +2948,86 @@ def attention_bwd_routes_phase(tag: str) -> dict:
             check(r["ok"], f"the attention backward at {r['shape']} ({r['route']}) disagrees "
                            f"with its plain version, or two launches differ")
             checks.append(r)
-    timed = {}
-    for route, shape in (("wgmma", (48, 6, 197, 64)), ("mma.sync", (8, 16, 257, 80))):
-        r = attention_bwd_alone(*shape, torch.float32, timed=True)
-        check(r["ok"] and r["route"] == route, f"the timed {route} case failed: {r}")
-        print(f"attention backward {route} {tag} {r['shape']} (the kernel alone, its dq sum "
-              f"and D pass included): {r['ms']:.4f} ms, plain version {r['plain_ms']:.3f} ms, "
-              f"SDPA's backward {r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}, 3xTF32), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
-        timed[route] = r
-    return dict(checks=checks, timed=timed)
+    timed, by_head_dim = {}, []
+    for hd in SUPPORTED_HEAD_DIMS:
+        shape = (48, 6, 197, 64) if hd == 64 else (8, 1280 // hd, 257, hd)
+        for dtype in (torch.float32, torch.bfloat16):
+            r = attention_bwd_alone(*shape, dtype, timed=True)
+            check(r["ok"], f"the timed case {r['shape']} failed: {r}")
+            print(f"attention backward {r['route']} {tag} {r['shape']} (the kernel alone, its "
+                  f"dq sum and D pass included): {r['ms']:.4f} ms, plain version "
+                  f"{r['plain_ms']:.3f} ms, SDPA's backward {r['library_ms']:.4f} ms; bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}"
+                  f"{', 3xTF32' if dtype == torch.float32 else ''}), "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
+            by_head_dim.append({k: r[k] for k in ("shape", "route", "ms", "plain_ms",
+                                                  "library_ms", "bound_ms", "bound_by",
+                                                  "max_abs_err")})
+            if dtype == torch.float32 and hd in (64, 128):
+                timed[r["route"]] = r
+    check(set(timed) == {"wgmma", "mma.sync"}, f"a route was not timed: {sorted(timed)}")
+    return dict(checks=checks, timed=timed, by_head_dim=by_head_dim)
+
+
+def vith_gradient_phase(tag: str) -> dict:
+    """ViT-H's attention gradient at its published geometry (MAE-H/14 at
+    224 px: 16 heads of 80, D 1280; ImageBind-H's and SAM-H's heads too):
+    K5's backward under autograd (``QkvProjGrad``) at qkv [8, 257, 3840]
+    and K2's (``FlashAttentionGrad``) at q/k/v [8, 16, 257, 80], f32 and
+    bf16, each held to the plain version's autograd
+    (``train_checks.k5_gradient`` / ``k2_gradient``: the bounds, one
+    launch each way, the output bit-equal without autograd), then its
+    backward timed beside the plain autograd's in turns; the launch
+    counts are set to 0 before the phase and read after it."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
+    from anyloc_tpu_torch.tools import train_checks
+
+    b, n, h, hd = 8, 257, 16, 80
+    K.reset_launch_counts()
+    lines = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        r5 = train_checks.k5_gradient(b, n, h, hd, dtype)
+        r2 = train_checks.k2_gradient(b, h, n, hd, dtype)
+        for what, r in (("K5", r5), ("K2", r2)):
+            check(r["ok"], f"ViT-H's {what} gradient ({name}) disagrees with its plain version's: "
+                           f"{r['grad_errs']}")
+        inputs = train_checks.k5_inputs(b, n, h, hd, dtype)
+        wanted = [t for t in inputs.values() if t is not None]
+        out = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+        ref = K.flash_attention_qkv_proj_ref(num_heads=h, **inputs)
+        gout = torch.randn_like(out)
+        k5_ms, k5_plain = turns(lambda: torch.autograd.grad(out, wanted, gout, retain_graph=True),
+                                lambda: torch.autograd.grad(ref, wanted, gout, retain_graph=True))
+        del inputs, wanted, out, ref, gout
+        g = torch.Generator(device="cuda").manual_seed(1)
+        qkv = [torch.randn((b, h, n, hd), generator=g, device="cuda").to(dtype)
+               .requires_grad_(True) for _ in range(3)]
+        out, ref = K.flash_attention(*qkv), K.flash_attention_ref(*qkv)
+        gout = torch.randn_like(out)
+        k2_ms, k2_plain = turns(lambda: torch.autograd.grad(out, qkv, gout, retain_graph=True),
+                                lambda: torch.autograd.grad(ref, qkv, gout, retain_graph=True))
+        del qkv, out, ref, gout
+        lines[name] = dict(route=attention_bwd_route(hd, dtype),
+                           k5=dict(shape=f"qkv [{b},{n},{3 * h * hd}]", ms=k5_ms,
+                                   plain_ms=k5_plain, grad_errs=r5["grad_errs"]),
+                           k2=dict(shape=f"[{b},{h},{n},{hd}]", ms=k2_ms, plain_ms=k2_plain,
+                                   grad_errs=r2["grad_errs"]))
+        errs = {w: ", ".join(f"{k} {v:.2e}" for k, v in r["grad_errs"].items())
+                for w, r in (("K5", r5), ("K2", r2))}
+        print(f"ViT-H gradient {tag} {name} on the {lines[name]['route']} route: K5 backward "
+              f"qkv [{b},{n},{3 * h * hd}] {k5_ms:.3f} ms (plain autograd {k5_plain:.3f}), "
+              f"errors {errs['K5']}; K2 backward [{b},{h},{n},{hd}] {k2_ms:.3f} ms (plain "
+              f"autograd {k2_plain:.3f}), errors {errs['K2']}", flush=True)
+    counts = K.launch_counts()
+    for kernel in PATH_KERNELS["vit-h gradient"]:
+        check(counts.get(kernel, 0) > 0, f"{kernel} never launched in the ViT-H gradient phase")
+    check(counts.get("Kab_attention_bwd_mma_sync", 0) == 0,
+          "the ViT-H gradient ran the mma.sync route")
+    return dict(lines=lines, counts={k: v for k, v in counts.items() if v})
 
 
 def k5_backward_halves(inputs: dict, gout, h: int) -> dict:

@@ -16,9 +16,10 @@ for K5, the projection before LayerScale) on the CPU:
     apart), and an L2 distance from the float64 gradient of the same inputs
     no more than 1.25x the plain version's own.
 
-Inputs are made from numpy seeds; N 1, 9 and 65 cover one key, fewer keys
-than one block and ragged key blocks (the kernels mask the keys past N of
-their last 64-key block).
+Inputs are made from numpy seeds; N 1, 9, 33 and 65 cover one key, fewer
+keys than one block and ragged key blocks (the kernels mask the keys past N
+of their last 64-key block); the head dims are every one the route table
+names (16, 32, 64, 80, 128) and 8.
 
 The route table of the attention backward (which kernel each head dim and
 dtype runs) and its Python mirror are held to a table written here and to
@@ -52,7 +53,8 @@ from anyloc_tpu_torch.tools.train_checks import BF16_BOUND, BF16_RATIO, attentio
 torch.set_num_threads(2)
 
 F32_BOUND = 1e-5
-SHAPES = [(2, 2, 1, 8), (2, 4, 9, 16), (2, 3, 65, 16), (2, 2, 65, 80)]
+SHAPES = [(2, 2, 1, 8), (2, 4, 9, 16), (2, 3, 65, 16), (2, 2, 65, 80), (2, 2, 65, 32),
+          (2, 2, 33, 64), (2, 1, 65, 128)]
 
 
 def _arrays(shape, n, seed, scale=1.0):
@@ -182,7 +184,8 @@ def _k5_autograd(inputs, grad, h, scale):
 
 
 K5_SHAPES = [(2, 1, 2, 8, True), (2, 9, 4, 16, False), (2, 65, 2, 16, True),
-             (2, 65, 2, 80, True)]
+             (2, 65, 2, 80, True), (2, 65, 2, 32, False), (2, 33, 2, 64, True),
+             (2, 65, 1, 128, False)]
 
 
 @pytest.mark.parametrize("b,n,h,hd,ls", K5_SHAPES,
@@ -305,9 +308,10 @@ def test_projection_backward_on_cpu_matches_jax_vjp(b, n, d, d_out, ls, needs):
 # ---------------------------------------------------------------- the route table
 
 # the attention backward's kernel for each (head dim, dtype), written out:
-# the wgmma kernel at hd 64 (dvgl ViT-B/16, tensor-parallel training,
-# DINOv2), the mma.sync kernel at the other head dims
-ROUTES = {(hd, dt): ("wgmma" if hd == 64 else "mma.sync")
+# the wgmma kernel everywhere but hd 128 in float32, whose resident K, V and
+# K^T in hi and lo would not leave room for a query tile in a block; that
+# pair keeps the mma.sync kernel
+ROUTES = {(hd, dt): ("mma.sync" if (hd, dt) == (128, torch.float32) else "wgmma")
           for hd in (16, 32, 64, 80, 128) for dt in (torch.float32, torch.bfloat16)}
 CUH = Path(K.__file__).resolve().parents[2] / "csrc" / "flash_attention_bwd.cuh"
 SMEM_LIMIT = 232448   # a block's shared memory on the H100 (227 KB)
@@ -322,19 +326,27 @@ def test_attention_bwd_route_mirror_matches_the_table(hd, dtype):
 
 def test_attention_bwd_route_table_matches_the_cuda_source():
     """The CUDA route table (``attention_bwd_route`` of
-    ``csrc/flash_attention_bwd.cuh``) sends hd 64 of both dtypes to the wgmma
-    kernel and nothing else, and the tile constants the Python mirrors read
-    are the source's."""
+    ``csrc/flash_attention_bwd.cuh``) sends every head dim in bf16 and all
+    but hd 128 in f32 to the wgmma kernel, and the tile constants the Python
+    mirrors read are the source's: the query step, the tiles' bytes, where
+    Q and dO land in place."""
     src = CUH.read_text()
     body = src[src.index("constexpr int attention_bwd_route("):]
     body = body[:body.index("}")]
-    assert "hd == 64 && (dtype == DT_F32 || dtype == DT_BF16) ? BWD_WGMMA : BWD_MMA_SYNC" in body
+    assert ("dtype == DT_BF16 || (dtype == DT_F32 && hd != 128) ? BWD_WGMMA : BWD_MMA_SYNC"
+            in body)
     for line in ("constexpr int BWD_KEYS = 64;", "constexpr int BWD_MIN_GRID = 512;",
-                 "static constexpr int BKV = 64, BQ = 32, STAGES = 2;",
+                 "static constexpr int BKV = 64, BQ = HD == 128 ? 16 : 32;",
+                 "static constexpr int MIN_BLOCKS = HD == 16 ? 2 : 1;",
+                 "static constexpr int KTILE = BKV * HD * 4;",
+                 "static constexpr int QTILE = BQ * HD * 4;",
+                 "static constexpr int Q_ = KT_ + COPIES * KTILE;",
+                 "static constexpr bool IN_PLACE = LAND_ + 4 * LAND + 2 * BQ * 4 + 10 * 8 + 1024 > "
+                 "232448;",
+                 "static constexpr int STAGES = IN_PLACE ? 1 : 2;",
                  "static constexpr int BAR_ = L_ + 2 * BQ * 4;",
                  "static constexpr int NBAR = 2 * STAGES + 6;",
-                 "static constexpr int SMEM = 4 * ((2 * BKV + (LO ? 4 : 2) * BQ) * LDH + BKV * "
-                 "BQ + 2 * BQ);"):
+                 "static constexpr int SMEM = 4 * ((2 * BKV + 4 * BQ) * LDH + BKV * BQ + 2 * BQ);"):
         assert line in src, line
     assert (BWD_KEYS, BWD_MIN_GRID) == (64, 512)
 
@@ -351,13 +363,46 @@ def test_attention_bwd_slices_against_a_hand_count(b, h, n):
     assert attention_bwd_slices(b, h, n) == SLICES[b, h, n]
 
 
+# a block's shared memory on the wgmma route, counted by hand from the
+# tiles: K, V, K^T [64 x hd] per key block, Q, dO, Q^T, dO^T [step x hd]
+# per step, all f32 (x2 for f32's hi and lo), dS hi and lo [step x 64], two
+# landing stages of Q and dO in the input dtype, LSE and D, 10 mbarriers,
+# 1 KB to align. f32 at hd 80, where the stages would take 263,504 bytes,
+# lands Q and dO in place: 2·3·20480 + 4·2·10240 + 2·8192 + 256 + 8·8 + 1024
+WGMMA_SMEM = {(16, torch.float32): 66896, (16, torch.bfloat16): 42320,
+              (32, torch.float32): 116048, (32, torch.bfloat16): 66896,
+              (64, torch.float32): 214352, (64, torch.bfloat16): 116048,
+              (80, torch.float32): 222528, (80, torch.bfloat16): 140624,
+              (128, torch.bfloat16): 156880}
+
+
 @pytest.mark.parametrize("hd,dtype", sorted(ROUTES, key=str), ids=lambda x: str(x))
 def test_attention_bwd_tiles_fit_a_block(hd, dtype):
     """Each (head dim, dtype)'s block on its route fits the 227 KB a block
-    may use (``attention_bwd_smem``, mirrored from the tile constants); at
-    hd 64 the wgmma kernel takes 214,352 bytes in f32 (hi and lo of every
-    tile) and 116,048 in bf16."""
+    may use (``attention_bwd_smem``, mirrored from the tile constants); on
+    the wgmma route it takes the bytes counted by hand above (hd 64: 214,352
+    in f32, hi and lo of every tile, and 116,048 in bf16), and the
+    mma.sync kernel's hd 128 f32 block 139,520. At hd 16 two wgmma blocks
+    share an SM's 228 KB, each with the 1 KB the card keeps a block."""
     smem = attention_bwd_smem(hd, dtype, ROUTES[hd, dtype])
     assert smem <= SMEM_LIMIT
-    if ROUTES[hd, dtype] == "wgmma":
-        assert smem == {torch.float32: 214352, torch.bfloat16: 116048}[dtype]
+    assert set(WGMMA_SMEM) == {key for key, route in ROUTES.items() if route == "wgmma"}
+    assert smem == (WGMMA_SMEM[hd, dtype] if ROUTES[hd, dtype] == "wgmma" else 139520)
+    if hd == 16:
+        assert 2 * (smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], None],
+                         ids=["k2", "vith-k5fwd", "hds", "default"])
+def test_bench_attention_bwd_refuses_without_a_card(cases):
+    """``tools/bench_attention_bwd.py`` takes the cases it is given (every
+    one of them by default but ``k5fwd``) and, with no CUDA card, raises
+    before it times anything: a measurement never falls back to the CPU."""
+    from anyloc_tpu_torch.tools import bench_attention_bwd as bench
+
+    argv = [] if cases is None else ["--cases", *cases]
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        bench.main(argv)
+    with pytest.raises(SystemExit):
+        bench.main(["--cases", "nope"])
+    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd")

@@ -1386,13 +1386,17 @@ K5_GRAD_CASES = [(48, 197, 12, 64, False), (4, 257, 16, 80, False), (2, 65, 4, 1
                  # the wgmma route (hd 64) on K5's strided views of qkv: a ragged
                  # N, fewer queries than one 32-query step, a long sequence whose
                  # blocks take several key blocks in turn
-                 (3, 300, 4, 64, True), (2, 20, 4, 64, False), (2, 1370, 4, 64, False)]
+                 (3, 300, 4, 64, True), (2, 20, 4, 64, False), (2, 1370, 4, 64, False),
+                 # MAE-H/14 at 224 px: qkv [2, 257, 3840], 16 heads of 80, no
+                 # LayerScale (the wgmma route with Q and dO landed in place, f32)
+                 (2, 257, 16, 80, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,hd,ls", K5_GRAD_CASES,
                          ids=["dvgl-vit-b16-step", "hd80", "hd16-n65", "hd32-n65", "hd128-n65",
-                              "n1", "hd128-n130", "hd64-n300", "hd64-n20", "hd64-n1370"])
+                              "n1", "hd128-n130", "hd64-n300", "hd64-n20", "hd64-n1370",
+                              "mae-h"])
 def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, ls, dtype):
     """K5 under autograd launches its forward kernel once and its backward
     kernels once (``flash_attention_qkv_proj_bwd``: the projection backward,
@@ -1501,7 +1505,16 @@ K2_GRAD_CASES = [(48, 6, 197, 64, torch.float32), (2, 4, 300, 80, torch.float32)
                  # blocks a block (bf16's D pass too), a long sequence
                  (8, 16, 300, 64, torch.bfloat16), (2, 4, 20, 64, torch.float32),
                  (2, 4, 20, 64, torch.bfloat16), (2, 4, 1, 64, torch.bfloat16),
-                 (2, 12, 1370, 64, torch.float32), (2, 12, 1370, 64, torch.bfloat16)]
+                 (2, 12, 1370, 64, torch.float32), (2, 12, 1370, 64, torch.bfloat16),
+                 # ViT-H's head dim 80 on the wgmma route (f32: Q and dO landed
+                 # in place; dQ^T's second 64-row product reads past K^T's 80
+                 # rows and stores 16 of them): ragged N, N 1, N under
+                 # one query step, several key blocks a block (bf16's D pass
+                 # too) at ViT-H's 16 heads
+                 (2, 4, 300, 80, torch.bfloat16), (2, 4, 1, 80, torch.float32),
+                 (2, 4, 1, 80, torch.bfloat16), (2, 4, 20, 80, torch.float32),
+                 (2, 4, 20, 80, torch.bfloat16), (8, 16, 1370, 80, torch.float32),
+                 (8, 16, 1370, 80, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,h,n,hd,dtype", K2_GRAD_CASES)
@@ -1525,9 +1538,9 @@ def test_k2_gradient_matches_the_plain_versions(b, h, n, hd, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_runs_the_route_tables_kernel(hd, dtype):
     """K2's backward at each (head dim, dtype) launches the kernel the route
-    table names (``attention_bwd_route``: wgmma at hd 64, mma.sync at the
-    others), counted once on that route and never on the other, and two
-    backward calls on the same inputs are bit-equal."""
+    table names (``attention_bwd_route``: wgmma everywhere but hd 128 in
+    float32, which runs mma.sync), counted once on that route and never on
+    the other, and two backward calls on the same inputs are bit-equal."""
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
 
@@ -1546,15 +1559,17 @@ def test_attention_backward_runs_the_route_tables_kernel(hd, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_gradient_on_strided_views_of_a_fused_qkv(dtype):
+def test_k2_gradient_on_strided_views_of_a_fused_qkv(dtype, hd):
     """K2's forward and backward kernels on K5's layout: q, k and v as
     strided head views of one [B, N, 3D] tensor (row stride 3D), its
-    gradient gathered through the views, against the plain version's."""
+    gradient gathered through the views, against the plain version's; at
+    hd 64 and ViT-H's 80."""
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.tools import train_checks
 
-    b, n, h, hd = 2, 197, 4, 64
+    b, n, h = 2, 197, 4
     d = h * hd
     qkv = _randn(b, n, 3 * d, dtype=dtype, seed=30).requires_grad_(True)
     grad = _randn(b, h, n, hd, dtype=dtype, seed=31)
