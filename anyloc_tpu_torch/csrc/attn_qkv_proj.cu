@@ -32,9 +32,9 @@
 // outputs, stays as a saved tensor instead of scratch; lse receives each
 // query row's log-sum-exp of the scores ([B, H, N] f32, from the attention
 // kernel); pre receives o·W_O + bias before LayerScale ([B, N, d_out] f32,
-// from the GEMM's epilogue), which d LayerScale sums against the output
-// gradient. Both are null outside autograd, and the output's stores are
-// the same either way.
+// from the GEMM's epilogue, the EPI_RESID_PRE instance), which d
+// LayerScale sums against the output gradient. Both are null outside
+// autograd, and the output's stores are the same either way.
 #include "bf16_gemm.cuh"
 #include "flash_attention.cuh"
 
@@ -85,5 +85,6 @@ extern "C" int anyloc_attn_qkv_proj(const void* qkv, const void* w_nk,
   g.M = B * N;
   g.N = d_out;
   g.K = D;
-  return static_cast<int>(launch_gemm<EPI_RESID>(g, dtype, st));
+  return static_cast<int>(pre != nullptr ? launch_gemm<EPI_RESID_PRE>(g, dtype, st)
+                                          : launch_gemm<EPI_RESID>(g, dtype, st));
 }

@@ -66,7 +66,7 @@ struct GemmArgs {
   int hid;             // EPI_SWIGLU: first B row of W2
   int q_cols;          // EPI_QKV
   float q_scale;       // EPI_QKV
-  float* pre;          // EPI_RESID: [M, N] f32, the value before LayerScale, or null
+  float* pre;          // EPI_RESID_PRE: [M, N] f32, the value before LayerScale
 };
 
 // Output columns col, col + 1 of row `row` from their f32 sums (v0, v1) and,
@@ -94,8 +94,9 @@ __device__ __forceinline__ void epi_store(const GemmArgs& p, int row, int col, f
   } else if (EPI == EPI_GELU) {
     v0 = gelu_poly(v0);
     v1 = gelu_poly(v1);
-  } else {  // EPI_RESID
-    if (p.pre) store_pair(p.pre + off, v0, v1);  // K5 under autograd: d LayerScale reads it
+  } else {  // EPI_RESID, EPI_RESID_PRE
+    if constexpr (EPI == EPI_RESID_PRE)
+      store_pair(p.pre + off, v0, v1);  // K5 under autograd: d LayerScale reads it
     if (p.gamma) {
       v0 = __fmul_rn(v0, p.gamma[col]);
       v1 = __fmul_rn(v1, p.gamma[col + 1]);

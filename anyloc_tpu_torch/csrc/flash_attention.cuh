@@ -46,8 +46,9 @@
 //     0.657 ms at N 5330; none of these was kept (PERF.md).
 // The f32 design (flash_attn_tf32x3_kernel), the route of every f32 model
 // (CLIP-L/14@336px, dvgl ViT-B/16 in eval and training, ImageBind-H's f32
-// towers, tensor-parallel training through K2): the same producer, ring
-// and online softmax, each product as three tf32 wgmmas of the split
+// towers, tensor-parallel training through K2): the same ring and online
+// softmax (the first consumer thread issues the loads), each product as
+// three tf32 wgmmas of the split
 // x = hi + lo (hopper.cuh; lo·hi + hi·lo + hi·hi, f32-accurate, at a
 // third of the 495 TFLOP/s dense tf32 rate). tf32 wgmma has no transpose
 // bit, so V's tile cannot be read MN-major: a split warpgroup writes each
@@ -55,7 +56,9 @@
 // lo sit in shared memory (A from shared memory: in registers they would
 // cost HD registers a thread), P is split in registers. 32-key tiles, two
 // consumers (one at hd 128), 3 stages up to hd 64 and 2 above: at most
-// 224 KB of shared memory, one block per SM. Every head dim the wrappers
+// 224 KB of shared memory, one block per SM. Each key tile's P V sums in
+// an accumulator of its own before it joins O (F27: wgmma's sums round
+// toward zero by a share of the accumulator). Every head dim the wrappers
 // take (16, 32, 64, 80, 128) runs it; there is no other f32 kernel.
 // Under autograd (K2's FlashAttentionGrad, K5's QkvProjGrad) both kernels
 // also write each query row's log-sum-exp of the scaled scores (natural
@@ -150,9 +153,11 @@ __device__ __forceinline__ void store_lse(const AttnArgs& p, int b, int h, int r
 }
 
 // bf16 operands: wgmma products with f32 sums, P rounded to bf16 before
-// PV; the output in bf16, or in f32 with O_F32. Warpgroups 0..NWG-1 are
+// PV; the output in bf16, or in f32 with O_F32; with LSE (under autograd)
+// each row's log-sum-exp too, an instance of its own (a runtime branch on
+// p.lse cost K5's attention ~1.6 % on the H100). Warpgroups 0..NWG-1 are
 // the consumers, the last warp the producer.
-template <int HD, bool O_F32>
+template <int HD, bool O_F32, bool LSE>
 __global__ void __launch_bounds__(FaTile<HD>::THREADS, FaTile<HD>::BLOCKS_PER_SM)
     flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap, AttnArgs p, int n_qt) {
@@ -331,27 +336,38 @@ __global__ void __launch_bounds__(FaTile<HD>::THREADS, FaTile<HD>::BLOCKS_PER_SM
     if (r0 < N) store2(O + r0 * p.o_sn + col, o[4 * jj] / d0, o[4 * jj + 1] / d0);
     if (r1 < N) store2(O + r1 * p.o_sn + col, o[4 * jj + 2] / d1, o[4 * jj + 3] / d1);
   }
-  if (p.lse != nullptr && t == 0) {
+  if (LSE && t == 0) {
     store_lse(p, b, h, r0, m0, d0);
     store_lse(p, b, h, r1, m1, d1);
   }
 }
 
 // The f32 kernel's tiles at head dim HD: NWG consumer warpgroups of 64
-// query rows (two; one at hd 128, whose Q, stages and accumulator would
-// not fit twice), a split warpgroup, then the producer warp. Keys go in
-// tiles of BK = 32. Shared memory: Q's hi and lo per consumer (64 rows x
-// HD, K-major, panels of SW bytes as the K tiles), then STAGES stages of
-// five tiles of BK x HD f32: K as TMA lands it (swizzled panels as the
-// bf16 kernel's, rounded to its tf32 hi in place), K's lo, V as TMA lands
-// it (rows of HD, no swizzle; then V^T's rest in its place), and V^T's
-// hi and lo ([HD rows x BK keys], one 128-byte swizzled panel: tf32 wgmma
-// has no transpose bit, so PV's B operand must be K-major, keys along the
-// rows).
+// query rows (two; one at hd 128, whose Q, stages and accumulators would
+// not fit twice), then the split warpgroup; the first consumer thread
+// issues the TMA loads. Keys go in tiles of BK = 32. Shared
+// memory: Q's hi and lo per consumer (64 rows x HD, K-major, panels of SW
+// bytes as the K tiles), then STAGES stages of five tiles of BK x HD f32:
+// K as TMA lands it (swizzled panels as the bf16 kernel's, rounded to its
+// tf32 hi in place), K's lo, V as TMA lands it (rows of HD, no swizzle;
+// then V^T's rest in its place), and V^T's hi and lo ([HD rows x BK keys],
+// one 128-byte swizzled panel: tf32 wgmma has no transpose bit, so PV's B
+// operand must be K-major, keys along the rows).
 template <int HD>
 struct Fa32Tile {
   static constexpr int NWG = HD == 128 ? 1 : 2;
-  static constexpr int THREADS = 128 * NWG + 128 + 32;
+  static constexpr int THREADS = 128 * NWG + 128;
+  static constexpr int SPLITTERS = 128;  // the split warpgroup
+  // Two consumers: setmaxnreg moves the launch's 168 registers a thread
+  // (65,536 over 384 threads) from the split warpgroup to the consumers,
+  // whose O and each key tile's P V, in accumulators of their own, need
+  // them; one consumer has 255 at launch. On the H100 at [8, 16, 1370, 80]
+  // a producer's warpgroup of its own (512 threads, 128 registers at
+  // launch) spilled and took 2.5 % longer, and the split on three warps
+  // beside a producer warp 5 % longer than that.
+  static constexpr int REGS_CONSUMER = 200, REGS_SPLIT = 104;
+  static_assert(NWG == 1 || 2 * REGS_CONSUMER + REGS_SPLIT <= 3 * 168,
+                "setmaxnreg moves the launch's registers, no more");
   static constexpr int SW = (HD * 4) % 128 == 0 ? 128 : 64;  // hd 16, 80: 64-byte panels
   static constexpr int BOX = SW / 4;                          // head-dim columns per panel
   static constexpr int PANELS = HD / BOX;
@@ -367,11 +383,20 @@ struct Fa32Tile {
 // towers of ImageBind-H): the bf16 kernel's dataflow with each product as
 // three tf32 wgmmas of the split x = hi + lo (hopper.cuh's tf32_split,
 // hi rounded): S = Q K^T from Q's and K's hi and lo in shared memory, P
-// split in registers for O += P V^T, V in three pieces (four products: P
-// V is then exact where P is exact, as at one key, where O = V). The
-// split warpgroup writes each stage's K lo, rounds K in place and writes
-// V^T, then arrives on `ready`;
-// the consumers free a stage on `empty` once its products are done.
+// split in registers for P V^T, V in three pieces (four products: P V is
+// then exact where P is exact, as at one key, where O = V). The split
+// warpgroup writes each stage's K lo, rounds K in place and writes V^T,
+// then arrives on `ready`; the consumers free a stage on `empty` once its
+// products are done.
+// wgmma's f32 sums are not rounded to nearest: each product added to an
+// accumulator errs by a share of the accumulator's own size, always
+// toward zero. Added into one running O, every key tile's sixteen P V
+// products erred by a share of O, and the error grew with N (F27: 1.2-1.8e-5
+// of max|out| at N 1370, 8-10x the plain version's). So each tile's P V
+// goes into an accumulator of its own (scale-d 0 on its first product) and
+// joins O in registers, O = O · alpha + PV, one rounded FMA a tile; S
+// sums its hi·hi products in one accumulator and lo·hi + hi·lo in another,
+// added once a tile (as the GEMM's OpTF32x3).
 // P's A fragment takes key 2t of each 8-key step as its column t and key
 // 2t + 1 as column t + 4 (the S accumulator holds keys 2t, 2t + 1 of each
 // 8), so V^T stores each 8 keys of a step in the order 0 2 4 6 1 3 5 7.
@@ -396,43 +421,39 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
   const int b = bh / p.H, h = bh % p.H;
   const int N = p.N;
   const int nk = cdiv(N, BK);
-  const int wg = threadIdx.x / 128;  // NWG: the split warpgroup; NWG + 1: the producer warp
+  const int wg = threadIdx.x / 128;  // NWG: the split warpgroup
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&ready[s], 128);      // every split thread
-      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+      mbar_init(&ready[s], T::SPLITTERS);  // every split thread
+      mbar_init(&empty[s], 4 * NWG);       // one arrival per consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == NWG + 1) {  // ---------------------------------------- producer
-    if (threadIdx.x == 128 * NWG + 128) {
-      tma_prefetch_map(&kmap);
-      tma_prefetch_map(&vmap);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % T::STAGES;
-        if (j >= T::STAGES) mbar_wait(&empty[s], (j / T::STAGES - 1) & 1);
-        uint8_t* kt = smem + s * T::STAGE;
-        mbar_arrive_expect_tx(&full[s], 2 * T::TILE);
+  // key tile j's K and V into its stage, by TMA (the first consumer thread)
+  auto load = [&](int j) {
+    const int s = j % T::STAGES;
+    uint8_t* kt = smem + s * T::STAGE;
+    mbar_arrive_expect_tx(&full[s], 2 * T::TILE);
 #pragma unroll
-        for (int pn = 0; pn < T::PANELS; ++pn)
-          tma_load_4d(kt + pn * BK * T::SW, &kmap, &full[s], pn * T::BOX, j * BK, h, b);
-        tma_load_4d(kt + 2 * T::TILE, &vmap, &full[s], 0, j * BK, h, b);
-      }
-    }
-    return;
-  }
+    for (int pn = 0; pn < T::PANELS; ++pn)
+      tma_load_4d(kt + pn * BK * T::SW, &kmap, &full[s], pn * T::BOX, j * BK, h, b);
+    tma_load_4d(kt + 2 * T::TILE, &vmap, &full[s], 0, j * BK, h, b);
+  };
   if (wg == NWG) {  // ---------------------------------------- split
-    const int tid = threadIdx.x - 128 * NWG;
+    if constexpr (NWG == 2) regs_shrink<T::REGS_SPLIT>();
+    const int st = threadIdx.x - 128 * NWG;
+    constexpr int ITEMS = BK / 4 * HD;  // uint4 items of V^T
+    constexpr int PER = (ITEMS + T::SPLITTERS - 1) / T::SPLITTERS;
     for (int j = 0; j < nk; ++j) {
       const int s = j % T::STAGES;
       mbar_wait(&full[s], (j / T::STAGES) & 1);
       uint8_t* kt = smem + s * T::STAGE;
-      for (int i = tid; i < T::TILE / 16; i += 128) {  // K: hi in place, lo a tile on
+      for (int i = st; i < T::TILE / 16; i += T::SPLITTERS) {  // K: hi in place, lo a tile on
         uint4* x = reinterpret_cast<uint4*>(kt + 16 * i);
         const float4 v = *reinterpret_cast<const float4*>(x);
         uint4 hi, lo;
@@ -449,10 +470,11 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
       // {0, 2, 4, 6} of the tile; the rest overwrites V's tile once every
       // split thread has read it
       const float* vr = reinterpret_cast<const float*>(kt + 2 * T::TILE);
-      uint4 rest[HD / 16];  // BK / 4 * HD items over 128 threads
+      uint4 rest[PER];
 #pragma unroll
-      for (int m = 0; m < HD / 16; ++m) {
-        const int i = tid + 128 * m;
+      for (int m = 0; m < PER; ++m) {
+        const int i = st + T::SPLITTERS * m;
+        if (i >= ITEMS) break;
         const int d = i % HD, c = i / HD;
         const int k0 = 8 * (c >> 1) + (c & 1);
         uint4 hi, lo;
@@ -464,10 +486,11 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
         *reinterpret_cast<uint4*>(kt + 3 * T::TILE + off) = hi;
         *reinterpret_cast<uint4*>(kt + 4 * T::TILE + off) = lo;
       }
-      bar_sync(15, 128);  // V's tile is read
+      bar_sync(15, T::SPLITTERS);  // V's tile is read
 #pragma unroll
-      for (int m = 0; m < HD / 16; ++m) {
-        const int i = tid + 128 * m;
+      for (int m = 0; m < PER; ++m) {
+        const int i = st + T::SPLITTERS * m;
+        if (i >= ITEMS) break;
         const int d = i % HD, c = i / HD;
         *reinterpret_cast<uint4*>(kt + 2 * T::TILE + swizzle<128>(d * 128 + c * 16)) = rest[m];
       }
@@ -477,7 +500,14 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
     return;
   }
   // ------------------------------------------------------------ consumers
+  if constexpr (NWG == 2) regs_grow<T::REGS_CONSUMER>();
   const int tid = threadIdx.x % 128;
+  const bool issuer = threadIdx.x == 0;  // loads each stage once every consumer warp freed it
+  if (issuer) {
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    for (int j = 0; j < nk && j < T::STAGES; ++j) load(j);
+  }
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = (qt * NWG + wg) * 64;
@@ -518,11 +548,11 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
 
   float m0 = -INFINITY, m1 = -INFINITY;
   float l0 = 0.f, l1 = 0.f;
-  float o[HD / 2], s[BK / 2];
+  float o[HD / 2], pv[HD / 2], s[BK / 2], se[BK / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = pv[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  for (int i = 0; i < BK / 2; ++i) s[i] = se[i] = 0.f;
 
   for (int j = 0; j < nk; ++j) {
     const int st = j % T::STAGES;
@@ -539,13 +569,16 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
           smem_desc<T::SW>(qh + (off / T::SW) * (64 * T::SW) + off % T::SW, 16, 8 * T::SW);
       const uint64_t dk =
           smem_desc<T::SW>(kt + (off / T::SW) * (BK * T::SW) + off % T::SW, 16, 8 * T::SW);
-      wgmma_tf32_ss(s, dq + QLO, dk, kk);
-      wgmma_tf32_ss(s, dq, dk + TLO, 1);
-      wgmma_tf32_ss(s, dq, dk, 1);
+      wgmma_tf32_ss(se, dq + QLO, dk, kk);  // 0: the tile's first product
+      wgmma_tf32_ss(se, dq, dk + TLO, 1);
+      wgmma_tf32_ss(s, dq, dk, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
+    fence_regs(se);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = __fadd_rn(s[i], se[i]);
 
     const bool tail = (j + 1) * BK > N;
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -579,15 +612,9 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
     }
     l0 = l0 * al0 + ls0;  // per-thread partial; quad-summed at the end
     l1 = l1 * al1 + ls1;
-#pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-      o[4 * jj] *= al0;
-      o[4 * jj + 1] *= al0;
-      o[4 * jj + 2] *= al1;
-      o[4 * jj + 3] *= al1;
-    }
-    // O += P V with P in f32 (v's dtype), split; step kt2's A fragment is
-    // (row g key 2t, row g + 8 key 2t, row g key 2t + 1, row g + 8 key 2t + 1)
+    // this tile's P V, with P in f32 (v's dtype), split; step kt2's A
+    // fragment is (row g key 2t, row g + 8 key 2t, row g key 2t + 1, row
+    // g + 8 key 2t + 1)
     uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
     for (int kt2 = 0; kt2 < BK / 8; ++kt2) {
@@ -600,14 +627,14 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
 #pragma unroll
     for (int kt2 = 0; kt2 < BK / 8; ++kt2) {
       const uint64_t dv = smem_desc<128>(vt + kt2 * 32, 16, 1024);  // V^T's hi
-      wgmma_tf32_rs(o, pl[kt2], dv, 1);
-      wgmma_tf32_rs(o, ph[kt2], dv - TLO, 1);  // V^T's rest, a tile before
-      wgmma_tf32_rs(o, ph[kt2], dv + TLO, 1);  // V^T's lo
-      wgmma_tf32_rs(o, ph[kt2], dv, 1);
+      wgmma_tf32_rs(pv, pl[kt2], dv, kt2);     // 0: the tile's first product, PV = P V
+      wgmma_tf32_rs(pv, ph[kt2], dv - TLO, 1);  // V^T's rest, a tile before
+      wgmma_tf32_rs(pv, ph[kt2], dv + TLO, 1);  // V^T's lo
+      wgmma_tf32_rs(pv, ph[kt2], dv, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(o);
+    fence_regs(pv);
 #pragma unroll
     for (int kt2 = 0; kt2 < BK / 8; ++kt2) {  // P lives until the wait
       fence_regs(ph[kt2]);
@@ -615,6 +642,17 @@ __global__ void __launch_bounds__(Fa32Tile<HD>::THREADS, 1)
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    if (issuer && j + T::STAGES < nk) {
+      mbar_wait(&empty[st], (j / T::STAGES) & 1);
+      load(j + T::STAGES);
+    }
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {  // O = O · alpha + PV, rounded once
+      o[4 * jj] = fmaf(o[4 * jj], al0, pv[4 * jj]);
+      o[4 * jj + 1] = fmaf(o[4 * jj + 1], al0, pv[4 * jj + 1]);
+      o[4 * jj + 2] = fmaf(o[4 * jj + 2], al1, pv[4 * jj + 2]);
+      o[4 * jj + 3] = fmaf(o[4 * jj + 3], al1, pv[4 * jj + 3]);
+    }
   }
 
   const float d0 = quad_sum(l0);
@@ -660,7 +698,8 @@ cudaError_t launch_attention_wgmma(const AttnArgs& p, cudaStream_t st) {
   if (e == cudaSuccess)
     e = attention_map<HD>(&vmap, p.v, p, p.v_sb, p.v_sh, p.v_sn, BF, 2, T::BOX, T::BK, T::SW);
   if (e != cudaSuccess) return e;
-  auto kernel = flash_attn_wgmma_kernel<HD, O_F32>;
+  auto kernel = p.lse != nullptr ? flash_attn_wgmma_kernel<HD, O_F32, true>
+                                 : flash_attn_wgmma_kernel<HD, O_F32, false>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return e;
   const int n_qt = cdiv(p.N, 64 * T::NWG);

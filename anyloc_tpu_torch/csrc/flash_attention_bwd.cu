@@ -10,9 +10,10 @@
 // strides: 8 tensors x (batch, head, token) element strides, in the order
 // q, k, v, o, dout, dq, dk, dv; lse [B, H, N] f32; f32 scratch of
 // slices = attention_bwd_slices(B, H, N) (the entry refuses another count):
-// delta [slices (bf16) or 1 (f32), B, H, N], dq_part [slices, B, H, N, hd];
-// route: the kernel the caller counts (BWD_MMA_SYNC 0, BWD_WGMMA 1), which
-// must be the route table's for (hd, dtype).
+// delta [slices (bf16) or 1 (f32), B, H, N], dq_part [slices, B, H, N, hd]
+// (none on the split route, which writes dq without it); route: the kernels
+// the caller counts (BWD_WGMMA 1, BWD_SPLIT 2), which must be the route
+// table's for (hd, dtype).
 extern "C" int anyloc_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* o, const void* dout, void* dq, void* dk,
                                     void* dv, const float* lse, float* delta, float* dq_part,

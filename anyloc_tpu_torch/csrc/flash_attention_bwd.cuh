@@ -17,13 +17,13 @@
 // it; bf16 needs one tf32 product where both operands are inputs (bf16 is
 // exact in tf32) and two where one is the f32 dS.
 //
-// Both kernels follow FlashAttention-2's dataflow: a block per (key group,
-// head, batch) takes the group's key blocks of 64 in turn; for each it holds
-// K_j and V_j in shared memory and dK_j, dV_j in registers, and walks the
-// query steps of 32 rows: it recomputes S^T = K_j Q_i^T and P^T =
-// exp(S^T − LSE), dP^T = V_j dO_i^T, dS^T = P^T ∘ (dP^T − D), adds P^T dO_i
-// to dV and dS^T Q_i to dK, and this key block's share of dQ_i, dS K_j, to
-// its group's f32 slice (each thread to the same elements, in key order); a
+// The wgmma kernel follows FlashAttention-2's dataflow: a block per (key
+// group, head, batch) takes the group's key blocks of 64 in turn; for each
+// it holds K_j and V_j in shared memory and dK_j, dV_j in registers, and
+// walks the query steps: it recomputes S^T = K_j Q_i^T and P^T = exp(S^T −
+// LSE), dP^T = V_j dO_i^T, dS^T = P^T ∘ (dP^T − D), adds P^T dO_i to dV
+// and dS^T Q_i to dK, and this key block's share of dQ_i, dS K_j, to its
+// group's f32 slice (each thread to the same elements, in key order); a
 // last pass sums the slices in a fixed order, scales and rounds dq to q's
 // dtype. No atomics: every gradient is reproducible bit for bit
 // (chip_smoke.py prints two calls' largest difference), which the training
@@ -34,50 +34,51 @@
 // take 4.4 GB): O(N), as flash attention's memory should be. Only a B·H
 // under BWD_MIN_GRID / 4 keeps more slices, to fill the card.
 //
-// Two kernels, chosen per (head dim, dtype) by a table fixed at build time
+// Two routes, chosen per (head dim, dtype) by a table fixed at build time
 // (attention_bwd_route; ops/kernels/flash_attention.py mirrors it, and the
 // entry refuses a caller whose mirror disagrees):
-//   * attn_bwd_wgmma_kernel (hd 16, 32, 64, 80 in f32 and bf16, hd 128 in
-//     bf16: the dvgl ViT-B/16 step, tensor-parallel training, DINOv2 at hd
-//     64; MAE-H, ImageBind-H and SAM-H at hd 80): every product a warpgroup
-//     wgmma (hopper.cuh), 3xTF32 for f32. A producer thread lands each
-//     step's Q and dO by TMA (4-D maps over the strided views, two stages,
-//     mbarriers); a split warpgroup splits every tile into tf32 hi and lo
-//     once (K, V, K^T once per key block; Q, dO, Q^T, dO^T once per step)
-//     into swizzled K-major tiles that the descriptors name (128-byte panels
-//     of 32 columns, 64-byte panels of 16 where a row's bytes need them).
-//     tf32 wgmma has no transpose bit, so the three products that reduce
-//     over tokens read K-major copies: dV += P^T dO and dK += dS^T Q take
-//     P^T and dS^T from the S^T / dP^T accumulators in registers (RS)
-//     against dO^T and Q^T (each 8 queries stored 0 2 4 6 1 3 5 7, the order
-//     of the accumulator's columns in an A fragment, as the forward's V^T),
-//     and dQ is computed as dQ^T = K^T dS^T (M = hd, in products of 64 rows;
-//     at hd 16, 32 and 80 the last product's rows past hd read past K^T and
-//     are never stored) from K^T and dS, which the consumer warpgroup writes
-//     to shared memory split once. A step's tiles go over in two halves (Q,
-//     dO, LSE, D for S^T and dP^T; Q^T, dO^T for dV and dK), so that the
-//     split warpgroup writes the next step's first half while the consumers
-//     run this one's last products. setmaxnreg gives the consumers 240
-//     registers. A step is 32 queries, 16 at hd 128 (dK and dV hold 64 x hd
-//     each in registers). Shared memory: 214,352 bytes at hd 64 f32 (hi and
-//     lo of nine tiles, two landing stages), 116,048 at hd 64 bf16 (no lo
-//     but dS's); at hd 80 f32 the landing stages would not fit, so Q and dO
-//     land in place, in their tiles' panels, and are split where they lie
-//     (222,528 bytes; at hd 64, where both fit, landing in place was 9 %
-//     slower on the H100). One block per SM, two at hd 16 (consumers at
-//     136 registers), whose short steps leave one block's chain of
-//     dependent products idle without the other. bf16's D pass
-//     (attn_bwd_delta_kernel) needs only S^T and dP^T, whose operands are
-//     all bf16 inputs: bf16 wgmma on the tiles as TMA lands them, no split,
-//     51 KB at hd 64, three blocks per SM.
-//   * attn_bwd_kernel (hd 128 in f32): warp-level mma.sync m16n8k8 tf32,
-//     four warps of 16 keys, fragments read from one copy of each tile in
-//     any orientation (S^T's and dP^T's by ldmatrix), in 140 KB. The wgmma
-//     kernel's resident K, V and K^T in hi and lo alone would take 196,608
-//     bytes there (ROADMAP: open items). In development runs on the H100,
-//     removing any one of its three product phases saved only 15-25 %: it
-//     is bound by fragment reads and splits, not by the tensor cores
-//     (PERF.md).
+//   * the wgmma route, attn_bwd_wgmma_kernel (hd 16, 32, 64, 80 in f32 and
+//     bf16, hd 128 in bf16: the dvgl ViT-B/16 step, tensor-parallel
+//     training, DINOv2 at hd 64; MAE-H, ImageBind-H and SAM-H at hd 80):
+//     every product a warpgroup wgmma (hopper.cuh), 3xTF32 for f32. A
+//     producer thread lands each step's Q and dO by TMA (4-D maps over the
+//     strided views, two stages, mbarriers); a split warpgroup splits every
+//     tile into tf32 hi and lo once (K, V, K^T once per key block; Q, dO,
+//     Q^T, dO^T once per step) into swizzled K-major tiles that the
+//     descriptors name (128-byte panels of 32 columns, 64-byte panels of 16
+//     where a row's bytes need them). tf32 wgmma has no transpose bit, so
+//     the three products that reduce over tokens read K-major copies: dV +=
+//     P^T dO and dK += dS^T Q take P^T and dS^T from the S^T / dP^T
+//     accumulators in registers (RS) against dO^T and Q^T (each 8 queries
+//     stored 0 2 4 6 1 3 5 7, the order of the accumulator's columns in an
+//     A fragment, as the forward's V^T), and dQ is computed as dQ^T = K^T
+//     dS^T (M = hd, in products of 64 rows; at hd 16, 32 and 80 the last
+//     product's rows past hd read past K^T and are never stored) from K^T
+//     and dS, which the consumer warpgroup writes to shared memory split
+//     once. A step's tiles go over in two halves (Q, dO, LSE, D for S^T and
+//     dP^T; Q^T, dO^T for dV and dK), so that the split warpgroup writes the
+//     next step's first half while the consumers run this one's last
+//     products. setmaxnreg gives the consumers 240 registers. A step is 32
+//     queries, 16 at hd 128 (dK and dV hold 64 x hd each in registers).
+//     Shared memory: 214,352 bytes at hd 64 f32 (hi and lo of nine tiles,
+//     two landing stages), 116,048 at hd 64 bf16 (no lo but dS's); at hd 80
+//     f32 the landing stages would not fit, so Q and dO land in place, in
+//     their tiles' panels, and are split where they lie (222,528 bytes; at
+//     hd 64, where both fit, landing in place was 9 % slower on the H100).
+//     One block per SM, two at hd 16 (consumers at 136 registers), whose
+//     short steps leave one block's chain of dependent products idle
+//     without the other. bf16's D pass (attn_bwd_delta_kernel) needs only
+//     S^T and dP^T, whose operands are all bf16 inputs: bf16 wgmma on the
+//     tiles as TMA lands them, no split, 51 KB at hd 64, three blocks per
+//     SM.
+//   * the split route (hd 128 in f32), where K, V and K^T in hi and lo
+//     alone would take 196,608 of a block's 232,448 bytes: two kernels,
+//     each with what fits. The wgmma kernel without dQ (DQ false: no K^T,
+//     no dS tile, 16-query steps; 230,608 bytes) writes dK and dV; the
+//     query-major attn_bwd_dq_wgmma_kernel (BwqTile: Q and dO of 64 queries
+//     resident, K, V and K^T per 16-key step; 214,088 bytes) recomputes S
+//     and dP and writes dq once, so this route needs no dq slices and no
+//     pass over them. Seven products in place of five.
 // f32 splits (hopper.cuh's tf32_split) every operand into hi and lo, x = hi
 // + lo, and sums lo·hi + hi·lo + hi·hi (f32-accurate).
 //
@@ -159,46 +160,18 @@ static inline int attention_bwd_slices(int B, int H, int N) {
   return (n_kb + per - 1) / per;
 }
 
-// The route table: which kernel the backward runs at head dim hd and dtype
+// The route table: which kernels the backward runs at head dim hd and dtype
 // (DT_F32, DT_BF16). The wgmma kernel wherever its tiles fit a block's
-// shared memory (BwgTile); the mma.sync kernel at hd 128 in f32, where the
-// resident K, V and K^T in hi and lo alone take 196,608 bytes. Fixed at
-// build time, never a fallback.
-enum { BWD_MMA_SYNC = 0, BWD_WGMMA = 1 };
+// shared memory (BwgTile); the split route at hd 128 in f32, where the
+// resident K, V and K^T in hi and lo alone take 196,608 bytes: the wgmma
+// kernel without dQ (no K^T, no dS tile) for dK and dV, and the query-major
+// dQ kernel (BwqTile). Fixed at build time, never a fallback.
+enum { BWD_WGMMA = 1, BWD_SPLIT = 2 };
 constexpr int attention_bwd_route(int hd, int dtype) {
-  return dtype == DT_BF16 || (dtype == DT_F32 && hd != 128) ? BWD_WGMMA : BWD_MMA_SYNC;
+  return dtype == DT_F32 && hd == 128 ? BWD_SPLIT : BWD_WGMMA;
 }
 
 namespace {
-
-// The mma.sync kernel's tiles (f32 operands; the route table gives it hd 128
-// only): Q and dO are split once per step into tf32 hi and lo tiles, which
-// every warp reads for two products, instead of each warp splitting each
-// value it reads
-template <int HD>
-struct BwdTile {
-  static constexpr int BKV = 64;                   // keys per block, 16 per warp
-  static constexpr int BQ = 32;                    // queries per step
-  static constexpr int LDH = (HD + 31) / 32 * 32;  // floats per row of an hd-wide tile
-  static constexpr int THREADS = 128;
-  // K, V [BKV][LDH]; Q, dO and their lo [BQ][LDH]; dS^T [BKV][BQ]; LSE and D [BQ]
-  static constexpr int SMEM = 4 * ((2 * BKV + 4 * BQ) * LDH + BKV * BQ + 2 * BQ);
-};
-
-// Column c of row r of a tile is stored at column swz(r, c): bits 2-4 of c
-// XORed with a mask of r's low three bits, a bijection inside each 32-float
-// chunk that keeps four neighbours together (float4 stores) and makes the
-// fragment reads conflict-free: rows g = 0..7 by columns t = 0..3 (A
-// fragments, K-major B fragments), rows t by columns g (B read along its
-// rows) and rows 2t, 2t + 1 by columns g (the B operands of dV and dK).
-__device__ __forceinline__ int swz(int r, int c) {
-  return c ^ ((((r ^ (r >> 2)) & 1) << 3) | ((r & 2) << 3) | ((r & 1) << 2));
-}
-
-template <int LD>
-__device__ __forceinline__ float tile_at(const float* x, int r, int c) {
-  return x[r * LD + swz(r, c)];
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -221,348 +194,10 @@ __device__ __forceinline__ float prescale(float x, float scale) {
   return round_to<T>(__fmul_rn(x, scale));
 }
 
-// Rows row0 .. row0 + rows - 1 of a [N, HD] f32 operand (row stride sn
-// elements) into a swizzled tile; rows past N as zeros; pre: times scale
-// (K5's q). With lo, the tile gets each value's tf32 hi (hopper.cuh's
-// tf32_split) and lo its lo.
-template <int HD, int LD>
-__device__ __forceinline__ void load_tile(float* tile, float* lo, const float* src, long long sn,
-                                          int row0, int rows, int N, bool pre, float scale) {
-  for (int i = threadIdx.x; i < rows * HD / 4; i += 128) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < N) {
-      x = load4(src + (row0 + r) * sn + c);
-      if (pre) {
-        x.x = __fmul_rn(x.x, scale);
-        x.y = __fmul_rn(x.y, scale);
-        x.z = __fmul_rn(x.z, scale);
-        x.w = __fmul_rn(x.w, scale);
-      }
-    }
-    const int at = r * LD + swz(r, c);
-    if (lo != nullptr) {
-      uint4 h, l;
-      tf32_split(x.x, h.x, l.x);
-      tf32_split(x.y, h.y, l.y);
-      tf32_split(x.z, h.z, l.z);
-      tf32_split(x.w, h.w, l.w);
-      *reinterpret_cast<uint4*>(tile + at) = h;
-      *reinterpret_cast<uint4*>(lo + at) = l;
-    } else {
-      *reinterpret_cast<float4*>(tile + at) = x;
-    }
-  }
-}
-
-// mma.m16n8k8 tf32 fragments, split for 3xTF32 (hopper.cuh's tf32_split)
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  const float a[4] = {a0, a1, a2, a3};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split(a[i], f.hi[i], f.lo[i]);
-  return f;
-}
-
-__device__ __forceinline__ FragB split_b(float b0, float b1) {
-  FragB f;
-  tf32_split(b0, f.hi[0], f.lo[0]);
-  tf32_split(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-// d (16 x 8, f32) += a (16 x 8 tf32) * b (8 x 8 tf32). Fragments (g = lane
-// / 4, t = lane % 4): a {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)},
-// b {(t, g), (t + 4, g)}, d {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
-// 2t + 1)}. Not volatile: its only effect is d, so the compiler may
-// interleave independent products, whose sums otherwise wait on each other.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ldmatrix.x4: lane l gives the row address of 8x8 b16 matrix l / 8 (one
-// row of 16 bytes: four f32 values) and receives word (l / 4, l % 4) of
-// each matrix, the layout of an m16n8k8 tf32 fragment's 8 x 4 pieces
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(row)));
-}
-
-// The A fragment of rows r0..r0+15, columns c0..c0+7 (c0 % 8 == 0) of a
-// row-major tile, split
-template <int LD>
-__device__ __forceinline__ FragA ld_frag_a(const float* x, int r0, int c0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  const int r = r0 + (lane & 7) + ((i & 1) << 3), c = c0 + ((i & 2) << 1);
-  uint32_t v[4];
-  ldmatrix_x4(v, x + r * LD + swz(r, c));
-  return split_a(__uint_as_float(v[0]), __uint_as_float(v[1]), __uint_as_float(v[2]),
-                 __uint_as_float(v[3]));
-}
-
-// The B fragment B[k][n] = X[n][k] of rows n0..n0+7, columns c0..c0+7 of
-// a split tile (hi, lo)
-template <int LD>
-__device__ __forceinline__ FragB ld_frag_b(const float* hi, const float* lo, int n0, int c0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  const int r = n0 + (lane & 7), c = c0 + ((i & 1) << 2);
-  uint32_t v[4];
-  ldmatrix_x4(v, (i < 2 ? hi : lo) + r * LD + swz(r, c));
-  FragB f;
-  f.hi[0] = v[0];
-  f.hi[1] = v[1];
-  f.lo[0] = v[2];
-  f.lo[1] = v[3];
-  return f;
-}
-
-// A B fragment from a tile already split (hi, lo): values (r0, c0) and
-// (r1, c1)
-template <int LD>
-__device__ __forceinline__ FragB tile_b(const float* hi, const float* lo, int r0, int c0, int r1,
-                                        int c1) {
-  FragB f;
-  f.hi[0] = __float_as_uint(tile_at<LD>(hi, r0, c0));
-  f.hi[1] = __float_as_uint(tile_at<LD>(hi, r1, c1));
-  f.lo[0] = __float_as_uint(tile_at<LD>(lo, r0, c0));
-  f.lo[1] = __float_as_uint(tile_at<LD>(lo, r1, c1));
-  return f;
-}
-
-// 3xTF32: lo·hi + hi·lo + hi·hi
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// The same for two independent products, d += a·b and e += c·f, issued in
-// turns (lo·hi, hi·lo, hi·hi of each)
-__device__ __forceinline__ void mma3x2(float (&d)[4], const FragA& a, const FragB& b,
-                                       float (&e)[4], const FragA& c, const FragB& f) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(e, c.lo, f.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(e, c.hi, f.lo);
-  mma_tf32(d, a.hi, b.hi);
-  mma_tf32(e, c.hi, f.hi);
-}
-
-// (x, y) into two f32 of a scratch slice, or added to what they hold
-__device__ __forceinline__ void add_or_store(float* at, float x, float y, bool store) {
-  float2* p = reinterpret_cast<float2*>(at);
-  if (!store) {
-    const float2 a = *p;
-    x = a.x + x;
-    y = a.y + y;
-  }
-  *p = make_float2(x, y);
-}
-
 __device__ __forceinline__ float sum_over_g(float x) {  // the 8 lanes of one t
   x += __shfl_xor_sync(0xffffffff, x, 4);
   x += __shfl_xor_sync(0xffffffff, x, 8);
   return x + __shfl_xor_sync(0xffffffff, x, 16);
-}
-
-// One block per (group of `per` consecutive key blocks, head, batch), which
-// takes its key blocks in turn; f32 operands (one block per SM: a tighter
-// register cut spills at hd 128).
-template <int HD>
-__global__ void __launch_bounds__(128, 1)
-    attn_bwd_kernel(AttnBwdArgs p, int n_kb, int per, int n_slices) {
-  using TL = BwdTile<HD>;
-  constexpr int BKV = TL::BKV, BQ = TL::BQ, LD = TL::LDH;
-  extern __shared__ float4 bw_smem4[];
-  float* Ks = reinterpret_cast<float*>(bw_smem4);
-  float* Vs = Ks + BKV * LD;
-  float* Qs = Vs + BKV * LD;  // Q's and dO's tf32 hi, then their lo
-  float* Gs = Qs + BQ * LD;   // dO
-  float* Ql = Gs + BQ * LD;
-  float* Gl = Ql + BQ * LD;
-  float* Ss = Gl + BQ * LD;   // dS^T [BKV][BQ]
-  float* Ls = Ss + BKV * BQ;  // LSE · log2 e per query row
-  float* Ds = Ls + BQ;        // D per query row
-
-  const int kg = blockIdx.x % n_slices;  // the key group: its scratch slice
-  const int bh = blockIdx.x / n_slices;
-  const int b = bh / p.H, h = bh % p.H;
-  const int N = p.N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr = warp * 16 + g;  // this thread's key rows kr, kr + 8 of the block
-
-  const float* Qg = static_cast<const float*>(p.q) + b * p.st[BW_Q][0] + h * p.st[BW_Q][1];
-  const float* Kg = static_cast<const float*>(p.k) + b * p.st[BW_K][0] + h * p.st[BW_K][1];
-  const float* Vg = static_cast<const float*>(p.v) + b * p.st[BW_V][0] + h * p.st[BW_V][1];
-  const float* Gg = static_cast<const float*>(p.dout) + b * p.st[BW_DO][0] + h * p.st[BW_DO][1];
-  const long long rows = (long long)bh * N;  // this (batch, head)'s first row of LSE, D, dq
-  const long long slice = (long long)p.B * p.H * N;  // rows of one key group's scratch slice
-  const int kb_end = min((kg + 1) * per, n_kb);
-  // each thread adds the shares of the group's later key blocks to the same
-  // elements of the slice it wrote for the first: sums in a fixed order
-  for (int kb = kg * per; kb < kb_end; ++kb) {
-    const bool first = kb == kg * per;
-    const int k0 = kb * BKV;
-    __syncthreads();  // the last key block's reads of Ks and Vs are done
-    load_tile<HD, LD>(Ks, nullptr, Kg, p.st[BW_K][2], k0, BKV, N, false, 0.f);
-    load_tile<HD, LD>(Vs, nullptr, Vg, p.st[BW_V][2], k0, BKV, N, false, 0.f);
-    const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
-    const bool kin0 = k0 + kr < N, kin1 = k0 + kr + 8 < N;   // keys past N: P = 0
-    // a warp whose 16 keys all lie past N (the last block of a ragged N)
-    // computes nothing; dQ reads dS^T's rows only up to the last valid key
-    const bool active = k0 + warp * 16 < N;
-    const int nkk = cdiv(N - k0 < BKV ? N - k0 : BKV, 8);
-
-    float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-    const int nq = cdiv(N, BQ);
-    for (int qb = 0; qb < nq; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the last step's reads of Qs, Gs, Ss, Ls, Ds are done
-      load_tile<HD, LD>(Qs, Ql, Qg, p.st[BW_Q][2], q0, BQ, N, p.prescale_q != 0, p.scale);
-      load_tile<HD, LD>(Gs, Gl, Gg, p.st[BW_DO][2], q0, BQ, N, false, 0.f);
-      for (int i = threadIdx.x; i < BQ; i += 128) {
-        const bool in = q0 + i < N;  // rows past N: LSE +inf, so P = 0
-        Ls[i] = in ? p.lse[rows + q0 + i] * LOG2E : INFINITY;
-        Ds[i] = in ? p.delta[rows + q0 + i] : 0.f;  // D = rowsum(dO ∘ O)
-      }
-      __syncthreads();
-
-      if (active) {  // this warp's 16 keys x BQ queries
-        // S^T = K Q^T and dP^T = V dO^T
-        float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 8; ++kk) {  // fragments by ldmatrix
-          const FragA ka = ld_frag_a<LD>(Ks, 16 * warp, 8 * kk);
-          const FragA va = ld_frag_a<LD>(Vs, 16 * warp, 8 * kk);
-#pragma unroll
-          for (int j = 0; j < BQ / 8; ++j) {  // B[k = hd][n = query] = X[query][hd]
-            const FragB qb = ld_frag_b<LD>(Qs, Ql, 8 * j, 8 * kk);
-            const FragB gb = ld_frag_b<LD>(Gs, Gl, 8 * j, 8 * kk);
-            mma3x2(s[j], ka, qb, dp[j], va, gb);
-          }
-        }
-
-        // P^T = exp(S^T − LSE) (log2 domain)
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool kin = e < 2 ? kin0 : kin1;
-            s[j][e] = kin ? exp2_approx(s[j][e] * c - Ls[8 * j + 2 * t + (e & 1)]) : 0.f;
-          }
-
-        {
-          // dS^T = P^T ∘ (dP^T − D), into dp, and to shared memory for dQ
-#pragma unroll
-          for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              dp[j][e] = s[j][e] * (dp[j][e] - Ds[8 * j + 2 * t + (e & 1)]);
-            const int q = 8 * j + 2 * t;
-            *reinterpret_cast<float2*>(Ss + kr * BQ + swz(kr, q)) = make_float2(dp[j][0], dp[j][1]);
-            *reinterpret_cast<float2*>(Ss + (kr + 8) * BQ + swz(kr + 8, q)) =
-                make_float2(dp[j][2], dp[j][3]);
-          }
-
-          // dV += P^T dO and dK += dS^T Q: A from the accumulators (rows = keys);
-          // a k8 step j takes query 8j + 2t as its column t and 8j + 2t + 1 as
-          // t + 4, so B reads the same two rows of dO and Q
-#pragma unroll
-          for (int j = 0; j < BQ / 8; ++j) {
-            const FragA pa = split_a(s[j][0], s[j][2], s[j][1], s[j][3]);
-            const FragA sa = split_a(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
-            const int qa = 8 * j + 2 * t, qz = qa + 1;
-#pragma unroll
-            for (int n = 0; n < HD / 8; ++n) {
-              const int col = 8 * n + g;
-              const FragB gb = tile_b<LD>(Gs, Gl, qa, col, qz, col);
-              const FragB qb = tile_b<LD>(Qs, Ql, qa, col, qz, col);
-              mma3x2(dv[n], pa, gb, dk[n], sa, qb);
-            }
-          }
-        }
-      }
-      __syncthreads();  // dS^T is in shared memory
-
-      // dQ_i's share of this key block, dS K_j: warps split the [BQ x HD]
-      // tile by 16-row m-tiles and 8-column n-tiles; stored in its slice
-      constexpr int MT = BQ / 16, WPM = 4 / MT, NT = HD / 8 / WPM;
-      const int mt = warp % MT, n0 = (warp / MT) * NT;
-      float dq[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BKV / 8; ++kk) {
-        if (kk == nkk) break;
-        const int key = 8 * kk + t, qr = 16 * mt + g;  // A[m = query][k = key] = dS^T[key][query]
-        const FragA a = split_a(tile_at<BQ>(Ss, key, qr), tile_at<BQ>(Ss, key, qr + 8),
-                                tile_at<BQ>(Ss, key + 4, qr), tile_at<BQ>(Ss, key + 4, qr + 8));
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {  // n-tiles in pairs, an odd last one alone
-          const int c0 = 8 * (n0 + n) + g;   // B[k = key][n = hd] = K[key][hd]
-          const FragB b0 = split_b(tile_at<LD>(Ks, key, c0), tile_at<LD>(Ks, key + 4, c0));
-          if (n + 1 < NT) {
-            const int c1 = c0 + 8;
-            const FragB b1 = split_b(tile_at<LD>(Ks, key, c1), tile_at<LD>(Ks, key + 4, c1));
-            mma3x2(dq[n], a, b0, dq[n + 1], a, b1);
-          } else {
-            mma3(dq[n], a, b0);
-          }
-        }
-      }
-      const int r0 = q0 + 16 * mt + g;
-      float* part = p.dq_part + (kg * slice + rows) * HD;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = 8 * (n0 + n) + 2 * t;
-        if (r0 < N) add_or_store(part + (long long)r0 * HD + col, dq[n][0], dq[n][1], first);
-        if (r0 + 8 < N)
-          add_or_store(part + (long long)(r0 + 8) * HD + col, dq[n][2], dq[n][3], first);
-      }
-    }
-
-    // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
-    const float ks = p.prescale_q ? 1.f : p.scale;
-    float* DK = static_cast<float*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
-    float* DV = static_cast<float*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
-    const int r0 = k0 + kr, r1 = r0 + 8;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int col = 8 * n + 2 * t;
-      if (r0 < N) {
-        store2(DK + r0 * p.st[BW_DK][2] + col, dk[n][0] * ks, dk[n][1] * ks);
-        store2(DV + r0 * p.st[BW_DV][2] + col, dv[n][0], dv[n][1]);
-      }
-      if (r1 < N) {
-        store2(DK + r1 * p.st[BW_DK][2] + col, dk[n][2] * ks, dk[n][3] * ks);
-        store2(DV + r1 * p.st[BW_DV][2] + col, dv[n][2], dv[n][3]);
-      }
-    }
-  }
 }
 
 // f32: D = rowsum(dO ∘ O), eight lanes per (batch, head, row), float4 reads
@@ -628,10 +263,10 @@ __global__ void __launch_bounds__(256) attn_bwd_dq_kernel(AttnBwdArgs p, int hd,
 // in both dtypes (dS is f32); two landing stages of Q and dO as TMA writes
 // them (rows of HD in the input dtype) where they fit; LSE · log2 e and D
 // of the step's queries.
-template <int HD, bool LO>
+template <int HD, bool LO, bool DQ = true>
 struct BwgTile {
-  // queries per step: 32, but 16 in bf16 at hd 128, where dK and dV hold
-  // 64 x 128 accumulators each
+  // queries per step: 32, but 16 at hd 128, where dK and dV hold 64 x 128
+  // accumulators each
   static constexpr int BKV = 64, BQ = HD == 128 ? 16 : 32;
   // dQ^T = K^T dS^T has M = HD rows, in MQ / 64 warpgroup products of 64
   // rows; at hd 16, 32 and 80 the last product's rows past HD read what
@@ -656,15 +291,16 @@ struct BwgTile {
   static constexpr int QTILE = BQ * HD * 4;             // Q, dO, Q^T, dO^T
   static constexpr int STILE = BQ * BKV * 4;            // dS
   static constexpr int LAND = BQ * HD * (LO ? 4 : 2);   // one landed Q or dO tile
+  // without DQ (the split route's dK / dV kernel) no K^T and no dS tile
   static constexpr int K_ = 0;
   static constexpr int V_ = K_ + COPIES * KTILE;
   static constexpr int KT_ = V_ + COPIES * KTILE;
-  static constexpr int Q_ = KT_ + COPIES * KTILE;
+  static constexpr int Q_ = KT_ + (DQ ? COPIES * KTILE : 0);
   static constexpr int G_ = Q_ + COPIES * QTILE;
   static constexpr int QT_ = G_ + COPIES * QTILE;
   static constexpr int GT_ = QT_ + COPIES * QTILE;
   static constexpr int S_ = GT_ + COPIES * QTILE;
-  static constexpr int LAND_ = S_ + 2 * STILE;
+  static constexpr int LAND_ = S_ + (DQ ? 2 * STILE : 0);
   // Q and dO land in two stages where those fit a block; else (f32 at hd 80)
   // in place: TMA writes their f32 rows into the Q and dO tiles' hi panels,
   // and the split warpgroup splits them where they lie
@@ -674,13 +310,13 @@ struct BwgTile {
   static constexpr int BAR_ = L_ + 2 * BQ * 4;
   static constexpr int NBAR = 2 * STAGES + 6;
   static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;   // + alignment of the base to 1024
-  // f32 at hd 64: 214,352; 80: 222,528, in place (hd 128 f32 would need
-  // 196,608 for K, V and K^T alone, before any query tile: it keeps the
-  // mma.sync kernel)
+  // f32 at hd 64: 214,352; 80: 222,528, in place; hd 128 f32 without DQ
+  // 230,608 (with K^T, 196,608 for K, V and K^T alone, before any query
+  // tile: the split route)
   static_assert(SMEM <= 232448, "a block's shared memory");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "the blocks an SM");
   static_assert(!IN_PLACE || LO, "bf16 lands in stages: its tiles hold f32");
-  static_assert(KT_ + COPIES * KTILE + (MQ - HD) * 128 <= SMEM, "dQ^T's reads past K^T");
+  static_assert(!DQ || KT_ + COPIES * KTILE + (MQ - HD) * 128 <= SMEM, "dQ^T's reads past K^T");
 };
 
 // An f32 K-major tile of C columns is cut into panels of SW bytes, the
@@ -756,14 +392,14 @@ __device__ __forceinline__ void frag_of(const float* acc, uint32_t (&hi)[4], uin
 // dS goes to shared memory before dV and dK are issued, and dQ^T after
 // they are done, so that no two groups' operands and accumulators hold
 // registers at once.
-template <int HD, typename T>
-__global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS,
-                                  BwgTile<HD, std::is_same_v<T, float>>::MIN_BLOCKS)
+template <int HD, typename T, bool DQ = true>
+__global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THREADS,
+                                  BwgTile<HD, std::is_same_v<T, float>, DQ>::MIN_BLOCKS)
     attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap gmap, AttnBwdArgs p, int n_kb,
                           int per, int n_slices) {
   constexpr bool LO = std::is_same_v<T, float>;  // bf16 is exact in tf32: no lo
-  using TL = BwgTile<HD, LO>;
+  using TL = BwgTile<HD, LO, DQ>;
   constexpr int BKV = TL::BKV, BQ = TL::BQ, MQ = TL::MQ;
   constexpr uint32_t KLO = TL::KTILE >> 4, QLO = TL::QTILE >> 4, SLO = TL::STILE >> 4;
   extern __shared__ uint8_t bw_smem_raw[];
@@ -881,9 +517,9 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       }
       // K^T from K's tiles (hi and lo as they are): item (c, d) is head-dim
       // row d, keys 4c..4c+3 (panels of 32 keys)
-      bar_sync(2, 128);
+      if constexpr (DQ) bar_sync(2, 128);
 #pragma unroll
-      for (int cp = 0; cp < TL::COPIES; ++cp) {
+      for (int cp = 0; cp < (DQ ? TL::COPIES : 0); ++cp) {
         const uint8_t* kt = sm + TL::K_ + cp * TL::KTILE;
         for (int i = tid; i < HD * BKV / 4; i += 128) {
           const int d = i % HD, c = i / HD;
@@ -1057,18 +693,20 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       if (lane == 0) mbar_arrive(done_a);  // Q, dO, LSE, D are read
 
       // dS to shared memory, [BQ queries x 64 keys] split once, for dQ^T
-      bar_sync(1, 128);  // the last step's dQ^T products are done with dS
+      if constexpr (DQ) {
+        bar_sync(1, 128);  // the last step's dQ^T products are done with dS
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
+        for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int off = kmaj<BQ, BKV>(8 * j + 2 * t + (e & 1), kr + (e & 2) * 4);
-          uint32_t hi, lo;
-          tf32_split(dp[4 * j + e], hi, lo);
-          *reinterpret_cast<uint32_t*>(sm + TL::S_ + off) = hi;
-          *reinterpret_cast<uint32_t*>(sm + TL::S_ + TL::STILE + off) = lo;
-        }
-      fence_proxy_async();
+          for (int e = 0; e < 4; ++e) {
+            const int off = kmaj<BQ, BKV>(8 * j + 2 * t + (e & 1), kr + (e & 2) * 4);
+            uint32_t hi, lo;
+            tf32_split(dp[4 * j + e], hi, lo);
+            *reinterpret_cast<uint32_t*>(sm + TL::S_ + off) = hi;
+            *reinterpret_cast<uint32_t*>(sm + TL::S_ + TL::STILE + off) = lo;
+          }
+        fence_proxy_async();
+      }
 
       // dV += P^T dO (bf16: P rounded to bf16, the forward's PV operand) and
       // dK += dS^T Q: A from the accumulators, B the K-major dO^T and Q^T
@@ -1116,6 +754,7 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(done_b);  // Q^T, dO^T are read
+      if constexpr (!DQ) continue;         // the split route's dQ kernel takes dQ
       bar_sync(1, 128);                    // every warp's dS is in shared memory
 
       // dQ^T = K^T dS^T: MQ x BQ queries over the block's 64 keys, as
@@ -1190,6 +829,268 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>>::THREADS
         }
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------- the split route's dQ kernel
+
+// The query-major dQ kernel's tiles (f32 operands, the split route: hd 128,
+// where K, V and K^T would not fit a key-major block beside its query
+// tiles): a block of one consumer warpgroup (64 query rows, 16 a warp),
+// one split warpgroup and the producer's warpgroup. Q and dO [64 x HD] stay
+// for the whole block, hi then lo; each step of BKS keys has its K, V
+// [BKS x HD] and K^T [HD x BKS keys, each 8 stored 0 2 4 6 1 3 5 7] split
+// into hi and lo; two landing stages of K and V as TMA writes them (rows of
+// HD f32). At hd 128: 131,072 + 49,152 + 32,768 + barriers.
+template <int HD>
+struct BwqTile {
+  static constexpr int BQM = 64, BKS = 16;   // queries a block, keys a step
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int REGS_CONSUMER = 240, REGS_SPLIT = 168, REGS_PRODUCER = 40;
+  static_assert(REGS_CONSUMER + REGS_SPLIT + REGS_PRODUCER <= 3 * 168,
+                "setmaxnreg moves the launch's registers, no more");
+  static constexpr int QTILE = BQM * HD * 4;  // Q, dO
+  static constexpr int KTILE = BKS * HD * 4;  // K, V, K^T; one landed K or V
+  static constexpr int Q_ = 0;
+  static constexpr int G_ = Q_ + 2 * QTILE;
+  static constexpr int K_ = G_ + 2 * QTILE;
+  static constexpr int V_ = K_ + 2 * KTILE;
+  static constexpr int KT_ = V_ + 2 * KTILE;
+  static constexpr int LAND_ = KT_ + 2 * KTILE;
+  static constexpr int STAGES = 2;
+  static constexpr int BAR_ = LAND_ + STAGES * 2 * KTILE;
+  static constexpr int NBAR = 2 * STAGES + 5;
+  static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;  // + alignment of the base to 1024
+  // hd 128: 214,088
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+// dq of one block of 64 queries (head, batch), over every key in steps of
+// BKS: it recomputes S = Q K^T and dP = dO V^T (hi·hi and the small
+// products in accumulators of their own, two chains each), P = exp(S −
+// LSE) and dS = P ∘ (dP − D) in registers, and adds dS K, whose A operand
+// is dS's accumulator (RS) and whose B is the K-major K^T. Each step's dS K
+// sums in an accumulator of its own and joins dq by an f32 add in
+// registers (wgmma's sums round toward zero by a share of the accumulator,
+// F27), so dq is written once, scaled, with no scratch slices and no pass
+// over them. Warpgroup 0 runs the products, warpgroup 1 splits, thread 256
+// issues the TMA loads of K and V.
+template <int HD>
+__global__ void __launch_bounds__(BwqTile<HD>::THREADS, 1)
+    attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, AttnBwdArgs p,
+                             int n_qb) {
+  using TL = BwqTile<HD>;
+  constexpr int BKS = TL::BKS;
+  constexpr uint32_t QLO = TL::QTILE >> 4, KLO = TL::KTILE >> 4;
+  extern __shared__ uint8_t bq_smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(bq_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + TL::BAR_);  // a stage landed
+  uint64_t* empty = full + TL::STAGES;                          // a stage read by the split
+  uint64_t* q_ready = empty + TL::STAGES;                       // Q, dO split
+  // a step's tiles go over in two halves, as the key-major kernel's: (a) K,
+  // V, read by S and dP; (b) K^T, read by dS K
+  uint64_t* ready_a = q_ready + 1;
+  uint64_t* done_a = ready_a + 1;
+  uint64_t* ready_b = done_a + 1;
+  uint64_t* done_b = ready_b + 1;
+
+  const int qb = blockIdx.x % n_qb;
+  const int bh = blockIdx.x / n_qb;
+  const int b = bh / p.H, h = bh % p.H;
+  const int N = p.N;
+  const int q0 = qb * TL::BQM;
+  const int steps = cdiv(N, BKS);
+  const long long rows = (long long)bh * N;  // this (batch, head)'s first row of LSE, D
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < TL::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(q_ready, 128);
+    mbar_init(ready_a, 128);
+    mbar_init(done_a, 4);
+    mbar_init(ready_b, 128);
+    mbar_init(done_b, 4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // ---------------------------------------- producer
+    regs_shrink<TL::REGS_PRODUCER>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % TL::STAGES;
+        if (i >= TL::STAGES) mbar_wait(&empty[s], (i / TL::STAGES - 1) & 1);
+        uint8_t* land = sm + TL::LAND_ + s * 2 * TL::KTILE;
+        mbar_arrive_expect_tx(&full[s], 2 * TL::KTILE);
+        tma_load_4d(land, &kmap, &full[s], 0, i * BKS, h, b);
+        tma_load_4d(land + TL::KTILE, &vmap, &full[s], 0, i * BKS, h, b);
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 128) {  // ---------------------------------------- split
+    const int tid = threadIdx.x - 128;
+    const bool pre = p.prescale_q != 0;
+    // Q (K5: pre-scaled) and dO of the block's queries (zeros past N), hi
+    // and lo, once
+    const float* Qg = static_cast<const float*>(p.q) + b * p.st[BW_Q][0] + h * p.st[BW_Q][1];
+    const float* Gg = static_cast<const float*>(p.dout) + b * p.st[BW_DO][0] + h * p.st[BW_DO][1];
+    for (int i = tid; i < TL::BQM * HD / 4; i += 128) {
+      const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (q0 + r < N) {
+        x = load4(Qg + (q0 + r) * p.st[BW_Q][2] + c);
+        y = load4(Gg + (q0 + r) * p.st[BW_DO][2] + c);
+      }
+      if (pre) x = prescale4<float>(x, p.scale);
+      const int off = kmaj<TL::BQM, HD>(r, c);
+      put4<true>(sm + TL::Q_, TL::QTILE, off, x);
+      put4<true>(sm + TL::G_, TL::QTILE, off, y);
+    }
+    fence_proxy_async();
+    mbar_arrive(q_ready);
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % TL::STAGES;
+      mbar_wait(&full[s], (i / TL::STAGES) & 1);
+      const float* lk = reinterpret_cast<const float*>(sm + TL::LAND_ + s * 2 * TL::KTILE);
+      const float* lv = lk + BKS * HD;
+      // half (a): K, V (keys past N landed as zeros)
+      if (i > 0) mbar_wait(done_a, (i - 1) & 1);
+      for (int j = tid; j < BKS * HD / 4; j += 128) {
+        const int r = j / (HD / 4), c = (j % (HD / 4)) * 4, off = kmaj<BKS, HD>(r, c);
+        put4<true>(sm + TL::K_, TL::KTILE, off, load4(lk + r * HD + c));
+        put4<true>(sm + TL::V_, TL::KTILE, off, load4(lv + r * HD + c));
+      }
+      fence_proxy_async();
+      mbar_arrive(ready_a);
+      // half (b): K^T; item (c, d) is head-dim row d, slots 4c..4c+3, keys
+      // 8(c / 2) + c % 2 + {0, 2, 4, 6}
+      if (i > 0) mbar_wait(done_b, (i - 1) & 1);
+      for (int j = tid; j < HD * BKS / 4; j += 128) {
+        const int d = j % HD, c = j / HD;
+        const int r = 8 * (c >> 1) + (c & 1);
+        const float4 x = make_float4(lk[r * HD + d], lk[(r + 2) * HD + d], lk[(r + 4) * HD + d],
+                                     lk[(r + 6) * HD + d]);
+        put4<true>(sm + TL::KT_, TL::KTILE, kmaj<HD, BKS>(d, 4 * c), x);
+      }
+      mbar_arrive(&empty[s]);  // the landed stage is read
+      fence_proxy_async();
+      mbar_arrive(ready_b);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  regs_grow<TL::REGS_CONSUMER>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's query rows
+  const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
+  // rows past N: LSE +inf, so P = 0
+  const float ls0 = r0 < N ? p.lse[rows + r0] * LOG2E : INFINITY;
+  const float ls1 = r1 < N ? p.lse[rows + r1] * LOG2E : INFINITY;
+  const float dd0 = r0 < N ? p.delta[rows + r0] : 0.f;  // D = rowsum(dO ∘ O)
+  const float dd1 = r1 < N ? p.delta[rows + r1] : 0.f;
+  float dq[HD / 2], part[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = part[i] = 0.f;
+  mbar_wait(q_ready, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int k0 = i * BKS;
+    mbar_wait(ready_a, i & 1);
+    // S = Q K^T and dP = dO V^T: 64 queries x BKS keys, HD / 8 k8 steps;
+    // hi·hi and the small products in accumulators of their own
+    float s[BKS / 2], dp[BKS / 2];
+    {
+      float sa[BKS / 2], se[BKS / 2], da[BKS / 2], de[BKS / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const uint64_t aq = kdesc<TL::BQM, HD>(sm + TL::Q_, kk), bk = kdesc<BKS, HD>(sm + TL::K_, kk);
+        const uint64_t ag = kdesc<TL::BQM, HD>(sm + TL::G_, kk), bv = kdesc<BKS, HD>(sm + TL::V_, kk);
+        wgmma_tf32_ss(se, aq + QLO, bk, kk);
+        wgmma_tf32_ss(de, ag + QLO, bv, kk);
+        wgmma_tf32_ss(se, aq, bk + KLO, 1);
+        wgmma_tf32_ss(de, ag, bv + KLO, 1);
+        wgmma_tf32_ss(sa, aq, bk, kk);
+        wgmma_tf32_ss(da, ag, bv, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(se);
+      fence_regs(da);
+      fence_regs(de);
+#pragma unroll
+      for (int j = 0; j < BKS / 2; ++j) {
+        s[j] = __fadd_rn(sa[j], se[j]);
+        dp[j] = __fadd_rn(da[j], de[j]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done_a);  // K, V are read
+
+    // P = exp(S − LSE) (log2 domain), keys past N 0; dS = P ∘ (dP − D)
+#pragma unroll
+    for (int j = 0; j < BKS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const bool kin = k0 + 8 * j + 2 * t + (e & 1) < N;
+        const float pv = kin ? exp2_approx(s[x] * c - (e < 2 ? ls0 : ls1)) : 0.f;
+        dp[x] = pv * (dp[x] - (e < 2 ? dd0 : dd1));
+      }
+
+    // dS K: A from dS's accumulator (k8 step j: keys 8j + 2t as column t,
+    // 8j + 2t + 1 as t + 4, the order K^T stores), B the K-major K^T
+    {
+      uint32_t sh[BKS / 8][4], sl[BKS / 8][4];
+#pragma unroll
+      for (int j = 0; j < BKS / 8; ++j) frag_of<false>(dp + 4 * j, sh[j], sl[j]);
+      mbar_wait(ready_b, i & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BKS / 8; ++j) {
+        const uint64_t bkt = kdesc<HD, BKS>(sm + TL::KT_, j);
+        wgmma_tf32_rs(part, sl[j], bkt, j);  // 0: the step's first product
+        wgmma_tf32_rs(part, sh[j], bkt + KLO, 1);
+        wgmma_tf32_rs(part, sh[j], bkt, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int j = 0; j < BKS / 8; ++j) {  // the A fragments live until the wait
+        fence_regs(sh[j]);
+        fence_regs(sl[j]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done_b);  // K^T is read
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) dq[x] = __fadd_rn(dq[x], part[x]);
+  }
+
+  // K2: dq = (dS K) · scale; K5: round(dS K) · scale, the same in f32
+  float* DQ = static_cast<float*>(p.dq) + b * p.st[BW_DQ][0] + h * p.st[BW_DQ][1];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (r0 < N)
+      store2(DQ + r0 * p.st[BW_DQ][2] + col, __fmul_rn(dq[4 * n], p.scale),
+             __fmul_rn(dq[4 * n + 1], p.scale));
+    if (r1 < N)
+      store2(DQ + r1 * p.st[BW_DQ][2] + col, __fmul_rn(dq[4 * n + 2], p.scale),
+             __fmul_rn(dq[4 * n + 3], p.scale));
   }
 }
 
@@ -1384,36 +1285,41 @@ cudaError_t launch_attention_bwd_dq(const AttnBwdArgs& p, int n_slices, cudaStre
   return cudaGetLastError();
 }
 
-template <int HD, typename T>
-cudaError_t launch_attention_bwd_mma_sync(const AttnBwdArgs& p, cudaStream_t st) {
-  using TL = BwdTile<HD>;
-  static_assert(TL::BKV == BWD_KEYS, "attention_bwd_slices counts blocks of BWD_KEYS keys");
-  const long long rows = (long long)p.B * p.H * p.N;
-  const int n_kb = cdiv(p.N, TL::BKV);
-  const int per = attention_bwd_group(p.B, p.H, p.N);
-  const int n_slices = cdiv(n_kb, per);
-  const unsigned grid = static_cast<unsigned>(p.B * p.H * n_slices);
-  static_assert(std::is_same_v<T, float>, "the route table sends bf16 to the wgmma kernel");
-  attn_bwd_dot_kernel<<<static_cast<unsigned>((rows + 31) / 32), 256, 0, st>>>(p, HD);
-  cudaError_t e = cudaGetLastError();
+// The split route's dQ kernel: TMA maps of k and v, boxes of BKS rows of
+// hd, no swizzle, into the landing stages; a block per 64 queries
+template <int HD>
+cudaError_t launch_attention_bwd_dq_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
+  using TQ = BwqTile<HD>;
+  constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  AttnArgs a;
+  a.B = p.B;
+  a.H = p.H;
+  a.N = p.N;
+  CUtensorMap kmap, vmap;
+  cudaError_t e = attention_map<HD>(&kmap, p.k, a, p.st[BW_K][0], p.st[BW_K][1], p.st[BW_K][2],
+                                    F32, 4, HD, TQ::BKS, 0);
+  if (e == cudaSuccess)
+    e = attention_map<HD>(&vmap, p.v, a, p.st[BW_V][0], p.st[BW_V][1], p.st[BW_V][2], F32, 4, HD,
+                          TQ::BKS, 0);
   if (e != cudaSuccess) return e;
-  auto grads = attn_bwd_kernel<HD>;
-  e = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  auto kernel = attn_bwd_dq_wgmma_kernel<HD>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TQ::SMEM);
   if (e != cudaSuccess) return e;
-  grads<<<grid, TL::THREADS, TL::SMEM, st>>>(p, n_kb, per, n_slices);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_attention_bwd_dq<HD, T>(p, n_slices, st);
+  const int n_qb = cdiv(p.N, TQ::BQM);
+  kernel<<<static_cast<unsigned>(p.B * p.H * n_qb), TQ::THREADS, TQ::SMEM, st>>>(kmap, vmap, p,
+                                                                                n_qb);
+  return cudaGetLastError();
 }
 
 // The wgmma kernel: TMA maps of q and dO over their strided [B, H, N, hd]
 // views, boxes of BQ rows (rows past N land as zeros): of hd, no swizzle,
 // into the landing stages; or (in place) of one panel, swizzled as the
-// tiles' panels
-template <int HD, typename T>
+// tiles' panels. Without DQ (the split route) the query-major kernel
+// writes dq after it, and the scratch slices of dq are not used.
+template <int HD, typename T, bool DQ = true>
 cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
   constexpr bool LO = std::is_same_v<T, float>;
-  using TL = BwgTile<HD, LO>;
+  using TL = BwgTile<HD, LO, DQ>;
   static_assert(TL::BKV == BWD_KEYS, "attention_bwd_slices counts blocks of BWD_KEYS keys");
   constexpr auto type = LO ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   AttnArgs a;
@@ -1458,23 +1364,28 @@ cudaError_t launch_attention_bwd_wgmma(const AttnBwdArgs& p, cudaStream_t st) {
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto grads = attn_bwd_wgmma_kernel<HD, T>;
+  auto grads = attn_bwd_wgmma_kernel<HD, T, DQ>;
   e = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (e != cudaSuccess) return e;
   grads<<<grid, TL::THREADS, TL::SMEM, st>>>(qmap, gmap, p, n_kb, per, n_slices);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_attention_bwd_dq<HD, T>(p, n_slices, st);
+  if constexpr (DQ)
+    return launch_attention_bwd_dq<HD, T>(p, n_slices, st);
+  else
+    return launch_attention_bwd_dq_wgmma<HD>(p, st);
 }
 
-// the route table's kernel for (HD, T)
+// the route table's kernels for (HD, T)
 template <int HD, typename T>
 cudaError_t launch_attention_bwd_hd(const AttnBwdArgs& p, cudaStream_t st) {
   constexpr int dt = std::is_same_v<T, float> ? DT_F32 : DT_BF16;
-  if constexpr (attention_bwd_route(HD, dt) == BWD_WGMMA)
+  if constexpr (attention_bwd_route(HD, dt) == BWD_WGMMA) {
     return launch_attention_bwd_wgmma<HD, T>(p, st);
-  else
-    return launch_attention_bwd_mma_sync<HD, T>(p, st);
+  } else {
+    static_assert(std::is_same_v<T, float>, "the split route is f32's");
+    return launch_attention_bwd_wgmma<HD, T, false>(p, st);
+  }
 }
 
 template <typename T>

@@ -206,6 +206,11 @@ enum {
   EPI_GELU = 2,    // gelu(g + b), erf polynomial -> OutT [M, N = HID]
   EPI_RESID = 3,   // (+ bias) (* gamma) (+ res in ResT) -> OutT [M, N]
   EPI_I32 = 4,     // int8 only: the int32 sums, no scales -> OutT [M, N]
+  // float only: EPI_RESID that also stores the sum before LayerScale in
+  // f32 (K5 under autograd); an instance of its own, so that no other
+  // epilogue carries the store's branch (it cost K5's bf16 projection
+  // ~16 % on the H100)
+  EPI_RESID_PRE = 5,
 };
 
 struct I8GemmArgs {

@@ -25,7 +25,7 @@ from anyloc_tpu_torch.ops.kernels.fused_block import (
     fused_block_int8_ref,
 )
 from anyloc_tpu_torch.ops.kernels.flash_attention import (
-    attention_bwd_mma_sync,
+    attention_bwd_split,
     attention_bwd_wgmma,
     flash_attention,
     flash_attention_bwd,
@@ -71,7 +71,7 @@ KERNELS = {
     # the attention backward that both launch, by the route its head dim and
     # dtype take (attention_bwd_route): one of these counts each launch
     "Kab_attention_bwd_wgmma": attention_bwd_wgmma,
-    "Kab_attention_bwd_mma_sync": attention_bwd_mma_sync,
+    "Kab_attention_bwd_split": attention_bwd_split,
 }
 
 
@@ -85,7 +85,7 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "KERNELS", "MAX_FUSED_TOKENS", "attention_bwd_mma_sync", "attention_bwd_wgmma",
+    "KERNELS", "MAX_FUSED_TOKENS", "attention_bwd_split", "attention_bwd_wgmma",
     "attention_proj", "attention_proj_ref",
     "attn_geometry_ok", "attn_half_variant", "attn_half_variant_proj_ref", "attn_half_variant_ref",
     "flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",

@@ -42,12 +42,11 @@ BWD_MIN_GRID = 512
 BLOCK_SMEM = 232448
 # the attention backward's route table (``attention_bwd_route`` of
 # csrc/flash_attention_bwd.cuh, which refuses a launch whose route differs):
-# the (head dim, dtype) pairs of the wgmma kernel, every pair but hd 128 in
-# float32, which runs the mma.sync kernel
-BWD_WGMMA_ROUTES = frozenset({(hd, dt) for hd in SUPPORTED_HEAD_DIMS
-                              for dt in (torch.float32, torch.bfloat16)}
-                             - {(128, torch.float32)})
-BWD_ROUTE_CODES = {"mma.sync": 0, "wgmma": 1}
+# the (head dim, dtype) pairs of the split route (the wgmma kernel without
+# dQ, then the query-major dQ kernel), hd 128 in float32, where the wgmma
+# kernel's tiles do not fit a block; every other pair runs the wgmma kernel
+BWD_SPLIT_ROUTES = frozenset({(128, torch.float32)})
+BWD_ROUTE_CODES = {"wgmma": 1, "split": 2}
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -192,44 +191,50 @@ def attention_bwd_slices(b: int, h: int, n: int) -> int:
 
 
 def attention_bwd_route(hd: int, dtype: torch.dtype) -> str:
-    """The kernel the attention backward runs at head dim ``hd`` and
-    ``dtype``: "wgmma" (``attn_bwd_wgmma_kernel``) or "mma.sync"
-    (``attn_bwd_kernel``), the route table of csrc/flash_attention_bwd.cuh."""
-    return "wgmma" if (hd, dtype) in BWD_WGMMA_ROUTES else "mma.sync"
+    """The kernels the attention backward runs at head dim ``hd`` and
+    ``dtype``: "wgmma" (``attn_bwd_wgmma_kernel``) or "split"
+    (``attn_bwd_wgmma_kernel`` without dQ, then ``attn_bwd_dq_wgmma_kernel``),
+    the route table of csrc/flash_attention_bwd.cuh."""
+    return "split" if (hd, dtype) in BWD_SPLIT_ROUTES else "wgmma"
 
 
-def attention_bwd_smem(hd: int, dtype: torch.dtype, route: str) -> int:
-    """Bytes of shared memory a block of the backward takes on ``route``
-    (``BwgTile::SMEM`` / ``BwdTile::SMEM`` of csrc/flash_attention_bwd.cuh):
-    the wgmma kernel keeps K, V, K^T [64 x hd] and Q, dO, Q^T, dO^T [a step
-    of 32 queries, 16 at hd 128, x hd] in f32 (hi and lo for f32 operands),
-    dS's hi and lo, two TMA landing stages of Q and dO, the step's LSE and
-    D, ten mbarriers and 1 KB to align the base; where the landing stages
-    would outgrow a block (f32 at hd 80) Q and dO land in place, and one
-    barrier pair goes with the stages. The mma.sync kernel (f32 only) keeps
-    K, V, Q, dO and Q's and dO's lo in rows of hd rounded up to 32 floats,
-    dS^T, LSE and D."""
+def attention_bwd_smem(hd: int, dtype: torch.dtype, route: str) -> dict:
+    """Bytes of shared memory a block of each kernel of ``route`` takes
+    (``BwgTile::SMEM``, ``BwqTile::SMEM`` of csrc/flash_attention_bwd.cuh),
+    by kernel name. The wgmma kernel keeps K, V, K^T [64 x hd] and Q, dO,
+    Q^T, dO^T [a step of 32 queries, 16 at hd 128, x hd] in f32 (hi and lo
+    for f32 operands), dS's hi and lo, two TMA landing stages of Q and dO,
+    the step's LSE and D, ten mbarriers and 1 KB to align the base; where
+    the landing stages would outgrow a block (f32 at hd 80) Q and dO land in
+    place, and one barrier pair goes with the stages. On the split route it
+    keeps no K^T and no dS; the query-major dQ kernel keeps Q and dO [64 x
+    hd], K, V and K^T [16 keys x hd] in hi and lo, two landing stages of K
+    and V, nine mbarriers and 1 KB to align."""
     lo = dtype == torch.float32
-    bkv, bq = BWD_KEYS, 32
-    if route == "wgmma":
-        bq = 16 if hd == 128 else 32
-        copies = 2 if lo else 1
-        tiles = copies * (3 * bkv + 4 * bq) * hd * 4 + 2 * bq * bkv * 4
-        land = 2 * 2 * bq * hd * (4 if lo else 2)
-        staged = tiles + land + 2 * bq * 4 + 10 * 8 + 1024
-        return staged if staged <= BLOCK_SMEM else tiles + 2 * bq * 4 + 8 * 8 + 1024
-    ldh = -(-hd // 32) * 32
-    return 4 * ((2 * bkv + 4 * bq) * ldh + bkv * bq + 2 * bq)
+    copies = 2 if lo else 1
+    bkv, bq = BWD_KEYS, 16 if hd == 128 else 32
+    dq = route == "wgmma"
+    tiles = (copies * ((3 if dq else 2) * bkv + 4 * bq) * hd * 4
+             + (2 * bq * bkv * 4 if dq else 0))
+    land = 2 * 2 * bq * hd * (4 if lo else 2)
+    staged = tiles + land + 2 * bq * 4 + 10 * 8 + 1024
+    smem = {"attn_bwd_wgmma_kernel": staged if staged <= BLOCK_SMEM
+            else tiles + 2 * bq * 4 + 8 * 8 + 1024}
+    if route == "split":
+        bqm, bks = 64, 16
+        smem["attn_bwd_dq_wgmma_kernel"] = (2 * 2 * bqm * hd * 4 + 3 * 2 * bks * hd * 4
+                                            + 2 * 2 * bks * hd * 4 + 9 * 8 + 1024)
+    return smem
 
 
 def attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
                          name: str) -> None:
-    """The attention backward on CUDA tensors (K2's and K5's), on the kernel
+    """The attention backward on CUDA tensors (K2's and K5's), on the kernels
     the route table names for its head dim and dtype (``attention_bwd_route``),
     counted on that route's wrapper: every operand a [B, H, N, hd] view with a
     contiguous head dim, the outputs dq, dk, dv written in place."""
     route = attention_bwd_route(q.shape[-1], q.dtype)
-    launch = attention_bwd_wgmma if route == "wgmma" else attention_bwd_mma_sync
+    launch = attention_bwd_wgmma if route == "wgmma" else attention_bwd_split
     launch(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q, name=name)
 
 
@@ -243,23 +248,25 @@ def attention_bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, presca
     attention_bwd_wgmma.launches += 1
 
 
-def attention_bwd_mma_sync(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
-                           name: str) -> None:
-    """The attention backward's mma.sync kernel (``attn_bwd_kernel``; hd 128
-    in float32): see ``_attention_bwd``."""
+def attention_bwd_split(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
+                        name: str) -> None:
+    """The attention backward's split route (hd 128 in float32): the wgmma
+    kernel without dQ writes dk and dv, the query-major
+    ``attn_bwd_dq_wgmma_kernel`` dq; see ``_attention_bwd``."""
     _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=scale, prescale_q=prescale_q,
-                   name=name, route="mma.sync")
-    attention_bwd_mma_sync.launches += 1
+                   name=name, route="split")
+    attention_bwd_split.launches += 1
 
 
 def _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q: bool,
                    name: str, route: str) -> None:
     """One launch of the attention backward on ``route`` (the C entry refuses
-    a route the table does not give this head dim and dtype). Its f32
-    scratch holds ``attention_bwd_slices`` slices (each group of key blocks'
-    share of dq, and of D in bf16): dq's size times at most four beyond
-    small B·H, so the memory grows as N, summed in a fixed order: the
-    gradients are reproducible bit for bit."""
+    a route the table does not give this head dim and dtype). On the wgmma
+    route its f32 scratch holds ``attention_bwd_slices`` slices (each group
+    of key blocks' share of dq, and of D in bf16): dq's size times at most
+    four beyond small B·H, so the memory grows as N, summed in a fixed
+    order: the gradients are reproducible bit for bit. The split route
+    writes dq once and takes only D's f32 rows."""
     b, h, n, hd = q.shape
     ops = (q, k, v, o, do, dq, dk, dv)
     _launch.require_cuda(name, *ops, lse)
@@ -282,7 +289,7 @@ def _attention_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale: float, prescale_q:
     slices = attention_bwd_slices(b, h, n)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((slices if q.dtype == torch.bfloat16 else 1, b, h, n), **f32)
-    dq_part = torch.empty((slices, b, h, n, hd), **f32)
+    dq_part = torch.empty((slices if route == "wgmma" else 0, b, h, n, hd), **f32)
     strides = (ctypes.c_longlong * 24)(*[s for t in ops for s in t.stride()[:3]])
     rc = _build.load_library().anyloc_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
@@ -328,5 +335,5 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 attention_bwd_wgmma.launches = 0
-attention_bwd_mma_sync.launches = 0
+attention_bwd_split.launches = 0
 

@@ -29,7 +29,17 @@ Cases, random inputs from a torch seed on the card:
     with bias, LayerScale and residual, the weight a ``.t()`` view as the
     trunk gives it) at DINOv2-G's 308-px batch, qkv [32, 485, 4608] (24
     heads of 64), and at ViT-H's, qkv [32, 257, 3840] (16 heads of 80): a
-    forward kernel timed on another tree (``--root``) against this one.
+    forward kernel timed on another tree (``--root``) against this one,
+    with a digest of its output (the float64 sum and a hash of the bytes:
+    two trees that agree in it computed the same bits) and its two
+    launches' device time per call apart (``torch.profiler``: the attention
+    kernel and the projection GEMM);
+  * ``f27``: K2's float32 forward against float64 (``attention64``) beside
+    its plain version's (``flash_attention_ref``) against the same, the
+    largest |difference| over max|out|, at q/k/v [2, 16, N, hd] for N 257,
+    685, 1370, 2740, 5330 and hd 64, 80, 128, two seeds each; then the f32
+    forward's time at [8, 16, 1370, 80] and K5's at CLIP-L/14@336px's qkv
+    [8, 577, 3072] (16 heads of 64).
 Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
 bound is the larger of the operations (3xTF32 for float32: three tf32
 products an f32 one, at 494.7 TFLOP/s; bfloat16 at 989 TFLOP/s) and the
@@ -37,7 +47,7 @@ bytes (each input read once, each output written once, at 3.35 TB/s), one
 H100 SXM's dense peaks.
 
     python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR] [--profile]
-        [--cases k2 k5 vith hds k5fwd]
+        [--cases k2 k5 vith hds k5fwd f27]
 
 ``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive``), so that two trees are timed
@@ -122,7 +132,7 @@ def projection_half(attn_proj, args, iters: int, profile: bool, **bounds) -> dic
     return r
 
 
-CASES = ("k2", "k5", "vith", "hds", "k5fwd")
+CASES = ("k2", "k5", "vith", "hds", "k5fwd", "f27")
 
 
 def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) -> dict:
@@ -135,24 +145,34 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) 
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {"card": card_line(), "package": K.__file__, "cases": {}}
     if "k2" in cases:
-        out["cases"].update(k2_case(48, 6, 197, 64, g, iters))
+        out["cases"].update(k2_case(48, 6, 197, 64, g, iters, profile))
     if "k5" in cases:
         out["cases"].update(k5_case(48, 197, 12, 64, g, iters, profile))
     if "vith" in cases:
-        out["cases"].update(k2_case(8, 16, 257, 80, g, iters))
+        out["cases"].update(k2_case(8, 16, 257, 80, g, iters, profile))
         out["cases"].update(k5_case(8, 257, 16, 80, g, iters, profile))
     if "hds" in cases:
         for hd in (16, 32, 128):
-            out["cases"].update(k2_case(8, 1280 // hd, 257, hd, g, iters))
+            out["cases"].update(k2_case(8, 1280 // hd, 257, hd, g, iters, profile))
     if "k5fwd" in cases:
         out["cases"].update(k5_forward_case(32, 485, 24, 64, g, iters))
         out["cases"].update(k5_forward_case(32, 257, 16, 80, g, iters))
+    if "f27" in cases:
+        out["cases"].update(f27_case(iters))
     return out
 
 
-def k2_case(b: int, h: int, n: int, hd: int, g, iters: int) -> dict:
+# the attention backward's kernels, by a part of their names, for --profile
+BWD_KERNELS = {"d": "attn_bwd_dot_kernel", "d_bf16": "attn_bwd_delta_kernel",
+               "grads_wgmma": "attn_bwd_wgmma_kernel", "grads_mma_sync": "attn_bwd_kernel",
+               "dq_sum": "attn_bwd_dq_kernel", "dq_wgmma": "attn_bwd_dq_wgmma_kernel"}
+
+
+def k2_case(b: int, h: int, n: int, hd: int, g, iters: int, profile: bool = False) -> dict:
     """K2's backward under autograd at q/k/v [b, h, n, hd] beside SDPA's,
-    then the attention backward alone on the same tensors, f32 and bf16."""
+    then the attention backward alone on the same tensors, f32 and bf16
+    (with ``profile``, each of its kernels' device time per call and the
+    route it ran)."""
     import torch
 
     from anyloc_tpu_torch.ops import kernels as K
@@ -187,6 +207,13 @@ def k2_case(b: int, h: int, n: int, hd: int, g, iters: int) -> dict:
             cases[k2 + " kernel alone"] = dict(
                 ms=time_ms(alone, iters=iters),
                 **bound(10 * b * h * n * n * hd, 8 * esz * b * h * n * hd, name))
+            if profile:
+                from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
+
+                split = kernel_split(alone, BWD_KERNELS)
+                cases[k2 + " kernel alone"].update(
+                    route=attention_bwd_route(hd, dtype),
+                    **{k: v for k, v in split.items() if v > 0})
         del q, k, v, o, go, sdpa
     return cases
 
@@ -267,10 +294,112 @@ def k5_forward_case(b: int, n: int, h: int, hd: int, g, iters: int) -> dict:
     kw = dict(b_proj=r(d, scale=0.1, dt=torch.float32),
               layerscale=r(d, scale=0.5, dt=torch.float32), residual=r(b, n, d), num_heads=h)
     with torch.no_grad():
-        ms = time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, **kw), iters=iters)
+        call = lambda: K.flash_attention_qkv_proj(qkv, w, **kw)  # noqa: E731
+        ms = time_ms(call, iters=iters)
+        out = call()
+        split = kernel_split(call, {"attention": "flash_attn", "projection": "gemm_tma"})
     ops = 4 * b * h * n * n * hd + 2 * m * d * d
     nbytes = 2 * (m * 3 * d + d * d + 2 * m * d) + 2 * d * 4
-    return {f"k5fwd qkv [{b},{n},{3 * d}] bfloat16": dict(ms=ms, **bound(ops, nbytes, "bfloat16"))}
+    return {f"k5fwd qkv [{b},{n},{3 * d}] bfloat16": dict(
+        ms=ms, digest=digest(out), **split, **bound(ops, nbytes, "bfloat16"))}
+
+
+def digest(t) -> str:
+    """A tensor's float64 sum and the first 16 hex digits of the SHA-256
+    of its bytes: two outputs with the same digest hold the same bits."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return f"{t.double().sum().item():.17g} {hashlib.sha256(raw).hexdigest()[:16]}"
+
+
+def kernel_split(call, names: dict, calls: int = 5) -> dict:
+    """The device time per call of each launch of ``call`` whose kernel
+    name holds one of ``names``' values (``torch.profiler``), under the
+    name's key with ``_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    split = {f"{k}_ms": 0.0 for k in names}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        for k, part in names.items():
+            if part in e.key and not e.key.startswith("cuda"):
+                split[f"{k}_ms"] += us / 1e3 / calls
+    return split
+
+
+def f27_case(iters: int) -> dict:
+    """K2's f32 forward and its plain version against float64 over N and
+    the head dim (each the largest |difference| over max|out| of the
+    float64 output, the worst of two seeds), then the f32 forward's time
+    at [8, 16, 1370, 80] and K5's at CLIP-L/14@336px's qkv [8, 577, 3072]."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    cases = {}
+    with torch.no_grad():
+        for hd in (64, 80, 128):
+            for n in (257, 685, 1370, 2740, 5330):
+                kernel = plain = 0.0
+                for seed in (0, 1):
+                    g = torch.Generator(device="cuda").manual_seed(seed)
+                    q, k, v = (torch.randn((2, 16, n, hd), generator=g, device="cuda")
+                               for _ in range(3))
+                    got, ref = K.flash_attention(q, k, v), K.flash_attention_ref(q, k, v)
+                    for i in range(q.shape[0]):   # float64 scores [16, n, n] a batch row
+                        exact = train_checks.attention64(q[i].double(), k[i].double(),
+                                                         v[i].double())
+                        top = exact.abs().max().item()
+                        kernel = max(kernel, (got[i].double() - exact).abs().max().item() / top)
+                        plain = max(plain, (ref[i].double() - exact).abs().max().item() / top)
+                        del exact
+                    del q, k, v, got, ref
+                cases[f"f27 [2,16,{n},{hd}] float32"] = dict(kernel_err=kernel, plain_err=plain,
+                                                             ratio=kernel / plain)
+    cases.update(f32_forward_times(iters))
+    return cases
+
+
+def f32_forward_times(iters: int) -> dict:
+    """The f32 forward's time at [8, 16, 1370, 80] (K2) and at
+    CLIP-L/14@336px's qkv [8, 577, 3072] (K5, 16 heads of 64)."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    cases = {}
+    with torch.no_grad():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn((8, 16, 1370, 80), generator=g, device="cuda") for _ in range(3))
+        b, h, n, hd = q.shape
+        cases["f27 time k2 [8,16,1370,80] float32"] = dict(
+            ms=time_ms(lambda: K.flash_attention(q, k, v), iters=iters),
+            **bound(4 * b * h * n * n * hd, 4 * 4 * b * h * n * hd, "float32"))
+        qkv = torch.randn((8, 577, 3072), generator=g, device="cuda")
+        w = (torch.randn((1024, 1024), generator=g, device="cuda") * 1024 ** -0.5).t()
+        bias = torch.randn(1024, generator=g, device="cuda") * 0.1
+        res = torch.randn((8, 577, 1024), generator=g, device="cuda")
+        call = lambda: K.flash_attention_qkv_proj(qkv, w, bias, residual=res,  # noqa: E731
+                                                  num_heads=16)
+        b, n, d = 8, 577, 1024
+        cases["f27 time k5 qkv [8,577,3072] float32"] = dict(
+            ms=time_ms(call, iters=iters),
+            **bound(4 * b * n * n * d + 2 * b * n * d * d, 4 * (b * n * 5 * d + d * d + d),
+                    "float32"))
+    return cases
 
 
 def main(argv=None) -> None:
@@ -279,16 +408,29 @@ def main(argv=None) -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="the checkout to import anyloc_tpu_torch from (default: this one)")
     ap.add_argument("--profile", action="store_true",
-                    help="split the projection half into its kernels (torch.profiler)")
+                    help="split the projection half and the attention backward alone into "
+                         "their kernels (torch.profiler)")
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES[:4]),
                     help="the cases to time (default: all but k5fwd)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     res = run(args.iters, profile=args.profile, cases=args.cases)
     for case, r in res["cases"].items():
-        lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms") if k in r)
+        if "kernel_err" in r:
+            print(f"[{res['card']}] {case}: kernel {r['kernel_err']:.3e}, plain "
+                  f"{r['plain_err']:.3e} of max|out| from float64 ({r['ratio']:.2f}x)",
+                  flush=True)
+            continue
+        lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms",
+                                                        "attention_ms", "projection_ms",
+                                                        *(f"{x}_ms" for x in BWD_KERNELS))
+                      if k in r)
+        if "route" in r:
+            lib += f", route {r['route']}"
         if "scratch_mib" in r:
             lib += f", scratch {r['scratch_mib']:.1f} MiB"
+        if "digest" in r:
+            lib += f", digest {r['digest']}"
         print(f"[{res['card']}] {case}: {r['ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
     print(json.dumps(res), flush=True)

@@ -156,15 +156,19 @@ Phases, each of which must pass or the script exits non-zero:
      pipelined over model 2 (``pptrain``) and sequence-parallel facets'
      gradients (``sptrain``), each against one rank; then the attention
      backward's route table (``attention_bwd_routes_phase``): every (head
-     dim, dtype) on the kernel the table names (wgmma everywhere but hd 128
-     in f32, which runs mma.sync) against its plain version, two launches
+     dim, dtype) on the kernels the table names (wgmma everywhere but hd 128
+     in f32, which takes the split route: the wgmma kernel without dQ, then
+     the query-major dQ kernel) against its plain version, two launches
      bit-equal, and each timed alone beside its plain version, SDPA's
      backward and its bound (hd 64 at [48, 6, 197, 64], the other head dims
-     at [8, 1280 / hd, 257, hd], f32 and bf16); the ViT-H gradient
-     (``vith_gradient_phase``): K5's backward under autograd at MAE-H/14's
-     qkv [8, 257, 3840] and K2's at [8, 16, 257, 80], f32 and bf16, held
-     to the plain autograd and timed beside it, with the launches of the
-     run; the K2 gradient and memory lines name the route they ran; then the tooling
+     at [8, 1280 / hd, 257, hd], f32 and bf16); the F27 line (K2's f32
+     forward against float64 at N 257, 1370 and 2740, beside its plain
+     version's); the ViT-H gradient (``vith_gradient_phase``): K5's
+     backward under autograd at MAE-H/14's qkv [8, 257, 3840] and K2's at
+     [8, 16, 257, 80], f32 and bf16, and at the same width cut into 10
+     heads of 128 in f32 (the split route), held to the plain autograd and
+     timed beside it, with the launches of the run; the K2 gradient and
+     memory lines name the route they ran; then the tooling
      (``tooling_phase``): ``python -m anyloc_tpu_torch viz clusters``
      and ``viz report`` at DINOv2-G l31
      (K5 launching, the report's labels equal to a direct run); the
@@ -249,13 +253,14 @@ KERNEL_INFO = {
     "K5b_flash_attention_qkv_proj_bwd": dict(
         source="anyloc_tpu_torch/csrc/attn_qkv_proj_bwd.cu",
         replaces="anyloc_tpu/ops/pallas/attn_proj.py:327"),
-    # the attention backward that K2b and K5b launch, one entry per kernel of
+    # the attention backward that K2b and K5b launch, one entry per route of
     # its route table (attention_bwd_route): wgmma everywhere but hd 128 in
-    # float32, which runs mma.sync
+    # float32, which takes the split route (the wgmma kernel without dQ,
+    # then the query-major dQ kernel)
     "Kab_attention_bwd_wgmma": dict(
         source="anyloc_tpu_torch/csrc/flash_attention_bwd.cuh",
         replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
-    "Kab_attention_bwd_mma_sync": dict(
+    "Kab_attention_bwd_split": dict(
         source="anyloc_tpu_torch/csrc/flash_attention_bwd.cuh",
         replaces="anyloc_tpu/ops/pallas/flash_attention.py:241"),
 }
@@ -298,10 +303,11 @@ PATH_KERNELS = {
                        "Kab_attention_bwd_wgmma"),
     "train dvgl resnet18conv4": (),
     # ViT-H's attention gradient (MAE-H/14, ImageBind-H, SAM-H: 16 heads of
-    # 80): K5 and K2 under autograd, the backward on the wgmma route
+    # 80): K5 and K2 under autograd, the backward on the wgmma route; the
+    # same width in 10 heads of 128, f32: the split route
     "vit-h gradient": ("K5_flash_attention_qkv_proj", "K5b_flash_attention_qkv_proj_bwd",
                        "K2_flash_attention", "K2b_flash_attention_bwd",
-                       "Kab_attention_bwd_wgmma"),
+                       "Kab_attention_bwd_wgmma", "Kab_attention_bwd_split"),
     # imagebind_huge(full=True)'s five towers: K5 in the f32 vision tower
     "imagebind_huge": ("K5_flash_attention_qkv_proj",),
     # parallel/: DescriptorEngine(mesh=...) in bf16 (K1, K5) and int8_full
@@ -1839,11 +1845,14 @@ def run(profile_dir) -> dict:
         # ------------------------------------------------------------ Kab: the attention backward
         mark("Kab, the attention backward's route table")
         routes = attention_bwd_routes_phase(tag)
+        mark("F27, K2's f32 forward against float64")
+        f27 = f27_line(tag)
+        results["K2_flash_attention"]["f27"] = {str(n): e for n, e in f27.items()}
         mark("the ViT-H gradient")
         vith = vith_gradient_phase(tag)
         note("launches " + ", ".join(f"{k} {v}" for k, v in vith["counts"].items()))
         for route, r in routes["timed"].items():
-            name = "Kab_attention_bwd_" + route.replace(".", "_")
+            name = "Kab_attention_bwd_" + route
             # launches on the main paths: the train CLI's vit steps and the
             # training mesh (hd 64), ViT-H's gradient (hd 80)
             main = (trained["launches"]["train dvgl vit"].get(name, 0)
@@ -2877,7 +2886,7 @@ def attention_bwd_alone(b: int, h: int, n: int, hd: int, dtype, timed: bool = Fa
                    for _ in range(4))
     scale = hd ** -0.5
     route = attention_bwd_route(hd, dtype)
-    counter = K.KERNELS["Kab_attention_bwd_" + route.replace(".", "_")]
+    counter = K.KERNELS["Kab_attention_bwd_" + route]
     with torch.no_grad():
         o = K.flash_attention_ref(q, k, v, scale=scale)
         lse = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) * scale, -1).contiguous()
@@ -2931,7 +2940,7 @@ def attention_bwd_routes_phase(tag: str) -> dict:
     a tensor-parallel rank's [48, 6, 197, 64] (dvgl ViT-B/16's heads), the
     others at [8, 1280 / hd, 257, hd] (ViT-H's width: 16 heads of 80), f32
     and bf16. ``timed`` gives each route its row of the kernels line: the
-    wgmma kernel at [48, 6, 197, 64] f32, the mma.sync kernel at
+    wgmma kernel at [48, 6, 197, 64] f32, the split route at
     [8, 10, 257, 128] f32, its one pair."""
     import torch
 
@@ -2954,8 +2963,8 @@ def attention_bwd_routes_phase(tag: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             r = attention_bwd_alone(*shape, dtype, timed=True)
             check(r["ok"], f"the timed case {r['shape']} failed: {r}")
-            print(f"attention backward {r['route']} {tag} {r['shape']} (the kernel alone, its "
-                  f"dq sum and D pass included): {r['ms']:.4f} ms, plain version "
+            print(f"attention backward {r['route']} {tag} {r['shape']} (the kernels alone, "
+                  f"their dq sum and D pass included): {r['ms']:.4f} ms, plain version "
                   f"{r['plain_ms']:.3f} ms, SDPA's backward {r['library_ms']:.4f} ms; bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}"
                   f"{', 3xTF32' if dtype == torch.float32 else ''}), "
@@ -2965,8 +2974,42 @@ def attention_bwd_routes_phase(tag: str) -> dict:
                                                   "max_abs_err")})
             if dtype == torch.float32 and hd in (64, 128):
                 timed[r["route"]] = r
-    check(set(timed) == {"wgmma", "mma.sync"}, f"a route was not timed: {sorted(timed)}")
+    check(set(timed) == {"wgmma", "split"}, f"a route was not timed: {sorted(timed)}")
     return dict(checks=checks, timed=timed, by_head_dim=by_head_dim)
+
+
+def f27_line(tag: str) -> dict:
+    """F27: K2's float32 forward against float64 (``attention64``) beside
+    its plain version's, the largest |difference| over max|out|, at q/k/v
+    [2, 16, N, 80] (ViT-H's heads) for N 257, 1370 and 2740: the kernel
+    within twice the plain version's error plus 1e-6."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    errs = {}
+    with torch.no_grad():
+        for n in (257, 1370, 2740):
+            g = torch.Generator(device="cuda").manual_seed(n)
+            q, k, v = (torch.randn((2, 16, n, 80), generator=g, device="cuda") for _ in range(3))
+            got, plain = K.flash_attention(q, k, v), K.flash_attention_ref(q, k, v)
+            kernel_err = plain_err = 0.0
+            for i in range(q.shape[0]):
+                exact = train_checks.attention64(q[i].double(), k[i].double(), v[i].double())
+                top = exact.abs().max().item()
+                kernel_err = max(kernel_err, (got[i].double() - exact).abs().max().item() / top)
+                plain_err = max(plain_err, (plain[i].double() - exact).abs().max().item() / top)
+            errs[n] = dict(kernel=kernel_err, plain=plain_err)
+            del q, k, v, got, plain, exact
+    print(f"F27 {tag} K2 float32 forward against float64, [2,16,N,80], max|diff| / max|out|: "
+          + "; ".join(f"N {n} kernel {e['kernel']:.3e}, plain {e['plain']:.3e}"
+                      for n, e in errs.items()), flush=True)
+    for n, e in errs.items():
+        check(e["kernel"] <= 2 * e["plain"] + 1e-6,
+              f"F27: K2's f32 forward at N {n} is {e['kernel']:.3e} from float64, past twice "
+              f"its plain version's {e['plain']:.3e}")
+    return errs
 
 
 def vith_gradient_phase(tag: str) -> dict:
@@ -2974,22 +3017,27 @@ def vith_gradient_phase(tag: str) -> dict:
     224 px: 16 heads of 80, D 1280; ImageBind-H's and SAM-H's heads too):
     K5's backward under autograd (``QkvProjGrad``) at qkv [8, 257, 3840]
     and K2's (``FlashAttentionGrad``) at q/k/v [8, 16, 257, 80], f32 and
-    bf16, each held to the plain version's autograd
+    bf16, then the same width cut into 10 heads of 128 in f32 (the split
+    route), each held to the plain version's autograd
     (``train_checks.k5_gradient`` / ``k2_gradient``: the bounds, one
     launch each way, the output bit-equal without autograd), then its
     backward timed beside the plain autograd's in turns; the launch
-    counts are set to 0 before the phase and read after it."""
+    counts are set to 0 before the phase and read after it, and each
+    attention backward is counted on the route the table names."""
     import torch
 
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
     from anyloc_tpu_torch.tools import train_checks
 
-    b, n, h, hd = 8, 257, 16, 80
+    b, n = 8, 257
     K.reset_launch_counts()
     lines = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).replace("torch.", "")
+    for h, hd, dtype in ((16, 80, torch.float32), (16, 80, torch.bfloat16),
+                         (10, 128, torch.float32)):
+        name = str(dtype).replace("torch.", "") + ("" if hd == 80 else f" hd {hd}")
+        route = attention_bwd_route(hd, dtype)
+        before = {r: K.KERNELS["Kab_attention_bwd_" + r].launches for r in ("wgmma", "split")}
         r5 = train_checks.k5_gradient(b, n, h, hd, dtype)
         r2 = train_checks.k2_gradient(b, h, n, hd, dtype)
         for what, r in (("K5", r5), ("K2", r2)):
@@ -3011,22 +3059,24 @@ def vith_gradient_phase(tag: str) -> dict:
         k2_ms, k2_plain = turns(lambda: torch.autograd.grad(out, qkv, gout, retain_graph=True),
                                 lambda: torch.autograd.grad(ref, qkv, gout, retain_graph=True))
         del qkv, out, ref, gout
-        lines[name] = dict(route=attention_bwd_route(hd, dtype),
+        moved = {r: K.KERNELS["Kab_attention_bwd_" + r].launches - before[r]
+                 for r in ("wgmma", "split")}
+        check(moved[route] > 0 and sum(moved.values()) == moved[route],
+              f"ViT-H's {name} backward ran off the {route} route its table names: {moved}")
+        lines[name] = dict(route=route,
                            k5=dict(shape=f"qkv [{b},{n},{3 * h * hd}]", ms=k5_ms,
                                    plain_ms=k5_plain, grad_errs=r5["grad_errs"]),
                            k2=dict(shape=f"[{b},{h},{n},{hd}]", ms=k2_ms, plain_ms=k2_plain,
                                    grad_errs=r2["grad_errs"]))
         errs = {w: ", ".join(f"{k} {v:.2e}" for k, v in r["grad_errs"].items())
                 for w, r in (("K5", r5), ("K2", r2))}
-        print(f"ViT-H gradient {tag} {name} on the {lines[name]['route']} route: K5 backward "
+        print(f"ViT-H gradient {tag} {name} on the {route} route: K5 backward "
               f"qkv [{b},{n},{3 * h * hd}] {k5_ms:.3f} ms (plain autograd {k5_plain:.3f}), "
               f"errors {errs['K5']}; K2 backward [{b},{h},{n},{hd}] {k2_ms:.3f} ms (plain "
               f"autograd {k2_plain:.3f}), errors {errs['K2']}", flush=True)
     counts = K.launch_counts()
     for kernel in PATH_KERNELS["vit-h gradient"]:
         check(counts.get(kernel, 0) > 0, f"{kernel} never launched in the ViT-H gradient phase")
-    check(counts.get("Kab_attention_bwd_mma_sync", 0) == 0,
-          "the ViT-H gradient ran the mma.sync route")
     return dict(lines=lines, counts={k: v for k, v in counts.items() if v})
 
 
@@ -3065,7 +3115,7 @@ def k5_backward_halves(inputs: dict, gout, h: int) -> dict:
         dq, dk, dv = attn_proj._split_heads(d_qkv, h)
         w = inputs["w_proj"].detach()
         route = attention_bwd_route(hd, qkv.dtype)
-        counter = K.KERNELS["Kab_attention_bwd_" + route.replace(".", "_")]
+        counter = K.KERNELS["Kab_attention_bwd_" + route]
         before = counter.launches
 
         def attention():
@@ -3951,7 +4001,7 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
 
     b, h, n, hd = 48, 6, 197, 64
     route = attention_bwd_route(hd, torch.float32)
-    route_name = "Kab_attention_bwd_" + route.replace(".", "_")
+    route_name = "Kab_attention_bwd_" + route
     before_route = K.KERNELS[route_name].launches
     r = train_checks.k2_gradient(b, h, n, hd, torch.float32)
     check(K.KERNELS[route_name].launches == before_route + 1,
@@ -4026,11 +4076,11 @@ def train_mesh_phase(mesh, work: Path, tag: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     mem_route = attention_bwd_route(hd, torch.float32)
-    before_route = K.KERNELS["Kab_attention_bwd_" + mem_route.replace(".", "_")].launches
+    before_route = K.KERNELS["Kab_attention_bwd_" + mem_route].launches
     torch.autograd.grad(out, (q, k, v), gout)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    check(K.KERNELS["Kab_attention_bwd_" + mem_route.replace(".", "_")].launches
+    check(K.KERNELS["Kab_attention_bwd_" + mem_route].launches
           == before_route + 1, f"the memory line's backward did not run on {mem_route}")
     size = mb * mh * mn * hd * 4
     slices = attention_bwd_slices(mb, mh, mn)

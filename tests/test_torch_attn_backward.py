@@ -266,7 +266,8 @@ def test_backward_wrappers_on_cpu_tensors_take_their_plain_versions():
         assert torch.equal(got[i], want[i])
     assert K.launch_counts() == before
     assert {"K2b_flash_attention_bwd", "K5b_flash_attention_qkv_proj_bwd",
-            "Kab_attention_bwd_wgmma", "Kab_attention_bwd_mma_sync"} <= set(before)
+            "Kab_attention_bwd_wgmma", "Kab_attention_bwd_split"} <= set(before)
+    assert not any("mma_sync" in name for name in before)
 
 
 PROJ_SHAPES = [(2, 1, 32, 16, True), (2, 9, 64, 24, False), (3, 65, 40, 136, True)]
@@ -307,11 +308,12 @@ def test_projection_backward_on_cpu_matches_jax_vjp(b, n, d, d_out, ls, needs):
 
 # ---------------------------------------------------------------- the route table
 
-# the attention backward's kernel for each (head dim, dtype), written out:
+# the attention backward's kernels for each (head dim, dtype), written out:
 # the wgmma kernel everywhere but hd 128 in float32, whose resident K, V and
 # K^T in hi and lo would not leave room for a query tile in a block; that
-# pair keeps the mma.sync kernel
-ROUTES = {(hd, dt): ("mma.sync" if (hd, dt) == (128, torch.float32) else "wgmma")
+# pair takes the split route (the wgmma kernel without dQ, then the
+# query-major dQ kernel). No pair is left on mma.sync.
+ROUTES = {(hd, dt): ("split" if (hd, dt) == (128, torch.float32) else "wgmma")
           for hd in (16, 32, 64, 80, 128) for dt in (torch.float32, torch.bfloat16)}
 CUH = Path(K.__file__).resolve().parents[2] / "csrc" / "flash_attention_bwd.cuh"
 SMEM_LIMIT = 232448   # a block's shared memory on the H100 (227 KB)
@@ -326,28 +328,42 @@ def test_attention_bwd_route_mirror_matches_the_table(hd, dtype):
 
 def test_attention_bwd_route_table_matches_the_cuda_source():
     """The CUDA route table (``attention_bwd_route`` of
-    ``csrc/flash_attention_bwd.cuh``) sends every head dim in bf16 and all
-    but hd 128 in f32 to the wgmma kernel, and the tile constants the Python
-    mirrors read are the source's: the query step, the tiles' bytes, where
-    Q and dO land in place."""
+    ``csrc/flash_attention_bwd.cuh``) sends hd 128 in f32 to the split route
+    and every other pair to the wgmma kernel, with no mma.sync route or
+    kernel left in the source, and the tile constants the Python mirrors
+    read are the source's: the query step, the tiles' bytes, where Q and dO
+    land in place, what the wgmma kernel leaves out without dQ, the dQ
+    kernel's tiles."""
     src = CUH.read_text()
     body = src[src.index("constexpr int attention_bwd_route("):]
     body = body[:body.index("}")]
-    assert ("dtype == DT_BF16 || (dtype == DT_F32 && hd != 128) ? BWD_WGMMA : BWD_MMA_SYNC"
-            in body)
+    assert "dtype == DT_F32 && hd == 128 ? BWD_SPLIT : BWD_WGMMA" in body
+    assert "enum { BWD_WGMMA = 1, BWD_SPLIT = 2 };" in src
+    for gone in ("mma.sync.aligned", "attn_bwd_kernel", "BwdTile", "BWD_MMA_SYNC",
+                 "launch_attention_bwd_mma_sync"):
+        assert gone not in src, gone
     for line in ("constexpr int BWD_KEYS = 64;", "constexpr int BWD_MIN_GRID = 512;",
                  "static constexpr int BKV = 64, BQ = HD == 128 ? 16 : 32;",
                  "static constexpr int MIN_BLOCKS = HD == 16 ? 2 : 1;",
                  "static constexpr int KTILE = BKV * HD * 4;",
                  "static constexpr int QTILE = BQ * HD * 4;",
-                 "static constexpr int Q_ = KT_ + COPIES * KTILE;",
+                 "static constexpr int Q_ = KT_ + (DQ ? COPIES * KTILE : 0);",
+                 "static constexpr int LAND_ = S_ + (DQ ? 2 * STILE : 0);",
                  "static constexpr bool IN_PLACE = LAND_ + 4 * LAND + 2 * BQ * 4 + 10 * 8 + 1024 > "
                  "232448;",
                  "static constexpr int STAGES = IN_PLACE ? 1 : 2;",
                  "static constexpr int BAR_ = L_ + 2 * BQ * 4;",
                  "static constexpr int NBAR = 2 * STAGES + 6;",
-                 "static constexpr int SMEM = 4 * ((2 * BKV + 4 * BQ) * LDH + BKV * BQ + 2 * BQ);"):
+                 # the split route's query-major dQ kernel
+                 "static constexpr int BQM = 64, BKS = 16;",
+                 "static constexpr int QTILE = BQM * HD * 4;",
+                 "static constexpr int KTILE = BKS * HD * 4;",
+                 "static constexpr int LAND_ = KT_ + 2 * KTILE;",
+                 "static constexpr int BAR_ = LAND_ + STAGES * 2 * KTILE;",
+                 "static constexpr int NBAR = 2 * STAGES + 5;",
+                 "static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;"):
         assert line in src, line
+    assert src.count('static_assert(SMEM <= 232448, "a block\'s shared memory");') == 2
     assert (BWD_KEYS, BWD_MIN_GRID) == (64, 512)
 
 
@@ -374,30 +390,42 @@ WGMMA_SMEM = {(16, torch.float32): 66896, (16, torch.bfloat16): 42320,
               (64, torch.float32): 214352, (64, torch.bfloat16): 116048,
               (80, torch.float32): 222528, (80, torch.bfloat16): 140624,
               (128, torch.bfloat16): 156880}
+# the split route's two kernels at hd 128 f32, counted by hand: the wgmma
+# kernel without dQ keeps K, V [64 x 128] and Q, dO, Q^T, dO^T [16 x 128],
+# hi and lo, two landing stages of Q and dO, LSE and D, 10 mbarriers, 1 KB:
+# 2·2·32768 + 4·2·8192 + 2·2·8192 + 128 + 80 + 1024; the query-major dQ
+# kernel Q, dO [64 x 128] and K, V, K^T [16 keys x 128], hi and lo, two
+# landing stages of K and V, 9 mbarriers, 1 KB:
+# 2·2·32768 + 3·2·8192 + 2·2·8192 + 72 + 1024
+SPLIT_SMEM = {"attn_bwd_wgmma_kernel": 230608, "attn_bwd_dq_wgmma_kernel": 214088}
 
 
 @pytest.mark.parametrize("hd,dtype", sorted(ROUTES, key=str), ids=lambda x: str(x))
 def test_attention_bwd_tiles_fit_a_block(hd, dtype):
-    """Each (head dim, dtype)'s block on its route fits the 227 KB a block
+    """Each (head dim, dtype)'s blocks on its route fit the 227 KB a block
     may use (``attention_bwd_smem``, mirrored from the tile constants); on
-    the wgmma route it takes the bytes counted by hand above (hd 64: 214,352
-    in f32, hi and lo of every tile, and 116,048 in bf16), and the
-    mma.sync kernel's hd 128 f32 block 139,520. At hd 16 two wgmma blocks
-    share an SM's 228 KB, each with the 1 KB the card keeps a block."""
-    smem = attention_bwd_smem(hd, dtype, ROUTES[hd, dtype])
-    assert smem <= SMEM_LIMIT
-    assert set(WGMMA_SMEM) == {key for key, route in ROUTES.items() if route == "wgmma"}
-    assert smem == (WGMMA_SMEM[hd, dtype] if ROUTES[hd, dtype] == "wgmma" else 139520)
+    the wgmma route the block takes the bytes counted by hand above (hd 64:
+    214,352 in f32, hi and lo of every tile, and 116,048 in bf16), and the
+    split route's two kernels at hd 128 f32 230,608 and 214,088. At hd 16
+    two wgmma blocks share an SM's 228 KB, each with the 1 KB the card keeps
+    a block."""
+    route = ROUTES[hd, dtype]
+    smem = attention_bwd_smem(hd, dtype, route)
+    assert all(n <= SMEM_LIMIT for n in smem.values())
+    assert set(WGMMA_SMEM) == {key for key, r in ROUTES.items() if r == "wgmma"}
+    assert smem == ({"attn_bwd_wgmma_kernel": WGMMA_SMEM[hd, dtype]} if route == "wgmma"
+                    else SPLIT_SMEM)
     if hd == 16:
-        assert 2 * (smem + 1024) <= 233472
+        assert 2 * (smem["attn_bwd_wgmma_kernel"] + 1024) <= 233472
 
 
-@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], None],
-                         ids=["k2", "vith-k5fwd", "hds", "default"])
+@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], ["f27"], None],
+                         ids=["k2", "vith-k5fwd", "hds", "f27", "default"])
 def test_bench_attention_bwd_refuses_without_a_card(cases):
     """``tools/bench_attention_bwd.py`` takes the cases it is given (every
-    one of them by default but ``k5fwd``) and, with no CUDA card, raises
-    before it times anything: a measurement never falls back to the CPU."""
+    one of them by default but ``k5fwd`` and ``f27``) and, with no CUDA
+    card, raises before it times anything: a measurement never falls back
+    to the CPU."""
     from anyloc_tpu_torch.tools import bench_attention_bwd as bench
 
     argv = [] if cases is None else ["--cases", *cases]
@@ -405,4 +433,4 @@ def test_bench_attention_bwd_refuses_without_a_card(cases):
         bench.main(argv)
     with pytest.raises(SystemExit):
         bench.main(["--cases", "nope"])
-    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd")
+    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd", "f27")

@@ -1389,14 +1389,16 @@ K5_GRAD_CASES = [(48, 197, 12, 64, False), (4, 257, 16, 80, False), (2, 65, 4, 1
                  (3, 300, 4, 64, True), (2, 20, 4, 64, False), (2, 1370, 4, 64, False),
                  # MAE-H/14 at 224 px: qkv [2, 257, 3840], 16 heads of 80, no
                  # LayerScale (the wgmma route with Q and dO landed in place, f32)
-                 (2, 257, 16, 80, False)]
+                 (2, 257, 16, 80, False),
+                 # ViT-H's width in 10 heads of 128 (f32: the split route)
+                 (2, 257, 10, 128, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,hd,ls", K5_GRAD_CASES,
                          ids=["dvgl-vit-b16-step", "hd80", "hd16-n65", "hd32-n65", "hd128-n65",
                               "n1", "hd128-n130", "hd64-n300", "hd64-n20", "hd64-n1370",
-                              "mae-h"])
+                              "mae-h", "vit-h-hd128"])
 def test_k5_gradient_matches_the_plain_versions(b, n, h, hd, ls, dtype):
     """K5 under autograd launches its forward kernel once and its backward
     kernels once (``flash_attention_qkv_proj_bwd``: the projection backward,
@@ -1514,7 +1516,13 @@ K2_GRAD_CASES = [(48, 6, 197, 64, torch.float32), (2, 4, 300, 80, torch.float32)
                  (2, 4, 300, 80, torch.bfloat16), (2, 4, 1, 80, torch.float32),
                  (2, 4, 1, 80, torch.bfloat16), (2, 4, 20, 80, torch.float32),
                  (2, 4, 20, 80, torch.bfloat16), (8, 16, 1370, 80, torch.float32),
-                 (8, 16, 1370, 80, torch.bfloat16)]
+                 (8, 16, 1370, 80, torch.bfloat16),
+                 # hd 128 in f32 on the split route (the wgmma kernel without
+                 # dQ, then the query-major dQ kernel): ragged N, N 1, N under
+                 # one 16-key step of the dQ kernel and one 64-query block,
+                 # ViT-H's width in 10 heads at a long sequence
+                 (2, 4, 300, 128, torch.float32), (2, 4, 1, 128, torch.float32),
+                 (2, 4, 20, 128, torch.float32), (8, 10, 1370, 128, torch.float32)]
 
 
 @pytest.mark.parametrize("b,h,n,hd,dtype", K2_GRAD_CASES)
@@ -1537,10 +1545,11 @@ def test_k2_gradient_matches_the_plain_versions(b, h, n, hd, dtype):
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_runs_the_route_tables_kernel(hd, dtype):
-    """K2's backward at each (head dim, dtype) launches the kernel the route
-    table names (``attention_bwd_route``: wgmma everywhere but hd 128 in
-    float32, which runs mma.sync), counted once on that route and never on
-    the other, and two backward calls on the same inputs are bit-equal."""
+    """K2's backward at each (head dim, dtype) launches the kernels the
+    route table names (``attention_bwd_route``: wgmma everywhere but hd 128
+    in float32, which takes the split route), counted once on that route and
+    never on the other, and two backward calls on the same inputs are
+    bit-equal."""
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
 
@@ -1553,19 +1562,40 @@ def test_attention_backward_runs_the_route_tables_kernel(hd, dtype):
     first = torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
     again = torch.autograd.grad(out, (q, k, v), grad)
     counts = K.launch_counts()
-    other = "mma.sync" if route == "wgmma" else "wgmma"
-    assert counts["Kab_attention_bwd_" + route.replace(".", "_")] == 2
-    assert counts["Kab_attention_bwd_" + other.replace(".", "_")] == 0
+    other = "split" if route == "wgmma" else "wgmma"
+    assert counts["Kab_attention_bwd_" + route] == 2
+    assert counts["Kab_attention_bwd_" + other] == 0
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("n", [1370, 2740])
+def test_k2_float32_forward_against_float64(n, hd):
+    """K2's float32 forward at long N (F27) sits within twice its plain
+    version's largest difference from the float64 output, plus 1e-6 of
+    max|out|: each key tile's P V sums in an accumulator of its own before
+    it joins O, so wgmma's sums, which round toward zero by a share of the
+    accumulator, no longer err by a share of O at every tile."""
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    q, k, v = (_randn(2, 8, n, hd, seed=70 + i) for i in range(3))
+    with torch.no_grad():
+        got, plain = K.flash_attention(q, k, v), K.flash_attention_ref(q, k, v)
+        exact = train_checks.attention64(q.double(), k.double(), v.double())
+    top = exact.abs().max().item()
+    kernel_err = (got.double() - exact).abs().max().item() / top
+    plain_err = (plain.double() - exact).abs().max().item() / top
+    assert kernel_err <= 2 * plain_err + 1e-6, (kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_gradient_on_strided_views_of_a_fused_qkv(dtype, hd):
     """K2's forward and backward kernels on K5's layout: q, k and v as
     strided head views of one [B, N, 3D] tensor (row stride 3D), its
     gradient gathered through the views, against the plain version's; at
-    hd 64 and ViT-H's 80."""
+    hd 64, ViT-H's 80 and 128 (f32: the split route)."""
     from anyloc_tpu_torch.ops import kernels as K
     from anyloc_tpu_torch.tools import train_checks
 
