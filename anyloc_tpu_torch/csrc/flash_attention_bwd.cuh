@@ -80,7 +80,17 @@
 //     and dP and writes dq once, so this route needs no dq slices and no
 //     pass over them. Seven products in place of five.
 // f32 splits (hopper.cuh's tf32_split) every operand into hi and lo, x = hi
-// + lo, and sums lo·hi + hi·lo + hi·hi (f32-accurate).
+// + lo, and sums lo·hi + hi·lo + hi·hi (f32-accurate). wgmma's f32 sums
+// round toward zero by a share of the accumulator (F27), so f32 never runs
+// a long sum in one accumulator (F28): S^T and dP^T sum hi·hi apart from
+// the small products, and dK, dV, which reduce over every query, take
+// each step's products in accumulators of their own joined by f32 adds
+// (hd 16-80), or, at hd 128, where dK and dV fill the registers, join the
+// outputs a quarter at a time, each quarter every four steps (BwgTile's
+// DKV_TMP, FOLD). Their error from float64 is then flat in N, within twice
+// the plain version's (tests/test_torch_gpu.py, the smoke's F28 line).
+// bf16 keeps one accumulator: its rounding of dK and dV is 2-3 orders
+// above the drift.
 //
 // D = rowsum(P ∘ dP), the softmax backward's row term. f32: D =
 // rowsum(dO ∘ O) (equal in exact arithmetic; attn_bwd_dot_kernel). bf16
@@ -286,6 +296,22 @@ struct BwgTile {
   static_assert(REGS_SPLIT * THREADS * MIN_BLOCKS <= 65536, "the launch's registers");
   static_assert(REGS_CONSUMER + REGS_SPLIT + REGS_PRODUCER <= 3 * REGS_SPLIT,
                 "setmaxnreg moves the launch's registers, no more");
+  // f32 (F28): wgmma's sums round toward zero by a share of the
+  // accumulator (F27), so no long sum runs in one accumulator. S^T and
+  // dP^T keep hi·hi apart from lo·hi + hi·lo (without it dq, which runs no
+  // long sum, erred by 2.5-4.9e-6 of max|g| on an H100, up to 5x the plain
+  // version's). Each step's dV and dK
+  // products start accumulators of their own that join dv and dk by f32
+  // adds: DKV_TMP 2, two accumulators, joined while dQ^T's products run
+  // (hd 16, 32, 80); DKV_TMP 1, one, dV's then dK's, each joined at once
+  // (hd 64: no spills, and faster on the H100). Where dK and dV leave no
+  // registers for that (hd 128: 64 x 128 each), FOLD: every step one
+  // quarter of dv and dk joins the outputs and starts again from zeros,
+  // so that each quarter sums four steps (each block owns its key rows:
+  // no atomics, a fixed order); the quarter's output rows are loaded as
+  // the step starts, behind S^T's and dP^T's products
+  static constexpr int DKV_TMP = !LO ? 0 : HD == 64 ? 1 : HD <= 80 ? 2 : 0;
+  static constexpr bool FOLD = LO && DKV_TMP == 0;
   static constexpr int COPIES = LO ? 2 : 1;
   static constexpr int KTILE = BKV * HD * 4;            // K, V, K^T
   static constexpr int QTILE = BQ * HD * 4;             // Q, dO, Q^T, dO^T
@@ -381,6 +407,109 @@ __device__ __forceinline__ void frag_of(const float* acc, uint32_t (&hi)[4], uin
       lo[e] = 0u;
     } else {
       tf32_split(x[e], hi[e], lo[e]);
+    }
+  }
+}
+
+// acc = one step's products over its BQ / 8 k8 slices of 8 queries, A
+// from registers (hi, lo), B the K-major tile bt (lo blo descriptor steps
+// on), three tf32 wgmmas a slice; scale-d 0 on the first starts acc
+template <int HD, int BQ, int N>
+__device__ __forceinline__ void step_sum(float (&acc)[N], const uint32_t (&hi)[BQ / 8][4],
+                                         const uint32_t (&lo)[BQ / 8][4], const uint8_t* bt,
+                                         uint32_t blo) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const uint64_t b = kdesc<HD, BQ>(bt, j);
+    wgmma_tf32_rs(acc, lo[j], b, j);
+    wgmma_tf32_rs(acc, hi[j], b + blo, 1);
+    wgmma_tf32_rs(acc, hi[j], b, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// dK and dV of this thread's key rows r0, r0 + 8 into the outputs (rows
+// past N skipped), dk times ks. A thread's registers of dV and dK hold
+// n-groups n = 0 .. HD / 8 - 1 (rows r0, r0 + 8, columns 8n + 2t, 8n + 2t
+// + 1: registers 4n .. 4n + 3); BwgTile::FOLD folds them in quarters, dv's
+// first and second half (quarters 0, 1), then dk's (2, 3). Bit c of `add`
+// (f32 only): quarter c goes onto the partial sums an earlier fold left.
+template <int HD, typename T>
+__device__ __forceinline__ void put_dkdv(T* DK, T* DV, long long sdk, long long sdv, int r0,
+                                         int N, int t, const float (&dk)[HD / 2],
+                                         const float (&dv)[HD / 2], float ks, int add) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    const int quarter = n / (HD / 16);
+    const bool addv = (add >> quarter) & 1, addk = (add >> (2 + quarter)) & 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, e = 4 * n + 2 * h;
+      if (r >= N) continue;
+      T* ok = DK + r * sdk + col;
+      T* ov = DV + r * sdv + col;
+      if constexpr (std::is_same_v<T, float>) {
+        if (addk) {
+          const float2 pk = *reinterpret_cast<const float2*>(ok);
+          store2(ok, fmaf(dk[e], ks, pk.x), fmaf(dk[e + 1], ks, pk.y));
+        } else {
+          store2(ok, dk[e] * ks, dk[e + 1] * ks);
+        }
+        if (addv) {
+          const float2 pv = *reinterpret_cast<const float2*>(ov);
+          store2(ov, __fadd_rn(pv.x, dv[e]), __fadd_rn(pv.y, dv[e + 1]));
+        } else {
+          store2(ov, dv[e], dv[e + 1]);
+        }
+      } else {
+        store2(ok, dk[e] * ks, dk[e + 1] * ks);
+        store2(ov, dv[e], dv[e + 1]);
+      }
+    }
+  }
+}
+
+// Quarter C's output values (put_dkdv's quarters) of rows r0, r0 + 8 into x
+// (rows past N: zeros)
+template <int HD, int C>
+__device__ __forceinline__ void load_quarter(float (&x)[HD / 4], const float* out, long long st,
+                                             int r0, int N, int t) {
+  constexpr int QN = HD / 16;
+#pragma unroll
+  for (int m = 0; m < QN; ++m) {
+    const int col = 8 * ((C & 1) * QN + m) + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float2 v = r < N ? *reinterpret_cast<const float2*>(out + r * st + col)
+                             : make_float2(0.f, 0.f);
+      x[4 * m + 2 * h] = v.x;
+      x[4 * m + 2 * h + 1] = v.y;
+    }
+  }
+}
+
+// Quarter C of acc (dv for C 0, 1, dk for 2, 3) times `scale` into the
+// outputs, onto x (load_quarter's) where `add`; then the quarter from zeros
+template <int HD, int C>
+__device__ __forceinline__ void fold_quarter(float (&acc)[HD / 2], const float (&x)[HD / 4],
+                                             bool add, float* out, long long st, int r0, int N,
+                                             int t, float scale) {
+  constexpr int QN = HD / 16;
+#pragma unroll
+  for (int m = 0; m < QN; ++m) {
+    const int n = (C & 1) * QN + m, col = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, e = 4 * n + 2 * h, i = 4 * m + 2 * h;
+      if (r < N)
+        store2(out + r * st + col, add ? fmaf(acc[e], scale, x[i]) : acc[e] * scale,
+               add ? fmaf(acc[e + 1], scale, x[i + 1]) : acc[e + 1] * scale);
+      acc[e] = acc[e + 1] = 0.f;
     }
   }
 }
@@ -624,6 +753,11 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
   const int g = lane >> 2, t = lane & 3;
   const int kr = warp * 16 + g;  // this thread's key rows kr, kr + 8 of the block
   const float c = p.prescale_q ? LOG2E : p.scale * LOG2E;  // scores -> log2 domain
+  // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
+  const float ks = p.prescale_q ? 1.f : p.scale;
+  T* const DK = static_cast<T*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
+  T* const DV = static_cast<T*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
+  const long long sdk = p.st[BW_DK][2], sdv = p.st[BW_DV][2];
   int it = 0;
   for (int kb = kb0; kb < kb_end; ++kb) {
     const bool first = kb == kb0;
@@ -636,6 +770,22 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
 
     for (int qb = 0; qb < nq; ++qb, ++it) {
       const int q0 = qb * BQ;
+      // DKV_TMP: the step's dV and dK products (1: both in dvs, in turn)
+      float dvs[HD / 2], dks[HD / 2];
+      // FOLD: this step's quarter of the outputs, as its last fold left it
+      const bool fold = TL::FOLD && qb + 1 < nq;
+      float x[HD / 4];
+      if constexpr (TL::FOLD) {
+        if (fold && qb >= 4) {
+          const int r0 = k0 + kr;
+          switch (qb & 3) {
+            case 0: load_quarter<HD, 0>(x, DV, sdv, r0, N, t); break;
+            case 1: load_quarter<HD, 1>(x, DV, sdv, r0, N, t); break;
+            case 2: load_quarter<HD, 2>(x, DK, sdk, r0, N, t); break;
+            default: load_quarter<HD, 3>(x, DK, sdk, r0, N, t); break;
+          }
+        }
+      }
       mbar_wait(ready_a, it & 1);
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries, HD / 8 k8 steps.
       // The accumulators live in this scope only and are copied out: with
@@ -644,19 +794,20 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
       // instance's for want of registers, nvcc -Xptxas -v, C7511)
       float s[BQ / 2], dp[BQ / 2];
       {
-        float sa[BQ / 2], da[BQ / 2];
+        // f32: hi·hi in sa, da; lo·hi + hi·lo in se, de (F28)
+        float sa[BQ / 2], da[BQ / 2], se[BQ / 2], de[BQ / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 8; ++kk) {
           const uint64_t ak = kdesc<BKV, HD>(sm + TL::K_, kk), bq = kdesc<BQ, HD>(sm + TL::Q_, kk);
           const uint64_t av = kdesc<BKV, HD>(sm + TL::V_, kk), bg = kdesc<BQ, HD>(sm + TL::G_, kk);
-          if (LO) {
-            wgmma_tf32_ss(sa, ak + KLO, bq, kk);
-            wgmma_tf32_ss(da, av + KLO, bg, kk);
-            wgmma_tf32_ss(sa, ak, bq + QLO, 1);
-            wgmma_tf32_ss(da, av, bg + QLO, 1);
-            wgmma_tf32_ss(sa, ak, bq, 1);
-            wgmma_tf32_ss(da, av, bg, 1);
+          if constexpr (LO) {
+            wgmma_tf32_ss(se, ak + KLO, bq, kk);
+            wgmma_tf32_ss(de, av + KLO, bg, kk);
+            wgmma_tf32_ss(se, ak, bq + QLO, 1);
+            wgmma_tf32_ss(de, av, bg + QLO, 1);
+            wgmma_tf32_ss(sa, ak, bq, kk);
+            wgmma_tf32_ss(da, av, bg, kk);
           } else {
             wgmma_tf32_ss(sa, ak, bq, kk);
             wgmma_tf32_ss(da, av, bg, kk);
@@ -666,10 +817,19 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
         wgmma_wait<0>();
         fence_regs(sa);
         fence_regs(da);
+        if constexpr (LO) {
+          fence_regs(se);
+          fence_regs(de);
+        }
 #pragma unroll
         for (int i = 0; i < BQ / 2; ++i) {
-          s[i] = sa[i];
-          dp[i] = da[i];
+          if constexpr (LO) {
+            s[i] = __fadd_rn(sa[i], se[i]);
+            dp[i] = __fadd_rn(da[i], de[i]);
+          } else {
+            s[i] = sa[i];
+            dp[i] = da[i];
+          }
         }
       }
 
@@ -722,26 +882,52 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
           frag_of<false>(dp + 4 * j, sh[j], sl[j]);
         }
         mbar_wait(ready_b, it & 1);
-        wgmma_fence();
+        if constexpr (TL::DKV_TMP == 2) {  // the step's dV and dK apart
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const uint64_t bgt = kdesc<HD, BQ>(sm + TL::GT_, j);
-          const uint64_t bqt = kdesc<HD, BQ>(sm + TL::QT_, j);
-          if (LO) {
-            wgmma_tf32_rs(dv, pl[j], bgt, 1);
-            wgmma_tf32_rs(dk, sl[j], bqt, 1);
-            wgmma_tf32_rs(dv, ph[j], bgt + QLO, 1);
-            wgmma_tf32_rs(dk, sh[j], bqt + QLO, 1);
-            wgmma_tf32_rs(dv, ph[j], bgt, 1);
-            wgmma_tf32_rs(dk, sh[j], bqt, 1);
-          } else {
-            wgmma_tf32_rs(dv, ph[j], bgt, 1);
-            wgmma_tf32_rs(dk, sl[j], bqt, 1);
-            wgmma_tf32_rs(dk, sh[j], bqt, 1);
+          for (int j = 0; j < BQ / 8; ++j) {
+            const uint64_t bgt = kdesc<HD, BQ>(sm + TL::GT_, j);
+            const uint64_t bqt = kdesc<HD, BQ>(sm + TL::QT_, j);
+            wgmma_tf32_rs(dvs, pl[j], bgt, j);  // 0: the step's first product
+            wgmma_tf32_rs(dks, sl[j], bqt, j);
+            wgmma_tf32_rs(dvs, ph[j], bgt + QLO, 1);
+            wgmma_tf32_rs(dks, sh[j], bqt + QLO, 1);
+            wgmma_tf32_rs(dvs, ph[j], bgt, 1);
+            wgmma_tf32_rs(dks, sh[j], bqt, 1);
           }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dvs);
+          fence_regs(dks);
+        } else if constexpr (TL::DKV_TMP == 1) {  // the same, dV's then dK's, joined here
+          step_sum<HD, BQ>(dvs, ph, pl, sm + TL::GT_, QLO);
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) dv[i] = __fadd_rn(dv[i], dvs[i]);
+          step_sum<HD, BQ>(dvs, sh, sl, sm + TL::QT_, QLO);
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) dk[i] = __fadd_rn(dk[i], dvs[i]);
+        } else {
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+            const uint64_t bgt = kdesc<HD, BQ>(sm + TL::GT_, j);
+            const uint64_t bqt = kdesc<HD, BQ>(sm + TL::QT_, j);
+            if (LO) {
+              wgmma_tf32_rs(dv, pl[j], bgt, 1);
+              wgmma_tf32_rs(dk, sl[j], bqt, 1);
+              wgmma_tf32_rs(dv, ph[j], bgt + QLO, 1);
+              wgmma_tf32_rs(dk, sh[j], bqt + QLO, 1);
+              wgmma_tf32_rs(dv, ph[j], bgt, 1);
+              wgmma_tf32_rs(dk, sh[j], bqt, 1);
+            } else {
+              wgmma_tf32_rs(dv, ph[j], bgt, 1);
+              wgmma_tf32_rs(dk, sl[j], bqt, 1);
+              wgmma_tf32_rs(dk, sh[j], bqt, 1);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
         }
-        wgmma_commit();
-        wgmma_wait<0>();
         fence_regs(dv);
         fence_regs(dk);
 #pragma unroll
@@ -754,6 +940,17 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(done_b);  // Q^T, dO^T are read
+      if constexpr (TL::FOLD) {
+        if (fold) {  // quarter qb % 4 joins the outputs
+          const int r0 = k0 + kr;
+          switch (qb & 3) {
+            case 0: fold_quarter<HD, 0>(dv, x, qb >= 4, DV, sdv, r0, N, t, 1.f); break;
+            case 1: fold_quarter<HD, 1>(dv, x, qb >= 4, DV, sdv, r0, N, t, 1.f); break;
+            case 2: fold_quarter<HD, 2>(dk, x, qb >= 4, DK, sdk, r0, N, t, ks); break;
+            default: fold_quarter<HD, 3>(dk, x, qb >= 4, DK, sdk, r0, N, t, ks); break;
+          }
+        }
+      }
       if constexpr (!DQ) continue;         // the split route's dQ kernel takes dQ
       bar_sync(1, 128);                    // every warp's dS is in shared memory
 
@@ -789,6 +986,13 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
               dq[m][4 * j + e] = !first && q < N && (HD % 64 == 0 || col < HD)
                                      ? part[(long long)q * HD + col] : 0.f;
             }
+        if constexpr (TL::DKV_TMP == 2) {  // the step's dV and dK join dv and dk
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) {
+            dv[i] = __fadd_rn(dv[i], dvs[i]);
+            dk[i] = __fadd_rn(dk[i], dks[i]);
+          }
+        }
         wgmma_wait<0>();
 #pragma unroll
         for (int m = 0; m < MQ / 64; ++m) {
@@ -810,25 +1014,9 @@ __global__ void __launch_bounds__(BwgTile<HD, std::is_same_v<T, float>, DQ>::THR
 
     __syncwarp();
     if (lane == 0) mbar_arrive(kv_free);  // the key block's tiles are read
-    {
-      // K2's dk carries the scale (scores = (q k^T) · scale); K5's q was scaled
-      const float ks = p.prescale_q ? 1.f : p.scale;
-      T* DK = static_cast<T*>(p.dk) + b * p.st[BW_DK][0] + h * p.st[BW_DK][1];
-      T* DV = static_cast<T*>(p.dv) + b * p.st[BW_DV][0] + h * p.st[BW_DV][1];
-      const int r0 = k0 + kr, r1 = r0 + 8;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        if (r0 < N) {
-          store2(DK + r0 * p.st[BW_DK][2] + col, dk[4 * n] * ks, dk[4 * n + 1] * ks);
-          store2(DV + r0 * p.st[BW_DV][2] + col, dv[4 * n], dv[4 * n + 1]);
-        }
-        if (r1 < N) {
-          store2(DK + r1 * p.st[BW_DK][2] + col, dk[4 * n + 2] * ks, dk[4 * n + 3] * ks);
-          store2(DV + r1 * p.st[BW_DV][2] + col, dv[4 * n + 2], dv[4 * n + 3]);
-        }
-      }
-    }
+    // FOLD: the quarters folded before (c < nq - 1) add onto the outputs
+    put_dkdv<HD>(DK, DV, sdk, sdv, k0 + kr, N, t, dk, dv, ks,
+                 TL::FOLD ? (1 << min(nq - 1, 4)) - 1 : 0);
   }
 }
 

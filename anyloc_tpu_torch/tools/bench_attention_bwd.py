@@ -39,7 +39,26 @@ Cases, random inputs from a torch seed on the card:
     largest |difference| over max|out|, at q/k/v [2, 16, N, hd] for N 257,
     685, 1370, 2740, 5330 and hd 64, 80, 128, two seeds each; then the f32
     forward's time at [8, 16, 1370, 80] and K5's at CLIP-L/14@336px's qkv
-    [8, 577, 3072] (16 heads of 64).
+    [8, 577, 3072] (16 heads of 64);
+  * ``f28``: K2's float32 gradient under autograd against float64
+    (``train_checks.k2_float64_errors``: dq, dk, dv, each the largest
+    |difference| over max|g| of the float64 gradient, beside the plain
+    version's in full float32, the worst of two seeds) at q/k/v
+    [2, 8, N, hd] for N 257, 685, 1370, 2740, 5330 and hd 64, 80, 128 (the
+    split route), and N 1370, 5330 at hd 16, 32; K5 under autograd at
+    ViT-H's qkv [2, 1370, 3840] (10 heads of 128, 16 of 80), each gradient
+    end to end (``train_checks.k5_gradient``) and the qkv gradient given
+    the d_o its projection backward hands the attention backward
+    (``train_checks.k5_float64_errors``); then the port's other long
+    float32 sums against float64 beside ``torch.mm`` / the plain version
+    in full float32: K5's projection backward (``qkv_proj_bwd``: d_o, d_W,
+    d_b) at the dvgl vit step's qkv [48, 197, 2304] and at DINOv2-G's width
+    [32, 257, 4608], T1 in float32 (``OpTF32x3``) at
+    [8704x1536]x[1536x8192], K5's float32 forward (attention and
+    projection) at CLIP-L/14@336px's qkv [8, 577, 3072]; then the f32
+    attention backward alone at [48, 6, 197, 64], [8, 16, 257, 80],
+    [8, 10, 257, 128], [8, 16, 1370, 80] and [2, 8, 5330, 64], with two
+    calls' largest difference.
 Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
 bound is the larger of the operations (3xTF32 for float32: three tf32
 products an f32 one, at 494.7 TFLOP/s; bfloat16 at 989 TFLOP/s) and the
@@ -47,12 +66,14 @@ bytes (each input read once, each output written once, at 3.35 TB/s), one
 H100 SXM's dense peaks.
 
     python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR] [--profile]
-        [--cases k2 k5 vith hds k5fwd f27]
+        [--cases k2 k5 vith hds k5fwd f27 f28]
 
 ``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive``), so that two trees are timed
 by the same script on the same card: run it once per tree, in turns (a
-tree without the attention backward kernels takes ``--cases k5fwd`` only).
+tree without the attention backward kernels takes ``--cases k5fwd`` only;
+``f28`` reads ``train_checks.k2_float64_errors``: copy this tree's
+``tools/train_checks.py`` into a tree that lacks it).
 """
 
 from __future__ import annotations
@@ -132,7 +153,7 @@ def projection_half(attn_proj, args, iters: int, profile: bool, **bounds) -> dic
     return r
 
 
-CASES = ("k2", "k5", "vith", "hds", "k5fwd", "f27")
+CASES = ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28")
 
 
 def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) -> dict:
@@ -159,6 +180,8 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) 
         out["cases"].update(k5_forward_case(32, 257, 16, 80, g, iters))
     if "f27" in cases:
         out["cases"].update(f27_case(iters))
+    if "f28" in cases:
+        out["cases"].update(f28_case(iters))
     return out
 
 
@@ -402,6 +425,129 @@ def f32_forward_times(iters: int) -> dict:
     return cases
 
 
+def f28_case(iters: int) -> dict:
+    """F28: K2's f32 gradient against float64 over N and the head dim
+    (``train_checks.k2_float64_errors``, the worst of two seeds per
+    gradient), the port's other long f32 sums against float64
+    (``long_sums_float64``), then the f32 attention backward's time
+    (``f32_backward_times``)."""
+    import torch
+
+    from anyloc_tpu_torch.tools import train_checks
+
+    cases = {}
+    sweep = [(hd, n) for hd in (64, 80, 128) for n in (257, 685, 1370, 2740, 5330)]
+    sweep += [(hd, n) for hd in (16, 32) for n in (1370, 5330)]
+    for hd, n in sweep:
+        worst = {k: dict(kernel=0.0, plain=0.0) for k in "qkv"}
+        for seed in (0, 1):
+            for k, e in train_checks.k2_float64_errors(2, 8, n, hd, seed).items():
+                for x in ("kernel", "plain"):
+                    worst[k][x] = max(worst[k][x], e[x])
+            torch.cuda.empty_cache()
+        for e in worst.values():
+            e["ok"] = e["kernel"] <= 2 * e["plain"] + train_checks.F64_SLACK
+        cases[f"f28 k2 [2,8,{n},{hd}] float32 gradient"] = dict(float64=worst)
+    for h, hd in ((10, 128), (16, 80)):   # K5 at ViT-H's width, under autograd
+        name = f"f28 k5 qkv [2,1370,{3 * h * hd}] {h} heads float32 gradient"
+        cases[name + ", end to end"] = dict(
+            float64=train_checks.k5_gradient(2, 1370, h, hd, torch.float32)["float64"])
+        cases[name + ", attention half given its d_o"] = dict(
+            float64=train_checks.k5_float64_errors(2, 1370, h, hd))
+    cases.update(long_sums_float64())
+    cases.update(f32_backward_times(iters))
+    return cases
+
+
+def long_sums_float64() -> dict:
+    """The port's other long f32 sums against float64, beside the plain
+    version in full float32 (``train_checks.float64_errors``): K5's
+    projection backward (``qkv_proj_bwd``: d_o over D_out in one
+    accumulator, d_W over row chunks) at qkv [48, 197, 2304] and
+    [32, 257, 4608]; T1 f32 (``OpTF32x3``: hi·hi over K in one accumulator)
+    at [8704x1536]x[1536x8192] against ``torch.mm``; K5's f32 forward at
+    qkv [8, 577, 3072] (no residual, so that the output is the attention's
+    and the projection's)."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels import attn_proj
+    from anyloc_tpu_torch.tools import train_checks
+
+    cases = {}
+    g = torch.Generator(device="cuda").manual_seed(28)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    wide = lambda ts: [None if t is None else t.double() for t in ts]  # noqa: E731
+    with torch.no_grad():
+        for b, n, d in ((48, 197, 768), (32, 257, 1536)):
+            args = (r(b, n, d), r(d, d, scale=d ** -0.5).t(), r(d, scale=0.1), None,
+                    r(b, n, d), None)
+            got = attn_proj.qkv_proj_bwd(*args)[:3]
+            with train_checks.full_float32():
+                plain = attn_proj.qkv_proj_bwd_ref(*args)[:3]
+            exact = attn_proj.qkv_proj_bwd_ref(*wide(args))[:3]
+            cases[f"f28 k5 projection backward qkv [{b},{n},{3 * d}] float32"] = dict(
+                float64=train_checks.float64_errors(("d_o", "d_w", "d_b"), got, plain, exact))
+            del args, got, plain, exact
+        a, w = r(8704, 1536), r(1536, 8192, scale=1536 ** -0.5)
+        with train_checks.full_float32():
+            plain = torch.mm(a, w)
+        cases["f28 t1 [8704x1536]x[1536x8192] float32"] = dict(
+            float64=train_checks.float64_errors(
+                ("out",), [K.matmul(a, w)], [plain], [a.double() @ w.double()]))
+        del a, w, plain
+        qkv, w = r(8, 577, 3072), r(1024, 1024, scale=1024 ** -0.5).t()
+        bias = r(1024, scale=0.1)
+        got = K.flash_attention_qkv_proj(qkv, w, bias, num_heads=16)
+        with train_checks.full_float32():
+            plain = K.flash_attention_qkv_proj_ref(qkv, w, bias, num_heads=16)
+        exact = K.flash_attention_qkv_proj_ref(*wide((qkv, w, bias)), num_heads=16)
+        cases["f28 k5 forward qkv [8,577,3072] float32"] = dict(
+            float64=train_checks.float64_errors(("out",), [got], [plain], [exact]))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def f32_backward_times(iters: int) -> dict:
+    """The f32 attention backward alone (``attention_bwd_launch``) at the
+    dvgl vit step's [48, 6, 197, 64], ViT-H's [8, 16, 257, 80], its width
+    in 10 heads of 128 (the split route), and at N 1370 and 5330, where
+    dK and dV take the most query steps; with two calls' largest
+    difference."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_launch
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    cases = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, hd in ((48, 6, 197, 64), (8, 16, 257, 80), (8, 10, 257, 128),
+                        (8, 16, 1370, 80), (2, 8, 5330, 64)):
+        with torch.no_grad():
+            q, k, v, go = (torch.randn((b, h, n, hd), generator=g, device="cuda")
+                           for _ in range(4))
+            o = K.flash_attention(q, k, v)
+            lse = torch.logsumexp((q @ k.transpose(-1, -2)) * hd ** -0.5, -1).contiguous()
+            grads = [[torch.empty_like(q) for _ in range(3)] for _ in range(2)]
+
+            def alone(out=grads[0]):
+                attention_bwd_launch(q, k, v, o, lse, go, *out, scale=hd ** -0.5,
+                                     prescale_q=False, name="bench_attention_bwd")
+
+            ms = time_ms(alone, iters=iters)
+            alone(grads[1])
+            spread = max((a - c).abs().max().item() for a, c in zip(*grads))
+            cases[f"f28 time k2 backward alone [{b},{h},{n},{hd}] float32"] = dict(
+                ms=ms, spread=spread,
+                **bound(10 * b * h * n * n * hd, 8 * 4 * b * h * n * hd, "float32"))
+            del q, k, v, go, o, lse, grads
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=10)
@@ -411,7 +557,7 @@ def main(argv=None) -> None:
                     help="split the projection half and the attention backward alone into "
                          "their kernels (torch.profiler)")
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES[:4]),
-                    help="the cases to time (default: all but k5fwd)")
+                    help="the cases to time (default: all but k5fwd, f27 and f28)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     res = run(args.iters, profile=args.profile, cases=args.cases)
@@ -420,6 +566,13 @@ def main(argv=None) -> None:
             print(f"[{res['card']}] {case}: kernel {r['kernel_err']:.3e}, plain "
                   f"{r['plain_err']:.3e} of max|out| from float64 ({r['ratio']:.2f}x)",
                   flush=True)
+            continue
+        if "float64" in r:
+            errs = "; ".join(f"{k} kernel {e['kernel']:.3e}, plain {e['plain']:.3e} "
+                             f"({e['kernel'] / max(e['plain'], 1e-30):.2f}x"
+                             f"{'' if e['ok'] else ', PAST 2x + 1e-6'})"
+                             for k, e in r["float64"].items())
+            print(f"[{res['card']}] {case}: max|diff| / max|g| from float64: {errs}", flush=True)
             continue
         lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms",
                                                         "attention_ms", "projection_ms",
@@ -431,6 +584,8 @@ def main(argv=None) -> None:
             lib += f", scratch {r['scratch_mib']:.1f} MiB"
         if "digest" in r:
             lib += f", digest {r['digest']}"
+        if "spread" in r:
+            lib += f", two calls {r['spread']:.1e} apart"
         print(f"[{res['card']}] {case}: {r['ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it", flush=True)
     print(json.dumps(res), flush=True)

@@ -23,7 +23,12 @@ and weight gradients for a random output gradient on the card within
 ``k5_gradient`` / ``k2_gradient``: K5's and K2's gradients (the forward
 kernel, then the backward kernels) against the plain version's autograd on
 the same inputs, which shares nothing with the kernels. float32: each
-gradient within ``BOUND`` of its largest |value|. bfloat16
+gradient within ``BOUND`` of its largest |value|; reported beside it, not
+part of ``ok``: ``float64``, each gradient's and the plain version's
+largest difference from the float64 gradient (``float64_errors``).
+``k2_float64_errors`` / ``k5_float64_errors`` hold the f32 attention
+backward to float64 (F28): within twice the plain version's error in full
+float32, plus ``F64_SLACK``. bfloat16
 (``bf16_errors``): each gradient within ``BF16_BOUND`` of the plain
 version's beyond one bf16 rounding step of it, and its L2 distance from the
 float64 gradient of the same inputs at most ``BF16_RATIO`` times the plain
@@ -71,6 +76,7 @@ BOUND = 1e-4   # of the largest |g| of each tensor
 BF16_BOUND = 2.5e-3   # bfloat16 gradients: of the largest |g|, beyond one rounding step
 BF16_RATIO = 1.25     # bfloat16: L2 distance from float64 over the plain version's
 LSE_BOUND = 1e-5      # K5's kept log-sum-exp: largest |difference| (natural log)
+F64_SLACK = 1e-6      # float32 against float64: of max|g| beyond twice the plain version's
 READ_O = ("w_proj", "layerscale")   # K5's gradients that read the forward's o
 SHARE = 1e-3   # of a tensor's elements that may lie beyond BOUND
 CNN_RATIO = 10.0   # card's distance from float64 / the CPU float32 run's
@@ -331,6 +337,109 @@ def attention64(q, k, v, *, scale=None):
     return torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1) @ v
 
 
+@contextlib.contextmanager
+def full_float32():
+    """float32 matrix products in full float32 (no TF32) while the block
+    runs: the plain versions' setting when they stand for float32's own
+    error."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def float64_errors(names, got, plain, exact) -> dict:
+    """Float32 results ``got`` (the kernels') and ``plain`` (the plain
+    version's in full float32) against the float64 results ``exact`` of the
+    same inputs, per name: each largest |difference| over the float64
+    result's ``_scales``, and ``ok`` where the kernels' lies within twice the
+    plain version's plus ``F64_SLACK`` (F27, F28)."""
+    out = {}
+    for name, a, p, x, top in zip(names, got, plain, exact, _scales(exact)):
+        kernel, ref = rel_err(a, x, top), rel_err(p, x, top)
+        out[name] = dict(kernel=kernel, plain=ref, ok=kernel <= 2 * ref + F64_SLACK)
+    return out
+
+
+def attention64_grads(q, k, v, grad, *, scale=None) -> list:
+    """The float64 gradients of ``attention64`` for q, k, v [B, H, N, hd]
+    (float64 copies of them and of ``grad``), a batch row at a time."""
+    exact = [torch.empty(t.shape, dtype=torch.float64, device=t.device) for t in (q, k, v)]
+    for i in range(q.shape[0]):
+        wide = [t[i].detach().double().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            rows = torch.autograd.grad(attention64(*wide, scale=scale), wide, grad[i].double())
+        for out, row in zip(exact, rows):
+            out[i] = row
+    return exact
+
+
+def k2_float64_errors(b: int, h: int, n: int, hd: int, seed: int = 0,
+                      device: str = "cuda") -> dict:
+    """F28: K2's float32 gradient under autograd (``FlashAttentionGrad``:
+    the forward kernel, then the attention backward's kernels) and its
+    plain version's (``flash_attention_ref`` under autograd, full float32)
+    against the float64 gradient of the same inputs, q, k, v and the output
+    gradient [b, h, n, hd] drawn from ``seed``: ``float64_errors`` of dq,
+    dk, dv. (``device`` another than cuda only to try the function: CPU
+    tensors take the plain versions.)"""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, hd), generator=g, device=device).requires_grad_(True)
+               for _ in range(3))
+    grad = torch.randn((b, h, n, hd), generator=g, device=device)
+    got = torch.autograd.grad(K.flash_attention(q, k, v), (q, k, v), grad)
+    with full_float32():
+        plain = torch.autograd.grad(K.flash_attention_ref(q, k, v), (q, k, v), grad)
+    return float64_errors("qkv", got, plain, attention64_grads(q, k, v, grad))
+
+
+def k5_float64_errors(b: int, n: int, h: int, hd: int, seed: int = 0,
+                      device: str = "cuda") -> dict:
+    """F28 on K5's layout: K5 under autograd (``QkvProjGrad``: the forward
+    kernel, the projection backward, then the attention backward on strided
+    columns of qkv and of its gradient) on float32 ``k5_inputs``, its qkv
+    gradient (the attention backward's dq, dk, dv) against the float64
+    attention backward given the same d_o, the one the projection backward
+    hands it (``qkv_proj_bwd`` on the o the forward kernel keeps: the same
+    bits), beside the plain version's (``attention_bwd_math`` in full
+    float32 on the plain forward's o and log-sum-exp): ``float64_errors`` of
+    "qkv". The projection backward's own error in d_o is
+    ``bench_attention_bwd``'s ``f28`` reading, not this one's. (``device``
+    another than cuda only to try the function, with a CPU stand-in for
+    the forward kernel's launch.)"""
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_math
+
+    inputs = k5_inputs(b, n, h, hd, torch.float32, seed, device=device)
+    out = K.flash_attention_qkv_proj(num_heads=h, **inputs)
+    grad = torch.randn(out.shape, generator=torch.Generator(device=device).manual_seed(seed + 1),
+                       device=device)
+    (got,) = torch.autograd.grad(out, [inputs["qkv"]], grad)
+    scale = hd ** -0.5
+    with torch.no_grad():
+        x = {k: None if v is None else v.detach() for k, v in inputs.items()}
+        keep = {}
+        attn_proj._qkv_proj_launch(x["qkv"], x["w_proj"], x["b_proj"], num_heads=h,
+                                   layerscale=None, residual=x["residual"], scale=scale,
+                                   keep=keep)
+        d_o = attn_proj.qkv_proj_bwd(grad, x["w_proj"], x["b_proj"], None, keep["o"], None,
+                                     needs=(True, False, False, False))[0]
+        views = attn_proj._split_heads(x["qkv"], h)
+
+        def backward(q, k, v, d_o):
+            s = (q * scale) @ k.transpose(-1, -2)
+            o = torch.softmax(s, dim=-1) @ v
+            grads = attention_bwd_math(q, k, v, o, torch.logsumexp(s, dim=-1), d_o,
+                                       scale=scale, prescale_q=True)
+            return torch.cat([t.transpose(1, 2).reshape(b, n, h * hd) for t in grads], dim=-1)
+
+        with full_float32():
+            plain = backward(*views, attn_proj._heads(d_o, h))
+        exact = backward(*(t.double() for t in views), attn_proj._heads(d_o, h).double())
+    return float64_errors(("qkv",), [got], [plain], [exact])
+
+
 def saved_errors(inputs: dict, keep: dict, h: int) -> dict:
     """What K5's forward kernel keeps under autograd (``keep``: o, lse,
     pre) against values computed from the inputs alone (float64 where the
@@ -381,14 +490,17 @@ def k5_gradient(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int 
     before_bwd = K.flash_attention_qkv_proj_bwd.launches
     got = torch.autograd.grad(out, [inputs[k] for k in names], grad)
     bwd_launched = K.flash_attention_qkv_proj_bwd.launches - before_bwd
-    want = torch.autograd.grad(ref, [inputs[k] for k in names], grad)
-    exact = near = None
-    saved = {}
-    if dtype != torch.float32:
-        wide = {k: None if v is None else v.detach().double().requires_grad_(True)
-                for k, v in inputs.items()}
-        exact = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **wide),
-                                    [wide[k] for k in names], grad.double())
+    with full_float32():
+        want = torch.autograd.grad(ref, [inputs[k] for k in names], grad)
+    wide = {k: None if v is None else v.detach().double().requires_grad_(True)
+            for k, v in inputs.items()}
+    exact = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **wide),
+                                [wide[k] for k in names], grad.double())
+    near, saved, f64 = None, {}, {}
+    if dtype == torch.float32:
+        f64 = float64_errors(names, got, want, exact)
+        exact = None
+    else:
         with torch.no_grad():
             x, keep = {k: None if v is None else v.detach() for k, v in inputs.items()}, {}
             attn_proj._qkv_proj_launch(x["qkv"], x["w_proj"], x["b_proj"], num_heads=h,
@@ -404,6 +516,8 @@ def k5_gradient(b: int, n: int, h: int, hd: int, dtype=torch.float32, seed: int 
     r = _grad_report(names, got, want, exact, near)
     if saved:
         r.update(saved=saved, grads_ok=r["grads_ok"] and saved_ok(saved))
+    if f64:
+        r.update(float64=f64)
     return dict(shape=(b, n, 3 * h * hd), dtype=str(dtype).replace("torch.", ""),
                 out_err=rel_err(out, ref), launched=launched, bwd_launched=bwd_launched,
                 bit_equal=bit_equal, grad_fn=type(out.grad_fn).__name__, **r,
@@ -430,13 +544,14 @@ def k2_gradient(b: int, h: int, n: int, hd: int, dtype=torch.float32, seed: int 
     before_bwd = K.flash_attention_bwd.launches
     got = torch.autograd.grad(out, (q, k, v), grad)
     bwd_launched = K.flash_attention_bwd.launches - before_bwd
-    want = torch.autograd.grad(ref, (q, k, v), grad)
-    exact = None
-    if dtype != torch.float32:
-        wide = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
-        exact = torch.autograd.grad(attention64(*wide), wide, grad.double())
+    with full_float32():
+        want = torch.autograd.grad(ref, (q, k, v), grad)
+    exact = attention64_grads(q, k, v, grad)
     torch.cuda.synchronize()
-    r = _grad_report("qkv", got, want, exact)
+    if dtype == torch.float32:
+        r = dict(_grad_report("qkv", got, want), float64=float64_errors("qkv", got, want, exact))
+    else:
+        r = _grad_report("qkv", got, want, exact)
     return dict(shape=(b, h, n, hd), dtype=str(dtype).replace("torch.", ""),
                 out_err=rel_err(out, ref), launched=launched, bwd_launched=bwd_launched,
                 bit_equal=bit_equal, grad_fn=type(out.grad_fn).__name__, **r,

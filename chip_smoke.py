@@ -163,7 +163,10 @@ Phases, each of which must pass or the script exits non-zero:
      backward and its bound (hd 64 at [48, 6, 197, 64], the other head dims
      at [8, 1280 / hd, 257, hd], f32 and bf16); the F27 line (K2's f32
      forward against float64 at N 257, 1370 and 2740, beside its plain
-     version's); the ViT-H gradient (``vith_gradient_phase``): K5's
+     version's); the F28 line (the attention backward's f32 dq, dk, dv
+     against float64 at [2, 16, N, 80] for N 257, 1370, 2740 and at
+     [2, 16, 1370, 128] on the split route, beside the plain version's);
+     the ViT-H gradient (``vith_gradient_phase``): K5's
      backward under autograd at MAE-H/14's qkv [8, 257, 3840] and K2's at
      [8, 16, 257, 80], f32 and bf16, and at the same width cut into 10
      heads of 128 in f32 (the split route), held to the plain autograd and
@@ -1848,6 +1851,11 @@ def run(profile_dir) -> dict:
         mark("F27, K2's f32 forward against float64")
         f27 = f27_line(tag)
         results["K2_flash_attention"]["f27"] = {str(n): e for n, e in f27.items()}
+        mark("F28, the f32 attention backward against float64")
+        f28 = f28_line(tag)
+        for route in ("wgmma", "split"):
+            results["Kab_attention_bwd_" + route]["f28"] = {
+                k: e for k, e in f28.items() if e["route"] == route}
         mark("the ViT-H gradient")
         vith = vith_gradient_phase(tag)
         note("launches " + ", ".join(f"{k} {v}" for k, v in vith["counts"].items()))
@@ -3010,6 +3018,36 @@ def f27_line(tag: str) -> dict:
               f"F27: K2's f32 forward at N {n} is {e['kernel']:.3e} from float64, past twice "
               f"its plain version's {e['plain']:.3e}")
     return errs
+
+
+def f28_line(tag: str) -> dict:
+    """F28: the attention backward's float32 gradients against float64
+    (``train_checks.k2_float64_errors``: K2 under autograd, dq, dk, dv,
+    each the largest |difference| over max|g| of the float64 gradient,
+    beside its plain version's in full float32) at q/k/v [2, 16, N, 80]
+    (ViT-H's heads, the wgmma route) for N 257, 1370 and 2740, and at
+    [2, 16, 1370, 128] (the split route): each within twice the plain
+    version's error plus 1e-6."""
+    import torch
+
+    from anyloc_tpu_torch.ops.kernels.flash_attention import attention_bwd_route
+    from anyloc_tpu_torch.tools import train_checks
+
+    out = {}
+    for n, hd in ((257, 80), (1370, 80), (2740, 80), (1370, 128)):
+        errs = train_checks.k2_float64_errors(2, 16, n, hd, seed=n)
+        shape = f"[2,16,{n},{hd}]"
+        out[shape] = dict(route=attention_bwd_route(hd, torch.float32), **errs)
+        print(f"F28 {tag} attention backward float32 against float64, {shape} "
+              f"({out[shape]['route']}), max|diff| / max|g|: "
+              + "; ".join(f"d{k} kernel {e['kernel']:.3e}, plain {e['plain']:.3e}"
+                          for k, e in errs.items()), flush=True)
+        for k, e in errs.items():
+            check(e["ok"], f"F28: the f32 attention backward's d{k} at {shape} is "
+                           f"{e['kernel']:.3e} from float64, past twice its plain version's "
+                           f"{e['plain']:.3e} + 1e-6")
+        torch.cuda.empty_cache()
+    return out
 
 
 def vith_gradient_phase(tag: str) -> dict:

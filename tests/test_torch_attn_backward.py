@@ -419,11 +419,11 @@ def test_attention_bwd_tiles_fit_a_block(hd, dtype):
         assert 2 * (smem["attn_bwd_wgmma_kernel"] + 1024) <= 233472
 
 
-@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], ["f27"], None],
-                         ids=["k2", "vith-k5fwd", "hds", "f27", "default"])
+@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], ["f27"], ["f28"], None],
+                         ids=["k2", "vith-k5fwd", "hds", "f27", "f28", "default"])
 def test_bench_attention_bwd_refuses_without_a_card(cases):
     """``tools/bench_attention_bwd.py`` takes the cases it is given (every
-    one of them by default but ``k5fwd`` and ``f27``) and, with no CUDA
+    one of them by default but ``k5fwd``, ``f27`` and ``f28``) and, with no CUDA
     card, raises before it times anything: a measurement never falls back
     to the CPU."""
     from anyloc_tpu_torch.tools import bench_attention_bwd as bench
@@ -433,4 +433,4 @@ def test_bench_attention_bwd_refuses_without_a_card(cases):
         bench.main(argv)
     with pytest.raises(SystemExit):
         bench.main(["--cases", "nope"])
-    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd", "f27")
+    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28")

@@ -1621,6 +1621,32 @@ def test_k2_gradient_on_strided_views_of_a_fused_qkv(dtype, hd):
         assert r["ok"], r
 
 
+F28_CASES = ([("K2", 2, 8, n, hd) for n in (1370, 2740, 5330) for hd in (64, 80, 128)]
+             # K5 at ViT-H's width, its q, k, v and gradient strided columns of
+             # qkv: 10 heads of 128 (the split route) and 16 of 80
+             + [("K5", 2, 10, 1370, 128), ("K5", 2, 16, 1370, 80)])
+
+
+@pytest.mark.parametrize("kernel,b,h,n,hd", F28_CASES)
+def test_attention_bwd_float32_against_float64(kernel, b, h, n, hd):
+    """F28: the attention backward's float32 gradients at long N sit within
+    twice the plain version's largest difference from the float64 gradient
+    (full float32) plus 1e-6 of max|g|: K2's dq, dk and dv under autograd,
+    and K5's qkv gradient under autograd (its dq, dk, dv columns) given the
+    d_o its projection backward hands the attention backward. wgmma's sums
+    round toward zero by a share of the accumulator, so each step's dV and
+    dK products sum apart before they join (at hd 128 a quarter of dV and
+    dK joins the outputs each step), and S^T's and dP^T's hi·hi sum apart
+    from their small products."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    if kernel == "K2":
+        errs = train_checks.k2_float64_errors(b, h, n, hd, seed=n + hd)
+    else:
+        errs = train_checks.k5_float64_errors(b, n, h, hd, seed=n + hd)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_requires_grad"])
 def test_k2_without_a_gradient_launches_and_saves_nothing(mode):
     """K2 with grad mode off, or no input that requires a gradient: the
