@@ -33,12 +33,15 @@
 //     of 32 KB: d_o's G [128 rows x 32 columns] and W [128 x 32] (both
 //     K-major for G'·W^T); d_W's o [32 rows x 128 columns] and G [32 x 128];
 //   * two consumer warpgroups of 64 rows run m64n128k8 tf32 wgmmas, three a
-//     K step (lo·hi + hi·lo into their own sums, hi·hi: bf16_gemm.cuh's
-//     OpTF32x3), from two split stages of 64 KB (A hi, B hi, A lo, B lo,
-//     K-major and 128-byte swizzled); while a stage's wgmmas run, the same
-//     256 threads split the block's next stage (the next unit's first at a
-//     unit's end) from its landing stage into the other split stage:
-//     hopper.cuh's tf32_split, γ applied to G's columns first (__fmul_rn),
+//     K step (bf16_gemm.cuh's OpTF32x3: lo·hi + hi·lo into their own sums
+//     over the unit, hi·hi into sums that start afresh every PbTile::FOLD
+//     stages and join the unit's f32 sums by __fadd_rn: wgmma's adds err
+//     toward zero by a share of the accumulator, F29, and a d_o unit
+//     reduces over all of Nc), from two split stages of 64 KB (A hi, B hi,
+//     A lo, B lo, K-major and 128-byte swizzled); while a stage's wgmmas
+//     run, the same 256 threads split the block's next stage (the next
+//     unit's first at a unit's end) from its landing stage into the other
+//     split stage: hopper.cuh's tf32_split, γ applied to G's columns first (__fmul_rn),
 //     and for d_W o^T and G'^T written transposed (tf32 wgmma has no
 //     transpose bit, and d_W reduces over the rows, where o and G are
 //     MN-major). bf16 data is exact in tf32 (its lo is 0) and takes the
@@ -80,6 +83,7 @@ struct PbTile {
   static constexpr int NBAR = 2 * LAND_STAGES;
   static constexpr int SMEM = BAR_ + NBAR * 8 + 1024;  // + alignment of the base to 1024
   static constexpr int SPLITTERS = 256;           // the consumers' threads
+  static constexpr int FOLD = 3;                  // stages of hi·hi between its joins
   static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
@@ -345,19 +349,24 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       continue;
     }
     const int ns = proj_bwd_stages(u);
-    // hi·hi in acc, lo·hi + hi·lo in small (OpTF32x3)
-    float acc[64], small[64];
+    // OpTF32x3's products: lo·hi + hi·lo in small over the unit; hi·hi in
+    // hh, which starts afresh every FOLD stages and joins acc, the f32 sum,
+    // by __fadd_rn (F29)
+    float acc[64], hh[64], small[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
     for (int ks = 0; ks < ns; ++ks, ++g) {
       const int s = g % SS;
       const uint8_t* As = sm + TL::SPLIT_ + s * TL::SPLIT + cw * 64 * 128;
       const uint8_t* Bs = sm + TL::SPLIT_ + s * TL::SPLIT + TL::BOX;
+      const int fresh = ks % TL::FOLD == 0;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PB_K / 8; ++kk) {
         const uint64_t da = smem_desc<128>(As + kk * 32, 16, 1024);
         const uint64_t db = smem_desc<128>(Bs + kk * 32, 16, 1024);
-        const int add = ks | kk;  // 0: the unit's first step, D = A * B
-        OpTF32x3::mma(acc, small, da, db, add, TL::LO >> 4);
+        // 0: D = A * B, the unit's (small) or the fold's (hh) first step
+        OpTF32x3::mma(hh, small, da, db, ks | kk, TL::LO >> 4, !(fresh && kk == 0));
       }
       wgmma_commit();
       // once every wgmma of stage g - 1 has read its split stage (this
@@ -368,9 +377,14 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       if (ni < n_units) split_next();
       fence_proxy_async();
       bar_sync(1, 256);
+      if ((ks + 1) % TL::FOLD == 0 || ks + 1 == ns) {  // stage g's hi·hi joins acc
+        wgmma_wait<0>();
+        fence_regs(hh);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] = __fadd_rn(acc[e], hh[e]);
+      }
     }
     wgmma_wait<0>();
-    fence_regs(acc);
     fence_regs(small);
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = __fadd_rn(acc[e], small[e]);

@@ -146,29 +146,26 @@ struct OpBF16 {
 };
 
 // The f32 operands: split stages (hi in place, lo `lo` descriptor steps
-// on), three tf32 products a K step, hi·hi summed in d and the small ones
-// in e (wgmma's f32 sums are not rounded to nearest: a sum's error scales
-// with the accumulator's size, so the small products get their own, and
-// hi·hi one update a step, not three); OpBF16's epilogue on d + e.
+// on), three tf32 products a K step, lo·hi + hi·lo into e (scale_d 0: e =
+// the first product), then hi·hi into d (scale_hi). wgmma's f32 sums are
+// not rounded to nearest: each add errs toward zero by a share of the
+// accumulator's size (F27, F29), so no accumulator takes a long sum:
+// gemm_tma_kernel passes one accumulator as d and e, the small products
+// first, starts it afresh every GemmTile::FOLD tiles (8 K steps) and joins
+// it to the f32 sums by __fadd_rn; attn_qkv_proj_bwd.cu keeps the small
+// products apart and hi·hi afresh every few stages. OpBF16's epilogue on
+// the joined sums.
 struct OpTF32x3 : OpBF16 {
   using Elem = float;
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   static constexpr bool SPLIT = true;
 
   __device__ static __forceinline__ void mma(float (&d)[64], float (&e)[64], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d, uint32_t lo) {
+                                             uint64_t desc_b, int scale_d, uint32_t lo,
+                                             int scale_hi) {
     wgmma_tf32_ss(e, desc_a + lo, desc_b, scale_d);
     wgmma_tf32_ss(e, desc_a, desc_b + lo, 1);
-    wgmma_tf32_ss(d, desc_a, desc_b, scale_d);
-  }
-
-  template <int EPI, typename OutT, typename ResT, bool ONE, int NACC>
-  __device__ static __forceinline__ void epilogue(const GemmArgs& p, float (&acc)[NACC],
-                                                  const float (&small)[NACC], int row0,
-                                                  long long src0, long long src1, int c0, int t) {
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = __fadd_rn(acc[i], small[i]);
-    OpBF16::epilogue<EPI, OutT, ResT, ONE>(p, acc, small, row0, src0, src1, c0, t);
+    wgmma_tf32_ss(d, desc_a, desc_b, scale_hi);
   }
 };
 

@@ -396,7 +396,7 @@ struct Fa32Tile {
 // goes into an accumulator of its own (scale-d 0 on its first product) and
 // joins O in registers, O = O · alpha + PV, one rounded FMA a tile; S
 // sums its hi·hi products in one accumulator and lo·hi + hi·lo in another,
-// added once a tile (as the GEMM's OpTF32x3).
+// added once a tile (as K5's projection backward, attn_qkv_proj_bwd.cu).
 // P's A fragment takes key 2t of each 8-key step as its column t and key
 // 2t + 1 as column t + 4 (the S accumulator holds keys 2t, 2t + 1 of each
 // 8), so V^T stores each 8 keys of a step in the order 0 2 4 6 1 3 5 7.

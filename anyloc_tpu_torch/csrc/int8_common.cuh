@@ -293,6 +293,7 @@ struct GemmTile {
   static constexpr int RAW = A_BYTES + B_BYTES;   // what TMA loads into a stage
   static constexpr int STAGE = SPLIT ? 2 * RAW : RAW;
   static constexpr int BARRIERS = SPLIT ? 3 : 2;  // full, empty (, ready) per stage
+  static constexpr int FOLD = 2;                  // SPLIT: K tiles an accumulator sums
   static constexpr int SMEM = STAGES * STAGE + BARRIERS * STAGES * 8 + 1024;  // + alignment
 };
 
@@ -588,10 +589,11 @@ __global__ void __launch_bounds__(QTHREADS, 1)
 
   typename Op::Acc acc[NACC];
   // the folded f32 sums (unused, so not kept, with one group); SPLIT: the
-  // sums of the small products lo·hi + hi·lo, which wgmma adds apart from
-  // hi·hi's so that its rounding of each sum is relative to their size
+  // f32 sums that every T::FOLD tiles' products join by __fadd_rn (F29:
+  // wgmma rounds each add toward zero by a share of the accumulator, so
+  // no accumulator sums more than T::FOLD tiles)
   float facc[NACC];
-  if constexpr (!ONE) {
+  if constexpr (!ONE || Op::SPLIT) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) facc[i] = 0.f;
   }
@@ -614,7 +616,9 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       if (kg < p.K) {
         const uint64_t da = smem_desc<128>(As + ks * 32, 16, 1024);
         const uint64_t db = smem_desc<128>(Bs + ks * 32, 16, 1024);
-        if constexpr (ONE) {
+        if constexpr (Op::SPLIT) {  // lo·hi, hi·lo, hi·hi into acc, afresh every FOLD tiles
+          Op::mma(acc, acc, da, db, ks > 0 || kt % T::FOLD > 0, T::RAW >> 4, 1);
+        } else if constexpr (ONE) {
           Op::mma(acc, facc, da, db, kg, T::RAW >> 4);  // 0: the first step, D = A * B
         } else {
           Op::mma(acc, facc, da, db, kg % p.group, T::RAW >> 4);  // 0: a group starts
@@ -647,11 +651,21 @@ __global__ void __launch_bounds__(QTHREADS, 1)
       if (lane == 0) mbar_arrive(&empty[pending]);
     }
     pending = s;
+    if constexpr (Op::SPLIT) {
+      if ((kt + 1) % T::FOLD == 0 || kt + 1 == nk) {  // the tiles' sums join facc
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) facc[i] = __fadd_rn(facc[i], acc[i]);
+      }
+    }
   }
   wgmma_wait<0>();
   fence_regs(acc);
-  if constexpr (Op::SPLIT) fence_regs(facc);
-  Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
+  if constexpr (Op::SPLIT)
+    Op::template epilogue<EPI, OutT, ResT, ONE>(p, facc, facc, row0, src0, src1, c0, t);
+  else
+    Op::template epilogue<EPI, OutT, ResT, ONE>(p, acc, facc, row0, src0, src1, c0, t);
 }
 
 // Encode the two tensor maps (A [M, K], B [rows, K], boxes of one 128-byte

@@ -58,7 +58,27 @@ Cases, random inputs from a torch seed on the card:
     projection) at CLIP-L/14@336px's qkv [8, 577, 3072]; then the f32
     attention backward alone at [48, 6, 197, 64], [8, 16, 257, 80],
     [8, 10, 257, 128], [8, 16, 1370, 80] and [2, 8, 5330, 64], with two
-    calls' largest difference.
+    calls' largest difference;
+  * ``f29``: K5's float32 projection backward against float64
+    (``train_checks.proj_bwd_float64_errors``: d_o, d_W, d_b and, with
+    LayerScale, d_ls, each beside the plain version's in full float32, the
+    worst of two seeds) at the dvgl vit step's qkv [48, 197, 2304], ViT-H's
+    [2, 1370, 3840] and DINOv2-G's [32, 257, 4608], the last also with
+    LayerScale; K5's float32 gradient under autograd end to end
+    (``train_checks.k5_gradient_float64_errors``: every input's) at
+    [48, 197, 2304] (12 heads of 64), [2, 1370, 3840] (10 heads of 128 and
+    16 of 80) and [32, 257, 4608] with LayerScale (24 heads of 64); the
+    forward GEMM's ``OpTF32x3`` at the longest float32 K of the repo's
+    models: K5's forward at ImageBind-H's qkv [8, 257, 3840] (K 1280) and
+    CLIP-L/14@336px's [8, 577, 3072] (K 1024), T1 at
+    [8704x1536]x[1536x8192] (K 1536); then ``f29time``'s times;
+  * ``f29time``: the projection backward alone (``projection_half``) in
+    float32 at [48, 197, 2304], [2, 1370, 3840] and [32, 257, 4608], and in
+    bfloat16 at [48, 197, 2304]; K5's float32 forward at [48, 197, 2304],
+    [8, 577, 3072] and [8, 257, 3840] and T1 in float32 at
+    [8704x1536]x[1536x8192] (``f32_forward_times``); then one dvgl vit
+    training step (GeoLocalizationNet vit + NetVLAD-64, 224 px, Adam, 4
+    tuples of 12 images on the card), for timing two trees in turns.
 Each time is the CUDA-event mean over ``iters`` calls, best of 3; the
 bound is the larger of the operations (3xTF32 for float32: three tf32
 products an f32 one, at 494.7 TFLOP/s; bfloat16 at 989 TFLOP/s) and the
@@ -66,14 +86,14 @@ bytes (each input read once, each output written once, at 3.35 TB/s), one
 H100 SXM's dense peaks.
 
     python anyloc_tpu_torch/tools/bench_attention_bwd.py [--iters I] [--root DIR] [--profile]
-        [--cases k2 k5 vith hds k5fwd f27 f28]
+        [--cases k2 k5 vith hds k5fwd f27 f28 f29 f29time]
 
 ``--root DIR`` imports ``anyloc_tpu_torch`` from another checkout (an
 earlier commit unpacked with ``git archive``), so that two trees are timed
 by the same script on the same card: run it once per tree, in turns (a
 tree without the attention backward kernels takes ``--cases k5fwd`` only;
-``f28`` reads ``train_checks.k2_float64_errors``: copy this tree's
-``tools/train_checks.py`` into a tree that lacks it).
+``f28`` and ``f29`` read ``train_checks``' float64 helpers: copy this
+tree's ``tools/train_checks.py`` into a tree that lacks them).
 """
 
 from __future__ import annotations
@@ -153,7 +173,7 @@ def projection_half(attn_proj, args, iters: int, profile: bool, **bounds) -> dic
     return r
 
 
-CASES = ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28")
+CASES = ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28", "f29", "f29time")
 
 
 def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) -> dict:
@@ -182,6 +202,10 @@ def run(iters: int = 10, seed: int = 0, profile: bool = False, cases=CASES[:4]) 
         out["cases"].update(f27_case(iters))
     if "f28" in cases:
         out["cases"].update(f28_case(iters))
+    if "f29" in cases:
+        out["cases"].update(f29_case())
+    if "f29" in cases or "f29time" in cases:
+        out["cases"].update(f29_times(iters))
     return out
 
 
@@ -462,53 +486,222 @@ def f28_case(iters: int) -> dict:
 def long_sums_float64() -> dict:
     """The port's other long f32 sums against float64, beside the plain
     version in full float32 (``train_checks.float64_errors``): K5's
-    projection backward (``qkv_proj_bwd``: d_o over D_out in one
-    accumulator, d_W over row chunks) at qkv [48, 197, 2304] and
-    [32, 257, 4608]; T1 f32 (``OpTF32x3``: hi·hi over K in one accumulator)
-    at [8704x1536]x[1536x8192] against ``torch.mm``; K5's f32 forward at
+    projection backward (``qkv_proj_bwd``: d_o a sum over D_out, d_W over
+    row chunks) at qkv [48, 197, 2304] and [32, 257, 4608]; T1 f32
+    (``OpTF32x3``: a sum over K) at [8704x1536]x[1536x8192] against
+    ``torch.mm``; K5's f32 forward at
     qkv [8, 577, 3072] (no residual, so that the output is the attention's
     and the projection's)."""
     import torch
 
-    from anyloc_tpu_torch.ops import kernels as K
-    from anyloc_tpu_torch.ops.kernels import attn_proj
     from anyloc_tpu_torch.tools import train_checks
 
     cases = {}
+    for b, n, d in ((48, 197, 768), (32, 257, 1536)):
+        cases[f"f28 k5 projection backward qkv [{b},{n},{3 * d}] float32"] = dict(
+            float64=train_checks.proj_bwd_float64_errors(b, n, d, seed=28))
+        torch.cuda.empty_cache()
     g = torch.Generator(device="cuda").manual_seed(28)
-
-    def r(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device="cuda") * scale
-
-    wide = lambda ts: [None if t is None else t.double() for t in ts]  # noqa: E731
-    with torch.no_grad():
-        for b, n, d in ((48, 197, 768), (32, 257, 1536)):
-            args = (r(b, n, d), r(d, d, scale=d ** -0.5).t(), r(d, scale=0.1), None,
-                    r(b, n, d), None)
-            got = attn_proj.qkv_proj_bwd(*args)[:3]
-            with train_checks.full_float32():
-                plain = attn_proj.qkv_proj_bwd_ref(*args)[:3]
-            exact = attn_proj.qkv_proj_bwd_ref(*wide(args))[:3]
-            cases[f"f28 k5 projection backward qkv [{b},{n},{3 * d}] float32"] = dict(
-                float64=train_checks.float64_errors(("d_o", "d_w", "d_b"), got, plain, exact))
-            del args, got, plain, exact
-        a, w = r(8704, 1536), r(1536, 8192, scale=1536 ** -0.5)
-        with train_checks.full_float32():
-            plain = torch.mm(a, w)
-        cases["f28 t1 [8704x1536]x[1536x8192] float32"] = dict(
-            float64=train_checks.float64_errors(
-                ("out",), [K.matmul(a, w)], [plain], [a.double() @ w.double()]))
-        del a, w, plain
-        qkv, w = r(8, 577, 3072), r(1024, 1024, scale=1024 ** -0.5).t()
-        bias = r(1024, scale=0.1)
-        got = K.flash_attention_qkv_proj(qkv, w, bias, num_heads=16)
-        with train_checks.full_float32():
-            plain = K.flash_attention_qkv_proj_ref(qkv, w, bias, num_heads=16)
-        exact = K.flash_attention_qkv_proj_ref(*wide((qkv, w, bias)), num_heads=16)
-        cases["f28 k5 forward qkv [8,577,3072] float32"] = dict(
-            float64=train_checks.float64_errors(("out",), [got], [plain], [exact]))
+    cases["f28 t1 [8704x1536]x[1536x8192] float32"] = dict(float64=t1_float64(g))
+    cases["f28 k5 forward qkv [8,577,3072] float32"] = dict(
+        float64=k5_forward_float64(8, 577, 16, 64, g))
     torch.cuda.empty_cache()
     return cases
+
+
+def t1_float64(g, m: int = 8704, k: int = 1536, n: int = 8192) -> dict:
+    """T1 in float32 (``OpTF32x3``) at [m x k] x [k x n] against float64,
+    beside ``torch.mm`` in full float32 (``train_checks.float64_errors``)."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    with torch.no_grad():
+        a = torch.randn(m, k, generator=g, device="cuda")
+        w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        with train_checks.full_float32():
+            plain = torch.mm(a, w)
+        r = train_checks.float64_errors(("out",), [K.matmul(a, w)], [plain],
+                                        [a.double() @ w.double()])
+    torch.cuda.empty_cache()
+    return r
+
+
+def k5_forward_float64(b: int, n: int, h: int, hd: int, g) -> dict:
+    """K5's float32 forward (attention, then the projection GEMM on
+    ``OpTF32x3``, K = h·hd) at qkv [b, n, 3·h·hd] against float64, beside
+    its plain version in full float32; no residual, so that the output is
+    the attention's and the projection's."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools import train_checks
+
+    d = h * hd
+    with torch.no_grad():
+        qkv = torch.randn(b, n, 3 * d, generator=g, device="cuda")
+        w = (torch.randn(d, d, generator=g, device="cuda") * d ** -0.5).t()
+        bias = torch.randn(d, generator=g, device="cuda") * 0.1
+        got = K.flash_attention_qkv_proj(qkv, w, bias, num_heads=h)
+        with train_checks.full_float32():
+            plain = K.flash_attention_qkv_proj_ref(qkv, w, bias, num_heads=h)
+        exact = K.flash_attention_qkv_proj_ref(qkv.double(), w.double(), bias.double(),
+                                               num_heads=h)
+        r = train_checks.float64_errors(("out",), [got], [plain], [exact])
+    torch.cuda.empty_cache()
+    return r
+
+
+# F29's shapes at the dvgl vit step's, ViT-H's and DINOv2-G's widths: the
+# projection backward's (b, n, D, LayerScale) and K5's (b, n, heads, head
+# dim, LayerScale), ViT-H's width in 10 heads of 128 and in 16 of 80
+F29_PROJ = ((48, 197, 768, False), (2, 1370, 1280, False), (32, 257, 1536, False),
+            (32, 257, 1536, True))
+F29_K5 = ((48, 197, 12, 64, False), (2, 1370, 10, 128, False), (2, 1370, 16, 80, False),
+          (32, 257, 24, 64, True))
+
+
+def f29_case() -> dict:
+    """F29: K5's float32 projection backward and its float32 gradient end
+    to end against float64 (the worst of two seeds for the projection,
+    one for the gradient), then ``OpTF32x3`` in the forward GEMM at the
+    repo's longest float32 K."""
+    import torch
+
+    from anyloc_tpu_torch.tools import train_checks
+
+    cases = {}
+    for b, n, d, ls in F29_PROJ:
+        worst = {}
+        for seed in (0, 1):
+            for k, e in train_checks.proj_bwd_float64_errors(b, n, d, layerscale=ls,
+                                                             seed=seed).items():
+                w = worst.setdefault(k, dict(kernel=0.0, plain=0.0))
+                for x in ("kernel", "plain"):
+                    w[x] = max(w[x], e[x])
+            torch.cuda.empty_cache()
+        for e in worst.values():
+            e["ok"] = e["kernel"] <= 2 * e["plain"] + train_checks.F64_SLACK
+        cases[f"f29 k5 projection backward qkv [{b},{n},{3 * d}]"
+              f"{' layerscale' if ls else ''} float32"] = dict(float64=worst)
+    for b, n, h, hd, ls in F29_K5:
+        cases[f"f29 k5 gradient end to end qkv [{b},{n},{3 * h * hd}] {h} heads"
+              f"{' layerscale' if ls else ''} float32"] = dict(
+            float64=train_checks.k5_gradient_float64_errors(b, n, h, hd, layerscale=ls))
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cases["f29 optf32x3 k5 forward qkv [8,257,3840] (K 1280) float32"] = dict(
+        float64=k5_forward_float64(8, 257, 16, 80, g))
+    cases["f29 optf32x3 k5 forward qkv [8,577,3072] (K 1024) float32"] = dict(
+        float64=k5_forward_float64(8, 577, 16, 64, g))
+    cases["f29 optf32x3 t1 [8704x1536]x[1536x8192] (K 1536) float32"] = dict(
+        float64=t1_float64(g))
+    return cases
+
+
+def f29_times(iters: int) -> dict:
+    """The projection backward alone (``projection_half``: its time, the
+    plain version's, the library's route, its scratch) at F29's three
+    widths in float32 and at the vit step's in bfloat16, then one dvgl vit
+    training step's time."""
+    import torch
+
+    from anyloc_tpu_torch.ops.kernels import attn_proj
+
+    cases = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, n, d, dtype in ((48, 197, 768, torch.float32), (2, 1370, 1280, torch.float32),
+                           (32, 257, 1536, torch.float32), (48, 197, 768, torch.bfloat16)):
+        with torch.no_grad():
+            def r(*shape, scale=1.0, dt=dtype):
+                return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dt)
+
+            args = (r(b, n, d), r(d, d, scale=d ** -0.5).t(), r(d, scale=0.1, dt=torch.float32),
+                    None, r(b, n, d), None)
+            m = b * n
+            name = str(dtype).replace("torch.", "")
+            cases[f"f29 time projection backward qkv [{b},{n},{3 * d}] {name}"] = projection_half(
+                attn_proj, args, iters, False,
+                **bound(4 * m * d * d, (3 * m * d + 2 * d * d + d) * args[0].element_size(),
+                        name))
+            del args
+        torch.cuda.empty_cache()
+    cases.update(f32_forward_times(iters))
+    cases["f29 time dvgl vit train step"] = vit_step_ms()
+    return cases
+
+
+def f32_forward_times(iters: int) -> dict:
+    """The float32 GEMM of ``OpTF32x3`` where the repo's models run it: K5's
+    float32 forward (attention, then the projection, bias and residual) at
+    the dvgl vit step's qkv [48, 197, 2304], CLIP-L/14@336px's
+    [8, 577, 3072] and ImageBind-H's [8, 257, 3840], and T1 in float32 at
+    [8704x1536]x[1536x8192]: each time beside its bound (operations as three
+    tf32 products; each input read once, the output written once)."""
+    import torch
+
+    from anyloc_tpu_torch.ops import kernels as K
+    from anyloc_tpu_torch.tools._timing import time_ms
+
+    cases = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for b, n, h, hd in ((48, 197, 12, 64), (8, 577, 16, 64), (8, 257, 16, 80)):
+            d = h * hd
+            qkv = torch.randn(b, n, 3 * d, generator=g, device="cuda")
+            w = (torch.randn(d, d, generator=g, device="cuda") * d ** -0.5).t()
+            bias = torch.randn(d, generator=g, device="cuda") * 0.1
+            res = torch.randn(b, n, d, generator=g, device="cuda")
+            ops = 4 * b * h * n * n * hd + 2 * b * n * d * d
+            cases[f"f29 time k5 forward qkv [{b},{n},{3 * d}] float32"] = dict(
+                ms=time_ms(lambda: K.flash_attention_qkv_proj(qkv, w, bias, num_heads=h,
+                                                              residual=res), iters=iters),
+                **bound(ops, 4 * (5 * b * n * d + d * d + d), "float32"))
+            del qkv, w, bias, res
+        m, k, n = 8704, 1536, 8192
+        a = torch.randn(m, k, generator=g, device="cuda")
+        wt = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        cases["f29 time t1 [8704x1536]x[1536x8192] float32"] = dict(
+            ms=time_ms(lambda: K.matmul(a, wt), iters=iters),
+            **bound(2 * m * k * n, 4 * (m * k + k * n + m * n), "float32"))
+        del a, wt
+    torch.cuda.empty_cache()
+    return cases
+
+
+def vit_step_ms() -> dict:
+    """One dvgl vit training step (GeoLocalizationNet vit + NetVLAD-64 at
+    224 px, float32, Adam, 4 tuples of 1 + 1 + 10 images already on the
+    card), as ``chip_smoke.py``'s train phase times it: best of 2 means
+    over 3 steps."""
+    import functools
+
+    import torch
+
+    from anyloc_tpu_torch.models.convert import materialize
+    from anyloc_tpu_torch.tools import train_checks
+    from anyloc_tpu_torch.tools._timing import time_ms
+    from anyloc_tpu_torch.training.network import GeoLocalizationNet
+    from anyloc_tpu_torch.training.triplet import make_triplet_train_step
+
+    model = materialize(lambda: GeoLocalizationNet("vit", "netvlad", 64, img_size=224), None,
+                        "cuda", seed=0)
+    params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    step = make_triplet_train_step(
+        train_checks.descriptor_fn(model),
+        functools.partial(torch.optim.Adam, lr=1e-5, betas=(0.9, 0.999), eps=1e-8))
+    holder = [step.init_state(params)]
+    tuples = torch.randn(4, 12, 224, 224, 3, device="cuda")
+
+    def one():
+        holder[0], loss = step(holder[0], tuples)
+        return loss
+
+    ms = time_ms(one, iters=3, reps=2, warmup=1)
+    del model, params, step, holder, tuples
+    torch.cuda.empty_cache()
+    return dict(step_ms=ms)
 
 
 def f32_backward_times(iters: int) -> dict:
@@ -557,7 +750,7 @@ def main(argv=None) -> None:
                     help="split the projection half and the attention backward alone into "
                          "their kernels (torch.profiler)")
     ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES[:4]),
-                    help="the cases to time (default: all but k5fwd, f27 and f28)")
+                    help="the cases to time (default: k2, k5, vith, hds)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     res = run(args.iters, profile=args.profile, cases=args.cases)
@@ -573,6 +766,9 @@ def main(argv=None) -> None:
                              f"{'' if e['ok'] else ', PAST 2x + 1e-6'})"
                              for k, e in r["float64"].items())
             print(f"[{res['card']}] {case}: max|diff| / max|g| from float64: {errs}", flush=True)
+            continue
+        if "step_ms" in r:
+            print(f"[{res['card']}] {case}: {r['step_ms']:.2f} ms", flush=True)
             continue
         lib = "".join(f", {k} {r[k]:.4f} ms" for k in ("plain_ms", "library_ms",
                                                         "attention_ms", "projection_ms",

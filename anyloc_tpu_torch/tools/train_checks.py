@@ -27,7 +27,9 @@ gradient within ``BOUND`` of its largest |value|; reported beside it, not
 part of ``ok``: ``float64``, each gradient's and the plain version's
 largest difference from the float64 gradient (``float64_errors``).
 ``k2_float64_errors`` / ``k5_float64_errors`` hold the f32 attention
-backward to float64 (F28): within twice the plain version's error in full
+backward to float64 (F28), ``proj_bwd_float64_errors`` K5's f32
+projection backward and ``k5_gradient_float64_errors`` K5's f32 gradient
+end to end (F29): within twice the plain version's error in full
 float32, plus ``F64_SLACK``. bfloat16
 (``bf16_errors``): each gradient within ``BF16_BOUND`` of the plain
 version's beyond one bf16 rounding step of it, and its L2 distance from the
@@ -438,6 +440,65 @@ def k5_float64_errors(b: int, n: int, h: int, hd: int, seed: int = 0,
             plain = backward(*views, attn_proj._heads(d_o, h))
         exact = backward(*(t.double() for t in views), attn_proj._heads(d_o, h).double())
     return float64_errors(("qkv",), [got], [plain], [exact])
+
+
+def proj_bwd_float64_errors(b: int, n: int, d: int, d_out: int = None, layerscale: bool = False,
+                            seed: int = 0, device: str = "cuda") -> dict:
+    """F29: K5's float32 projection backward alone (``qkv_proj_bwd``: d_o,
+    d_w, d_b and, with LayerScale, d_ls) and its plain version's in full
+    float32 against the float64 plain version on the same inputs: the
+    output gradient [b, n, d_out], the weight W_O [d, d_out] (a ``.t()``
+    view, as the trunk gives it), the bias, LayerScale, the heads' outputs o
+    [b, n, d] and the projection before LayerScale pre = o·W + b (float32,
+    as the forward keeps it), drawn from ``seed``; ``float64_errors`` of
+    each. (CPU tensors take the plain version on both sides.)"""
+    d_out = d if d_out is None else d_out
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    grad, w, bias, o = r(b, n, d_out), r(d_out, d, scale=d ** -0.5).t(), r(d_out, scale=0.1), \
+        r(b, n, d)
+    gamma = r(d_out, scale=0.5) if layerscale else None
+    with torch.no_grad():
+        with full_float32():
+            pre = o @ w + bias if layerscale else None
+            args = (grad, w, bias, gamma, o, pre)
+            plain = attn_proj.qkv_proj_bwd_ref(*args)
+        got = attn_proj.qkv_proj_bwd(*args)
+        wide = [None if t is None else t.double() for t in args]
+        if layerscale:
+            wide[5] = wide[4] @ wide[1] + wide[2]
+        exact = attn_proj.qkv_proj_bwd_ref(*wide)
+    k = 4 if layerscale else 3
+    return float64_errors(("d_o", "d_w", "d_b", "d_ls")[:k], got[:k], plain[:k], exact[:k])
+
+
+def k5_gradient_float64_errors(b: int, n: int, h: int, hd: int, layerscale: bool = False,
+                               seed: int = 0, device: str = "cuda") -> dict:
+    """F29, end to end: K5's float32 gradient under autograd (``QkvProjGrad``:
+    the forward kernel, the projection backward, the attention backward)
+    for every input of ``k5_inputs`` (qkv, w_proj, b_proj, layerscale,
+    residual) and the plain version's autograd in full float32, against
+    the float64 autograd of the plain version on the same inputs:
+    ``float64_errors`` of each gradient. (``device`` another than cuda only
+    to try the function: CPU tensors take the plain versions.)"""
+    inputs = k5_inputs(b, n, h, hd, torch.float32, seed, layerscale, device=device)
+    names = [k for k, v in inputs.items() if v is not None]
+    grad = torch.randn((b, n, h * hd),
+                       generator=torch.Generator(device=device).manual_seed(seed + 1),
+                       device=device)
+    got = torch.autograd.grad(K.flash_attention_qkv_proj(num_heads=h, **inputs),
+                              [inputs[k] for k in names], grad)
+    with full_float32():
+        plain = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **inputs),
+                                    [inputs[k] for k in names], grad)
+    wide = {k: None if v is None else v.detach().double().requires_grad_(True)
+            for k, v in inputs.items()}
+    exact = torch.autograd.grad(K.flash_attention_qkv_proj_ref(num_heads=h, **wide),
+                                [wide[k] for k in names], grad.double())
+    return float64_errors(names, got, plain, exact)
 
 
 def saved_errors(inputs: dict, keep: dict, h: int) -> dict:

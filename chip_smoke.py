@@ -166,6 +166,11 @@ Phases, each of which must pass or the script exits non-zero:
      version's); the F28 line (the attention backward's f32 dq, dk, dv
      against float64 at [2, 16, N, 80] for N 257, 1370, 2740 and at
      [2, 16, 1370, 128] on the split route, beside the plain version's);
+     the F29 line (``f29_line``: K5's f32 projection backward's d_o, d_W,
+     d_b, d_γ and K5's f32 gradient under autograd end to end, every
+     input's, against float64 at the dvgl vit step's, ViT-H's and
+     DINOv2-G's widths, and the forward GEMM's ``OpTF32x3`` at K 1024,
+     1280 and 1536, each beside its plain version's);
      the ViT-H gradient (``vith_gradient_phase``): K5's
      backward under autograd at MAE-H/14's qkv [8, 257, 3840] and K2's at
      [8, 16, 257, 80], f32 and bf16, and at the same width cut into 10
@@ -1856,6 +1861,11 @@ def run(profile_dir) -> dict:
         for route in ("wgmma", "split"):
             results["Kab_attention_bwd_" + route]["f28"] = {
                 k: e for k, e in f28.items() if e["route"] == route}
+        mark("F29, K5's f32 projection backward and gradient against float64")
+        f29 = f29_line(tag)
+        results["K5b_flash_attention_qkv_proj_bwd"]["f29"] = f29["projection"]
+        results["K5_flash_attention_qkv_proj"]["f29"] = dict(gradient=f29["gradient"],
+                                                             optf32x3=f29["optf32x3"])
         mark("the ViT-H gradient")
         vith = vith_gradient_phase(tag)
         note("launches " + ", ".join(f"{k} {v}" for k, v in vith["counts"].items()))
@@ -3047,6 +3057,58 @@ def f28_line(tag: str) -> dict:
                            f"{e['kernel']:.3e} from float64, past twice its plain version's "
                            f"{e['plain']:.3e} + 1e-6")
         torch.cuda.empty_cache()
+    return out
+
+
+def f29_line(tag: str) -> dict:
+    """F29: K5's float32 projection backward alone (``qkv_proj_bwd``: d_o,
+    d_W, d_b and, with LayerScale, d_γ; ``train_checks
+    .proj_bwd_float64_errors``) at qkv [48, 197, 2304] (the dvgl vit step),
+    [2, 1370, 3840] (ViT-H) and [32, 257, 4608] (DINOv2-G, also with
+    LayerScale), and K5's float32 gradient under autograd end to end, every
+    input's (``k5_gradient_float64_errors``), at [48, 197, 2304] (12 heads
+    of 64), [2, 1370, 3840] (10 heads of 128, 16 of 80) and [32, 257, 4608]
+    with LayerScale: each the largest |difference| over max|g| of the
+    float64 result, beside the plain version's in full float32, within
+    twice the plain version's plus 1e-6. Then ``OpTF32x3`` in the forward
+    GEMM at the repo's longest float32 K, printed and held to the same
+    bound: K5's forward at ImageBind-H's qkv [8, 257, 3840] (K 1280) and
+    CLIP-L/14@336px's [8, 577, 3072] (K 1024), T1 at
+    [8704x1536]x[1536x8192] (K 1536)."""
+    import torch
+
+    from anyloc_tpu_torch.tools import bench_attention_bwd, train_checks
+
+    out = dict(projection={}, gradient={}, optf32x3={})
+
+    def line(kind, shape, errs):
+        print(f"F29 {tag} {kind} float32 against float64, {shape}, max|diff| / max|g|: "
+              + "; ".join(f"{k} kernel {e['kernel']:.3e}, plain {e['plain']:.3e}"
+                          for k, e in errs.items()), flush=True)
+        for k, e in errs.items():
+            check(e["ok"], f"F29: {kind} {k} at {shape} is {e['kernel']:.3e} from float64, past "
+                           f"twice its plain version's {e['plain']:.3e} + 1e-6")
+        torch.cuda.empty_cache()
+        return errs
+
+    for b, n, d, ls in bench_attention_bwd.F29_PROJ:
+        shape = f"qkv [{b},{n},{3 * d}]{' layerscale' if ls else ''}"
+        out["projection"][shape] = line(
+            "K5 projection backward", shape,
+            train_checks.proj_bwd_float64_errors(b, n, d, layerscale=ls, seed=29))
+    for b, n, h, hd, ls in bench_attention_bwd.F29_K5:
+        shape = f"qkv [{b},{n},{3 * h * hd}] {h} heads{' layerscale' if ls else ''}"
+        out["gradient"][shape] = line(
+            "K5 gradient end to end", shape,
+            train_checks.k5_gradient_float64_errors(b, n, h, hd, layerscale=ls, seed=29))
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for shape, fn in (("K5 forward qkv [8,257,3840] (K 1280)",
+                       lambda: bench_attention_bwd.k5_forward_float64(8, 257, 16, 80, g)),
+                      ("K5 forward qkv [8,577,3072] (K 1024)",
+                       lambda: bench_attention_bwd.k5_forward_float64(8, 577, 16, 64, g)),
+                      ("T1 [8704x1536]x[1536x8192] (K 1536)",
+                       lambda: bench_attention_bwd.t1_float64(g))):
+        out["optf32x3"][shape] = line("OpTF32x3", shape, fn())
     return out
 
 

@@ -306,6 +306,47 @@ def test_projection_backward_on_cpu_matches_jax_vjp(b, n, d, d_out, ls, needs):
         assert _rel(a.numpy(), wt) <= F32_BOUND, name
 
 
+F64_PROJ = [(2, 9, 32, 32, False), (2, 33, 48, 96, True)]
+F64_K5 = [(2, 33, 2, 16, False), (2, 65, 2, 32, True)]
+
+
+@pytest.mark.parametrize("b,n,d,d_out,ls", F64_PROJ, ids=str)
+def test_projection_backward_float64_helper_on_cpu(b, n, d, d_out, ls):
+    """``train_checks.proj_bwd_float64_errors`` on CPU tensors: the plain
+    version on both sides, each of d_o, d_W, d_b (and d_γ with LayerScale)
+    a float32 result held to the float64 plain version of the same inputs:
+    within the bound, and off float64 by float32's own rounding only."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    errs = train_checks.proj_bwd_float64_errors(b, n, d, d_out, layerscale=ls, seed=n,
+                                                device="cpu")
+    assert list(errs) == ["d_o", "d_w", "d_b", "d_ls"][:4 if ls else 3]
+    for name, e in errs.items():
+        assert e["ok"] and e["kernel"] == e["plain"], (name, e)
+        assert 0 < e["plain"] < F32_BOUND, (name, e)
+
+
+@pytest.mark.parametrize("b,n,h,hd,ls", F64_K5, ids=str)
+def test_k5_gradient_float64_helper_on_cpu(b, n, h, hd, ls):
+    """``train_checks.k5_gradient_float64_errors`` on CPU tensors: K5 under
+    autograd (the plain versions here) and the plain version's autograd in
+    float32, every input's gradient against the float64 autograd of the
+    same inputs: within the bound, off float64 by float32's rounding only
+    (the residual's gradient is the output gradient itself: exact)."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    errs = train_checks.k5_gradient_float64_errors(b, n, h, hd, layerscale=ls, seed=n,
+                                                   device="cpu")
+    names = ["qkv", "w_proj", "b_proj"] + (["layerscale"] if ls else []) + ["residual"]
+    assert list(errs) == names
+    for name, e in errs.items():
+        assert e["ok"], (name, e)
+        if name == "residual":
+            assert e["kernel"] == e["plain"] == 0.0
+        else:
+            assert 0 < e["plain"] < F32_BOUND and e["kernel"] < F32_BOUND, (name, e)
+
+
 # ---------------------------------------------------------------- the route table
 
 # the attention backward's kernels for each (head dim, dtype), written out:
@@ -419,13 +460,13 @@ def test_attention_bwd_tiles_fit_a_block(hd, dtype):
         assert 2 * (smem["attn_bwd_wgmma_kernel"] + 1024) <= 233472
 
 
-@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], ["f27"], ["f28"], None],
-                         ids=["k2", "vith-k5fwd", "hds", "f27", "f28", "default"])
+@pytest.mark.parametrize("cases", [["k2"], ["vith", "k5fwd"], ["hds"], ["f27"], ["f28"], None,
+                                   ["f29"], ["f29time"]],
+                         ids=["k2", "vith-k5fwd", "hds", "f27", "f28", "default", "f29", "f29time"])
 def test_bench_attention_bwd_refuses_without_a_card(cases):
-    """``tools/bench_attention_bwd.py`` takes the cases it is given (every
-    one of them by default but ``k5fwd``, ``f27`` and ``f28``) and, with no CUDA
-    card, raises before it times anything: a measurement never falls back
-    to the CPU."""
+    """``tools/bench_attention_bwd.py`` takes the cases it is given (k2, k5,
+    vith and hds by default) and, with no CUDA card, raises before it times
+    anything: a measurement never falls back to the CPU."""
     from anyloc_tpu_torch.tools import bench_attention_bwd as bench
 
     argv = [] if cases is None else ["--cases", *cases]
@@ -433,4 +474,4 @@ def test_bench_attention_bwd_refuses_without_a_card(cases):
         bench.main(argv)
     with pytest.raises(SystemExit):
         bench.main(["--cases", "nope"])
-    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28")
+    assert bench.CASES == ("k2", "k5", "vith", "hds", "k5fwd", "f27", "f28", "f29", "f29time")

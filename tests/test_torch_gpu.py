@@ -1647,6 +1647,50 @@ def test_attention_bwd_float32_against_float64(kernel, b, h, n, hd):
     assert all(e["ok"] for e in errs.values()), errs
 
 
+# (b, n, D, LayerScale): the dvgl vit step's qkv [48, 197, 2304], ViT-H's
+# [2, 1370, 3840], DINOv2-G's [32, 257, 4608] without and with LayerScale
+F29_PROJ_CASES = [(48, 197, 768, False), (2, 1370, 1280, False), (32, 257, 1536, False),
+                  (32, 257, 1536, True)]
+
+
+@pytest.mark.parametrize("b,n,d,ls", F29_PROJ_CASES)
+def test_k5_projection_backward_float32_against_float64(b, n, d, ls):
+    """F29: K5's float32 projection backward alone (``qkv_proj_bwd``) at
+    the model widths: d_o (a sum over all of D_out), d_W (row chunks, then
+    their sums in order), d_b and, with LayerScale, d_γ within twice the
+    plain version's largest difference from the float64 result (full
+    float32) plus 1e-6 of max|g|. wgmma's sums round toward zero by a share
+    of the accumulator, so hi·hi starts afresh every few stages and joins
+    an f32 sum."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    errs = train_checks.proj_bwd_float64_errors(b, n, d, layerscale=ls, seed=n + d)
+    assert len(errs) == (4 if ls else 3)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
+# (b, n, heads, head dim, LayerScale): the vit step, ViT-H's width in 10
+# heads of 128 (the split route) and 16 of 80, DINOv2-G with LayerScale
+F29_K5_CASES = [(48, 197, 12, 64, False), (2, 1370, 10, 128, False), (2, 1370, 16, 80, False),
+                (32, 257, 24, 64, True)]
+
+
+@pytest.mark.parametrize("b,n,h,hd,ls", F29_K5_CASES)
+def test_k5_gradient_float32_against_float64(b, n, h, hd, ls):
+    """F29 end to end: K5's float32 gradient under autograd (the forward
+    kernel, the projection backward, the attention backward) for every
+    input (qkv, w_proj, b_proj, layerscale, residual) within twice the
+    plain version's largest difference from the float64 autograd of the
+    same inputs (full float32) plus 1e-6 of max|g|; the forward's GEMM
+    (``OpTF32x3``) and the projection backward both sum short runs of
+    wgmma products into f32 sums."""
+    from anyloc_tpu_torch.tools import train_checks
+
+    errs = train_checks.k5_gradient_float64_errors(b, n, h, hd, layerscale=ls, seed=n + hd)
+    assert len(errs) == (5 if ls else 4)
+    assert all(e["ok"] for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("mode", ["inference_mode", "no_grad", "no_input_requires_grad"])
 def test_k2_without_a_gradient_launches_and_saves_nothing(mode):
     """K2 with grad mode off, or no input that requires a gradient: the

@@ -35,9 +35,11 @@ from anyloc_tpu_torch.ops.kernels.attn_proj import (
 CSRC = Path(__file__).resolve().parents[1] / "anyloc_tpu_torch" / "csrc"
 
 # (M, D, Nc): the dvgl vit step's [48 x 197, 768, 768]; one row; a ragged
-# M; d_out a multiple of 8 but not of 128; D != d_out
+# M; d_out a multiple of 8 but not of 128; D != d_out; DINOv2-G's
+# [32 x 257, 1536, 1536] and ViT-H's [2 x 1370, 1280, 1280]
 SHAPES = [(9456, 768, 768), (1, 768, 768), (130, 768, 768), (9456, 384, 1000),
-          (130, 200, 136), (1, 64, 8), (2000, 1024, 1024)]
+          (130, 200, 136), (1, 64, 8), (2000, 1024, 1024), (8224, 1536, 1536),
+          (2740, 1280, 1280)]
 SMS = [132, 1]
 WANTS = [(True, True, True), (True, False, False), (False, True, True), (False, False, True)]
 
